@@ -1,0 +1,29 @@
+"""BLAS-1 device operations.
+
+Replaces the reference's scalar-loop array ops (``SSS_blas_array_*``,
+amg/SSS_utils.c:151-260) with torch reductions and elementwise ops.
+Single-device: the cross-device reductions of ``amg_tpu.ops.blas``
+(``axis_name``) come with distribution.
+"""
+
+from __future__ import annotations
+
+import torch
+
+
+def dot(x, y):
+    """<x, y> (reference SSS_blas_array_dot, amg/SSS_utils.c:206)."""
+    return torch.dot(x, y)
+
+
+def norm2(x):
+    """||x||_2 (reference SSS_blas_array_norm2, amg/SSS_utils.c:151)."""
+    return torch.sqrt(torch.dot(x, x))
+
+
+def norminf(x):
+    """||x||_inf (reference SSS_blas_array_norminf, amg/SSS_utils.c:225)."""
+    if x.numel() == 0:
+        return torch.zeros((), dtype=x.dtype, device=x.device)
+    return torch.max(torch.abs(x))
+

@@ -1,0 +1,70 @@
+"""Sparse matrix-vector products on device.
+
+The hot kernel of the whole framework: the reference's CSR SpMV is a
+scalar row loop on CPU (``SSS_blas_mv_mxy``, amg/SSS_utils.c:182-201) and a
+thread-per-row CUDA kernel (``spmv_kernel``, amg/Solve/SSS_cuda.cu:77-96).
+
+Here each device format has its product: :class:`Dia` goes through the
+hand-written DIA kernel (``ops/dia_kernel.py``) for every dtype it
+supports; :class:`Ell` (gather + row sum) and :class:`Dense` (one matmul)
+are plain torch, as they are XLA in ``amg_tpu``.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from ..sparse import Ell, Dia, Dense
+from . import dia_kernel
+
+
+def spmv_ell(a: Ell, x: torch.Tensor) -> torch.Tensor:
+    """Gather-based ELL SpMV (general fallback)."""
+    return torch.sum(a.vals * x[a.cols], dim=1)
+
+
+def spmv_dia(a: Dia, x: torch.Tensor) -> torch.Tensor:
+    """Diagonal-offset SpMV through the DIA kernel wrapper."""
+    return dia_kernel.spmv(a, x)
+
+
+def spmv_dense(a: Dense, x: torch.Tensor) -> torch.Tensor:
+    """Dense matvec (small deep levels; no gathers).  Values stored in a
+    narrower dtype (bf16 coarse operators) are widened to the vector's
+    dtype first, as JAX's type promotion does implicitly."""
+    v = a.vals if a.vals.dtype == x.dtype else a.vals.to(x.dtype)
+    return v @ x[: a.padded_cols]
+
+
+def spmv_well(a, x):
+    raise NotImplementedError("the WEll format is not ported yet")
+
+
+def spmv_banded(a, x):
+    raise NotImplementedError("the BandedBlocks format is not ported yet")
+
+
+def spmv(a, x: torch.Tensor) -> torch.Tensor:
+    """y = A @ x. Returns a vector of length ``a.padded_rows`` (padding rows
+    produce zeros because their values are zero).  Dispatches on format."""
+    if isinstance(a, Dia):
+        return spmv_dia(a, x)
+    if isinstance(a, Dense):
+        return spmv_dense(a, x)
+    if isinstance(a, Ell):
+        return spmv_ell(a, x)
+    raise NotImplementedError(f"no SpMV for {type(a).__name__}")
+
+
+def residual(a, x: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """r = b - A @ x (reference ``SSS_blas_mv_amxpy`` with alpha=-1 as used
+    by the outer loop, amg/Solve/SSS_SOLVE.c:59-60)."""
+    return b - spmv(a, x)[: b.shape[0]]
+
+
+def residual_fused(a, x: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """r = b - A @ x, with the subtraction fused into the DIA kernel for a
+    Dia operator (one pass instead of SpMV + a separate elementwise pass)."""
+    if isinstance(a, Dia) and b.shape[0] == a.padded_rows:
+        return dia_kernel.resid(a, x, b)
+    return b - spmv(a, x)[: b.shape[0]]

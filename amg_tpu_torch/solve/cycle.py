@@ -1,0 +1,63 @@
+"""Multigrid V/W-cycle.
+
+Replicates the reference's non-recursive counter/goto cycle
+(``SSS_amg_cycle``, amg/Solve/SSS_cycle.cu:848-967) as a plain Python
+recursion over the levels.  Per reference semantics, level 0 runs its
+block once per cycle call and deeper levels repeat their block
+``cycle_type`` times per parent visit (V=1, W=2).
+
+The coarsest solve is a dense inverse apply (one matvec).  The
+reference-style CG -> GMRES coarsest solver (``CoarsestSolver.KRYLOV``)
+needs the Krylov module, which is not ported yet.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from ..params import AMGParams, CoarsestSolver
+from ..hierarchy import Hierarchy
+from ..ops.spmv import spmv, residual_fused
+from .smoothers import smooth
+
+
+def coarsest_solve(mg: Hierarchy, b: torch.Tensor, pars: AMGParams, ctol):
+    """Solve the coarsest system."""
+    if pars.coarsest_solver == CoarsestSolver.DENSE:
+        return mg.coarse_inv @ b
+    raise NotImplementedError("CoarsestSolver.KRYLOV (CG -> GMRES) is not "
+                              "ported yet")
+
+
+def cycle(mg: Hierarchy, x: torch.Tensor, b: torch.Tensor, pars: AMGParams):
+    """One multigrid cycle on level 0. Returns updated x (padded length)."""
+    ctol = min(pars.ctol, pars.tol * 0.1) if pars.ctol > pars.tol else pars.ctol
+    return _cycle_level(mg, 0, x, b, pars, ctol)
+
+
+def _cycle_level(mg: Hierarchy, l: int, x, b, pars: AMGParams, ctol):
+    nl = mg.num_levels
+    if l == nl - 1:
+        return coarsest_solve(mg, b, pars, ctol)
+
+    level = mg.levels[l]
+    repeats = 1 if l == 0 else max(pars.cycle_type, 1)
+    # coarse-level smoother override (e.g. Chebyshev below level 0)
+    pars_l = pars if (l == 0 or pars.coarse_smoother is None) \
+        else pars.replace(smoother=pars.coarse_smoother)
+    if pars.poly_deg_schedule is not None:
+        sched = pars.poly_deg_schedule
+        pars_l = pars_l.replace(poly_deg=sched[min(l, len(sched) - 1)])
+
+    for _ in range(repeats):
+        # pre-smoothing
+        x = smooth(level, x, b, pars_l, pars.pre_iter, pre=True)
+        # restrict residual
+        r = residual_fused(level.a, x, b)
+        bc = spmv(level.r, r)
+        # coarse correction
+        xc = _cycle_level(mg, l + 1, torch.zeros_like(bc), bc, pars, ctol)
+        x = x + spmv(level.p, xc)
+        # post-smoothing
+        x = smooth(level, x, b, pars_l, pars.post_iter, pre=False)
+    return x

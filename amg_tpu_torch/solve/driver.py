@@ -1,0 +1,319 @@
+"""Outer AMG solve driver.
+
+Replicates the reference's two-layer driver:
+
+* ``SSS_solver_amg`` (amg/SSS_AMG.c:9-59): zero-rhs short circuit, sanity
+  checks, setup + solve + total-time print.
+* ``SSS_amg_solve`` (amg/Solve/SSS_SOLVE.c:4-87): cycle until
+  ``||r||/||b|| < tol`` or ``max_it``, printing the per-iteration residual
+  table (``SSS_print_itinfo``, amg/SSS_utils.c:104-133) with identical
+  formatting.
+
+PyTorch runs eagerly, so the cycle is plain Python over device tensors on
+the solver's ``device``.  :meth:`AMGSolver.solve` is the host loop of the
+reference; with ``pars.refine`` and a float32 cycle it runs
+:meth:`AMGSolver.solve_refined` (f32 cycles, f64 outer residual).
+Residual norms are fetched to the host in batches when the live table is
+off.
+"""
+
+from __future__ import annotations
+
+import time
+
+import numpy as np
+import torch
+
+from ..params import AMGParams, SolveInfo, StopType
+from ..sparse import CSR, Dia, Dense, Ell, torch_dtype
+from ..hierarchy import setup, _pick_format
+from ..ops.spmv import spmv
+from ..ops.blas import norm2
+from .cycle import cycle
+
+
+def print_itinfo(stop_type, it, relres, absres, factor, log=print):
+    """Residual-table row, byte-compatible with the reference
+    (``SSS_print_itinfo``, amg/SSS_utils.c:104-133)."""
+    if it > 0:
+        log("%6d | %13.6e   | %13.6e  | %10.4f" % (it, relres, absres, factor))
+    else:
+        log("-----------------------------------------------------------")
+        if stop_type == StopType.REL_RES:
+            log("It Num |   ||r||/||b||   |     ||r||      |  Conv. Factor")
+        elif stop_type == StopType.REL_PRECRES:
+            log("It Num | ||r||_B/||b||_B |    ||r||_B     |  Conv. Factor")
+        else:
+            log("It Num |   ||r||/||x||   |     ||r||      |  Conv. Factor")
+        log("-----------------------------------------------------------")
+        log("%6d | %13.6e   | %13.6e  |     -.-- " % (it, relres, absres))
+
+
+def _resolve_device(device) -> torch.device:
+    device = torch.device(device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError("device='cuda' requested but torch.cuda is not "
+                           "available on this machine")
+    if device.type not in ("cpu", "cuda"):
+        raise ValueError(f"unsupported device {device}")
+    return device
+
+
+class AMGSolver:
+    """Setup once, solve many times, on one ``device`` (default CPU).
+
+    ``host_hierarchy`` takes a pre-built host hierarchy, e.g. one built by
+    ``amg_tpu`` and carried over with ``amg_tpu_torch.io.load_hierarchy``.
+    """
+
+    def __init__(self, a: CSR, pars: AMGParams = AMGParams(), log=print,
+                 host_hierarchy=None, device="cpu"):
+        if a.n_rows != a.n_cols:
+            raise ValueError("AMG requires a square matrix")
+        if a.nnz <= 0:
+            raise ValueError("matrix has no nonzeros")
+        if pars.accel != "none":
+            raise NotImplementedError(f"accel={pars.accel!r}: Krylov "
+                                      "acceleration is not ported yet")
+        self.device = _resolve_device(device)
+        if self.device.type == "cuda":
+            # the dense levels and the coarse-inverse apply are matmuls;
+            # TF32 would cost an f32 cycle about four digits
+            torch.backends.cuda.matmul.allow_tf32 = False
+        self.a = a
+        self.pars = pars
+        self.log = log
+        self.mg, self.host_hierarchy = setup(a, pars, log=log,
+                                             hh=host_hierarchy,
+                                             device=self.device)
+        self.pad = self.mg.levels[0].pad
+        self.dtype = torch_dtype(pars.dtype)
+        # level-0 similarity permutation (set when a carried-over hierarchy
+        # had level 0 RCM-ordered): b/x0 are permuted on entry, the
+        # solution un-permuted on exit; all residual norms are invariant
+        hp = self.host_hierarchy.perms
+        self._perm0 = hp[0] if hp is not None else None
+        self._iperm0 = None
+        if self._perm0 is not None:
+            self._iperm0 = np.empty_like(self._perm0)
+            self._iperm0[self._perm0] = np.arange(len(self._perm0))
+
+        # -- mixed-precision defect correction: the f64 level-0 operator
+        self.a0_hi = None
+        if pars.refine and self.dtype != torch.float64:
+            # the internal (possibly level-0-permuted) operator — device
+            # vectors live in that ordering, so the f64 operator must too
+            a_int = self.host_hierarchy.a[0]
+            fmt = _pick_format(a_int, pars)
+            kw = dict(dtype=torch.float64, pad_rows_to=self.pad,
+                      device=self.device)
+            if fmt == "dia":
+                self.a0_hi = Dia.from_csr(a_int, **kw)
+            elif fmt == "dense":
+                self.a0_hi = Dense.from_csr(a_int, pad_cols_to=self.pad, **kw)
+            else:
+                self.a0_hi = Ell.from_csr(a_int, **kw)
+
+    # ------------------------------------------------------------------
+
+    def _step(self, x, b):
+        """One cycle and the norm of the new residual (on the device)."""
+        x = cycle(self.mg, x, b, self.pars)
+        r = b - spmv(self.mg.levels[0].a, x)
+        return x, norm2(r)
+
+    def _refine_step(self, x_hi, b_hi):
+        """One defect-correction iteration: f64 residual, k cycles in the
+        solve dtype on the scaled defect, f64 update."""
+        a_hi = self.a0_hi
+        k = max(self.pars.refine_inner_cycles, 1)
+        r_hi = b_hi - spmv(a_hi, x_hi)[: b_hi.shape[0]]
+        rn = norm2(r_hi)
+        scale = torch.where(rn > 0, rn, torch.ones_like(rn))
+        r_lo = (r_hi / scale).to(self.dtype)
+        e = torch.zeros_like(r_lo)
+        for _ in range(k):
+            e = cycle(self.mg, e, r_lo, self.pars)
+        x_hi = x_hi + e.to(torch.float64) * scale
+        r2 = b_hi - spmv(a_hi, x_hi)[: b_hi.shape[0]]
+        return x_hi, norm2(r2)
+
+    def _pad_vec(self, v, dtype=None) -> torch.Tensor:
+        dt = dtype or self.dtype
+        np_dt = np.float64 if dt == torch.float64 else np.float32
+        out = np.zeros(self.pad, dtype=np_dt)
+        vv = np.asarray(v, dtype=np_dt)[: self.a.n_rows]
+        if self._perm0 is not None:
+            vv = vv[self._perm0]
+        out[: self.a.n_rows] = vv
+        return torch.from_numpy(out).to(self.device)
+
+    def _unpad_vec(self, xd) -> np.ndarray:
+        """Device solution -> host vector in the caller's ordering."""
+        x = xd[: self.a.n_rows].cpu().numpy()
+        return x[self._iperm0] if self._iperm0 is not None else x
+
+    def solve(self, b, x0=None) -> tuple[np.ndarray, SolveInfo]:
+        """Host-loop solve with live residual table (reference parity)."""
+        if self.a0_hi is not None:
+            return self.solve_refined(b, x0)
+        pars = self.pars
+        n = self.a.n_rows
+        bd = self._pad_vec(b)
+        xd = self._pad_vec(x0 if x0 is not None else np.zeros(n))
+
+        info = SolveInfo()
+        sumb = float(norm2(bd))
+        t0 = time.perf_counter()
+        if pars.verbose:
+            print_itinfo(pars.stop_type, 0, 1.0, sumb, 0.0, log=self.log)
+        if sumb == 0.0:
+            # reference zero-b short circuit (amg/Solve/SSS_SOLVE.c:41-46)
+            return np.zeros(n), info
+
+        absres0 = sumb
+        info.residuals.append(sumb)
+        # With the live table (verbose) every iteration syncs its residual
+        # to the host.  Quiet mode keeps residuals on device and fetches
+        # them in batches of 4 with one device->host copy.
+        check_every = 1 if pars.verbose else 4
+        mod_rel = pars.stop_type == StopType.MOD_REL_RES
+        pending: list = []  # (it, device x, device absres)
+        stop = False
+        for it in range(1, pars.max_it + 1):
+            xd, absres_d = self._step(xd, bd)
+            pending.append((it, xd, absres_d))
+            if len(pending) >= check_every or it == pars.max_it:
+                vals = torch.stack([r for _, _, r in pending]).cpu().numpy()
+                xnorms = (
+                    torch.stack([norm2(xv) for _, xv, _ in pending])
+                    .cpu().numpy() if mod_rel else None
+                )
+                for j, ((it_i, x_i, _), absres) in enumerate(
+                        zip(pending, vals)):
+                    absres = float(absres)
+                    # stop_type semantics (reference SSS_STOP_TYPE,
+                    # amg/Solve/SSS_cycle.cu:101-130): MOD_REL_RES divides
+                    # by ||x||; REL_PRECRES with B=I equals REL_RES (the
+                    # reference's preconditioner B is identity)
+                    denom = (max(float(xnorms[j]), 1e-300) if mod_rel
+                             else sumb)
+                    relres = absres / denom
+                    factor = absres / absres0
+                    absres0 = absres
+                    if pars.verbose:
+                        print_itinfo(pars.stop_type, it_i, relres, absres,
+                                     factor, log=self.log)
+                    if not np.isfinite(absres):
+                        # divergence guard: stop and keep the last finite
+                        # iterate instead of iterating NaNs to max_it
+                        if pars.verbose:
+                            self.log("### WARNING: residual diverged "
+                                     f"(iteration {it_i}); stopping.")
+                        stop = True
+                        break
+                    info.ares, info.rres, info.nits = absres, relres, it_i
+                    info.residuals.append(absres)
+                    xd = x_i
+                    if relres < pars.tol:
+                        stop = True
+                        break
+                pending = []
+            if stop:
+                break
+        info.solve_seconds = time.perf_counter() - t0
+        info.setup_seconds = self.host_hierarchy.setup_seconds
+        if pars.verbose:
+            self.log(f"AMG solve time: {info.solve_seconds:g} s")
+        return self._unpad_vec(xd), info
+
+    def solve_refined(self, b, x0=None) -> tuple[np.ndarray, SolveInfo]:
+        """Mixed-precision defect correction: k low-precision cycles per
+        f64 residual update, iterated until the f64 relative residual
+        meets ``tol``.  ``info.nits`` counts cycles for comparability with
+        :meth:`solve`."""
+        pars = self.pars
+        n = self.a.n_rows
+        k = max(pars.refine_inner_cycles, 1)
+
+        b_hi = self._pad_vec(b, dtype=torch.float64)
+        x_hi = self._pad_vec(x0 if x0 is not None else np.zeros(n),
+                             dtype=torch.float64)
+
+        info = SolveInfo()
+        sumb = float(norm2(b_hi))
+        t0 = time.perf_counter()
+        if pars.verbose:
+            print_itinfo(pars.stop_type, 0, 1.0, sumb, 0.0, log=self.log)
+        if sumb == 0.0:
+            return np.zeros(n), info
+
+        absres0 = sumb
+        info.residuals.append(sumb)
+        max_outer = max(pars.max_it // k, 1)
+        # quiet mode runs outer steps ahead and fetches their residuals in
+        # pairs (same batching pattern as :meth:`solve`)
+        check_every = 1 if pars.verbose else 2
+        pending: list = []  # (outer, device x, device absres)
+        stop = False
+        for outer in range(1, max_outer + 1):
+            x_hi, absres_d = self._refine_step(x_hi, b_hi)
+            pending.append((outer, x_hi, absres_d))
+            if len(pending) < check_every and outer != max_outer:
+                continue
+            vals = torch.stack([r for _, _, r in pending]).cpu().numpy()
+            for (outer_i, x_i, _), absres in zip(pending, vals):
+                absres = float(absres)
+                relres = absres / sumb
+                factor = (absres / absres0) ** (1.0 / k)
+                absres0 = absres
+                if pars.verbose:
+                    print_itinfo(pars.stop_type, outer_i * k, relres, absres,
+                                 factor, log=self.log)
+                if not np.isfinite(absres):
+                    if pars.verbose:
+                        self.log("### WARNING: residual diverged "
+                                 f"(cycle {outer_i * k}); stopping.")
+                    stop = True
+                    break
+                info.ares, info.rres, info.nits = absres, relres, outer_i * k
+                info.residuals.append(absres)
+                x_hi = x_i
+                if relres < pars.tol:
+                    stop = True
+                    break
+            pending = []
+            if stop:
+                break
+        info.solve_seconds = time.perf_counter() - t0
+        info.setup_seconds = self.host_hierarchy.setup_seconds
+        if pars.verbose:
+            self.log(f"AMG solve time: {info.solve_seconds:g} s")
+        return self._unpad_vec(x_hi), info
+
+    def solve_batched(self, bs, x0s=None, tol=None):
+        raise NotImplementedError("solve_batched is not ported yet")
+
+    def solve_jit(self, b, x0=None):
+        raise NotImplementedError("solve_jit has no PyTorch counterpart "
+                                  "(the solve runs eagerly)")
+
+
+def solver_amg(a: CSR, x, b, pars: AMGParams = AMGParams(), log=print,
+               device="cpu"):
+    """One-shot functional API mirroring ``SSS_solver_amg`` (amg/SSS_AMG.c:9).
+
+    Returns ``(x, SolveInfo)``.
+    """
+    # zero-rhs short circuit before any setup (amg/SSS_AMG.c:23-30)
+    sumb = float(np.linalg.norm(np.asarray(b, dtype=np.float64)))
+    if sumb == 0.0:
+        if pars.verbose:
+            print_itinfo(StopType.REL_RES, 0, 0.0, sumb, 0.0, log=log)
+        return np.zeros(a.n_rows), SolveInfo()
+    t0 = time.perf_counter()
+    solver = AMGSolver(a, pars, log=log, device=device)
+    x, info = solver.solve(b, x0=x)
+    if pars.verbose:
+        log(f"AMG totally time: {time.perf_counter() - t0:g} s")
+    return x, info

@@ -1,0 +1,560 @@
+"""Sparse matrix containers.
+
+Two worlds:
+
+* **Host**: :class:`CSR` — numpy compressed-sparse-row, used by the setup
+  phase (coarsening / interpolation / Galerkin product are irregular,
+  data-dependent-shape graph algorithms that belong on the host, exactly as
+  the reference runs them on the CPU — reference ``SSS_MAT``,
+  amg/SSS_main.h:95-105).  Same code as ``amg_tpu.sparse.CSR``.
+
+* **Device**: torch tensors on an explicit ``device``.  :class:`Dia` (the
+  banded fast path, applied by the hand-written DIA kernel in
+  ``ops/dia_kernel.py``), :class:`Ell` (padded ELLPACK, gather SpMV) and
+  :class:`Dense` (small deep levels, one matmul).  Each is built from a
+  host CSR with the same padding as ``amg_tpu.sparse`` so vectors compare
+  entry for entry, and has a ``to_csr`` for round-trip tests.
+
+Rows are padded to the next multiple of 8 and the ELL width to the actual
+max row degree; ELL padding entries carry ``col = row`` (a self-reference,
+always a valid index) and ``val = 0`` so no masks are needed in compute.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Tuple
+
+import numpy as np
+import torch
+
+
+def _round_up(x: int, m: int) -> int:
+    return ((x + m - 1) // m) * m
+
+
+def torch_dtype(dtype) -> torch.dtype:
+    """``"float32"`` / ``"bfloat16"`` / ``torch.float64`` ... -> torch dtype."""
+    if isinstance(dtype, torch.dtype):
+        return dtype
+    return getattr(torch, str(dtype))
+
+
+def _to_device(arr: np.ndarray, dtype, device) -> torch.Tensor:
+    """Host numpy array -> tensor of ``dtype`` on ``device``.  The cast
+    happens on the host for float32/float64 (numpy rounds f64 -> f32 the
+    same way) and in torch for bfloat16 (numpy has no bf16)."""
+    dt = torch_dtype(dtype)
+    np_dt = {torch.float32: np.float32, torch.float64: np.float64,
+             torch.bfloat16: np.float32, torch.int64: np.int64,
+             torch.int32: np.int32, torch.bool: np.bool_}[dt]
+    host = np.ascontiguousarray(arr, dtype=np_dt)
+    if not host.flags.writeable:   # e.g. a view of a JAX array
+        host = host.copy()
+    return torch.from_numpy(host).to(dtype=dt).to(device)
+
+
+# ---------------------------------------------------------------------------
+# Host CSR
+# ---------------------------------------------------------------------------
+
+
+@dataclasses.dataclass
+class CSR:
+    """Host-side CSR matrix (int32 indices, float64 values)."""
+
+    indptr: np.ndarray   # (n_rows + 1,) int32/int64
+    indices: np.ndarray  # (nnz,) int32
+    data: np.ndarray     # (nnz,) float64
+    shape: Tuple[int, int]
+
+    # -- construction ------------------------------------------------------
+
+    @staticmethod
+    def from_coo(rows, cols, vals, shape, sum_duplicates: bool = True) -> "CSR":
+        rows = np.asarray(rows, dtype=np.int64)
+        cols = np.asarray(cols, dtype=np.int64)
+        vals = np.asarray(vals, dtype=np.float64)
+        # fast path: already in strict CSR order (common for re-indexed /
+        # generated matrices) -> skip the O(nnz log nnz) lexsort entirely
+        if len(rows):
+            key = rows * shape[1] + cols
+            if np.all(np.diff(key) > 0):
+                indptr = np.zeros(shape[0] + 1, dtype=np.int64)
+                indptr[1:] = np.bincount(rows, minlength=shape[0])
+                np.cumsum(indptr, out=indptr)
+                return CSR(indptr, cols.astype(np.int32), vals, tuple(shape))
+        order = np.lexsort((cols, rows))
+        rows, cols, vals = rows[order], cols[order], vals[order]
+        if sum_duplicates and len(rows):
+            dup = (rows[1:] == rows[:-1]) & (cols[1:] == cols[:-1])
+            if dup.any():
+                keep = np.concatenate([[True], ~dup])
+                grp = np.cumsum(keep) - 1
+                out_vals = np.zeros(keep.sum(), dtype=np.float64)
+                np.add.at(out_vals, grp, vals)
+                rows, cols, vals = rows[keep], cols[keep], out_vals
+        indptr = np.zeros(shape[0] + 1, dtype=np.int64)
+        indptr[1:] = np.bincount(rows, minlength=shape[0])
+        np.cumsum(indptr, out=indptr)
+        return CSR(indptr, cols.astype(np.int32), vals, tuple(shape))
+
+    @staticmethod
+    def from_dense(a: np.ndarray, tol: float = 0.0) -> "CSR":
+        a = np.asarray(a, dtype=np.float64)
+        rows, cols = np.nonzero(np.abs(a) > tol)
+        return CSR.from_coo(rows, cols, a[rows, cols], a.shape)
+
+    @staticmethod
+    def from_scipy(m) -> "CSR":
+        m = m.tocsr()
+        return CSR(
+            np.asarray(m.indptr, dtype=np.int64),
+            np.asarray(m.indices, dtype=np.int32),
+            np.asarray(m.data, dtype=np.float64),
+            tuple(m.shape),
+        )
+
+    def to_scipy(self):
+        import scipy.sparse as sp
+
+        return sp.csr_matrix(
+            (self.data, self.indices, self.indptr), shape=self.shape
+        )
+
+    # -- basic properties ----------------------------------------------------
+
+    @property
+    def n_rows(self) -> int:
+        return self.shape[0]
+
+    @property
+    def n_cols(self) -> int:
+        return self.shape[1]
+
+    @property
+    def nnz(self) -> int:
+        return int(self.indptr[-1])
+
+    @property
+    def row_degrees(self) -> np.ndarray:
+        return np.diff(self.indptr)
+
+    @property
+    def row_indices(self) -> np.ndarray:
+        """Row index per entry (``np.repeat`` over degrees), memoized —
+        the expansion costs ~seconds at 100M nnz and the setup phase asks
+        for it many times per level."""
+        r = getattr(self, "_row_idx_cache", None)
+        if r is None or len(r) != self.nnz:
+            r = np.repeat(
+                np.arange(self.n_rows, dtype=np.int64), self.row_degrees
+            )
+            self._row_idx_cache = r
+        return r
+
+    # -- ops -----------------------------------------------------------------
+
+    def diagonal(self) -> np.ndarray:
+        """First-match diagonal per row (reference ``SSS_mat_get_diag``,
+        amg/SSS_matvec.c:162)."""
+        n = min(self.shape)
+        diag = np.zeros(n, dtype=np.float64)
+        for i in range(n):
+            seg = slice(self.indptr[i], self.indptr[i + 1])
+            hits = np.nonzero(self.indices[seg] == i)[0]
+            if hits.size:
+                diag[i] = self.data[self.indptr[i] + hits[0]]
+        return diag
+
+    def diagonal_fast(self) -> np.ndarray:
+        """Vectorized diagonal extraction."""
+        n = min(self.shape)
+        rows = self.row_indices
+        mask = (self.indices == rows) & (rows < n)
+        diag = np.zeros(n, dtype=np.float64)
+        diag[rows[mask]] = self.data[mask]
+        return diag
+
+    def transpose(self) -> "CSR":
+        """Two-pass histogram transpose (reference ``SSS_mat_trans``,
+        amg/SSS_matvec.c:330-387)."""
+        try:
+            from .native import lib as _native
+        except Exception:
+            _native = None
+        if _native is not None and self.nnz:
+            return _native.csr_transpose(self)
+        n_rows, n_cols = self.shape
+        rows = np.repeat(np.arange(n_rows, dtype=np.int64), self.row_degrees)
+        order = np.argsort(self.indices, kind="stable")
+        new_indptr = np.zeros(n_cols + 1, dtype=np.int64)
+        new_indptr[1:] = np.bincount(self.indices, minlength=n_cols)
+        np.cumsum(new_indptr, out=new_indptr)
+        return CSR(
+            new_indptr,
+            rows[order].astype(np.int32),
+            self.data[order],
+            (n_cols, n_rows),
+        )
+
+    def matvec(self, x: np.ndarray) -> np.ndarray:
+        """y = A @ x (host reference implementation; reference
+        ``SSS_blas_mv_mxy``, amg/SSS_utils.c:182-201)."""
+        rows = np.repeat(np.arange(self.n_rows, dtype=np.int64), self.row_degrees)
+        prod = self.data * x[self.indices]
+        y = np.zeros(self.n_rows, dtype=np.result_type(self.data, x))
+        np.add.at(y, rows, prod)
+        return y
+
+    def to_dense(self, dtype=np.float64) -> np.ndarray:
+        out = np.zeros(self.shape, dtype=dtype)
+        rows = np.repeat(np.arange(self.n_rows, dtype=np.int64), self.row_degrees)
+        # duplicates (shouldn't exist) would overwrite; fine for tests
+        np.add.at(out, (rows, self.indices), self.data.astype(dtype, copy=False))
+        return out
+
+    def sort_indices(self) -> "CSR":
+        """Return a copy with column indices sorted within each row."""
+        indices = self.indices.copy()
+        data = self.data.copy()
+        for i in range(self.n_rows):
+            s, e = self.indptr[i], self.indptr[i + 1]
+            order = np.argsort(indices[s:e], kind="stable")
+            indices[s:e] = indices[s:e][order]
+            data[s:e] = data[s:e][order]
+        return CSR(self.indptr.copy(), indices, data, self.shape)
+
+    def copy(self) -> "CSR":
+        return CSR(
+            self.indptr.copy(), self.indices.copy(), self.data.copy(), self.shape
+        )
+
+    # -- permutations (vectorized) -------------------------------------------
+
+    def permute_rows(self, perm: np.ndarray) -> "CSR":
+        """Rows reordered: new row ``i`` is old row ``perm[i]``."""
+        perm = np.asarray(perm, dtype=np.int64)
+        deg = self.row_degrees
+        new_deg = deg[perm]
+        new_indptr = np.zeros(self.n_rows + 1, dtype=np.int64)
+        np.cumsum(new_deg, out=new_indptr[1:])
+        # source slot of each output nnz
+        pos = np.arange(int(new_indptr[-1]), dtype=np.int64) - np.repeat(
+            new_indptr[:-1], new_deg
+        )
+        src = np.repeat(self.indptr[perm], new_deg) + pos
+        return CSR(new_indptr, self.indices[src], self.data[src], self.shape)
+
+    def permute_cols(self, col_map: np.ndarray) -> "CSR":
+        """Columns relabeled: old column ``c`` becomes ``col_map[c]``."""
+        col_map = np.asarray(col_map, dtype=np.int64)
+        return CSR(
+            self.indptr.copy(),
+            col_map[self.indices].astype(np.int32),
+            self.data.copy(),
+            self.shape,
+        )
+
+    def permute(self, perm: np.ndarray) -> "CSR":
+        """Symmetric permutation ``P A P^T`` of a square matrix: new index
+        ``i`` is old index ``perm[i]``."""
+        perm = np.asarray(perm, dtype=np.int64)
+        inv = np.empty_like(perm)
+        inv[perm] = np.arange(len(perm), dtype=np.int64)
+        return self.permute_rows(perm).permute_cols(inv)
+
+
+
+# ---------------------------------------------------------------------------
+# Device ELL
+# ---------------------------------------------------------------------------
+
+
+@dataclasses.dataclass
+class Ell:
+    """Padded ELLPACK matrix on device.
+
+    ``cols``/``vals`` have shape ``(padded_rows, width)``.  Padding slots
+    point at the row's own index (clipped to the column range) with value
+    0, so gathers stay in bounds and no masking is needed.
+    """
+
+    cols: torch.Tensor   # (pr, w) int64
+    vals: torch.Tensor   # (pr, w) dtype
+    shape: Tuple[int, int]
+    nnz: int
+
+    @property
+    def n_rows(self) -> int:
+        return self.shape[0]
+
+    @property
+    def n_cols(self) -> int:
+        return self.shape[1]
+
+    @property
+    def padded_rows(self) -> int:
+        return self.cols.shape[0]
+
+    @property
+    def width(self) -> int:
+        return self.cols.shape[1]
+
+    @staticmethod
+    def pack_host(
+        a: CSR,
+        row_multiple: int = 8,
+        width_multiple: int = 1,
+        pad_rows_to: int | None = None,
+    ) -> Tuple[np.ndarray, np.ndarray]:
+        """Pack a host CSR into padded ELL numpy arrays ``(cols, vals)``."""
+        n_rows, n_cols = a.shape
+        deg = a.row_degrees
+        width = max(int(deg.max()) if n_rows else 1, 1)
+        width = _round_up(width, width_multiple)
+        pr = _round_up(max(n_rows, 1), row_multiple)
+        if pad_rows_to is not None:
+            pr = max(pr, pad_rows_to)  # caller-specified row padding
+
+        cols = np.repeat(
+            np.arange(pr, dtype=np.int64)[:, None], width, axis=1
+        )
+        # self-reference padding must stay in-bounds for gathers on x
+        np.clip(cols, 0, max(n_cols - 1, 0), out=cols)
+        vals = np.zeros((pr, width), dtype=np.float64)
+
+        rows = np.repeat(np.arange(n_rows, dtype=np.int64), deg)
+        # position of each nnz within its row
+        pos = np.arange(a.nnz, dtype=np.int64) - np.repeat(a.indptr[:-1], deg)
+        cols[rows, pos] = a.indices
+        vals[rows, pos] = a.data
+        return cols, vals
+
+    @staticmethod
+    def from_csr(
+        a: CSR,
+        dtype=torch.float64,
+        row_multiple: int = 8,
+        width_multiple: int = 1,
+        pad_rows_to: int | None = None,
+        device="cpu",
+    ) -> "Ell":
+        """Convert host CSR to padded ELL (host packing, one upload)."""
+        cols, vals = Ell.pack_host(a, row_multiple, width_multiple, pad_rows_to)
+        return Ell(
+            _to_device(cols, torch.int64, device),
+            _to_device(vals, dtype, device),
+            a.shape,
+            a.nnz,
+        )
+
+    def to_csr(self) -> CSR:
+        """Device ELL back to host CSR (drops padding zeros)."""
+        cols = self.cols.cpu().numpy()[: self.n_rows]
+        vals = self.vals.cpu().double().numpy()[: self.n_rows]
+        rr, pp = np.nonzero(vals != 0.0)
+        return CSR.from_coo(rr, cols[rr, pp], vals[rr, pp], self.shape)
+
+
+# ---------------------------------------------------------------------------
+# Device Dense format (small deep levels)
+# ---------------------------------------------------------------------------
+
+
+@dataclasses.dataclass
+class Dense:
+    """Densified operator for small grid levels.
+
+    Deep AMG levels are small (thousands of rows) but nearly dense
+    (hundreds of nnz/row after repeated Galerkin products): a dense matvec
+    streams the operator once with zero gathers.  Replaces the reference's
+    CSR SpMV (amg/SSS_utils.c:182-201) for levels whose dense footprint
+    fits ``AMGParams.dense_level_bytes``.
+    """
+
+    vals: torch.Tensor           # (pr, pc) dtype
+    shape: Tuple[int, int]
+    nnz: int
+
+    @property
+    def n_rows(self) -> int:
+        return self.shape[0]
+
+    @property
+    def n_cols(self) -> int:
+        return self.shape[1]
+
+    @property
+    def padded_rows(self) -> int:
+        return self.vals.shape[0]
+
+    @property
+    def padded_cols(self) -> int:
+        return self.vals.shape[1]
+
+    @staticmethod
+    def from_csr(
+        a: CSR,
+        dtype=torch.float64,
+        row_multiple: int = 8,
+        pad_rows_to: int | None = None,
+        pad_cols_to: int | None = None,
+        device="cpu",
+    ) -> "Dense":
+        n_rows, n_cols = a.shape
+        pr = _round_up(max(n_rows, 1), row_multiple)
+        if pad_rows_to is not None:
+            pr = max(pr, pad_rows_to)
+        pc = _round_up(max(n_cols, 1), 128)  # same column pad as amg_tpu
+        if pad_cols_to is not None:
+            pc = max(pc, pad_cols_to)
+        rows = np.repeat(np.arange(n_rows, dtype=np.int64), a.row_degrees)
+        vals = np.zeros((pr, pc), dtype=np.float64)
+        vals[rows, a.indices.astype(np.int64)] = a.data
+        return Dense(_to_device(vals, dtype, device), (n_rows, n_cols), a.nnz)
+
+    def to_csr(self) -> CSR:
+        vals = self.vals.cpu().double().numpy()
+        sub = vals[: self.n_rows, : self.n_cols]
+        rr, cc = np.nonzero(sub)
+        return CSR.from_coo(rr, cc, sub[rr, cc], self.shape)
+
+
+# ---------------------------------------------------------------------------
+# Device DIA (diagonal-offset) format
+# ---------------------------------------------------------------------------
+
+
+@dataclasses.dataclass
+class Dia:
+    """Diagonal (offset) storage on device — the fast path for banded
+    operators.
+
+    ``vals[d, i] = A[i, i + offsets[d]]`` in the 2-D ``(nd, pad)`` layout,
+    with the offsets both as a static tuple and as a device ``int32``
+    tensor (``offs``) that the CUDA kernel reads.  SpMV is a sum of shifted
+    element-wise products with no gathers::
+
+        y[i] = sum_d vals[d, i] * x[i + offsets[d]]   (x = 0 outside [0, pad))
+
+    Stencil problems and their Galerkin coarse operators have few distinct
+    offsets, so most levels qualify; unstructured levels fall back to
+    :class:`Ell` or :class:`Dense`.
+    """
+
+    vals: torch.Tensor           # (nd, pad) dtype
+    offsets: Tuple[int, ...]
+    shape: Tuple[int, int]
+    nnz: int
+    offs: torch.Tensor = None    # (nd,) int32, on vals.device
+
+    def __post_init__(self):
+        if self.offs is None:
+            self.offs = torch.tensor(self.offsets, dtype=torch.int32,
+                                     device=self.vals.device)
+
+    @property
+    def n_rows(self) -> int:
+        return self.shape[0]
+
+    @property
+    def n_cols(self) -> int:
+        return self.shape[1]
+
+    @property
+    def padded_rows(self) -> int:
+        return self.vals.shape[1]
+
+    @property
+    def n_diags(self) -> int:
+        return len(self.offsets)
+
+    @staticmethod
+    def _offset_hist(a: CSR):
+        """Memoized (off_lo, uniq offsets) of a host CSR — the (col - row)
+        histogram is needed by both format selection and packing; one
+        O(nnz) bincount pass serves both."""
+        cached = getattr(a, "_off_hist_cache", None)
+        if cached is not None and cached[0] == a.nnz:
+            return cached[1]
+        offs = a.indices - a.row_indices  # int64 result (row_indices i64)
+        if len(offs):
+            off_lo = int(offs.min())
+            cnt = np.bincount(offs - off_lo)
+            uniq = np.flatnonzero(cnt) + off_lo
+        else:
+            off_lo = 0
+            uniq = np.zeros(0, dtype=np.int64)
+        a._off_hist_cache = (a.nnz, (off_lo, uniq))
+        return off_lo, uniq
+
+    @staticmethod
+    def num_offsets(a: CSR) -> int:
+        """Distinct (col - row) offsets of a host CSR matrix."""
+        if a.nnz == 0:
+            return 0
+        return len(Dia._offset_hist(a)[1])
+
+    @staticmethod
+    def from_csr(
+        a: CSR,
+        dtype=torch.float64,
+        row_multiple: int = 8,
+        pad_rows_to: int | None = None,
+        device="cpu",
+    ) -> "Dia":
+        n_rows, n_cols = a.shape
+        pr = _round_up(max(n_rows, 1), row_multiple)
+        if pad_rows_to is not None:
+            pr = max(pr, pad_rows_to)
+        rows = a.row_indices
+        if a.nnz:
+            # bincount + lookup table instead of sort-based unique/searchsorted
+            off_lo, uniq = Dia._offset_hist(a)
+            offs = a.indices.astype(np.int64) - rows
+            lut = np.full(int(uniq[-1]) - off_lo + 1, -1, dtype=np.int64)
+            lut[uniq - off_lo] = np.arange(len(uniq))
+            dpos = lut[offs - off_lo]
+        else:
+            uniq = np.zeros(0, dtype=np.int64)
+            dpos = np.zeros(0, dtype=np.int64)
+        # (offset, row) pairs are unique in a duplicate-free CSR
+        vals_np = np.zeros((len(uniq), pr), dtype=np.float64)
+        vals_np[dpos, rows] = a.data
+        return Dia(
+            _to_device(vals_np, dtype, device),
+            tuple(int(o) for o in uniq),
+            (n_rows, n_cols),
+            a.nnz,
+        )
+
+    @staticmethod
+    def from_numpy(vals: np.ndarray, offsets, shape, nnz: int,
+                   device="cpu", dtype=None) -> "Dia":
+        """Wrap already-packed ``(nd, pad)`` values (e.g. ``amg_tpu``'s
+        ``Dia.vals`` as numpy) without repacking.  ``dtype`` defaults to the
+        array's own; pass ``torch.bfloat16`` for bf16 values handed over as
+        float32 (numpy has no bf16; the widening is exact)."""
+        vals = np.asarray(vals)
+        if vals.ndim != 2 or vals.shape[0] != len(offsets):
+            raise ValueError(f"vals must be (nd, pad); got {vals.shape} for "
+                             f"{len(offsets)} offsets")
+        dt = dtype if dtype is not None else torch.from_numpy(vals[:0]).dtype
+        return Dia(_to_device(vals, dt, device),
+                   tuple(int(o) for o in offsets), tuple(shape), int(nnz))
+
+    def to_csr(self) -> CSR:
+        vals = self.vals.cpu().double().numpy()
+        rows_l, cols_l, data_l = [], [], []
+        for k, off in enumerate(self.offsets):
+            i = np.arange(self.n_rows, dtype=np.int64)
+            j = i + off
+            m = (j >= 0) & (j < self.n_cols) & (vals[k, : self.n_rows] != 0)
+            rows_l.append(i[m])
+            cols_l.append(j[m])
+            data_l.append(vals[k, : self.n_rows][m])
+        return CSR.from_coo(
+            np.concatenate(rows_l), np.concatenate(cols_l),
+            np.concatenate(data_l), self.shape,
+        )

@@ -1,0 +1,214 @@
+"""The port's jax-free host layer against amg_tpu's.
+
+amg_tpu_torch carries its own copy of the numpy setup code (importing any
+amg_tpu module would import jax) and builds amg_tpu's native C++ source
+into its own library.  Same code, same library: the host hierarchies must
+be identical, bit for bit, and so must the device packs built from them.
+Both packages get the same explicit format flags (use_well="off",
+use_banded="off", embed_levels=0): amg_tpu resolves "auto" from JAX's
+device count, the port always to "off".
+"""
+
+import os
+
+import numpy as np
+import pytest
+import torch
+
+import amg_tpu as jamg
+from amg_tpu import hierarchy as jh
+from amg_tpu.io import checkpoint as jck
+
+import amg_tpu_torch as tamg
+from amg_tpu_torch import hierarchy as th
+from amg_tpu_torch import native as tnative
+from amg_tpu_torch.io import checkpoint as tck
+
+DATA = os.path.join(os.path.dirname(__file__), "data")
+FLAGS = dict(use_well="off", use_banded="off", embed_levels=0, verbose=0)
+SLICE = dict(dtype="float32", refine=True, smoother="GS",
+             coarse_smoother="CHEBYSHEV", coarse_op_dtype="bfloat16",
+             coarse_sparsify=0.005, sparsify_from_level=2)
+
+
+def _matrix(name):
+    """(amg_tpu CSR, amg_tpu_torch CSR) of the same matrix."""
+    if name == "1138_bus":
+        path = os.path.join(DATA, "1138_bus.mtx")
+        return jamg.read_mtx(path), tamg.read_mtx(path)
+    if name == "p3d16":
+        return jamg.poisson3d(16), tamg.poisson3d(16)
+    if name == "p2d48aniso":
+        return (jamg.poisson2d(48, epsilon=1e-3),
+                tamg.poisson2d(48, epsilon=1e-3))
+    raise KeyError(name)
+
+
+def _pars(pkg, **kw):
+    """AMGParams of one package, enums given by name."""
+    kw = {**FLAGS, **kw}
+    for key, enum in (("smoother", pkg.SmootherType),
+                      ("coarse_smoother", pkg.SmootherType),
+                      ("interp_type", pkg.InterpType),
+                      ("cs_type", pkg.CoarsenType)):
+        if key in kw:
+            kw[key] = enum[kw[key]]
+    return pkg.AMGParams(**kw)
+
+
+def _host_pair(name, **kw):
+    aj, at = _matrix(name)
+    pj, pt = _pars(jamg, **kw), _pars(tamg, **kw)
+    hj = jh.reorder_for_gs(jh.setup_host(aj, pj), pj)
+    ht = th.reorder_for_gs(th.setup_host(at, pt), pt)
+    return hj, ht, pj, pt
+
+
+def _assert_csr_equal(mj, mt, what):
+    assert mj.shape == mt.shape, what
+    for field in ("indptr", "indices", "data"):
+        np.testing.assert_array_equal(getattr(mj, field), getattr(mt, field),
+                                      err_msg=f"{what}.{field}")
+
+
+def _assert_host_equal(hj, ht):
+    assert hj.num_levels == ht.num_levels
+    for name in ("a", "p", "r"):
+        assert len(getattr(hj, name)) == len(getattr(ht, name))
+        for l, (mj, mt) in enumerate(zip(getattr(hj, name),
+                                         getattr(ht, name))):
+            _assert_csr_equal(mj, mt, f"{name}[{l}]")
+    assert len(hj.cfmark) == len(ht.cfmark)
+    for l, (cj, ct) in enumerate(zip(hj.cfmark, ht.cfmark)):
+        if cj is None:
+            assert ct is None
+        else:
+            np.testing.assert_array_equal(cj, ct, err_msg=f"cfmark[{l}]")
+    for name in ("gs_key", "perms"):
+        for l, (vj, vt) in enumerate(zip(getattr(hj, name),
+                                         getattr(ht, name))):
+            if vj is None:
+                assert vt is None, f"{name}[{l}]"
+            else:
+                np.testing.assert_array_equal(vj, vt,
+                                              err_msg=f"{name}[{l}]")
+
+
+HOST_CASES = [
+    ("1138_bus", dict(interp_type="DIR")),
+    ("1138_bus", dict(interp_type="STD")),
+    ("p3d16", dict(interp_type="DIR")),
+    ("p3d16", dict(interp_type="STD")),
+    ("p2d48aniso", dict(interp_type="DIR")),
+    ("p2d48aniso", dict(interp_type="STD")),
+    ("p3d16", dict(cs_type="PMIS")),
+    ("p3d16", dict(cs_type="SA")),
+    ("p3d16", SLICE),
+]
+
+
+def test_native_library_built():
+    """The port builds amg_tpu's C++ source into its own directory."""
+    assert tnative.lib is not None
+    assert os.path.dirname(tnative._SO).endswith(
+        os.path.join("amg_tpu_torch", "build"))
+    assert tnative._SRC.endswith(os.path.join("amg_tpu", "native",
+                                              "amg_native.cpp"))
+
+
+@pytest.mark.parametrize(
+    "name,kw", HOST_CASES,
+    ids=[f"{n}-{'-'.join(f'{v}' for v in kw.values())}"[:60]
+         for n, kw in HOST_CASES])
+def test_host_hierarchy_identical(name, kw):
+    hj, ht, _, _ = _host_pair(name, **kw)
+    assert ht.num_levels >= 3
+    _assert_host_equal(hj, ht)
+
+
+def test_checkpoint_carry_over(tmp_path):
+    """amg_tpu.save_hierarchy -> port load_hierarchy gives identical
+    arrays (format v3, reorder metadata included)."""
+    hj, _, _, _ = _host_pair("p3d16", interp_type="STD")
+    path = tmp_path / "hh.npz"
+    jck.save_hierarchy(path, hj)
+    ht = tck.load_hierarchy(path)
+    _assert_host_equal(hj, ht)
+    assert ht.setup_seconds == hj.setup_seconds
+    # and back: the port writes what amg_tpu reads
+    path2 = tmp_path / "hh2.npz"
+    tck.save_hierarchy(path2, ht)
+    _assert_host_equal(jck.load_hierarchy(path2), ht)
+
+
+def _np(t):
+    return t.cpu().float().numpy() if t.dtype == torch.bfloat16 \
+        else t.cpu().numpy()
+
+
+def _assert_dev_equal(xj, xt, what, bf16=False):
+    xj = np.asarray(xj.astype(np.float32) if bf16 else xj)
+    xt = _np(xt)
+    assert xj.shape == xt.shape, what
+    # bf16 too: amg_tpu rounds f64 -> bf16 directly, the port through f32;
+    # a double-rounding difference would fail here
+    np.testing.assert_array_equal(xt, xj, err_msg=what)
+
+
+PACK_CASES = [
+    ("1138_bus", {}),
+    ("p3d16", {}),
+    ("p3d16", SLICE),
+]
+
+
+@pytest.mark.parametrize("name,kw", PACK_CASES,
+                         ids=["1138_bus", "p3d16", "p3d16-slice"])
+def test_device_pack_matches(name, kw):
+    """Port ``to_device`` against amg_tpu's: same formats, pads, operator
+    values, transfer operators, diagonals, GS groups and coarse inverse."""
+    import jax.numpy as jnp
+
+    hj, ht, pj, pt = _host_pair(name, **kw)
+    mj = jh.to_device(hj, pj)
+    mt = th.to_device(ht, pt)
+    assert mj.num_levels == mt.num_levels
+    for l, (lj, lt) in enumerate(zip(mj.levels, mt.levels)):
+        assert type(lj.a).__name__ == type(lt.a).__name__, l
+        assert lj.pad == lt.pad
+        bf16 = lj.a.vals.dtype == jnp.bfloat16
+        assert (lt.a.vals.dtype == torch.bfloat16) == bf16
+        _assert_dev_equal(lj.a.vals, lt.a.vals, f"a[{l}].vals", bf16)
+        if type(lj.a).__name__ == "Dia":
+            assert tuple(lj.a.offsets) == lt.a.offsets
+        if type(lj.a).__name__ == "Ell":
+            _assert_dev_equal(lj.a.cols, lt.a.cols, f"a[{l}].cols")
+            _assert_dev_equal(lj.diag_mask, lt.diag_mask, f"diag_mask[{l}]")
+        for op in ("p", "r"):
+            oj, ot = getattr(lj, op), getattr(lt, op)
+            assert (oj is None) == (ot is None)
+            if oj is not None:
+                _assert_dev_equal(oj.cols, ot.cols, f"{op}[{l}].cols")
+                _assert_dev_equal(oj.vals, ot.vals, f"{op}[{l}].vals")
+        for v in ("diag", "inv_diag", "l1_inv", "gid", "gs_w"):
+            vj, vt = getattr(lj, v), getattr(lt, v)
+            assert (vj is None) == (vt is None), f"{v}[{l}]"
+            if vj is not None:
+                _assert_dev_equal(vj, vt, f"{v}[{l}]")
+        assert lj.group_cf == lt.group_cf
+        assert lj.ranges == lt.ranges
+        assert float(lj.rho_dinv_a) == lt.rho_dinv_a
+        if lj.groups is not None:
+            gj = np.asarray(lj.groups)
+            for g, idx in enumerate(lt.groups):
+                np.testing.assert_array_equal(
+                    gj[g][gj[g] < lj.pad], idx.numpy())
+    _assert_dev_equal(mj.coarse_inv, mt.coarse_inv, "coarse_inv")
+
+
+def test_unported_options_raise():
+    a = tamg.poisson3d(6)
+    for kw in (dict(use_well="on"), dict(use_banded="on"),
+               dict(embed_levels=2), dict(dtype="bfloat16")):
+        with pytest.raises(NotImplementedError):
+            tamg.setup(a, tamg.AMGParams(verbose=0, **kw))
