@@ -6,10 +6,13 @@ parameters, solve ``A x = b`` with ``b = x0 = 1``, print the residual table
 and final summary.  The parameter echo and the residual table are
 byte-identical to ``python -m amg_tpu``'s.
 
-``--device cpu|cuda`` picks the device.  ``amg_tpu``'s multi-device flags
+``--device cuda|cpu`` picks the device (default the CUDA card; there is
+no fall to the CPU when none is present).  ``--accel cg`` runs flexible CG
+preconditioned by one cycle and ``--use-well on`` packs large unstructured
+levels as WEll, e.g. ``python -m amg_tpu_torch fem2d:1000000 --use-well on
+--accel cg --refine --dtype float32``.  ``amg_tpu``'s multi-device flags
 (``--devices``, ``--dist``), ``--profile`` and ``--transfer-dtype`` are not
-ported yet; ``--accel cg|gmres`` and ``--use-well on`` raise
-``NotImplementedError``.
+ported yet; ``--accel gmres`` raises ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -103,10 +106,10 @@ def build_argparser() -> argparse.ArgumentParser:
                     help="Krylov acceleration: cg = AMG-preconditioned "
                          "flexible CG (one cycle per iteration); gmres = "
                          "AMG-right-preconditioned GMRES (nonsymmetric)")
-    ap.add_argument("--device", type=str, default="cpu",
-                    choices=["cpu", "cuda"],
-                    help="torch device for the solve (cuda raises when no "
-                         "card is available)")
+    ap.add_argument("--device", type=str, default="cuda",
+                    choices=["cuda", "cpu"],
+                    help="torch device for the solve (cuda, the default, "
+                         "raises when no card is available)")
     ap.add_argument("--use-well", type=str, default=d.use_well,
                     choices=["auto", "on", "off"],
                     help="windowed-gather WEll format for large "

@@ -9,11 +9,15 @@ packed once into plain dataclasses of torch tensors (:class:`Level` /
 :class:`Hierarchy`) on an explicit device, with the same level pads as
 ``amg_tpu`` so vectors compare entry for entry.
 
-Formats: ``Dia`` for banded levels, ``Dense`` for small ones, ``Ell``
-otherwise.  ``amg_tpu``'s WEll and BandedBlocks formats and its fine-grid
-embedding are not ported yet: ``use_well``/``use_banded`` on ``"auto"``
-resolve to ``"off"`` and ``embed_levels=-1`` to 0; asking for them raises
-``NotImplementedError``.
+Formats: ``Dia`` for banded levels, ``Dense`` for small ones, ``WEll``
+for large unstructured levels when ``use_well="on"`` (level 0 then
+RCM-ordered, coarse WEll levels in barycentric order, P/R packed as WEll
+too), ``Ell`` otherwise.  ``amg_tpu``'s BandedBlocks format and its
+fine-grid embedding are not ported yet: ``use_banded`` on ``"auto"``
+resolves to ``"off"`` and ``embed_levels=-1`` to 0; asking for them raises
+``NotImplementedError``.  ``use_well="auto"`` resolves to ``"off"`` too:
+on one device ``amg_tpu``'s auto turns WEll and BandedBlocks on together,
+a hierarchy the port cannot build until BandedBlocks is ported.
 """
 
 from __future__ import annotations
@@ -27,7 +31,8 @@ import torch
 
 from .params import AMGParams, CoarsenType, InterpType, MIN_CDOF, SMALLFLOAT
 from .params import SmootherType
-from .sparse import CSR, Ell, Dia, Dense, _round_up, _to_device, torch_dtype
+from .sparse import (CSR, Ell, Dia, Dense, WEll, _round_up, _to_device,
+                     torch_dtype)
 from .setup_phase.strength import strength_matrix
 from .setup_phase.cf_split import rs_split, pmis_split, clean_ff_couplings
 from .setup_phase.interp import build_interpolation
@@ -47,12 +52,13 @@ class Level:
     The coarsest level has ``p = r = None`` and the hierarchy holds a dense
     inverse for it.  The level operator ``a`` is :class:`Dia` when banded
     (gather-free SpMV and fused masked-colour GS through the DIA kernel),
-    :class:`Dense` when small, and :class:`Ell` otherwise.
+    :class:`Dense` when small, :class:`WEll` when large and unstructured
+    (masked-colour GS through the WEll kernel) and :class:`Ell` otherwise.
     """
 
-    a: object                   # Dia | Dense | Ell
-    p: Optional[Ell]            # prolongation from level l+1 to l
-    r: Optional[Ell]            # restriction  from level l to l+1
+    a: object                   # Dia | Dense | WEll | Ell
+    p: Optional[object]         # prolongation from level l+1 to l (Ell|WEll)
+    r: Optional[object]         # restriction  from level l to l+1 (Ell|WEll)
     diag: torch.Tensor          # (pad,) a_ii
     inv_diag: torch.Tensor      # (pad,) 1/a_ii, 0 where |a_ii| tiny
     l1_inv: torch.Tensor        # (pad,) 1/sum_j |a_ij|
@@ -149,10 +155,8 @@ def check_supported(pars: AMGParams) -> None:
     """Raise ``NotImplementedError`` for format and layout options of
     ``amg_tpu`` that the port does not implement yet.  ``"auto"`` and
     ``-1`` are accepted and resolve to the compact single-device layout
-    (``use_well = use_banded = "off"``, ``embed_levels = 0``)."""
-    if pars.use_well == "on":
-        raise NotImplementedError("use_well='on': the WEll format is not "
-                                  "ported yet")
+    (``use_well = use_banded = "off"``, ``embed_levels = 0``);
+    ``use_well="on"`` is taken."""
     if pars.use_banded == "on":
         raise NotImplementedError("use_banded='on': the BandedBlocks format "
                                   "is not ported yet")
@@ -250,7 +254,7 @@ def setup_host(a: CSR, pars: AMGParams, log=print) -> HostHierarchy:
         ac = rap(r, al, p)
         if (pars.coarse_sparsify > 0
                 and lvl + 1 >= pars.sparsify_from_level
-                and _pick_format(ac, pars) == "ell"):
+                and _pick_format(ac, pars) in ("ell", "well")):
             # scope to gather-bound (ELL) levels: dense deep levels cost
             # nothing per extra nnz, so sparsifying them only loses
             # convergence
@@ -275,16 +279,23 @@ def setup_host(a: CSR, pars: AMGParams, log=print) -> HostHierarchy:
 
 
 def reorder_for_gs(hh: HostHierarchy, pars: AMGParams) -> HostHierarchy:
-    """Permute coarse ELL-format levels color-contiguously (in place).
+    """Reorder levels for the device formats (in place).
 
-    Rows of each level ``l >= 1`` not destined for the Dia format are
-    reordered by ``(color, C/F)`` so every multicolor-GS class is a
-    contiguous row range: a GS sweep then costs one SpMV's worth of
-    slices instead of ``n_groups`` gathers.  The permutation is a
-    similarity transform (``P A P^T`` plus matching P/R/cfmark updates), so
-    the hierarchy's numerics are unchanged.  Level 0 keeps the user's
-    ordering.  (``amg_tpu``'s RCM branches for BandedBlocks and WEll are
-    not ported: those formats are off in the port.)
+    Level 0 is RCM-ordered when it is headed for the WEll format
+    (:func:`reorder_l0_for_well`).  Each coarse level ``l >= 1`` not
+    destined for the Dia format is then permuted:
+
+    * a WEll level into barycentric order (:func:`_barycentric_order`),
+      which keeps its slot windows local; its GS runs masked;
+    * any other level, when a GS-family smoother runs on it, by
+      ``(color, C/F)`` so every multicolor-GS class is a contiguous row
+      range: a GS sweep then costs one SpMV's worth of slices instead of
+      ``n_groups`` gathers.
+
+    Each permutation is a similarity transform (``P A P^T`` plus matching
+    P/R/cfmark updates), so the hierarchy's numerics are unchanged.
+    (``amg_tpu``'s RCM branch for BandedBlocks is not ported: that format
+    is off in the port.)
     """
     from .params import CGPT
     from .setup_phase.coloring import color_graph
@@ -293,25 +304,32 @@ def reorder_for_gs(hh: HostHierarchy, pars: AMGParams) -> HostHierarchy:
     hh.gs_key = [None] * nl
     hh.perms = [None] * nl
     hh.banded_nb = [None] * nl
-    if not _needs_groups(pars, True):
-        # no GS-family smoother on the coarse levels: the color-contiguous
-        # permutation (and the coloring itself) buys nothing
-        return hh
+    reorder_l0_for_well(hh, pars)
     for l in range(1, nl):
         al = hh.a[l]
-        if _pick_format(al, pars) == "dia":
+        fmt_l = _pick_format(al, pars)
+        if fmt_l == "dia":
             continue
         n = al.n_rows
-        colors = color_graph(al)
-        cf = hh.cfmark[l] if l < len(hh.cfmark) else None
-        is_c = (
-            (np.asarray(cf) == CGPT).astype(np.int64)
-            if cf is not None
-            else np.zeros(n, dtype=np.int64)
-        )
-        key = colors.astype(np.int64) * 2 + is_c
-        perm = np.argsort(key, kind="stable")  # new -> old
-        hh.gs_key[l] = key[perm]
+        if fmt_l == "well":
+            # order rows for slot-window locality (not by color): each
+            # unknown at its interpolation barycenter in the parent level
+            perm = _barycentric_order(hh.p[l - 1])
+        elif not _needs_groups(pars, True):
+            # no GS-family smoother on this level: the color-contiguous
+            # permutation (and the coloring itself) buys nothing
+            continue
+        else:
+            colors = color_graph(al)
+            cf = hh.cfmark[l] if l < len(hh.cfmark) else None
+            is_c = (
+                (np.asarray(cf) == CGPT).astype(np.int64)
+                if cf is not None
+                else np.zeros(n, dtype=np.int64)
+            )
+            key = colors.astype(np.int64) * 2 + is_c
+            perm = np.argsort(key, kind="stable")  # new -> old
+            hh.gs_key[l] = key[perm]
         if not np.array_equal(perm, np.arange(n, dtype=np.int64)):
             hh.perms[l] = perm
             inv = np.empty_like(perm)
@@ -325,6 +343,56 @@ def reorder_for_gs(hh: HostHierarchy, pars: AMGParams) -> HostHierarchy:
             if l < len(hh.cfmark) and hh.cfmark[l] is not None:
                 hh.cfmark[l] = np.asarray(hh.cfmark[l])[perm]
     return hh
+
+
+def reorder_l0_for_well(hh: HostHierarchy, pars: AMGParams) -> None:
+    """RCM-permute level 0 when it is headed for the WEll format.
+
+    WEll slot counts (and with them the bytes every product streams) grow
+    with how far a row's couplings stray from its 1024-wide x windows, so
+    an unstructured level 0 is bandwidth-reduced before packing.  Unlike
+    the coarse-level permutations this one is visible at the API boundary:
+    the driver permutes b/x0 on entry and inverts on exit
+    (``hh.perms[0]``).  Numerics are unchanged (similarity transform).
+    """
+    a0 = hh.a[0]
+    if _pick_format(a0, pars) != "well":
+        return
+    import scipy.sparse as sp
+    from scipy.sparse.csgraph import reverse_cuthill_mckee
+
+    m = sp.csr_matrix((a0.data, a0.indices, a0.indptr), shape=a0.shape)
+    perm = np.asarray(reverse_cuthill_mckee(m, symmetric_mode=True),
+                      dtype=np.int64)
+    if np.array_equal(perm, np.arange(a0.n_rows, dtype=np.int64)):
+        return
+    if hh.perms is None:
+        hh.perms = [None] * hh.num_levels
+    hh.perms[0] = perm
+    inv = np.empty_like(perm)
+    inv[perm] = np.arange(a0.n_rows, dtype=np.int64)
+    hh.a[0] = a0.permute(perm)
+    if hh.num_levels > 1:
+        hh.p[0] = hh.p[0].permute_rows(perm)
+        hh.r[0] = hh.r[0].permute_cols(inv)
+    if len(hh.cfmark) > 0 and hh.cfmark[0] is not None:
+        hh.cfmark[0] = np.asarray(hh.cfmark[0])[perm]
+
+
+def _barycentric_order(p: CSR) -> np.ndarray:
+    """Locality ordering of a coarse level induced by its parent: place
+    each coarse unknown at the |P|-weighted mean of its fine rows'
+    positions and sort.  Keeps A_l, P_{l-1}, R_{l-1} window-local when
+    the parent is already bandwidth-reduced (level-0 RCM cascades down
+    the hierarchy without per-level RCM passes)."""
+    w = np.abs(p.data)
+    rows = p.row_indices.astype(np.float64)
+    cols = p.indices.astype(np.int64)
+    nc = p.n_cols
+    wsum = np.bincount(cols, weights=w, minlength=nc)
+    wpos = np.bincount(cols, weights=w * rows, minlength=nc)
+    pos = np.where(wsum > 0, wpos / np.maximum(wsum, 1e-300), 0.0)
+    return np.argsort(pos, kind="stable").astype(np.int64)
 
 
 def _gs_w_stack(gid_np, inv_diag_np, n_groups, dtype, device):
@@ -434,11 +502,12 @@ def _use_dia(al: CSR, pars: AMGParams) -> bool:
 
 
 def _pick_format(al: CSR, pars: AMGParams) -> str:
-    """Device format for a level operator: 'dia' | 'dense' | 'ell'.
+    """Device format for a level operator: 'dia' | 'dense' | 'well' | 'ell'.
 
     DIA when banded; Dense when the dense footprint fits the budget — deep
-    levels are small but nearly dense; padded-ELL gathers otherwise.
-    ``amg_tpu``'s 'well' choice does not arise: WEll is off in the port.
+    levels are small but nearly dense; WEll for large unstructured levels
+    when ``use_well="on"`` (``"auto"`` resolves to off in the port);
+    padded-ELL gathers otherwise.
     """
     if _use_dia(al, pars):
         return "dia"
@@ -447,6 +516,8 @@ def _pick_format(al: CSR, pars: AMGParams) -> str:
         al.n_rows * al.n_cols * itemsize <= pars.dense_level_bytes
     ):
         return "dense"
+    if pars.use_well == "on" and al.n_rows >= pars.well_min_rows:
+        return "well"
     return "ell"
 
 
@@ -476,6 +547,9 @@ def _level_from_csr(
     elif fmt == "dense":
         a_dev = Dense.from_csr(al, dtype=op_dtype, pad_rows_to=pad,
                                pad_cols_to=pad, device=device)
+    elif fmt == "well":
+        a_dev = WEll.from_csr(al, dtype=op_dtype, pad_rows_to=pad,
+                              pad_cols_to=pad, device=device)
     else:
         ell_cols_np, ell_vals_np = Ell.pack_host(al, pad_rows_to=pad)
         a_dev = Ell(
@@ -484,11 +558,27 @@ def _level_from_csr(
             al.shape,
             al.nnz,
         )
-    p_ell = (Ell.from_csr(p, dtype=dtype, pad_rows_to=pad, device=device)
-             if p is not None else None)
-    r_ell = (Ell.from_csr(r, dtype=dtype, pad_rows_to=pad_coarse,
-                          device=device)
-             if r is not None else None)
+    # transfer operators of a WEll level are WEll too (in
+    # transfer_op_dtype), where their output length, which WEll pads to a
+    # multiple of 1024, equals the level pad they feed
+    tr_dtype = dtype if pars.transfer_op_dtype == "same" \
+        else torch_dtype(pars.transfer_op_dtype)
+    if p is not None and fmt == "well" and pad % 1024 == 0:
+        p_ell = WEll.from_csr(p, dtype=tr_dtype, pad_rows_to=pad,
+                              pad_cols_to=pad_coarse, device=device)
+    elif p is not None:
+        p_ell = Ell.from_csr(p, dtype=dtype, pad_rows_to=pad, device=device)
+    else:
+        p_ell = None
+    if r is not None and fmt == "well" and pad_coarse is not None \
+            and pad_coarse % 1024 == 0:
+        r_ell = WEll.from_csr(r, dtype=tr_dtype, pad_rows_to=pad_coarse,
+                              pad_cols_to=pad, device=device)
+    elif r is not None:
+        r_ell = Ell.from_csr(r, dtype=dtype, pad_rows_to=pad_coarse,
+                             device=device)
+    else:
+        r_ell = None
 
     n = al.n_rows
     diag = np.zeros(pad)
@@ -522,7 +612,7 @@ def _level_from_csr(
             (int(s), int(e - s)) for s, e in zip(starts, ends)
         )
         group_cf = [int(gs_key[s] % 2) for s in starts]
-    elif fmt in ("dia", "dense"):
+    elif fmt in ("dia", "dense", "well"):
         # gather-free masked GS path (full-operator product + class mask)
         groups, group_cf, gid = build_groups(al, cfmark, pad_to=pad)
         gid_dev = _to_device(gid, torch.int32, device)
@@ -565,20 +655,41 @@ def _level_from_csr(
     )
 
 
-def to_device(hh: HostHierarchy, pars: AMGParams, device="cpu") -> Hierarchy:
-    """Pack the host hierarchy into device tensors on ``device``."""
-    check_supported(pars)
+def resolve_device(device) -> torch.device:
+    """``device`` as a ``torch.device``; raises when it is a CUDA device
+    and this machine has no card (there is no quiet fall to the CPU)."""
     device = torch.device(device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError("device='cuda' requested but torch.cuda is not "
+                           "available on this machine (pass device='cpu' "
+                           "to run on the CPU)")
+    if device.type not in ("cpu", "cuda"):
+        raise ValueError(f"unsupported device {device}")
+    return device
+
+
+def to_device(hh: HostHierarchy, pars: AMGParams,
+              device="cuda") -> Hierarchy:
+    """Pack the host hierarchy into device tensors on ``device`` (the
+    card unless the caller asks for the CPU)."""
+    check_supported(pars)
+    device = resolve_device(device)
     dtype = torch_dtype(pars.dtype)
     nl = hh.num_levels
     # dense levels pad to the 128 boundary (amg_tpu's lane-aligned pad),
-    # others to 8 — the same pads as amg_tpu so vectors compare entry for
-    # entry
+    # WEll levels to the 1024-row group, others to 8 — the same pads as
+    # amg_tpu so vectors compare entry for entry
+    fmts = [_pick_format(m, pars) for m in hh.a]
     pads = [
         _round_up(max(m.n_rows, 1),
-                  128 if _pick_format(m, pars) == "dense" else 8)
-        for m in hh.a
+                  {"well": 1024, "dense": 128}.get(fmts[l], 8))
+        for l, m in enumerate(hh.a)
     ]
+    # a WEll level's R output is the child's vector: 1024-align the child
+    # pad too so R can pack as WEll (the extra rows are padding)
+    for l in range(1, nl):
+        if fmts[l - 1] == "well" and fmts[l] != "dia":
+            pads[l] = _round_up(pads[l], 1024)
     levels = []
     for l in range(nl):
         p = hh.p[l] if l < nl - 1 else None
@@ -610,20 +721,27 @@ def to_device(hh: HostHierarchy, pars: AMGParams, device="cpu") -> Hierarchy:
 
 def setup(a: CSR, pars: AMGParams, log=print,
           hh: Optional[HostHierarchy] = None,
-          device="cpu") -> tuple[Hierarchy, HostHierarchy]:
-    """Full setup: host hierarchy + device pack on ``device``, with
-    reference-format complexity table and timing print.
+          device="cuda") -> tuple[Hierarchy, HostHierarchy]:
+    """Full setup: host hierarchy + device pack on ``device`` (the card
+    unless the caller asks for the CPU), with reference-format complexity
+    table and timing print.
 
     Pass a pre-built (e.g. checkpoint-restored) ``hh`` to skip the host
     coarsening and go straight to the device pack.
     """
     check_supported(pars)
+    device = resolve_device(device)
     if hh is None:
         hh = setup_host(a, pars, log=log)
     # hh.perms set => reorder_for_gs already ran on this hierarchy (e.g. a
     # checkpoint-restored one, saved post-reorder)
     if pars.reorder_gs and hh.perms is None:
         reorder_for_gs(hh, pars)
+    elif pars.reorder_gs and hh.perms[0] is None:
+        # a restored hierarchy written before level-0 reordering existed:
+        # the coarse permutations are baked in, but a WEll level 0 still
+        # needs its RCM pass
+        reorder_l0_for_well(hh, pars)
     mg = to_device(hh, pars, device=device)
     if pars.verbose:
         log(complexity_print(hh))

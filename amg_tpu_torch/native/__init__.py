@@ -1,11 +1,12 @@
 """ctypes bindings for the native C++ setup kernels.
 
-The C++ source is ``amg_tpu/native/amg_native.cpp``, read as a file (the
-``amg_tpu`` package is never imported): one source of truth for the setup
-code whose output both packages must agree on bit for bit.  The shared
-library is built on demand with the same g++ flags as ``amg_tpu.native``
-into ``amg_tpu_torch/build/``.  ``lib`` is None when no compiler is
-available; all callers fall back to pure-Python implementations.
+The C++ source ``amg_native.cpp`` beside this file is the port's own copy
+of ``amg_tpu``'s setup kernels (tests/test_torch_host.py holds the two
+files byte-identical and the host hierarchies they build bit-identical).
+The shared library is built on demand with the same g++ flags as
+``amg_tpu.native`` into ``amg_tpu_torch/build/``.  ``lib`` is None when no
+compiler is available; all callers fall back to pure-Python
+implementations.
 """
 
 from __future__ import annotations
@@ -18,8 +19,7 @@ import threading
 import numpy as np
 
 _HERE = os.path.dirname(os.path.abspath(__file__))
-_SRC = os.path.join(os.path.dirname(os.path.dirname(_HERE)), "amg_tpu",
-                    "native", "amg_native.cpp")
+_SRC = os.path.join(_HERE, "amg_native.cpp")
 _BUILD = os.path.join(os.path.dirname(_HERE), "build")
 _SO = os.path.join(_BUILD, "libamg_native.so")
 

@@ -29,19 +29,11 @@ launches per epilogue.
 from __future__ import annotations
 
 import ctypes
-import os
-import shutil
-import subprocess
-import threading
 
 import torch
 import torch.nn.functional as F
 
-_HERE = os.path.dirname(os.path.abspath(__file__))
-_PKG = os.path.dirname(_HERE)
-SOURCE = os.path.join(_PKG, "csrc", "dia_spmv.cu")
-_BUILD = os.path.join(_PKG, "build")
-_SO = os.path.join(_BUILD, "libdia_spmv.so")
+from .cuda_build import CudaLibrary
 
 EPILOGUES = ("spmv", "resid", "update")
 # kernel launches per epilogue (plain-version calls are not counted), and
@@ -58,9 +50,6 @@ _PAIRS = {
 # offsets live in shared memory: 48 KB of int32
 _MAX_DIAGS = 12288
 
-_lock = threading.Lock()
-_lib = None
-
 
 def bf16_products(nd: int, vals_dtype, x_dtype) -> bool:
     """The product rule of ``pallas_dia.py:140-141`` (with its default
@@ -75,54 +64,25 @@ def bf16_products(nd: int, vals_dtype, x_dtype) -> bool:
 # ---------------------------------------------------------------------------
 
 
-def _nvcc() -> str:
-    cand = os.path.join(os.environ.get("CUDA_HOME", "/usr/local/cuda"),
-                        "bin", "nvcc")
-    if os.path.exists(cand):
-        return cand
-    found = shutil.which("nvcc")
-    if found is None:
-        raise RuntimeError("nvcc not found: the DIA kernel is built from "
-                           f"{SOURCE} on first use and needs the CUDA "
-                           "toolkit")
-    return found
+def _bind(dll):
+    p, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
+    common = [p, p, i32, i64, p, p, p, p, i32]
+    for name in ("dia_f32_f32", "dia_f64_f64"):
+        fn = getattr(dll, name)
+        fn.argtypes = common + [p]
+        fn.restype = i32
+    dll.dia_bf16_f32.argtypes = common + [i32, p]
+    dll.dia_bf16_f32.restype = i32
+
+
+_LIB = CudaLibrary("dia_spmv.cu", _bind)
+SOURCE = _LIB.source
 
 
 def build() -> str:
     """Compile ``csrc/dia_spmv.cu`` into ``build/libdia_spmv.so`` unless
     the library is newer than the source.  Returns the library path."""
-    fresh = os.path.exists(_SO) and \
-        os.path.getmtime(_SO) >= os.path.getmtime(SOURCE)
-    if fresh:
-        return _SO
-    os.makedirs(_BUILD, exist_ok=True)
-    tmp = f"{_SO}.{os.getpid()}.tmp"
-    cmd = [_nvcc(), "-gencode", "arch=compute_90a,code=sm_90a",
-           "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
-           "-o", tmp, SOURCE]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n"
-                           f"{' '.join(cmd)}\n{proc.stderr}")
-    os.replace(tmp, _SO)
-    return _SO
-
-
-def _load():
-    global _lib
-    with _lock:
-        if _lib is None:
-            dll = ctypes.CDLL(build())
-            p, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
-            common = [p, p, i32, i64, p, p, p, p, i32]
-            for name in ("dia_f32_f32", "dia_f64_f64"):
-                fn = getattr(dll, name)
-                fn.argtypes = common + [p]
-                fn.restype = i32
-            dll.dia_bf16_f32.argtypes = common + [i32, p]
-            dll.dia_bf16_f32.restype = i32
-            _lib = dll
-    return _lib
+    return _LIB.build()
 
 
 # ---------------------------------------------------------------------------
@@ -215,7 +175,7 @@ def _launch(a, x, b, w, epilogue: str) -> torch.Tensor:
             raise ValueError(f"{name} must be contiguous")
     if a.offs.dtype != torch.int32 or a.offs.numel() != nd:
         raise ValueError("offsets tensor must be int32 of length nd")
-    lib = _load()
+    lib = _LIB.load()
     y = torch.empty(pad, dtype=x.dtype, device=x.device)
     stream = torch.cuda.current_stream(x.device).cuda_stream
     args = [vals.data_ptr(), a.offs.data_ptr(), nd, pad, x.data_ptr(),

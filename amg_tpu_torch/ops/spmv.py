@@ -5,17 +5,18 @@ scalar row loop on CPU (``SSS_blas_mv_mxy``, amg/SSS_utils.c:182-201) and a
 thread-per-row CUDA kernel (``spmv_kernel``, amg/Solve/SSS_cuda.cu:77-96).
 
 Here each device format has its product: :class:`Dia` goes through the
-hand-written DIA kernel (``ops/dia_kernel.py``) for every dtype it
-supports; :class:`Ell` (gather + row sum) and :class:`Dense` (one matmul)
-are plain torch, as they are XLA in ``amg_tpu``.
+hand-written DIA kernel (``ops/dia_kernel.py``) and :class:`WEll` through
+the hand-written WEll kernels (``ops/well_kernel.py``) for every dtype
+they support; :class:`Ell` (gather + row sum) and :class:`Dense` (one
+matmul) are plain torch, as they are XLA in ``amg_tpu``.
 """
 
 from __future__ import annotations
 
 import torch
 
-from ..sparse import Ell, Dia, Dense
-from . import dia_kernel
+from ..sparse import Ell, Dia, Dense, WEll
+from . import dia_kernel, well_kernel
 
 
 def spmv_ell(a: Ell, x: torch.Tensor) -> torch.Tensor:
@@ -36,8 +37,13 @@ def spmv_dense(a: Dense, x: torch.Tensor) -> torch.Tensor:
     return v @ x[: a.padded_cols]
 
 
-def spmv_well(a, x):
-    raise NotImplementedError("the WEll format is not ported yet")
+def spmv_well(a: WEll, x: torch.Tensor) -> torch.Tensor:
+    """Windowed-gather ELL SpMV: the f64 product of the two f32 value
+    planes (kernel B3) when ``a.vals_lo`` is set and x is f64, otherwise
+    kernel B2 on ``a.vals``."""
+    if a.vals_lo is not None and x.dtype == torch.float64:
+        return well_kernel.spmv_df64(a, x)
+    return well_kernel.spmv(a, x)
 
 
 def spmv_banded(a, x):
@@ -51,6 +57,8 @@ def spmv(a, x: torch.Tensor) -> torch.Tensor:
         return spmv_dia(a, x)
     if isinstance(a, Dense):
         return spmv_dense(a, x)
+    if isinstance(a, WEll):
+        return spmv_well(a, x)
     if isinstance(a, Ell):
         return spmv_ell(a, x)
     raise NotImplementedError(f"no SpMV for {type(a).__name__}")

@@ -10,8 +10,11 @@ Replicates the reference's two-layer driver:
   formatting.
 
 PyTorch runs eagerly, so the cycle is plain Python over device tensors on
-the solver's ``device``.  :meth:`AMGSolver.solve` is the host loop of the
-reference; with ``pars.refine`` and a float32 cycle it runs
+the solver's ``device`` (the card unless the caller asks for the CPU).
+:meth:`AMGSolver.solve` is the host loop of the reference; with
+``pars.accel == "cg"`` it runs :meth:`AMGSolver.solve_pcg` (flexible CG
+preconditioned by one cycle, in f64 with ``pars.refine``), and with
+``pars.refine`` and a float32 cycle otherwise
 :meth:`AMGSolver.solve_refined` (f32 cycles, f64 outer residual).
 Residual norms are fetched to the host in batches when the live table is
 off.
@@ -19,17 +22,19 @@ off.
 
 from __future__ import annotations
 
+import dataclasses
 import time
 
 import numpy as np
 import torch
 
 from ..params import AMGParams, SolveInfo, StopType
-from ..sparse import CSR, Dia, Dense, Ell, torch_dtype
-from ..hierarchy import setup, _pick_format
+from ..sparse import CSR, Dia, Dense, Ell, WEll, torch_dtype
+from ..hierarchy import setup, _pick_format, resolve_device
 from ..ops.spmv import spmv
 from ..ops.blas import norm2
 from .cycle import cycle
+from .krylov import fcg_init, fcg_step, fcg_refresh
 
 
 def print_itinfo(stop_type, it, relres, absres, factor, log=print):
@@ -49,33 +54,98 @@ def print_itinfo(stop_type, it, relres, absres, factor, log=print):
         log("%6d | %13.6e   | %13.6e  |     -.-- " % (it, relres, absres))
 
 
-def _resolve_device(device) -> torch.device:
-    device = torch.device(device)
-    if device.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError("device='cuda' requested but torch.cuda is not "
-                           "available on this machine")
-    if device.type not in ("cpu", "cuda"):
-        raise ValueError(f"unsupported device {device}")
-    return device
+def fcg_host_loop(pars, sumb, st, absres0, step, refresh, truenorm,
+                  info, log=print):
+    """FCG host loop: batched residual fetches, replacement of the
+    recursive residual every 10 iterations, and a truth check on the exact
+    stopping iterate before convergence is accepted (reference
+    false-convergence Check III, amg/Solve/SSS_cycle.cu:311-355); the
+    loop of ``amg_tpu.solve.driver.fcg_host_loop``.
+
+    ``step(st) -> (st, absres)``; ``refresh(st) -> (st, absres)`` replaces
+    the recursive residual with ``b - A x``; ``truenorm(x) -> absres``.
+    Mutates ``info``; returns the device solution.
+    """
+    check_every = 1 if pars.verbose else 4
+    refresh_every = 10
+    false_conv_left = 3
+    pending: list = []  # (it, device x, device absres)
+    xd = st[0]
+    stop = False
+    it = 0
+    while it < pars.max_it:
+        it += 1
+        st, absres_d = step(st)
+        if it % refresh_every == 0:
+            st, absres_d = refresh(st)
+        pending.append((it, st[0], absres_d))
+        if len(pending) >= check_every or it == pars.max_it:
+            # one device-to-host copy for the whole batch
+            vals = torch.stack([r for _, _, r in pending]).cpu().numpy()
+            converged = False
+            for (it_i, x_i, _), absres in zip(pending, vals):
+                absres = float(absres)
+                relres = absres / sumb
+                factor = absres / absres0 if absres0 > 0 else 0.0
+                absres0 = absres
+                if pars.verbose:
+                    print_itinfo(pars.stop_type, it_i, relres, absres,
+                                 factor, log=log)
+                if not np.isfinite(absres):
+                    if pars.verbose:
+                        log("### WARNING: residual diverged "
+                            f"(iteration {it_i}); stopping.")
+                    stop = True
+                    break
+                info.ares, info.rres, info.nits = absres, relres, it_i
+                info.residuals.append(absres)
+                xd = x_i
+                if relres < pars.tol:
+                    converged = True
+                    break
+            pending = []
+            if converged and not stop:
+                # verify on the exact stopping iterate: the recursive
+                # residual can flatter the truth by eps*kappa
+                true_abs = float(truenorm(xd))
+                true_rel = true_abs / sumb
+                if true_rel < pars.tol or false_conv_left == 0:
+                    info.ares, info.rres = true_abs, true_rel
+                    stop = True
+                else:
+                    false_conv_left -= 1
+                    # report the measured truth even if max_it exhausts
+                    # before the next check
+                    info.ares, info.rres = true_abs, true_rel
+                    absres0 = true_abs
+                    st, _ = refresh(st)
+                    if pars.verbose:
+                        log("### WARNING: false convergence "
+                            f"(true relres {true_rel:.3e}); "
+                            "residual replaced, continuing.")
+        if stop:
+            break
+    return xd
 
 
 class AMGSolver:
-    """Setup once, solve many times, on one ``device`` (default CPU).
+    """Setup once, solve many times, on one ``device`` (default the CUDA
+    card; pass ``device="cpu"`` for the CPU).
 
     ``host_hierarchy`` takes a pre-built host hierarchy, e.g. one built by
     ``amg_tpu`` and carried over with ``amg_tpu_torch.io.load_hierarchy``.
     """
 
     def __init__(self, a: CSR, pars: AMGParams = AMGParams(), log=print,
-                 host_hierarchy=None, device="cpu"):
+                 host_hierarchy=None, device="cuda"):
         if a.n_rows != a.n_cols:
             raise ValueError("AMG requires a square matrix")
         if a.nnz <= 0:
             raise ValueError("matrix has no nonzeros")
-        if pars.accel != "none":
-            raise NotImplementedError(f"accel={pars.accel!r}: Krylov "
-                                      "acceleration is not ported yet")
-        self.device = _resolve_device(device)
+        if pars.accel not in ("none", "cg"):
+            raise NotImplementedError(f"accel={pars.accel!r}: only 'none' "
+                                      "and 'cg' (flexible CG) are ported")
+        self.device = resolve_device(device)
         if self.device.type == "cuda":
             # the dense levels and the coarse-inverse apply are matmuls;
             # TF32 would cost an f32 cycle about four digits
@@ -88,9 +158,9 @@ class AMGSolver:
                                              device=self.device)
         self.pad = self.mg.levels[0].pad
         self.dtype = torch_dtype(pars.dtype)
-        # level-0 similarity permutation (set when a carried-over hierarchy
-        # had level 0 RCM-ordered): b/x0 are permuted on entry, the
-        # solution un-permuted on exit; all residual norms are invariant
+        # level-0 similarity permutation (set when level 0 is RCM-ordered
+        # for the WEll format): b/x0 are permuted on entry, the solution
+        # un-permuted on exit; all residual norms are invariant
         hp = self.host_hierarchy.perms
         self._perm0 = hp[0] if hp is not None else None
         self._iperm0 = None
@@ -111,8 +181,31 @@ class AMGSolver:
                 self.a0_hi = Dia.from_csr(a_int, **kw)
             elif fmt == "dense":
                 self.a0_hi = Dense.from_csr(a_int, pad_cols_to=self.pad, **kw)
+            elif fmt == "well":
+                # two f32 planes whose sum is the f64 operator (kernel B3)
+                self.a0_hi = WEll.from_csr_df64(a_int, pad_rows_to=self.pad,
+                                                pad_cols_to=self.pad,
+                                                device=self.device)
+                self._share_level0_plane()
             else:
                 self.a0_hi = Ell.from_csr(a_int, **kw)
+        # FCG runs in f64 around the f32 cycle when refining
+        self._accel_dtype = (torch.float64 if self.a0_hi is not None
+                             else self.dtype)
+
+    def _share_level0_plane(self):
+        """The df64 hi plane IS the f32 pack of level 0 (same packer, same
+        slots, the same f64 -> f32 rounding): the cycle's level-0 operator
+        takes it over, so level 0 sits on the card once, not twice."""
+        w0 = self.mg.levels[0].a
+        hi = self.a0_hi
+        if isinstance(w0, WEll) and w0.vals.dtype == hi.vals.dtype \
+                and w0.vals.shape == hi.vals.shape:
+            shared = WEll(hi.vals, hi.loc, hi.base, w0.shape, w0.nnz,
+                          w0.pad_cols)
+            lv0 = dataclasses.replace(self.mg.levels[0], a=shared)
+            self.mg = dataclasses.replace(
+                self.mg, levels=(lv0,) + self.mg.levels[1:])
 
     # ------------------------------------------------------------------
 
@@ -138,6 +231,20 @@ class AMGSolver:
         r2 = b_hi - spmv(a_hi, x_hi)[: b_hi.shape[0]]
         return x_hi, norm2(r2)
 
+    # -- FCG pieces: operator, preconditioner, steps -------------------
+
+    def _amul(self, v):
+        a_op = self.a0_hi if self.a0_hi is not None else self.mg.levels[0].a
+        return spmv(a_op, v)[: v.shape[0]]
+
+    def _prec(self, r):
+        """One AMG cycle in the solve dtype on the (scaled) residual."""
+        rn = norm2(r)
+        scale = torch.where(rn > 0, rn, torch.ones_like(rn))
+        r_lo = (r / scale).to(self.dtype)
+        e = cycle(self.mg, torch.zeros_like(r_lo), r_lo, self.pars)
+        return e.to(self._accel_dtype) * scale
+
     def _pad_vec(self, v, dtype=None) -> torch.Tensor:
         dt = dtype or self.dtype
         np_dt = np.float64 if dt == torch.float64 else np.float32
@@ -155,6 +262,8 @@ class AMGSolver:
 
     def solve(self, b, x0=None) -> tuple[np.ndarray, SolveInfo]:
         """Host-loop solve with live residual table (reference parity)."""
+        if self.pars.accel == "cg":
+            return self.solve_pcg(b, x0)
         if self.a0_hi is not None:
             return self.solve_refined(b, x0)
         pars = self.pars
@@ -291,6 +400,44 @@ class AMGSolver:
             self.log(f"AMG solve time: {info.solve_seconds:g} s")
         return self._unpad_vec(x_hi), info
 
+    def solve_pcg(self, b, x0=None) -> tuple[np.ndarray, SolveInfo]:
+        """AMG-preconditioned flexible CG (``pars.accel == "cg"``).
+
+        Each iteration applies one AMG cycle (in ``pars.dtype``) as the
+        preconditioner inside an FCG iteration running in f64 when
+        ``pars.refine`` is set (mixed precision), else in ``pars.dtype``.
+        ``info.nits`` counts FCG iterations (= cycles).
+        """
+        pars = self.pars
+        n = self.a.n_rows
+        adt = self._accel_dtype
+
+        bd = self._pad_vec(b, dtype=adt)
+        xd = self._pad_vec(x0 if x0 is not None else np.zeros(n), dtype=adt)
+
+        info = SolveInfo()
+        sumb = float(norm2(bd))
+        t0 = time.perf_counter()
+        if pars.verbose:
+            print_itinfo(pars.stop_type, 0, 1.0, sumb, 0.0, log=self.log)
+        if sumb == 0.0:
+            return np.zeros(n), info
+
+        st = fcg_init(self._amul, self._prec, bd, xd)
+        absres0 = float(norm2(st[1]))
+        info.residuals.append(absres0)
+        xd = fcg_host_loop(
+            pars, sumb, st, absres0,
+            step=lambda s: fcg_step(self._amul, self._prec, s),
+            refresh=lambda s: fcg_refresh(self._amul, self._prec, bd, s),
+            truenorm=lambda x: norm2(bd - self._amul(x)),
+            info=info, log=self.log)
+        info.solve_seconds = time.perf_counter() - t0
+        info.setup_seconds = self.host_hierarchy.setup_seconds
+        if pars.verbose:
+            self.log(f"AMG solve time: {info.solve_seconds:g} s")
+        return self._unpad_vec(xd), info
+
     def solve_batched(self, bs, x0s=None, tol=None):
         raise NotImplementedError("solve_batched is not ported yet")
 
@@ -300,7 +447,7 @@ class AMGSolver:
 
 
 def solver_amg(a: CSR, x, b, pars: AMGParams = AMGParams(), log=print,
-               device="cpu"):
+               device="cuda"):
     """One-shot functional API mirroring ``SSS_solver_amg`` (amg/SSS_AMG.c:9).
 
     Returns ``(x, SolveInfo)``.

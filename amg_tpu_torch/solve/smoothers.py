@@ -13,7 +13,8 @@ Here every smoother is a function over the device
   C/F ordering (``cf_order=1``) replicates the reference's F-then-C
   pre-smooth and C-then-F post-smooth (amg/Solve/SSS_smooth.c:4-87).
   On a Dia level with group weights the group update is one fused pass of
-  the DIA kernel (``dia_kernel.gs_update``).
+  the DIA kernel (``dia_kernel.gs_update``); on a WEll level it is one
+  WEll kernel product and a masked update.
 * SGS, SOR, SSOR, GSOR, SGSOR: symmetric / relaxed variants on the same
   machinery (reference enum amg/SSS_main.h:133-145).
 * Jacobi / weighted Jacobi / L1-Jacobi: one SpMV + axpy.
@@ -29,14 +30,14 @@ from __future__ import annotations
 import torch
 
 from ..params import SmootherType
-from ..sparse import Dia, Dense
+from ..sparse import Dia, Dense, WEll
 from ..ops import dia_kernel
 from ..ops.spmv import spmv
 from ..ops.blas import dot
 
 
 def _masked_group_update(level, x, b, g: int, relax=None):
-    """Gauss-Seidel update of group ``g`` on a Dia or Dense level.
+    """Gauss-Seidel update of group ``g`` on a Dia, Dense or WEll level.
 
     Gather-free: one full SpMV, then a masked update of the group's rows.
     ``t_i = (b_i - (Ax)_i + a_ii x_i) / a_ii`` is the exact GS update
@@ -140,7 +141,7 @@ def gs_sweep(level, x, b, order, relax=None):
         for g in order:
             start, size = level.ranges[g]
             upd(level, x, b, start, size, relax=relax)
-    elif isinstance(level.a, (Dia, Dense)):
+    elif isinstance(level.a, (Dia, Dense, WEll)):
         for g in order:
             x = _masked_group_update(level, x, b, g, relax=relax)
     else:

@@ -10,7 +10,9 @@ Two worlds:
 
 * **Device**: torch tensors on an explicit ``device``.  :class:`Dia` (the
   banded fast path, applied by the hand-written DIA kernel in
-  ``ops/dia_kernel.py``), :class:`Ell` (padded ELLPACK, gather SpMV) and
+  ``ops/dia_kernel.py``), :class:`WEll` (windowed-gather ELL for large
+  unstructured levels, applied by the hand-written WEll kernels in
+  ``ops/well_kernel.py``), :class:`Ell` (padded ELLPACK, gather SpMV) and
   :class:`Dense` (small deep levels, one matmul).  Each is built from a
   host CSR with the same padding as ``amg_tpu.sparse`` so vectors compare
   entry for entry, and has a ``to_csr`` for round-trip tests.
@@ -23,7 +25,7 @@ always a valid index) and ``val = 0`` so no masks are needed in compute.
 from __future__ import annotations
 
 import dataclasses
-from typing import Tuple
+from typing import Optional, Tuple
 
 import numpy as np
 import torch
@@ -558,3 +560,219 @@ class Dia:
             np.concatenate(rows_l), np.concatenate(cols_l),
             np.concatenate(data_l), self.shape,
         )
+
+
+# ---------------------------------------------------------------------------
+# Device WEll (windowed-gather ELL) format
+# ---------------------------------------------------------------------------
+
+
+@dataclasses.dataclass
+class WEll:
+    """Windowed-gather ELL: ``amg_tpu``'s format for unstructured levels.
+
+    Rows are processed in groups of 1024 (row ``g*1024 + s*128 + l`` at
+    sublane ``s``, lane ``l``).  Each group's entries are packed into
+    ``S`` slots; all entries of a slot draw x from one 1024-wide column
+    window ``[128*base, 128*base + 1024)``, with at most one entry per row
+    per slot.  An entry's column is ``(base + Q[s, r]) * 128 + r`` where
+    ``r = loc & 127`` is stored at the entry's own lane and the block
+    ``Q`` at lane ``r`` of the same sublane (``loc = (Q << 7) | r``,
+    int16); the packer keeps that lookup conflict-free.  See
+    ``amg_tpu/sparse.py:637-902`` for why the TPU needs this layout; the
+    port keeps it so that its packs equal ``amg_tpu``'s array for array and
+    the kernels (``ops/well_kernel.py``) compute the same products.
+
+    ``vals_lo`` (f32, same layout) is set by :meth:`from_csr_df64`: ``vals
+    + vals_lo`` reproduces the f64 operator to ~2^-48 relative, the input
+    of the f64 product ``well_kernel.spmv_df64``.
+    """
+
+    vals: torch.Tensor    # (ngroups, S, 8, 128) dtype
+    loc: torch.Tensor     # (ngroups, S, 8, 128) int16: (Q << 7) | r
+    base: torch.Tensor    # (ngroups, S) int32 window start (128-col units)
+    shape: Tuple[int, int]
+    nnz: int
+    pad_cols: int         # x padding the windows were clamped against
+    vals_lo: Optional[torch.Tensor] = None
+
+    @property
+    def n_rows(self) -> int:
+        return self.shape[0]
+
+    @property
+    def n_cols(self) -> int:
+        return self.shape[1]
+
+    @property
+    def padded_rows(self) -> int:
+        return self.vals.shape[0] * 1024
+
+    @property
+    def n_slots(self) -> int:
+        return self.vals.shape[1]
+
+    @staticmethod
+    def _pack_greedy_py(a: CSR, pad_cols: int):
+        """Greedy first-fit slot packer (the native packer's semantics;
+        per-entry Python loop, for test-sized matrices when no compiler is
+        available).
+
+        Admission of entry (row, col) into a slot requires, in order:
+        (1) ``128*base <= col < 128*base + 1024`` (window fit),
+        (2) the row's lane is free in the slot,
+        (3) the (output-sublane, column-remainder) cell is either free or
+            already maps to the same column block.
+        """
+        n = a.n_rows
+        ngroups = _round_up(max(n, 1), 1024) // 1024
+        base_max = pad_cols // 128 - 8
+        per_group = []
+        for g in range(ngroups):
+            r0, r1 = g * 1024, min((g + 1) * 1024, n)
+            lo, hi = int(a.indptr[r0]), int(a.indptr[r1])
+            ecols = a.indices[lo:hi].astype(np.int64)
+            erows = (np.repeat(np.arange(r0, r1),
+                               np.diff(a.indptr[r0:r1 + 1])) - r0)
+            evals = a.data[lo:hi]
+            order = np.argsort(ecols, kind="stable")
+            slots = []  # [base, occupied-rows, rmap {(su, r): q}, entries]
+            for e in order:
+                c, r = int(ecols[e]), int(erows[e])
+                su = r >> 7
+                placed = False
+                for s in slots:
+                    if not (128 * s[0] <= c < 128 * s[0] + 1024):
+                        continue
+                    if r in s[1]:
+                        continue
+                    q, rem = divmod(c - 128 * s[0], 128)
+                    prev = s[2].get((su, rem))
+                    if prev is not None and prev != q:
+                        continue
+                    s[1].add(r)
+                    s[2][(su, rem)] = q
+                    s[3].append((r, c, evals[e]))
+                    placed = True
+                    break
+                if not placed:
+                    b = min(max(c >> 7, 0), max(base_max, 0))
+                    q, rem = divmod(c - 128 * b, 128)
+                    slots.append([b, {r}, {(su, rem): q},
+                                  [(r, c, evals[e])]])
+            per_group.append(slots)
+        return per_group
+
+    @staticmethod
+    def _pads(a: CSR, pad_rows_to, pad_cols_to) -> Tuple[int, int]:
+        """(padded rows, padded columns), both multiples of 1024."""
+        pr = _round_up(max(a.n_rows, 1), 1024)
+        if pad_rows_to is not None:
+            pr = max(pr, _round_up(pad_rows_to, 1024))
+        pc = _round_up(max(a.n_cols, 1), 1024)
+        if pad_cols_to is not None:
+            pc = max(pc, _round_up(pad_cols_to, 1024))
+        return pr, pc
+
+    @staticmethod
+    def pack_host(a: CSR, dtype=np.float32, pad_rows_to: int | None = None,
+                  pad_cols_to: int | None = None):
+        """Pack a host CSR into (vals, loc, base) numpy arrays."""
+        pr, pc = WEll._pads(a, pad_rows_to, pad_cols_to)
+        ngroups = pr // 1024
+
+        try:
+            from .native import lib as _native
+        except Exception:
+            _native = None
+        if _native is not None:
+            base, loc, vals = _native.well_pack(a, ngroups, pc)
+            # native emits int32 (Q << 16) | r; re-encode to the int16
+            # (Q << 7) | r storage format (lossless: Q < 8, r < 128)
+            loc16 = (((loc >> 16) << 7) | (loc & 0x7F)).astype(np.int16)
+            return vals.astype(np.dtype(dtype), copy=False), loc16, base
+
+        per_group = WEll._pack_greedy_py(a, pc)
+        S = max(max((len(s) for s in per_group), default=1), 1)
+        vals = np.zeros((ngroups, S, 8, 128), dtype=np.dtype(dtype))
+        loc = np.zeros((ngroups, S, 8, 128), dtype=np.int16)
+        base = np.zeros((ngroups, S), dtype=np.int32)
+        for g, slots in enumerate(per_group):
+            for k, (b, _, rmap, entries) in enumerate(slots):
+                base[g, k] = b
+                for (r, c, v) in entries:
+                    s, l = r >> 7, r & 127
+                    vals[g, k, s, l] = v
+                    loc[g, k, s, l] |= (c - 128 * b) & 127
+                # Q table: lane j of sublane s holds the block of the
+                # remainder-j entry
+                for (s, rem), q in rmap.items():
+                    loc[g, k, s, rem] |= q << 7
+        return vals, loc, base
+
+    @staticmethod
+    def from_csr(a: CSR, dtype=torch.float32, pad_rows_to: int | None = None,
+                 pad_cols_to: int | None = None, device="cpu") -> "WEll":
+        """Pack a host CSR (values rounded from f64 to ``dtype``)."""
+        vals, loc, base = WEll.pack_host(a, dtype=np.float64,
+                                         pad_rows_to=pad_rows_to,
+                                         pad_cols_to=pad_cols_to)
+        _, pc = WEll._pads(a, pad_rows_to, pad_cols_to)
+        return WEll(_to_device(vals, dtype, device),
+                    torch.from_numpy(loc).to(device),
+                    torch.from_numpy(base).to(device),
+                    a.shape, a.nnz, pc)
+
+    @staticmethod
+    def from_csr_df64(a: CSR, pad_rows_to: int | None = None,
+                      pad_cols_to: int | None = None,
+                      device="cpu") -> "WEll":
+        """Pack with the operator split into non-overlapping f32 planes
+        (``vals = f32(v)``, ``vals_lo = f32(v - vals)``)."""
+        vals64, loc, base = WEll.pack_host(a, dtype=np.float64,
+                                           pad_rows_to=pad_rows_to,
+                                           pad_cols_to=pad_cols_to)
+        hi = vals64.astype(np.float32)
+        lo = (vals64 - hi.astype(np.float64)).astype(np.float32)
+        _, pc = WEll._pads(a, pad_rows_to, pad_cols_to)
+        return WEll(torch.from_numpy(hi).to(device),
+                    torch.from_numpy(loc).to(device),
+                    torch.from_numpy(base).to(device),
+                    a.shape, a.nnz, pc,
+                    vals_lo=torch.from_numpy(lo).to(device))
+
+    @staticmethod
+    def from_numpy(vals, loc, base, shape, nnz: int, pad_cols: int,
+                   vals_lo=None, device="cpu", dtype=None) -> "WEll":
+        """Wrap already-packed arrays (e.g. ``amg_tpu``'s ``WEll`` fields
+        as numpy) without repacking.  ``dtype`` defaults to the values'
+        own; pass ``torch.bfloat16`` for bf16 values handed over as float32
+        (the widening is exact)."""
+        vals = np.asarray(vals)
+        if vals.ndim != 4 or vals.shape[2:] != (8, 128):
+            raise ValueError(f"vals must be (ngroups, S, 8, 128); got "
+                             f"{vals.shape}")
+        dt = dtype if dtype is not None \
+            else torch.from_numpy(np.empty(0, dtype=vals.dtype)).dtype
+        lo = None
+        if vals_lo is not None:
+            lo = _to_device(np.asarray(vals_lo), torch.float32, device)
+        return WEll(_to_device(vals, dt, device),
+                    torch.from_numpy(np.array(loc, dtype=np.int16)).to(device),
+                    _to_device(np.asarray(base), torch.int32, device),
+                    tuple(shape), int(nnz), int(pad_cols), vals_lo=lo)
+
+    def to_csr(self) -> CSR:
+        vals = self.vals.cpu().double().numpy()
+        if self.vals_lo is not None:
+            vals = vals + self.vals_lo.cpu().double().numpy()
+        loc = self.loc.cpu().numpy().astype(np.int64)
+        base = self.base.cpu().numpy().astype(np.int64)
+        g, k, s, l = np.nonzero(vals)
+        rows = g * 1024 + s * 128 + l
+        r = loc[g, k, s, l] & 127
+        q = loc[g, k, s, r] >> 7      # Q table lives at lane = remainder
+        cols = base[g, k] * 128 + q * 128 + r
+        keep = rows < self.n_rows
+        return CSR.from_coo(rows[keep], cols[keep], vals[g, k, s, l][keep],
+                            self.shape)

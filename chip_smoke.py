@@ -6,7 +6,8 @@ Phases (any failure raises and the script exits nonzero):
 
 1. device: a CUDA card, its name and power limit (nvidia-smi), torch and
    CUDA versions, the native host-setup library;
-2. build: compiles the DIA kernel (amg_tpu_torch/csrc/dia_spmv.cu) with nvcc;
+2. build: compiles the DIA kernel (amg_tpu_torch/csrc/dia_spmv.cu) and the
+   WEll kernels (amg_tpu_torch/csrc/well_spmv.cu) with nvcc, in parallel;
 3. kernel against plain: every epilogue (spmv, resid, update) and dtype
    pair on the 1,000,000-row poisson3d(100) level-0 operator (7 diagonals)
    and a random 40-diagonal band of 1,000,000 rows, held to the tolerances
@@ -20,12 +21,29 @@ Phases (any failure raises and the script exits nonzero):
 6. main-path shapes: kernel against plain, held to the same tolerances and
    timed, on each DIA operator the solve used (the float32 level 0, the
    bfloat16 level 1, the float64 level-0 operator of defect correction),
-   for every epilogue the solve launched on it.
+   for every epilogue the solve launched on it;
+7. WEll kernels against plain: the level-0 operator of fem2d(1,000,000)
+   after RCM, packed as WEll with f32 values, bf16 values and as the df64
+   pair, through B2 (f32, bf16) and B3 (df64), held to 2e-6, 1e-5 and
+   1e-13 of max|Ax| and timed beside a torch sparse CSR product (f32 for
+   B2, f64 for B3) on the same operator;
+8. unstructured main path: fem2d(1,000,000) with bench.py's matrix-class
+   defaults (f32 cycles, FCG in f64, GS on level 0 and Chebyshev below,
+   f32 coarse operators, no sparsification) and WEll on, solved to 1e-8
+   (host-verified in float64), with B2 launched on level 0's A and on a
+   WEll P/R, and B3 launched;
+9. unstructured main-path shapes: kernel against plain, timed, on every
+   WEll operator of that solve the kernels were launched on.
 
-The last two lines of standard output are one JSON object describing the
-kernels (one entry per epilogue and operator of phase 6, with its
-main-path launch count) and one with the device.  Imports torch, numpy,
-scipy and amg_tpu_torch only.
+Each kernel result carries its bound: the larger of the bytes it must
+move (each input read once, each output written once) over the H100's
+3.35 TB/s and its flops over the card's peak for their type (67 TFLOP/s
+f32, 34 TFLOP/s f64, NVIDIA's H100 SXM data sheet).  The last three lines
+of standard output are the card's name and power limit as nvidia-smi
+gives them, one JSON object describing the kernels (one entry per
+epilogue and operator of phases 6 and 9, with its main-path launch count)
+and one with the device.  Imports torch, numpy, scipy and amg_tpu_torch
+only.
 """
 
 from __future__ import annotations
@@ -36,6 +54,7 @@ import statistics
 import subprocess
 import sys
 import time
+from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 import torch
@@ -46,9 +65,13 @@ N_SIDE = 100               # poisson3d(100): 1,000,000 rows, 6,940,000 nnz
 REPS = 21                  # timed calls per measurement (median reported)
 SLEEP_CYCLES = 4_000_000   # ~2 ms of device spin before each timed call
 FLUSH_BYTES = 256 << 20    # written before each timed call: evicts the L2
-# relative tolerances (of max|Ax|), as in tests/test_torch_dia.py: summation
-# order differs (the kernel also contracts multiply-adds into FMAs)
+FEM_ROWS = 1_000_000       # fem2d(1,000,000): the unstructured main path
+# relative tolerances (of max|Ax|), as in tests/test_torch_dia.py and
+# tests/test_torch_well.py: summation order differs (the kernels also
+# contract multiply-adds into FMAs)
 TOL = {torch.float32: 2e-6, torch.bfloat16: 1e-5, torch.float64: 1e-13}
+HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory (NVIDIA data sheet)
+PEAK_FLOPS = {torch.float32: 67e12, torch.float64: 34e12}
 
 
 def log(msg=""):
@@ -87,12 +110,33 @@ def phase_device():
 
 
 def phase_build():
-    from amg_tpu_torch.ops import dia_kernel
+    """Both kernel sources, one nvcc each, started together."""
+    from amg_tpu_torch.ops import dia_kernel, well_kernel
 
     t0 = time.perf_counter()
-    so = dia_kernel.build()
+    with ThreadPoolExecutor(max_workers=2) as pool:
+        futures = [pool.submit(m.build) for m in (dia_kernel, well_kernel)]
+        sos = [f.result() for f in futures]
     dt = time.perf_counter() - t0
-    log(f"[build] {os.path.relpath(so, REPO)} in {dt:.2f} s (nvcc, sm_90a)")
+    log(f"[build] {', '.join(os.path.relpath(so, REPO) for so in sos)} in "
+        f"{dt:.2f} s (nvcc, sm_90a)")
+
+
+def _bound(nbytes, nflops, flop_dtype):
+    """(bound_ms, bound_by): the least time for the work on an H100."""
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = nflops / PEAK_FLOPS[flop_dtype] * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def _csr_on_card(a, dtype):
+    """A host CSR as a torch sparse CSR tensor on the card (the library
+    yardstick; the port never calls it)."""
+    return torch.sparse_csr_tensor(
+        torch.from_numpy(np.asarray(a.indptr, dtype=np.int64)),
+        torch.from_numpy(np.asarray(a.indices, dtype=np.int64)),
+        torch.from_numpy(np.asarray(a.data)).to(dtype),
+        size=a.shape).cuda()
 
 
 # ---------------------------------------------------------------------------
@@ -144,11 +188,13 @@ def _operators():
                                       dtype=torch.float64)
 
 
-def _compare(tag, gpu, ep, g, flush):
+def _compare(tag, gpu, ep, g, flush, csr=None):
     """Run epilogue ``ep`` of the kernel wrapper and of its plain version on
-    the same random vectors on the card, hold them to TOL and time both.
-    Returns one result row (the launches made here are not the main path's).
-    """
+    the same random vectors on the card, hold them to TOL and time both;
+    with the operator's host ``csr``, also time the torch sparse CSR call
+    that computes the same function (spmv: ``A @ x``; resid:
+    ``addmv(b, A, x, alpha=-1)``; update: none).  Returns one result row
+    (the launches made here are not the main path's)."""
     from amg_tpu_torch.ops import dia_kernel as K
 
     fn, nargs = {"spmv": (K.spmv, 1), "resid": (K.resid, 2),
@@ -167,19 +213,35 @@ def _compare(tag, gpu, ep, g, flush):
     ok = err <= TOL[vdt] * scale
     ms = _time_ms(lambda: fn(gpu, *args), flush)
     plain_ms = _time_ms(lambda: plain(gpu, *args), flush)
+    lib_ms = None
+    if csr is not None and ep != "update":
+        lib = _csr_on_card(csr, xdt)
+        n, m = csr.shape
+        if ep == "spmv":
+            lib_ms = _time_ms(lambda: lib @ args[0][:m], flush)
+        else:
+            lib_ms = _time_ms(lambda: torch.addmv(args[1][:n], lib,
+                                                  args[0][:m], alpha=-1),
+                              flush)
+        del lib
     vb = torch.tensor([], dtype=vdt).element_size()
     xb = torch.tensor([], dtype=xdt).element_size()
     # values once, x once, y written, plus b (resid) and w (update)
     nbytes = pad * (nd * vb + (1 + nargs) * xb)
+    bound_ms, bound_by = _bound(nbytes, pad * (2 * nd + 2 * (nargs - 1)),
+                                xdt)
     row = dict(op=tag, nd=nd, pad=pad, vals=str(vdt)[6:], x=str(xdt)[6:],
                epilogue=ep, max_abs_err=err, rel_err=err / scale,
-               tol=TOL[vdt], ok=ok, ms=ms, plain_ms=plain_ms,
+               tol=TOL[vdt], ok=ok, ms=ms, plain_ms=plain_ms, lib_ms=lib_ms,
+               bound_ms=bound_ms, bound_by=bound_by,
                gbps=nbytes / ms / 1e6, plain_gbps=nbytes / plain_ms / 1e6)
+    lib_txt = f"  torch CSR {lib_ms:.4f} ms" if lib_ms is not None else ""
     log(f"[kernel] {tag:8s} nd={nd:2d} pad={pad:7d} {row['vals']:8s}/"
         f"{row['x']:7s} {ep:6s} err {err:.3e} "
         f"(rel {err / scale:.2e} <= {TOL[vdt]:g}: {ok})  "
         f"kernel {ms:.4f} ms {row['gbps']:.1f} GB/s  "
-        f"plain {plain_ms:.4f} ms {row['plain_gbps']:.1f} GB/s")
+        f"plain {plain_ms:.4f} ms {row['plain_gbps']:.1f} GB/s  "
+        f"bound {bound_ms:.4f} ms ({bound_by}){lib_txt}")
     return row
 
 
@@ -245,18 +307,24 @@ def phase_goldens():
 # ---------------------------------------------------------------------------
 
 
-def phase_main_path():
-    import amg_tpu_torch as amg
-    from amg_tpu_torch.ops import dia_kernel as K
-
-    a = amg.poisson3d(N_SIDE)
-    pars = amg.AMGParams(
+def structured_pars(amg):
+    """bench.py's defaults (bench.py:44, :106-184) at 1M rows with the
+    formats not ported yet switched off: the structured main path."""
+    return amg.AMGParams(
         dtype="float32", refine=True, accel="none",
         smoother=amg.SmootherType.GS,
         coarse_smoother=amg.SmootherType.CHEBYSHEV,
         coarse_op_dtype="bfloat16", coarse_sparsify=0.005,
         sparsify_from_level=2, coarse_stop_rows=3500, tol=1e-8, max_it=60,
         verbose=0, embed_levels=0, use_well="off", use_banded="off")
+
+
+def phase_main_path():
+    import amg_tpu_torch as amg
+    from amg_tpu_torch.ops import dia_kernel as K
+
+    a = amg.poisson3d(N_SIDE)
+    pars = structured_pars(amg)
     b = np.ones(a.n_rows)
     log(f"[main] poisson3d({N_SIDE}): {a.n_rows} rows, {a.nnz} nnz")
 
@@ -312,27 +380,273 @@ def phase_main_shapes(solver, by_shape):
     with the main path's launch count."""
     from amg_tpu_torch.sparse import Dia
 
-    ops = [(f"level{l}", lv.a) for l, lv in enumerate(solver.mg.levels)
-           if isinstance(lv.a, Dia)]
+    hh = solver.host_hierarchy
+    ops = [(f"level{l}", lv.a, hh.a[l]) for l, lv in
+           enumerate(solver.mg.levels) if isinstance(lv.a, Dia)]
     if isinstance(solver.a0_hi, Dia):
-        ops.append(("a0_hi", solver.a0_hi))
+        ops.append(("a0_hi", solver.a0_hi, hh.a[0]))
     g = torch.Generator().manual_seed(2)
     flush = torch.empty(FLUSH_BYTES, dtype=torch.uint8, device="cuda")
     rows = []
     for (ep, vdt, xdt, nd, pad), n in sorted(by_shape.items(), key=str):
-        match = [(tag, op) for tag, op in ops
+        match = [(tag, op, csr) for tag, op, csr in ops
                  if (op.vals.dtype, op.n_diags, op.padded_rows) == (vdt, nd, pad)
                  and (torch.float64 if vdt == torch.float64
                       else torch.float32) == xdt]
         check(match, f"no DIA operator of the solve has the launch shape "
                      f"{(ep, vdt, xdt, nd, pad)}")
-        for tag, op in match:
-            rows.append(dict(_compare(tag, op, ep, g, flush), launches=n))
+        for tag, op, csr in match:
+            rows.append(dict(_compare(tag, op, ep, g, flush, csr=csr),
+                             launches=n))
     del flush
     bad = [r for r in rows if not r["ok"]]
     check(not bad, f"kernel disagrees with plain version on the main "
                    f"path's operators: {bad}")
     return rows
+
+
+# ---------------------------------------------------------------------------
+# 7-9. the unstructured path: WEll kernels B2, B3 and FCG
+# ---------------------------------------------------------------------------
+
+
+def unstructured_pars(amg):
+    """bench.py's matrix-class defaults (bench.py:115-184) with WEll on."""
+    return amg.AMGParams(
+        dtype="float32", refine=True, accel="cg",
+        smoother=amg.SmootherType.GS,
+        coarse_smoother=amg.SmootherType.CHEBYSHEV,
+        coarse_op_dtype="float32", coarse_sparsify=0, coarse_stop_rows=3500,
+        tol=1e-8, max_it=60, verbose=0, use_well="on", use_banded="off",
+        embed_levels=0)
+
+
+def _compare_well(tag, op, entry, n_x, csr, g, flush):
+    """Kernel B2 (``entry="spmv"``) or B3 (``"df64"``) against its plain
+    version on one WEll operator, on a random x of length ``n_x`` (the
+    length the solve gives it), held to TOL of max|Ax|; both timed, and
+    the torch sparse CSR product of the operator's host ``csr`` beside
+    them (f32 values for B2, f64 for B3).  Returns one result row."""
+    from amg_tpu_torch.ops import well_kernel as K
+
+    df64 = entry == "df64"
+    fn, plain = ((K.spmv_df64, K.spmv_df64_plain) if df64
+                 else (K.spmv, K.spmv_plain))
+    vdt = op.vals.dtype
+    xdt = torch.float64 if (df64 or vdt == torch.float64) else torch.float32
+    tol = TOL[torch.float64 if df64 else vdt]
+    x = torch.randn(n_x, generator=g, dtype=xdt).cuda()
+    want = plain(op, x)
+    got = fn(op, x)
+    torch.cuda.synchronize()
+    check(got.dtype == xdt and got.shape == want.shape,
+          f"{tag}: kernel output {got.dtype} {tuple(got.shape)}")
+    scale = want.abs().max().item()
+    err = (got - want).abs().max().item()
+    ok = err <= tol * scale
+    ms = _time_ms(lambda: fn(op, x), flush)
+    plain_ms = _time_ms(lambda: plain(op, x), flush)
+    lib = _csr_on_card(csr, xdt)
+    xs = x[: csr.shape[1]]
+    lib_ms = _time_ms(lambda: lib @ xs, flush)
+    del lib
+    ngroups, n_slots = op.base.shape
+    entries = ngroups * n_slots * 1024
+    xb = torch.tensor([], dtype=xdt).element_size()
+    # the packed planes once (vals, vals_lo, loc, base), x once, y written
+    nbytes = (entries * (op.vals.element_size() + 2) + op.base.numel() * 4
+              + min(n_x, op.pad_cols) * xb + ngroups * 1024 * xb)
+    if df64:
+        nbytes += entries * op.vals_lo.element_size()
+    bound_ms, bound_by = _bound(nbytes, 2 * csr.nnz, xdt)
+    row = dict(op=tag, entry=entry, vals=str(vdt)[6:], x=str(xdt)[6:],
+               ngroups=ngroups, n_slots=n_slots, n_x=n_x, nnz=csr.nnz,
+               fill=csr.nnz / entries, max_abs_err=err, rel_err=err / scale,
+               tol=tol, ok=ok, ms=ms, plain_ms=plain_ms, lib_ms=lib_ms,
+               bound_ms=bound_ms, bound_by=bound_by, bytes=nbytes,
+               gbps=nbytes / ms / 1e6)
+    log(f"[well] {tag:10s} {entry:4s} {row['vals']:8s}/{row['x']:7s} "
+        f"groups={ngroups} S={n_slots} fill {row['fill']:.3f} "
+        f"err {err:.3e} (rel {err / scale:.2e} <= {tol:g}: {ok})  "
+        f"kernel {ms:.4f} ms {row['gbps']:.1f} GB/s  plain {plain_ms:.4f} ms  "
+        f"torch CSR {lib_ms:.4f} ms  bound {bound_ms:.4f} ms ({bound_by})")
+    return row
+
+
+def phase_well_kernels(a):
+    """7. B2 and B3 against plain on fem2d's level 0 after RCM (the
+    ordering the solve packs)."""
+    from scipy.sparse.csgraph import reverse_cuthill_mckee
+    from amg_tpu_torch.sparse import WEll
+
+    perm = reverse_cuthill_mckee(a.to_scipy(), symmetric_mode=True)
+    a0 = a.permute(np.asarray(perm, dtype=np.int64))
+    g = torch.Generator().manual_seed(3)
+    flush = torch.empty(FLUSH_BYTES, dtype=torch.uint8, device="cuda")
+    rows = []
+    for kind in ("float32", "bfloat16", "df64"):
+        if kind == "df64":
+            w = WEll.from_csr_df64(a0, device="cuda")
+        else:
+            w = WEll.from_csr(a0, dtype=getattr(torch, kind), device="cuda")
+        if kind == "float32":
+            # a port reading Q at the entry's own lane would be right only
+            # where Q == 0: the operator must have entries with Q > 0
+            loc = w.loc.long()
+            r = loc & 127
+            q_at_r = torch.gather(loc, 3, r) >> 7
+            n_q = int(((q_at_r > 0) & (w.vals != 0)).sum())
+            log(f"[well] level 0 after RCM: {a0.n_rows} rows, {a0.nnz} nnz, "
+                f"{n_q} slot entries with Q > 0")
+            check(n_q > 0, "no slot entry with Q > 0")
+        rows.append(_compare_well("fem2d-L0", w, "df64" if kind == "df64"
+                                  else "spmv", w.pad_cols, a0, g, flush))
+        del w
+    del flush
+    bad = [r for r in rows if not r["ok"]]
+    check(not bad, f"WEll kernel disagrees with plain version: {bad}")
+    return rows
+
+
+def phase_unstructured(a):
+    """8. The unstructured main path, driven through AMGSolver."""
+    import amg_tpu_torch as amg
+    from amg_tpu_torch.ops import dia_kernel as D, well_kernel as W
+
+    pars = unstructured_pars(amg)
+    b = np.ones(a.n_rows)
+    log(f"[fem] fem2d({FEM_ROWS}): {a.n_rows} rows, {a.nnz} nnz")
+
+    for K in (D, W):
+        for e in K.launches:
+            K.launches[e] = 0
+        K.launches_by_shape.clear()
+    t0 = time.perf_counter()
+    solver = amg.AMGSolver(a, pars, device="cuda", log=lambda *_: None)
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+    x, info = solver.solve(b)
+    torch.cuda.synchronize()
+    launches = dict(W.launches)
+    by_shape = dict(W.launches_by_shape)
+    dia_launches = dict(D.launches)
+
+    mg = solver.mg
+    for l, lv in enumerate(mg.levels):
+        desc = [f"{type(lv.a).__name__} {str(lv.a.vals.dtype)[6:]}"]
+        if isinstance(lv.a, amg.WEll):
+            desc.append(f"n_slots {lv.a.n_slots}")
+        for name in ("p", "r"):
+            op = getattr(lv, name)
+            if op is not None:
+                s_txt = (f" S={op.n_slots}" if isinstance(op, amg.WEll)
+                         else "")
+                desc.append(f"{name.upper()} {type(op).__name__} "
+                            f"{str(op.vals.dtype)[6:]}{s_txt}")
+        log(f"[fem] level {l}: {lv.n} rows, pad {lv.pad}, {', '.join(desc)}")
+    shared = mg.levels[0].a.vals is solver.a0_hi.vals
+    log(f"[fem] f64 operator: {type(solver.a0_hi).__name__} df64 "
+        f"(hi plane shared with level 0: {shared})")
+    true_rel = float(np.linalg.norm(b - a.matvec(x.astype(np.float64)))
+                     / np.linalg.norm(b))
+    log(f"[fem] setup {setup_s:.2f} s (host hierarchy "
+        f"{solver.host_hierarchy.setup_seconds:.2f} s), cold solve "
+        f"{info.solve_seconds:.4f} s, FCG its {info.nits}, rres "
+        f"{info.rres:.3e}, true rres (host f64) {true_rel:.3e}")
+    log(f"[fem] WEll kernel launches in the main path: {launches}; DIA: "
+        f"{dia_launches}")
+    for (entry, vdt, n_slots, ngroups), n in sorted(by_shape.items(),
+                                                     key=str):
+        log(f"[fem]   {entry:4s} {str(vdt)[6:]} S={n_slots} "
+            f"groups={ngroups}: {n}")
+    check(np.all(np.isfinite(x)) and x.shape == (a.n_rows,),
+          "solution not finite or wrong shape")
+    check(true_rel < 1e-8 and info.nits <= pars.max_it,
+          f"unstructured path did not reach 1e-8 (true rres {true_rel:.3e})")
+    check(shared, "level 0 does not share the df64 hi plane")
+
+    def key(op, entry="spmv"):
+        return (entry, op.vals.dtype, op.n_slots, op.vals.shape[0])
+
+    a0 = mg.levels[0].a
+    check(isinstance(a0, amg.WEll) and by_shape.get(key(a0), 0) > 0,
+          "B2 was not launched on level 0's A")
+    transfers = [op for lv in mg.levels for op in (lv.p, lv.r)
+                 if isinstance(op, amg.WEll)]
+    check(any(by_shape.get(key(op), 0) > 0 for op in transfers),
+          "B2 was not launched on a WEll P/R")
+    check(launches["df64"] > 0, "B3 was not launched")
+    check(sum(by_shape.values()) == sum(launches.values()),
+          "per-shape launch counts do not add up")
+
+    _, info2 = solver.solve(b)
+    torch.cuda.synchronize()
+    log(f"[fem] warm solve {info2.solve_seconds:.4f} s, FCG its "
+        f"{info2.nits}")
+    return solver, by_shape
+
+
+def phase_unstructured_shapes(solver, by_shape):
+    """9. Kernel against plain on every WEll operator of the solve the
+    kernels were launched on, with x of the length the cycle gives it.
+    Returns one row per (launch shape, operator), with the main path's
+    launch count."""
+    import amg_tpu_torch as amg
+
+    mg, hh = solver.mg, solver.host_hierarchy
+    ops = []   # (tag, op, entry, n_x, host csr)
+    for l, lv in enumerate(mg.levels):
+        if isinstance(lv.a, amg.WEll):
+            ops.append((f"A{l}", lv.a, "spmv", lv.pad, hh.a[l]))
+        if isinstance(lv.p, amg.WEll):
+            ops.append((f"P{l}", lv.p, "spmv", mg.levels[l + 1].pad,
+                        hh.p[l]))
+        if isinstance(lv.r, amg.WEll):
+            ops.append((f"R{l}", lv.r, "spmv", lv.pad, hh.r[l]))
+    ops.append(("a0_hi", solver.a0_hi, "df64", solver.pad, hh.a[0]))
+    g = torch.Generator().manual_seed(4)
+    flush = torch.empty(FLUSH_BYTES, dtype=torch.uint8, device="cuda")
+    rows = []
+    for (entry, vdt, n_slots, ngroups), n in sorted(by_shape.items(),
+                                                     key=str):
+        match = [o for o in ops if o[2] == entry
+                 and (o[1].vals.dtype, o[1].n_slots, o[1].vals.shape[0])
+                 == (vdt, n_slots, ngroups)]
+        check(match, f"no WEll operator of the solve has the launch shape "
+                     f"{(entry, vdt, n_slots, ngroups)}")
+        for tag, op, entry_, n_x, csr in match:
+            rows.append(dict(_compare_well(tag, op, entry_, n_x, csr, g,
+                                           flush), launches=n))
+    del flush
+    bad = [r for r in rows if not r["ok"]]
+    check(not bad, f"WEll kernel disagrees with plain version on the "
+                   f"unstructured path's operators: {bad}")
+    return rows
+
+
+def _kernel_entries(dia_rows, well_rows):
+    """The ``kernels`` JSON entries: one per (epilogue, operator) of
+    phase 6 and per (entry, operator) of phase 9."""
+    out = [{
+        "name": f"dia_spmv.{r['epilogue']}[{r['op']} {r['vals']}/{r['x']} "
+                f"nd={r['nd']} pad={r['pad']}]",
+        "route": "cuda", "source": "amg_tpu_torch/csrc/dia_spmv.cu",
+        "replaces": "amg_tpu/ops/pallas_dia.py:117",
+        "launches": r["launches"], "max_abs_err": r["max_abs_err"],
+        "ms": r["ms"], "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
+        "bound_by": r["bound_by"], "library_ms": r["lib_ms"],
+        "lib_ms": r["lib_ms"]} for r in dia_rows]
+    out += [{
+        "name": f"well_spmv.{r['entry']}[{r['op']} {r['vals']}/{r['x']} "
+                f"S={r['n_slots']} groups={r['ngroups']}]",
+        "route": "cuda", "source": "amg_tpu_torch/csrc/well_spmv.cu",
+        "replaces": ("amg_tpu/ops/pallas_well.py:146" if r["entry"] == "df64"
+                     else "amg_tpu/ops/pallas_well.py:77"),
+        "launches": r["launches"], "max_abs_err": r["max_abs_err"],
+        "ms": r["ms"], "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
+        "bound_by": r["bound_by"], "library_ms": r["lib_ms"],
+        "lib_ms": r["lib_ms"]} for r in well_rows]
+    return out
 
 
 def main() -> int:
@@ -341,26 +655,43 @@ def main() -> int:
               "an NVIDIA card", file=sys.stderr)
         return 1
     t_start = time.perf_counter()
+    stamps = []
+
+    def stamp(name):
+        stamps.append((name, time.perf_counter()))
+
     name, smi = phase_device()
     phase_build()
+    stamp("build")
     phase_kernels()
+    stamp("dia kernels")
     phase_goldens()
+    stamp("goldens")
     solver, by_shape, _ = phase_main_path()
-    rows = phase_main_shapes(solver, by_shape)
+    stamp("structured path")
+    dia_rows = phase_main_shapes(solver, by_shape)
     del solver
+    stamp("structured shapes")
+    import amg_tpu_torch as amg
 
-    # one entry per (epilogue, operator) the main path launched the kernel
-    # on: its launch count, error and times at that operator's own shape
-    kernels = [{
-        "name": f"dia_spmv.{r['epilogue']}[{r['op']} {r['vals']}/{r['x']} "
-                f"nd={r['nd']} pad={r['pad']}]",
-        "route": "cuda", "source": "amg_tpu_torch/csrc/dia_spmv.cu",
-        "replaces": "amg_tpu/ops/pallas_dia.py:117",
-        "launches": r["launches"], "max_abs_err": r["max_abs_err"],
-        "ms": r["ms"], "plain_ms": r["plain_ms"]} for r in rows]
+    a = amg.fem2d(FEM_ROWS, seed=0)
+    stamp("fem2d matrix")
+    phase_well_kernels(a)
+    stamp("well kernels")
+    solver, well_by_shape = phase_unstructured(a)
+    stamp("unstructured path")
+    well_rows = phase_unstructured_shapes(solver, well_by_shape)
+    del solver
+    stamp("unstructured shapes")
+
+    prev = t_start
+    for label, t in stamps:
+        log(f"[time] {label}: {t - prev:.1f} s")
+        prev = t
     log(f"[done] {time.perf_counter() - t_start:.1f} s in all; "
         f"card: {smi}")
-    log(json.dumps({"kernels": kernels}))
+    log(smi)
+    log(json.dumps({"kernels": _kernel_entries(dia_rows, well_rows)}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,
         "count": torch.cuda.device_count()}}))

@@ -1,0 +1,116 @@
+"""Where the device time of a warm amg_tpu_torch solve goes, on one GPU.
+
+    python3 profile_torch.py                  # fem2d(1,000,000), unstructured
+    python3 profile_torch.py --structured     # poisson3d(100), structured
+
+Builds the main-path configuration of ``chip_smoke.py`` (phase 8, or
+phase 5 with ``--structured``), runs a cold and a warm solve, then one
+more warm solve under ``torch.profiler`` and prints: the wall time of the
+solves, the device time of every kernel by name (sums over the profiled
+solve), the same sums grouped by what the kernels do, and the device's
+busy share of the profiled window.  Prints the card's name and power
+limit (nvidia-smi) first.  Needs a CUDA card; imports no JAX.
+"""
+
+from __future__ import annotations
+
+import argparse
+import subprocess
+import sys
+import time
+
+import numpy as np
+import torch
+
+# kernel-name fragments -> group (first match wins)
+GROUPS = (
+    ("well_df64_kernel", "B3 WEll df64 (well_spmv.cu)"),
+    ("well_kernel", "B2 WEll (well_spmv.cu)"),
+    ("dia_kernel", "B1 DIA (dia_spmv.cu)"),
+    ("gemv", "dense matvec (cuBLAS)"),
+    ("gemm", "dense matvec (cuBLAS)"),
+    ("reduce", "reductions (dot, norm)"),
+    ("index", "gathers / index (Ell, GS groups)"),
+    ("gather", "gathers / index (Ell, GS groups)"),
+    ("Memcpy", "memcpy host<->device"),
+    ("Memset", "memset / fill"),
+    ("fill", "memset / fill"),
+    ("elementwise", "elementwise (vector updates)"),
+)
+
+
+def _device_us(evt) -> float:
+    for attr in ("self_device_time_total", "self_cuda_time_total"):
+        v = getattr(evt, attr, None)
+        if v is not None:
+            return float(v)
+    return 0.0
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--structured", action="store_true",
+                    help="poisson3d(100) instead of fem2d(1,000,000)")
+    args = ap.parse_args()
+    if not torch.cuda.is_available():
+        print("profile_torch: needs a CUDA card", file=sys.stderr)
+        return 1
+    import amg_tpu_torch as amg
+    from chip_smoke import FEM_ROWS, structured_pars, unstructured_pars
+    from torch.profiler import ProfilerActivity, profile
+
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True, timeout=60, check=True).stdout.strip()
+    print(f"card: {smi}; torch {torch.__version__}, CUDA {torch.version.cuda}")
+    if args.structured:
+        a, pars, what = amg.poisson3d(100), structured_pars(amg), \
+            "poisson3d(100)"
+    else:
+        a, pars, what = amg.fem2d(FEM_ROWS, seed=0), \
+            unstructured_pars(amg), f"fem2d({FEM_ROWS})"
+    b = np.ones(a.n_rows)
+    solver = amg.AMGSolver(a, pars, log=lambda *_: None)
+    times = []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        _, info = solver.solve(b)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+    print(f"{what}: {info.nits} iterations, rres {info.rres:.3e}; solve "
+          f"wall s (cold, warm, warm): {times}")
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        solver.solve(b)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    rows = []
+    for evt in prof.key_averages():
+        us = _device_us(evt)
+        if us > 0 and evt.device_type == torch.autograd.DeviceType.CUDA:
+            rows.append((us, evt.count, evt.key))
+    rows.sort(reverse=True)
+    total = sum(r[0] for r in rows)
+    print(f"profiled warm solve: wall {wall * 1e3:.2f} ms (profiler on), "
+          f"device time {total / 1e3:.2f} ms, device busy "
+          f"{100 * total / 1e3 / (wall * 1e3):.1f}%")
+    print("device time by kernel (ms, calls, name):")
+    for us, count, key in rows[:25]:
+        print(f"  {us / 1e3:9.3f} {count:6d}  {key[:110]}")
+    groups: dict = {}
+    for us, count, key in rows:
+        g = next((name for frag, name in GROUPS if frag in key), "other")
+        t, c = groups.get(g, (0.0, 0))
+        groups[g] = (t + us, c + count)
+    print("device time by group (ms, share, calls):")
+    for g, (us, c) in sorted(groups.items(), key=lambda kv: -kv[1][0]):
+        print(f"  {us / 1e3:9.3f} {100 * us / total:5.1f}% {c:6d}  {g}")
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

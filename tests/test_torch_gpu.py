@@ -6,8 +6,8 @@ amg_tpu, so on the card's machine (which has no JAX) it runs as::
     python -m pytest --noconftest tests/test_torch_gpu.py -q
 
 (``--noconftest``: tests/conftest.py sets up JAX for the rest of the
-suite).  Tolerances are those of tests/test_torch_dia.py and
-tests/test_torch_solve.py.
+suite).  Tolerances are those of tests/test_torch_dia.py,
+tests/test_torch_well.py and tests/test_torch_solve.py.
 """
 
 import json
@@ -18,8 +18,8 @@ import pytest
 import torch
 
 import amg_tpu_torch as amg
-from amg_tpu_torch.ops import dia_kernel
-from amg_tpu_torch.sparse import CSR, Dia
+from amg_tpu_torch.ops import dia_kernel, well_kernel
+from amg_tpu_torch.sparse import CSR, Dia, WEll
 
 pytestmark = pytest.mark.gpu
 
@@ -122,3 +122,86 @@ def test_slice_on_card():
         / np.sqrt(a.n_rows)
     assert info.rres < 1e-8 and true_rel < 1e-8
     assert all(dia_kernel.launches[e] > before[e] for e in before)
+
+
+def _well_pack(a, kind, device):
+    if kind == "df64":
+        return WEll.from_csr_df64(a, device=device)
+    return WEll.from_csr(a, dtype=getattr(torch, kind), device=device)
+
+
+@pytest.mark.parametrize("short_x", [False, True])
+@pytest.mark.parametrize("kind", ["float32", "bfloat16", "float64", "df64"])
+def test_well_kernel_matches_plain(kind, short_x):
+    """Kernels B2 (f32, bf16, f64 values) and B3 (df64) against their plain
+    versions on the card, on an RCM-ordered fem2d operator, with x of
+    length pad_cols and shorter (reads past its end are 0)."""
+    _needs_card()
+    from scipy.sparse.csgraph import reverse_cuthill_mckee
+
+    a = amg.fem2d(5000, seed=9)
+    a = a.permute(np.asarray(reverse_cuthill_mckee(
+        a.to_scipy(), symmetric_mode=True), dtype=np.int64))
+    cpu, gpu = _well_pack(a, kind, "cpu"), _well_pack(a, kind, "cuda")
+    df64 = kind == "df64"
+    xdt = torch.float64 if kind in ("float64", "df64") else torch.float32
+    n_x = a.n_cols if short_x else cpu.pad_cols
+    x = torch.randn(n_x, generator=torch.Generator().manual_seed(5),
+                    dtype=xdt)
+    fn = well_kernel.spmv_df64 if df64 else well_kernel.spmv
+    entry = "df64" if df64 else "spmv"
+    key = (entry, gpu.vals.dtype, gpu.n_slots, gpu.vals.shape[0])
+    before = well_kernel.launches[entry]
+    before_shape = well_kernel.launches_by_shape.get(key, 0)
+    got = fn(gpu, x.cuda())
+    torch.cuda.synchronize()
+    assert well_kernel.launches[entry] == before + 1
+    assert well_kernel.launches_by_shape[key] == before_shape + 1
+    assert got.is_cuda and got.dtype == xdt and got.shape == \
+        (cpu.padded_rows,)
+    want = fn(cpu, x)
+    tol = {"float32": 2e-6, "bfloat16": 1e-5, "float64": 1e-13,
+           "df64": 1e-13}[kind]
+    err = (got.cpu() - want).abs().max().item() / want.abs().max().item()
+    assert err <= tol, (kind, short_x, err)
+
+
+def test_well_cuda_tensor_never_falls_back():
+    """A CUDA tensor reaches the WEll kernels or raises."""
+    _needs_card()
+    w = WEll.from_csr(amg.fem2d(2500, seed=2), device="cuda")
+    with pytest.raises(TypeError):
+        well_kernel.spmv(w, torch.zeros(w.pad_cols, dtype=torch.float64,
+                                        device="cuda"))
+    with pytest.raises(ValueError):
+        well_kernel.spmv(w, torch.zeros(w.pad_cols))   # CPU x
+    with pytest.raises(ValueError, match="vals_lo"):
+        well_kernel.spmv_df64(w, torch.zeros(w.pad_cols, dtype=torch.float64,
+                                             device="cuda"))
+
+
+def test_unstructured_slice_on_card():
+    """The unstructured main-path configuration at test size on the card:
+    WEll levels, FCG in f64 through B3, converges to 1e-8 (host-verified)
+    with both kernels launched."""
+    _needs_card()
+    a = amg.fem2d(20000, seed=17)
+    pars = amg.AMGParams(
+        dtype="float32", refine=True, accel="cg",
+        smoother=amg.SmootherType.GS,
+        coarse_smoother=amg.SmootherType.CHEBYSHEV,
+        coarse_op_dtype="float32", coarse_sparsify=0, coarse_stop_rows=3500,
+        tol=1e-8, max_it=60, use_well="on", use_banded="off",
+        embed_levels=0, well_min_rows=1024, dense_level_bytes=2e7,
+        verbose=0)
+    before = dict(well_kernel.launches)
+    solver = amg.AMGSolver(a, pars, log=lambda *_: None)   # the card
+    assert solver.device.type == "cuda"
+    assert isinstance(solver.mg.levels[0].a, WEll)
+    assert solver.mg.levels[0].a.vals is solver.a0_hi.vals
+    b = np.random.default_rng(23).standard_normal(a.n_rows)
+    x, info = solver.solve(b)
+    true_rel = np.linalg.norm(b - a.matvec(x.astype(np.float64))) \
+        / np.linalg.norm(b)
+    assert info.rres < 1e-8 and true_rel < 1e-8 and info.nits <= 20
+    assert all(well_kernel.launches[e] > before[e] for e in before)

@@ -15,6 +15,8 @@ import numpy as np
 import pytest
 import torch
 
+import jax.numpy as jnp
+
 import amg_tpu as jamg
 from amg_tpu import hierarchy as jh
 from amg_tpu.io import checkpoint as jck
@@ -29,6 +31,12 @@ FLAGS = dict(use_well="off", use_banded="off", embed_levels=0, verbose=0)
 SLICE = dict(dtype="float32", refine=True, smoother="GS",
              coarse_smoother="CHEBYSHEV", coarse_op_dtype="bfloat16",
              coarse_sparsify=0.005, sparsify_from_level=2)
+# the unstructured slice (WEll levels, FCG) at test size: well_min_rows
+# and the Dense budget lowered so that fem2d(5000)'s top levels are WEll
+WELL = dict(dtype="float32", refine=True, accel="cg", smoother="GS",
+            coarse_smoother="CHEBYSHEV", coarse_op_dtype="float32",
+            coarse_sparsify=0, use_well="on", well_min_rows=1024,
+            dense_level_bytes=2e7)
 
 
 def _matrix(name):
@@ -41,6 +49,8 @@ def _matrix(name):
     if name == "p2d48aniso":
         return (jamg.poisson2d(48, epsilon=1e-3),
                 tamg.poisson2d(48, epsilon=1e-3))
+    if name == "fem2d":
+        return jamg.fem2d(5000, seed=9), tamg.fem2d(5000, seed=9)
     raise KeyError(name)
 
 
@@ -104,16 +114,29 @@ HOST_CASES = [
     ("p3d16", dict(cs_type="PMIS")),
     ("p3d16", dict(cs_type="SA")),
     ("p3d16", SLICE),
+    ("fem2d", WELL),
+    ("fem2d", dict(WELL, coarse_smoother="GS")),
 ]
 
 
 def test_native_library_built():
-    """The port builds amg_tpu's C++ source into its own directory."""
+    """The port builds its own copy of the C++ source into its own
+    directory."""
     assert tnative.lib is not None
     assert os.path.dirname(tnative._SO).endswith(
         os.path.join("amg_tpu_torch", "build"))
-    assert tnative._SRC.endswith(os.path.join("amg_tpu", "native",
+    assert tnative._SRC.endswith(os.path.join("amg_tpu_torch", "native",
                                               "amg_native.cpp"))
+
+
+def test_native_source_copy_identical():
+    """The port's copy of the setup C++ is byte for byte amg_tpu's."""
+    from amg_tpu import native as jnative
+
+    with open(jnative._SRC, "rb") as f:
+        want = f.read()
+    with open(tnative._SRC, "rb") as f:
+        assert f.read() == want
 
 
 @pytest.mark.parametrize(
@@ -126,15 +149,27 @@ def test_host_hierarchy_identical(name, kw):
     _assert_host_equal(hj, ht)
 
 
-def test_checkpoint_carry_over(tmp_path):
+@pytest.mark.parametrize("name,kw", [("p3d16", dict(interp_type="STD")),
+                                     ("fem2d", WELL)],
+                         ids=["p3d16-STD", "fem2d-well"])
+def test_checkpoint_carry_over(tmp_path, name, kw):
     """amg_tpu.save_hierarchy -> port load_hierarchy gives identical
-    arrays (format v3, reorder metadata included)."""
-    hj, _, _, _ = _host_pair("p3d16", interp_type="STD")
+    arrays (format v3, reorder metadata included: the level-0 RCM
+    permutation of a WEll level 0 too), and the loaded hierarchy packs
+    as amg_tpu packs its own."""
+    hj, _, pj, pt = _host_pair(name, **kw)
     path = tmp_path / "hh.npz"
     jck.save_hierarchy(path, hj)
     ht = tck.load_hierarchy(path)
     _assert_host_equal(hj, ht)
     assert ht.setup_seconds == hj.setup_seconds
+    mj = jh.to_device(hj, pj)
+    mt = th.to_device(ht, pt, device="cpu")
+    for l, (lj, lt) in enumerate(zip(mj.levels, mt.levels)):
+        for op in ("a", "p", "r"):
+            if getattr(lj, op) is not None:
+                _assert_op_equal(getattr(lj, op), getattr(lt, op),
+                                 f"{op}[{l}]")
     # and back: the port writes what amg_tpu reads
     path2 = tmp_path / "hh2.npz"
     tck.save_hierarchy(path2, ht)
@@ -144,6 +179,27 @@ def test_checkpoint_carry_over(tmp_path):
 def _np(t):
     return t.cpu().float().numpy() if t.dtype == torch.bfloat16 \
         else t.cpu().numpy()
+
+
+def _assert_op_equal(oj, ot, what):
+    """One packed operator (A, P or R) of both packages, field by field."""
+    kind = type(oj).__name__
+    assert kind == type(ot).__name__, what
+    bf16 = oj.vals.dtype == jnp.bfloat16
+    assert (ot.vals.dtype == torch.bfloat16) == bf16, what
+    _assert_dev_equal(oj.vals, ot.vals, f"{what}.vals", bf16)
+    if kind == "Dia":
+        assert tuple(oj.offsets) == ot.offsets, what
+    if kind == "Ell":
+        _assert_dev_equal(oj.cols, ot.cols, f"{what}.cols")
+    if kind == "WEll":
+        assert (oj.shape, oj.nnz, oj.pad_cols) == \
+            (ot.shape, ot.nnz, ot.pad_cols), what
+        _assert_dev_equal(oj.loc, ot.loc, f"{what}.loc")
+        _assert_dev_equal(oj.base, ot.base, f"{what}.base")
+        assert (oj.vals_lo is None) == (ot.vals_lo is None), what
+        if oj.vals_lo is not None:
+            _assert_dev_equal(oj.vals_lo, ot.vals_lo, f"{what}.vals_lo")
 
 
 def _assert_dev_equal(xj, xt, what, bf16=False):
@@ -159,37 +215,36 @@ PACK_CASES = [
     ("1138_bus", {}),
     ("p3d16", {}),
     ("p3d16", SLICE),
+    ("fem2d", WELL),
+    ("fem2d", dict(WELL, transfer_op_dtype="bfloat16")),
 ]
 
 
 @pytest.mark.parametrize("name,kw", PACK_CASES,
-                         ids=["1138_bus", "p3d16", "p3d16-slice"])
+                         ids=["1138_bus", "p3d16", "p3d16-slice",
+                              "fem2d-well", "fem2d-well-bf16-transfer"])
 def test_device_pack_matches(name, kw):
     """Port ``to_device`` against amg_tpu's: same formats, pads, operator
-    values, transfer operators, diagonals, GS groups and coarse inverse."""
-    import jax.numpy as jnp
-
+    values, transfer operators, diagonals, GS groups and coarse inverse
+    (and, with WEll levels, the same level-0 RCM permutation)."""
     hj, ht, pj, pt = _host_pair(name, **kw)
+    if kw.get("use_well") == "on":
+        assert ht.perms[0] is not None
     mj = jh.to_device(hj, pj)
-    mt = th.to_device(ht, pt)
+    mt = th.to_device(ht, pt, device="cpu")
     assert mj.num_levels == mt.num_levels
+    kinds = set()
     for l, (lj, lt) in enumerate(zip(mj.levels, mt.levels)):
-        assert type(lj.a).__name__ == type(lt.a).__name__, l
+        kinds.add(type(lt.a).__name__)
         assert lj.pad == lt.pad
-        bf16 = lj.a.vals.dtype == jnp.bfloat16
-        assert (lt.a.vals.dtype == torch.bfloat16) == bf16
-        _assert_dev_equal(lj.a.vals, lt.a.vals, f"a[{l}].vals", bf16)
-        if type(lj.a).__name__ == "Dia":
-            assert tuple(lj.a.offsets) == lt.a.offsets
+        _assert_op_equal(lj.a, lt.a, f"a[{l}]")
         if type(lj.a).__name__ == "Ell":
-            _assert_dev_equal(lj.a.cols, lt.a.cols, f"a[{l}].cols")
             _assert_dev_equal(lj.diag_mask, lt.diag_mask, f"diag_mask[{l}]")
         for op in ("p", "r"):
             oj, ot = getattr(lj, op), getattr(lt, op)
             assert (oj is None) == (ot is None)
             if oj is not None:
-                _assert_dev_equal(oj.cols, ot.cols, f"{op}[{l}].cols")
-                _assert_dev_equal(oj.vals, ot.vals, f"{op}[{l}].vals")
+                _assert_op_equal(oj, ot, f"{op}[{l}]")
         for v in ("diag", "inv_diag", "l1_inv", "gid", "gs_w"):
             vj, vt = getattr(lj, v), getattr(lt, v)
             assert (vj is None) == (vt is None), f"{v}[{l}]"
@@ -204,11 +259,30 @@ def test_device_pack_matches(name, kw):
                 np.testing.assert_array_equal(
                     gj[g][gj[g] < lj.pad], idx.numpy())
     _assert_dev_equal(mj.coarse_inv, mt.coarse_inv, "coarse_inv")
+    if kw.get("use_well") == "on":
+        assert "WEll" in kinds and isinstance(mt.levels[0].p, tamg.WEll)
+
+
+def test_restored_hierarchy_gets_level0_rcm():
+    """A restored hierarchy whose coarse levels were reordered but whose
+    level 0 was not (perms[0] None) gets level 0's RCM pass in ``setup``
+    when level 0 is headed for WEll, as in amg_tpu."""
+    aj, at = _matrix("fem2d")
+    pj, pt = _pars(jamg, **WELL), _pars(tamg, **WELL)
+    off_j, off_t = pj.replace(use_well="off"), pt.replace(use_well="off")
+    hj = jh.reorder_for_gs(jh.setup_host(aj, off_j), off_j)
+    ht = th.reorder_for_gs(th.setup_host(at, off_t), off_t)
+    assert ht.perms[0] is None
+    mj, _ = jh.setup(aj, pj, hh=hj, log=lambda *_: None)
+    mt, _ = th.setup(at, pt, hh=ht, log=lambda *_: None, device="cpu")
+    assert ht.perms[0] is not None
+    np.testing.assert_array_equal(ht.perms[0], hj.perms[0])
+    _assert_op_equal(mj.levels[0].a, mt.levels[0].a, "a[0]")
 
 
 def test_unported_options_raise():
     a = tamg.poisson3d(6)
-    for kw in (dict(use_well="on"), dict(use_banded="on"),
-               dict(embed_levels=2), dict(dtype="bfloat16")):
+    for kw in (dict(use_banded="on"), dict(embed_levels=2),
+               dict(dtype="bfloat16")):
         with pytest.raises(NotImplementedError):
-            tamg.setup(a, tamg.AMGParams(verbose=0, **kw))
+            tamg.setup(a, tamg.AMGParams(verbose=0, **kw), device="cpu")

@@ -33,6 +33,7 @@ DATA = os.path.join(REPO, "tests", "data")
 GOLD = os.path.join(DATA, "golden")
 FLAGS = dict(use_well="off", use_banded="off", embed_levels=0, verbose=0)
 QUIET = dict(log=lambda *a, **k: None)
+CPU = dict(device="cpu")   # the port's entry points default to the card
 
 
 def _golden_matrix(name):
@@ -100,7 +101,7 @@ def _check_slice_run(info, jinfo, a, x):
 def test_slice_matches_amg_tpu(jax_slice_run):
     jinfo, _ = jax_slice_run
     a = tamg.poisson3d(20)
-    solver = tamg.AMGSolver(a, _slice_pars(tamg), **QUIET)
+    solver = tamg.AMGSolver(a, _slice_pars(tamg), **QUIET, **CPU)
     fmts = [type(l.a).__name__ for l in solver.mg.levels]
     assert fmts[0] == "Dia" and solver.mg.levels[0].gs_w is not None
     assert solver.a0_hi is not None and solver.a0_hi.vals.dtype == \
@@ -116,7 +117,7 @@ def test_carried_hierarchy(jax_slice_run):
     a = tamg.poisson3d(20)
     hh = tamg.load_hierarchy(path)
     solver = tamg.AMGSolver(a, _slice_pars(tamg), host_hierarchy=hh,
-                            **QUIET)
+                            **QUIET, **CPU)
     assert solver.host_hierarchy is hh
     x, info = solver.solve(np.ones(a.n_rows))
     _check_slice_run(info, jinfo, a, x)
@@ -132,8 +133,10 @@ def packed_pairs():
     GS-family groups on every level: 1138_bus with the Dense format off
     (level 0 an unpermuted Ell level: the gather group path; coarse levels
     color-permuted Ell: the range path), 1138_bus as is (Dense levels: the
-    masked path on level 0, the dense range path below) and poisson2d(24)
-    (Dia levels: masked and fused group updates)."""
+    masked path on level 0, the dense range path below), poisson2d(24)
+    (Dia levels: masked and fused group updates) and fem2d(5000) with
+    WEll on (RCM level 0 and barycentric level 1 as f64 WEll: the masked
+    path through the WEll product)."""
     from amg_tpu import hierarchy as jh
     from amg_tpu_torch import hierarchy as th
 
@@ -143,17 +146,22 @@ def packed_pairs():
             ("1138_bus-ell", jamg.read_mtx(path), tamg.read_mtx(path),
              dict(dense_level_bytes=0)),
             ("1138_bus", jamg.read_mtx(path), tamg.read_mtx(path), {}),
-            ("p2d24", jamg.poisson2d(24), tamg.poisson2d(24), {})):
-        pj = jamg.AMGParams(relax=0.9, **FLAGS, **kw)
-        pt = tamg.AMGParams(relax=0.9, **FLAGS, **kw)
+            ("p2d24", jamg.poisson2d(24), tamg.poisson2d(24), {}),
+            ("fem2d-well", jamg.fem2d(5000, seed=9),
+             tamg.fem2d(5000, seed=9),
+             dict(use_well="on", well_min_rows=1024,
+                  dense_level_bytes=2e7))):
+        pj = jamg.AMGParams(relax=0.9, **{**FLAGS, **kw})
+        pt = tamg.AMGParams(relax=0.9, **{**FLAGS, **kw})
         mj, _ = jh.setup(aj, pj, **QUIET)
-        mt, _ = th.setup(at, pt, **QUIET)
+        mt, _ = th.setup(at, pt, **QUIET, **CPU)
         out[name] = (mj, mt, pj, pt)
     return out
 
 
 @pytest.mark.parametrize("smoother", SMOOTHERS)
-@pytest.mark.parametrize("matrix", ["1138_bus-ell", "1138_bus", "p2d24"])
+@pytest.mark.parametrize("matrix", ["1138_bus-ell", "1138_bus", "p2d24",
+                                    "fem2d-well"])
 def test_smoothers_match_amg_tpu(packed_pairs, matrix, smoother):
     """Every smoother branch, pre and post, on levels 0 and 1 of the same
     packed hierarchy in both packages (amg_tpu's smoother run eagerly, no
@@ -181,7 +189,60 @@ def test_smoothers_match_amg_tpu(packed_pairs, matrix, smoother):
             np.testing.assert_allclose(got.numpy(), want, rtol=0,
                                        atol=1e-12 * np.abs(want).max())
     assert kinds == {"1138_bus-ell": {"Ell"}, "1138_bus": {"Dense"},
-                     "p2d24": {"Dia"}}[matrix]
+                     "p2d24": {"Dia"}, "fem2d-well": {"WEll"}}[matrix]
+
+
+def _well_pars(pkg):
+    """The unstructured main path (chip_smoke.py phase 8, bench.py's
+    matrix-class defaults) at test size: fem2d(20000) with well_min_rows
+    and the Dense budget lowered so that every level is WEll."""
+    return pkg.AMGParams(
+        dtype="float32", refine=True, accel="cg",
+        smoother=pkg.SmootherType.GS,
+        coarse_smoother=pkg.SmootherType.CHEBYSHEV,
+        coarse_op_dtype="float32", coarse_sparsify=0, coarse_stop_rows=3500,
+        tol=1e-8, max_it=60, use_well="on", use_banded="off",
+        embed_levels=0, well_min_rows=1024, dense_level_bytes=2e7,
+        verbose=0)
+
+
+def test_unstructured_slice_matches_amg_tpu():
+    """The whole unstructured slice on the CPU against a live amg_tpu run:
+    RCM level 0, WEll A/P/R on every level, masked GS on level 0 and
+    Chebyshev below in f32, FCG in f64 through the df64 level-0 operator.
+    FCG iteration counts equal within 1; residual histories at rtol 1e-3
+    plus atol 1e-6 * ||b|| (the f32 rounding floor of the correction, as
+    for the structured slice); both true residuals below 1e-8."""
+    from amg_tpu_torch.ops import well_kernel
+
+    ja = jamg.fem2d(20000, seed=17)
+    b = np.random.default_rng(23).standard_normal(ja.n_rows)
+    jsolver = jamg.AMGSolver(ja, _well_pars(jamg), **QUIET)
+    jx, jinfo = jsolver.solve(b)
+
+    a = tamg.fem2d(20000, seed=17)
+    solver = tamg.AMGSolver(a, _well_pars(tamg), **QUIET, **CPU)
+    assert all(isinstance(l.a, tamg.WEll) for l in solver.mg.levels)
+    assert isinstance(solver.mg.levels[0].p, tamg.WEll)
+    assert isinstance(solver.mg.levels[0].r, tamg.WEll)
+    assert solver._perm0 is not None
+    np.testing.assert_array_equal(solver._perm0, jsolver._perm0)
+    # level 0's f32 operator is the df64 operator's hi plane
+    assert solver.a0_hi.vals_lo is not None
+    assert solver.mg.levels[0].a.vals is solver.a0_hi.vals
+    counts = dict(well_kernel.launches)
+    x, info = solver.solve(b)
+    assert well_kernel.launches == counts   # CPU: plain versions only
+
+    assert abs(info.nits - jinfo.nits) <= 1
+    n = min(len(info.residuals), len(jinfo.residuals))
+    np.testing.assert_allclose(info.residuals[:n], jinfo.residuals[:n],
+                               rtol=1e-3, atol=1e-6 * np.linalg.norm(b))
+    for xv in (x, jx):
+        true_rel = np.linalg.norm(b - a.matvec(np.asarray(
+            xv, dtype=np.float64))) / np.linalg.norm(b)
+        assert true_rel < 1e-8
+    assert info.rres < 1e-8
 
 
 def test_level0_permutation_round_trip():
@@ -202,16 +263,18 @@ def test_level0_permutation_round_trip():
     reorder_for_gs(hh, pars)
     hh.perms[0] = perm
     b = np.random.default_rng(1).standard_normal(a.n_rows)
-    x, info = tamg.AMGSolver(a, pars, host_hierarchy=hh, **QUIET).solve(b)
+    x, info = tamg.AMGSolver(a, pars, host_hierarchy=hh, **QUIET,
+                             **CPU).solve(b)
     assert info.rres < 1e-10
     assert np.linalg.norm(b - a.matvec(x)) / np.linalg.norm(b) < 1e-10
 
 
-def _cli_lines(module):
+def _cli_lines(module, *flags):
     env = dict(os.environ, JAX_PLATFORMS="cpu",
                XLA_FLAGS="--xla_force_host_platform_device_count=8")
     out = subprocess.run(
-        [sys.executable, "-m", module, os.path.join(DATA, "1138_bus.mtx")],
+        [sys.executable, "-m", module, os.path.join(DATA, "1138_bus.mtx"),
+         *flags],
         cwd=REPO, env=env, capture_output=True, text=True, timeout=300)
     assert out.returncode == 0, out.stderr
     # timing lines differ from run to run
@@ -228,7 +291,7 @@ def test_cli_matches_amg_tpu():
     (drift 1.8e-5 relative by iteration 12 on the machine the tests were
     written on).  Those numbers are held to the goldens' rtol 1e-3."""
     want = _cli_lines("amg_tpu")
-    got = _cli_lines("amg_tpu_torch")
+    got = _cli_lines("amg_tpu_torch", "--device", "cpu")
     assert len(got) == len(want)
     row = re.compile(r"^\s*\d+ \|")
     for g, w in zip(got, want):
@@ -246,11 +309,41 @@ def test_cli_matches_amg_tpu():
     assert got[-1] == "AMG iterations: 12"
 
 
+def test_cli_unstructured(monkeypatch, capsys):
+    """README's unstructured example at the least size whose level 0 is
+    WEll (``well_min_rows`` 65,536): ``--use-well on --accel cg`` packs
+    level 0 as WEll and FCG reaches the tolerance; ``--accel gmres`` still
+    raises."""
+    from amg_tpu_torch import cli
+    from amg_tpu_torch.solve import driver
+
+    made = []
+
+    class Recording(driver.AMGSolver):
+        def __init__(self, *a, **k):
+            super().__init__(*a, **k)
+            made.append(self)
+
+    monkeypatch.setattr(driver, "AMGSolver", Recording)
+    flags = ["--use-well", "on", "--refine", "--dtype", "float32",
+             "--device", "cpu", "--quiet", "--tol", "1e-8"]
+    assert cli.main(["fem2d:66000", "--accel", "cg", *flags]) == 0
+    out = capsys.readouterr().out
+    rres = float(re.search(r"AMG relative residual: (\S+)", out).group(1))
+    assert rres < 1e-8
+    (solver,) = made
+    assert solver.pars.accel == "cg"
+    assert isinstance(solver.mg.levels[0].a, tamg.WEll)
+    with pytest.raises(NotImplementedError):
+        cli.main(["poisson2d:16", "--accel", "gmres", *flags])
+
+
 def test_port_never_imports_jax():
     code = ("import sys, numpy as np, amg_tpu_torch as amg\n"
             "a = amg.poisson2d(24)\n"
             "x, info = amg.solver_amg(a, None, np.ones(a.n_rows),\n"
-            "    amg.AMGParams(verbose=0), log=lambda *a: None)\n"
+            "    amg.AMGParams(verbose=0), log=lambda *a: None,\n"
+            "    device='cpu')\n"
             "assert info.rres < 1e-6, info.rres\n"
             "assert 'jax' not in sys.modules\n"
             "assert not any(m.startswith('amg_tpu.') or m == 'amg_tpu'\n"
@@ -261,18 +354,33 @@ def test_port_never_imports_jax():
 
 
 def test_device_selection():
+    """Every entry point runs on the card unless the caller asks for the
+    CPU; without a card the default raises instead of falling back."""
+    from amg_tpu_torch import cli
+    from amg_tpu_torch import hierarchy as th
+
     a = tamg.poisson2d(16)
     pars = tamg.AMGParams(verbose=0)
-    if not torch.cuda.is_available():
-        with pytest.raises(RuntimeError, match="cuda"):
-            tamg.AMGSolver(a, pars, device="cuda")
-    solver = tamg.AMGSolver(a, pars)
+    b = np.ones(a.n_rows)
+    default = {
+        "AMGSolver": lambda: tamg.AMGSolver(a, pars),
+        "solver_amg": lambda: tamg.solver_amg(a, None, b, pars),
+        "setup": lambda: tamg.setup(a, pars),
+        "to_device": lambda: th.to_device(tamg.setup_host(a, pars), pars),
+        "cli": lambda: cli.main(["poisson2d:16", "--quiet"]),
+    }
+    if torch.cuda.is_available():
+        assert tamg.AMGSolver(a, pars).device.type == "cuda"
+    else:
+        for name, call in default.items():
+            with pytest.raises(RuntimeError, match="cuda"):
+                call()
+    solver = tamg.AMGSolver(a, pars, device="cpu")
     assert solver.device == torch.device("cpu")
     assert all(l.a.vals.device.type == "cpu" for l in solver.mg.levels)
-    for kw in (dict(accel="cg"), dict(accel="gmres")):
-        with pytest.raises(NotImplementedError):
-            tamg.AMGSolver(a, pars.replace(**kw))
+    with pytest.raises(NotImplementedError):
+        tamg.AMGSolver(a, pars.replace(accel="gmres"), device="cpu")
     with pytest.raises(NotImplementedError):
         tamg.AMGSolver(a, pars.replace(
-            coarsest_solver=tamg.CoarsestSolver.KRYLOV)).solve(
-                np.ones(a.n_rows))
+            coarsest_solver=tamg.CoarsestSolver.KRYLOV),
+            device="cpu").solve(b)
