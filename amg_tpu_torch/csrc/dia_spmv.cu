@@ -1,5 +1,5 @@
 // Diagonal-offset (DIA) sparse matrix-vector product with fused epilogues,
-// for NVIDIA Hopper (sm_90a).
+// and its multi-rhs variant, for NVIDIA Hopper (sm_90a).
 //
 // Replaces the TPU kernel amg_tpu/ops/pallas_dia.py::_build (entries spmv,
 // resid and gs_update).  It computes what that kernel computes, not its
@@ -36,6 +36,23 @@
 // neighbouring vals entries, so every load is coalesced.  Shared-memory x
 // windows, 16-byte vector loads and CUDA graphs over the cycle are left
 // for later work.
+//
+// The multi-rhs product (dia_multi_kernel below) replaces the TPU kernel
+// amg_tpu/ops/pallas_dia.py::_build_multi (entry spmv_multi), which the
+// batched solve reaches through the custom vmap rule of every Dia product:
+//
+//   Y[c, i] = sum_d vals[d, i] * X[c, i + off_d]   for c in [0, k)
+//
+// X and Y are (k, pad) row-major, rows on the last axis.  The same dtype
+// pairs and bf16 product rule as above; per column the sum runs in offsets
+// order, as here and in the plain version.  Design: one thread per row,
+// grid-stride loop; for each block of KB columns (KB <= 16, a compile-time
+// block) the thread keeps KB register accumulators and loads each
+// vals[d, i] once for the whole block, so at k = 16 the values stream from
+// device memory once for all columns (the point of the TPU kernel).  Any
+// k >= 1 is taken; the ragged edge is masked as above.  Bound on an H100:
+// bytes again, nd * sizeof(V) + 2 * k * sizeof(X) per row at 2 * nd * k
+// flops.  wgmma/TMA and shared-memory x windows are later work.
 //
 // Bound with ctypes: plain extern "C" entries that launch on the given
 // stream and return cudaGetLastError().
@@ -141,6 +158,76 @@ int launch(const void* vals, const void* offs, int nd, int64_t pad,
   return (int)cudaGetLastError();
 }
 
+// The multi-rhs kernel keeps KB register accumulators per thread: the
+// launcher takes the largest KB in {16, 8, 4, 2, 1} that divides k, so the
+// batched solve's k = 16 is one column block and one pass over the values.
+// No column of a block is masked and the row range is tested once per
+// diagonal: per-column masks ran 2.6x slower on an H100 (PERF.md).
+template <typename V, typename X, bool kBf16Mul, int KB>
+__global__ void __launch_bounds__(kThreads)
+dia_multi_kernel(const V* __restrict__ vals, const int* __restrict__ offs,
+                 int nd, int64_t pad, int k, const X* __restrict__ x,
+                 X* __restrict__ y) {
+  extern __shared__ int s_offs[];
+  for (int d = threadIdx.x; d < nd; d += blockDim.x) s_offs[d] = offs[d];
+  __syncthreads();
+
+  const int64_t stride = (int64_t)gridDim.x * blockDim.x;
+  for (int64_t i = (int64_t)blockIdx.x * blockDim.x + threadIdx.x; i < pad;
+       i += stride) {
+    for (int c0 = 0; c0 < k; c0 += KB) {
+      const X* xb = x + (int64_t)c0 * pad;
+      X acc[KB];
+#pragma unroll
+      for (int c = 0; c < KB; ++c) acc[c] = X(0);
+      for (int d = 0; d < nd; ++d) {
+        const int64_t j = i + s_offs[d];
+        const V v = vals[(int64_t)d * pad + i];
+        if (j >= 0 && j < pad) {  // x reads 0 outside [0, pad)
+#pragma unroll
+          for (int c = 0; c < KB; ++c) {
+            acc[c] += product<V, X, kBf16Mul>(v, xb[(int64_t)c * pad + j]);
+          }
+        }
+      }
+#pragma unroll
+      for (int c = 0; c < KB; ++c) y[(int64_t)(c0 + c) * pad + i] = acc[c];
+    }
+  }
+}
+
+template <typename V, typename X, bool kBf16Mul>
+int launch_multi(const void* vals, const void* offs, int nd, int64_t pad,
+                 int k, const void* x, void* y, void* stream) {
+  if (pad <= 0 || k <= 0) return 0;
+  int64_t blocks = (pad + kThreads - 1) / kThreads;
+  if (blocks > (int64_t)1 << 20) blocks = (int64_t)1 << 20;  // grid-stride
+  const dim3 grid((unsigned)blocks), block(kThreads);
+  const size_t smem = (size_t)(nd > 0 ? nd : 1) * sizeof(int);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const V* v = static_cast<const V*>(vals);
+  const int* o = static_cast<const int*>(offs);
+  const X* xp = static_cast<const X*>(x);
+  X* yp = static_cast<X*>(y);
+  if (k % 16 == 0) {
+    dia_multi_kernel<V, X, kBf16Mul, 16><<<grid, block, smem, s>>>(
+        v, o, nd, pad, k, xp, yp);
+  } else if (k % 8 == 0) {
+    dia_multi_kernel<V, X, kBf16Mul, 8><<<grid, block, smem, s>>>(
+        v, o, nd, pad, k, xp, yp);
+  } else if (k % 4 == 0) {
+    dia_multi_kernel<V, X, kBf16Mul, 4><<<grid, block, smem, s>>>(
+        v, o, nd, pad, k, xp, yp);
+  } else if (k % 2 == 0) {
+    dia_multi_kernel<V, X, kBf16Mul, 2><<<grid, block, smem, s>>>(
+        v, o, nd, pad, k, xp, yp);
+  } else {
+    dia_multi_kernel<V, X, kBf16Mul, 1><<<grid, block, smem, s>>>(
+        v, o, nd, pad, k, xp, yp);
+  }
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
 extern "C" {
@@ -168,6 +255,31 @@ int dia_f64_f64(const void* vals, const void* offs, int nd, int64_t pad,
                 int epilogue, void* stream) {
   return launch<double, double, false>(vals, offs, nd, pad, x, b, w, y,
                                        epilogue, stream);
+}
+
+int dia_multi_f32_f32(const void* vals, const void* offs, int nd,
+                      int64_t pad, int k, const void* x, void* y,
+                      void* stream) {
+  return launch_multi<float, float, false>(vals, offs, nd, pad, k, x, y,
+                                           stream);
+}
+
+int dia_multi_bf16_f32(const void* vals, const void* offs, int nd,
+                       int64_t pad, int k, const void* x, void* y,
+                       int bf16_mul, void* stream) {
+  if (bf16_mul) {
+    return launch_multi<__nv_bfloat16, float, true>(vals, offs, nd, pad, k,
+                                                    x, y, stream);
+  }
+  return launch_multi<__nv_bfloat16, float, false>(vals, offs, nd, pad, k, x,
+                                                   y, stream);
+}
+
+int dia_multi_f64_f64(const void* vals, const void* offs, int nd,
+                      int64_t pad, int k, const void* x, void* y,
+                      void* stream) {
+  return launch_multi<double, double, false>(vals, offs, nd, pad, k, x, y,
+                                             stream);
 }
 
 }  // extern "C"

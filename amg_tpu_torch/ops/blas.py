@@ -12,13 +12,18 @@ import torch
 
 
 def dot(x, y):
-    """<x, y> (reference SSS_blas_array_dot, amg/SSS_utils.c:206)."""
+    """<x, y> (reference SSS_blas_array_dot, amg/SSS_utils.c:206).  For a
+    batch ``(k, n)`` one value per column, shaped ``(k, 1)`` so that it
+    scales the batch's rows as a scalar scales a vector."""
+    if x.dim() == 2:
+        return torch.sum(x * y, dim=-1, keepdim=True)
     return torch.dot(x, y)
 
 
 def norm2(x):
-    """||x||_2 (reference SSS_blas_array_norm2, amg/SSS_utils.c:151)."""
-    return torch.sqrt(torch.dot(x, x))
+    """||x||_2 (reference SSS_blas_array_norm2, amg/SSS_utils.c:151); per
+    column, ``(k, 1)``, for a batch ``(k, n)``."""
+    return torch.sqrt(dot(x, x))
 
 
 def norminf(x):

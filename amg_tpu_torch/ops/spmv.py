@@ -9,6 +9,12 @@ hand-written DIA kernel (``ops/dia_kernel.py``) and :class:`WEll` through
 the hand-written WEll kernels (``ops/well_kernel.py``) for every dtype
 they support; :class:`Ell` (gather + row sum) and :class:`Dense` (one
 matmul) are plain torch, as they are XLA in ``amg_tpu``.
+
+Every product takes one vector ``(pad,)`` or a batch ``(k, pad)`` of k
+right-hand sides, rows on the last axis (the batched solve): a batch on a
+:class:`Dia` goes to the multi-rhs DIA kernel (B4), on a :class:`WEll`
+through one WEll kernel launch per column, as ``amg_tpu`` runs it under
+``vmap``.
 """
 
 from __future__ import annotations
@@ -21,11 +27,14 @@ from . import dia_kernel, well_kernel
 
 def spmv_ell(a: Ell, x: torch.Tensor) -> torch.Tensor:
     """Gather-based ELL SpMV (general fallback)."""
-    return torch.sum(a.vals * x[a.cols], dim=1)
+    return torch.sum(a.vals * x[..., a.cols], dim=-1)
 
 
 def spmv_dia(a: Dia, x: torch.Tensor) -> torch.Tensor:
-    """Diagonal-offset SpMV through the DIA kernel wrapper."""
+    """Diagonal-offset SpMV through the DIA kernel wrapper (B1 for a
+    vector, B4 for a batch)."""
+    if x.dim() == 2:
+        return dia_kernel.spmv_multi(a, x)
     return dia_kernel.spmv(a, x)
 
 
@@ -34,13 +43,17 @@ def spmv_dense(a: Dense, x: torch.Tensor) -> torch.Tensor:
     narrower dtype (bf16 coarse operators) are widened to the vector's
     dtype first, as JAX's type promotion does implicitly."""
     v = a.vals if a.vals.dtype == x.dtype else a.vals.to(x.dtype)
+    if x.dim() == 2:
+        return x[..., : a.padded_cols] @ v.T
     return v @ x[: a.padded_cols]
 
 
 def spmv_well(a: WEll, x: torch.Tensor) -> torch.Tensor:
     """Windowed-gather ELL SpMV: the f64 product of the two f32 value
     planes (kernel B3) when ``a.vals_lo`` is set and x is f64, otherwise
-    kernel B2 on ``a.vals``."""
+    kernel B2 on ``a.vals``.  A batch runs one launch per column."""
+    if x.dim() == 2:
+        return torch.stack([spmv_well(a, xc) for xc in x])
     if a.vals_lo is not None and x.dtype == torch.float64:
         return well_kernel.spmv_df64(a, x)
     return well_kernel.spmv(a, x)
@@ -67,12 +80,13 @@ def spmv(a, x: torch.Tensor) -> torch.Tensor:
 def residual(a, x: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """r = b - A @ x (reference ``SSS_blas_mv_amxpy`` with alpha=-1 as used
     by the outer loop, amg/Solve/SSS_SOLVE.c:59-60)."""
-    return b - spmv(a, x)[: b.shape[0]]
+    return b - spmv(a, x)[..., : b.shape[-1]]
 
 
 def residual_fused(a, x: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """r = b - A @ x, with the subtraction fused into the DIA kernel for a
-    Dia operator (one pass instead of SpMV + a separate elementwise pass)."""
-    if isinstance(a, Dia) and b.shape[0] == a.padded_rows:
+    Dia operator and one vector (one pass instead of SpMV + a separate
+    elementwise pass; B4 has no fused epilogue, nor has ``amg_tpu``'s)."""
+    if isinstance(a, Dia) and x.dim() == 1 and b.shape[-1] == a.padded_rows:
         return dia_kernel.resid(a, x, b)
-    return b - spmv(a, x)[: b.shape[0]]
+    return b - spmv(a, x)[..., : b.shape[-1]]

@@ -22,8 +22,11 @@ from .smoothers import smooth
 
 
 def coarsest_solve(mg: Hierarchy, b: torch.Tensor, pars: AMGParams, ctol):
-    """Solve the coarsest system."""
+    """Solve the coarsest system (``b`` one vector or a ``(k, pad)``
+    batch)."""
     if pars.coarsest_solver == CoarsestSolver.DENSE:
+        if b.dim() == 2:
+            return b @ mg.coarse_inv.T
         return mg.coarse_inv @ b
     raise NotImplementedError("CoarsestSolver.KRYLOV (CG -> GMRES) is not "
                               "ported yet")

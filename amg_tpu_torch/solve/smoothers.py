@@ -21,8 +21,10 @@ Here every smoother is a function over the device
 * Chebyshev polynomial smoothing (``SSS_SM_POLY`` analog) using Jacobi
   preconditioning and a spectral-radius estimate computed at setup.
 
-No function modifies its input vectors: the solve loop in
-``solve/driver.py`` keeps earlier iterates while later cycles run.
+Every branch takes one vector ``(pad,)`` or a batch ``(k, pad)`` (the
+batched solve), rows on the last axis.  No function modifies its input
+vectors: the solve loop in ``solve/driver.py`` keeps earlier iterates
+while later cycles run.
 """
 
 from __future__ import annotations
@@ -46,11 +48,15 @@ def _masked_group_update(level, x, b, g: int, relax=None):
     With a precomputed group-weight stack (``level.gs_w``) on a Dia level,
     the whole update runs as ONE fused DIA kernel pass ``x + w_g * (b - A x)``
     (the select, diagonal add-back and division fold into the epilogue).
+    A batch computes the same ``x + w_g * (b - A x)`` from one multi-rhs
+    product and one elementwise pass (B4 has no fused epilogue).
     """
     if (relax is None and level.gs_w is not None
             and isinstance(level.a, Dia)
             and 0 in level.a.offsets
-            and b.shape[0] == level.a.padded_rows):
+            and b.shape[-1] == level.a.padded_rows):
+        if x.dim() == 2:
+            return x + level.gs_w[g] * (b - dia_kernel.spmv_multi(level.a, x))
         return dia_kernel.gs_update(level.a, x, b, level.gs_w[g])
 
     ax = spmv(level.a, x)
@@ -74,18 +80,18 @@ def _group_update_(level, x, b, idx, relax=None):
     sub_cols = a.cols[idx]            # (g, w)
     sub_vals = a.vals[idx]            # (g, w)
     sub_diag_mask = level.diag_mask[idx]
-    gathered = x[sub_cols]
+    gathered = x[..., sub_cols]
     off = torch.where(sub_diag_mask, torch.zeros((), dtype=a.vals.dtype,
                                                  device=x.device), sub_vals)
-    t = b[idx] - torch.sum(off * gathered, dim=1)
+    t = b[..., idx] - torch.sum(off * gathered, dim=-1)
     invd = level.inv_diag[idx]
-    old = x[idx]
+    old = x[..., idx]
     new = t * invd
     if relax is not None:
         new = (1.0 - relax) * old + relax * new
     # small-diagonal guard: keep old value (reference gs_cf,
     # amg/Solve/SSS_smooth.c:30)
-    x[idx] = torch.where(invd != 0, new, old)
+    x[..., idx] = torch.where(invd != 0, new, old)
 
 
 def _range_update_(level, x, b, start: int, size: int, relax=None):
@@ -98,17 +104,17 @@ def _range_update_(level, x, b, start: int, size: int, relax=None):
     """
     a = level.a
     end = start + size
-    gathered = x[a.cols[start:end]]
+    gathered = x[..., a.cols[start:end]]
     off = torch.where(level.diag_mask[start:end],
                       torch.zeros((), dtype=a.vals.dtype, device=x.device),
                       a.vals[start:end])
-    t = b[start:end] - torch.sum(off * gathered, dim=1)
+    t = b[..., start:end] - torch.sum(off * gathered, dim=-1)
     invd = level.inv_diag[start:end]
-    old = x[start:end]
+    old = x[..., start:end]
     new = t * invd
     if relax is not None:
         new = (1.0 - relax) * old + relax * new
-    x[start:end] = torch.where(invd != 0, new, old)
+    x[..., start:end] = torch.where(invd != 0, new, old)
 
 
 def _range_update_dense_(level, x, b, start: int, size: int, relax=None):
@@ -122,14 +128,17 @@ def _range_update_dense_(level, x, b, start: int, size: int, relax=None):
     sub = a.vals[start:end]
     if sub.dtype != x.dtype:
         sub = sub.to(x.dtype)
-    ax = sub @ x[: a.padded_cols]
+    if x.dim() == 2:
+        ax = x[..., : a.padded_cols] @ sub.T
+    else:
+        ax = sub @ x[: a.padded_cols]
     ds = level.diag[start:end]
     invd = level.inv_diag[start:end]
-    old = x[start:end]
-    new = (b[start:end] - ax + ds * old) * invd
+    old = x[..., start:end]
+    new = (b[..., start:end] - ax + ds * old) * invd
     if relax is not None:
         new = (1.0 - relax) * old + relax * new
-    x[start:end] = torch.where(invd != 0, new, old)
+    x[..., start:end] = torch.where(invd != 0, new, old)
 
 
 def gs_sweep(level, x, b, order, relax=None):

@@ -33,7 +33,20 @@ Phases (any failure raises and the script exits nonzero):
    (host-verified in float64), with B2 launched on level 0's A and on a
    WEll P/R, and B3 launched;
 9. unstructured main-path shapes: kernel against plain, timed, on every
-   WEll operator of that solve the kernels were launched on.
+   WEll operator of that solve the kernels were launched on;
+10. multi-rhs kernel B4 against plain: phase 5's level-0 (f32, nd=7) and
+   level-1 (bf16, nd=23) operators and phase 3's 40-diagonal band in bf16
+   (bf16 products) and f64, at k = 1, 4 and 16 right-hand sides, held to
+   the tolerances of phase 3 and timed beside a torch sparse CSR product
+   ``A @ X.T`` on the same operator (the fastest of int64 and int32
+   indices, X.T column- or row-major);
+11. batched main path: phase 5's solver runs ``solve_batched`` on 16
+   seeded random right-hand sides to 1e-6, every column checked on the
+   host in float64, with B4 launched on every DIA level and no B1 launch;
+12. one column: ``solve_batched`` on the first column (B4 at k = 1)
+   against the single-rhs f32 solve of the same hierarchy (B1's
+   epilogues): iterations within 1, residual histories within rtol 1e-3
+   plus 2e-8 * ||b|| (the two updates round differently).
 
 Each kernel result carries its bound: the larger of the bytes it must
 move (each input read once, each output written once) over the H100's
@@ -41,9 +54,9 @@ move (each input read once, each output written once) over the H100's
 f32, 34 TFLOP/s f64, NVIDIA's H100 SXM data sheet).  The last three lines
 of standard output are the card's name and power limit as nvidia-smi
 gives them, one JSON object describing the kernels (one entry per
-epilogue and operator of phases 6 and 9, with its main-path launch count)
-and one with the device.  Imports torch, numpy, scipy and amg_tpu_torch
-only.
+epilogue and operator of phases 6 and 9, and per launch shape of phase
+11, with its main-path launch count) and one with the device.  Imports
+torch, numpy, scipy and amg_tpu_torch only.
 """
 
 from __future__ import annotations
@@ -66,6 +79,11 @@ REPS = 21                  # timed calls per measurement (median reported)
 SLEEP_CYCLES = 4_000_000   # ~2 ms of device spin before each timed call
 FLUSH_BYTES = 256 << 20    # written before each timed call: evicts the L2
 FEM_ROWS = 1_000_000       # fem2d(1,000,000): the unstructured main path
+N_RHS = 16                 # right-hand sides of the batched main path
+BATCH_TOL = 1e-6           # its tolerance (f32 cycles, no defect correction)
+# phase 12's history atol, of ||b||: B1's fused update and the batched
+# update round differently; the gap measured on an H100 is 5.5e-9
+ONE_COL_ATOL = 2e-8
 # relative tolerances (of max|Ax|), as in tests/test_torch_dia.py and
 # tests/test_torch_well.py: summation order differs (the kernels also
 # contract multiply-adds into FMAs)
@@ -178,14 +196,18 @@ def _operators():
     a = amg.poisson3d(N_SIDE)
     d = Dia.from_csr(a, dtype=torch.float64)
     yield "p3d100", d.offsets, d.vals
+    yield ("band40",) + _band40(a.n_rows)
+
+
+def _band40(pad):
+    """(offsets, float64 values (40, pad)) of a random 40-diagonal band,
+    offsets in [-20000, 20000]."""
     g = torch.Generator().manual_seed(0)
-    pad = a.n_rows
     offs = {0}
     while len(offs) < 40:
         offs.add(int(torch.randint(-20000, 20001, (1,), generator=g)))
     offs = tuple(sorted(offs))
-    yield "band40", offs, torch.randn(len(offs), pad, generator=g,
-                                      dtype=torch.float64)
+    return offs, torch.randn(len(offs), pad, generator=g, dtype=torch.float64)
 
 
 def _compare(tag, gpu, ep, g, flush, csr=None):
@@ -624,9 +646,222 @@ def phase_unstructured_shapes(solver, by_shape):
     return rows
 
 
-def _kernel_entries(dia_rows, well_rows):
+# ---------------------------------------------------------------------------
+# 10-12. the batched path: B4 and solve_batched
+# ---------------------------------------------------------------------------
+
+
+def _dia_csr_on_card(d, dtype):
+    """A Dia operator on the card as a torch sparse CSR tensor of its
+    in-range entries (the library yardstick for an operator with no host
+    CSR; the port never calls it)."""
+    nd, pad = d.vals.shape
+    cols = torch.arange(pad, device="cuda")[:, None] + d.offs.long()[None]
+    keep = (cols >= 0) & (cols < pad)
+    crow = torch.zeros(pad + 1, dtype=torch.int64, device="cuda")
+    crow[1:] = torch.cumsum(keep.sum(1), 0)
+    return torch.sparse_csr_tensor(crow, cols[keep],
+                                   d.vals.T[keep].to(dtype), size=(pad, pad))
+
+
+def _int32_csr(lib):
+    """The same torch sparse CSR tensor with int32 row and column indices."""
+    return torch.sparse_csr_tensor(lib.crow_indices().int(),
+                                   lib.col_indices().int(), lib.values(),
+                                   size=lib.shape)
+
+
+def _compare_multi(tag, op, k, g, flush, libs):
+    """Kernel B4 against its plain version on one Dia operator at k
+    right-hand sides, held to TOL of max|AX| and timed beside the torch
+    sparse CSR product ``lib @ X.T``.  The library time is the fastest of
+    int64 and int32 indices (``libs``), each with X.T as a column-major
+    view and made row-major beforehand.  Returns one result row."""
+    from amg_tpu_torch.ops import dia_kernel as K
+
+    nd, pad = op.vals.shape
+    vdt = op.vals.dtype
+    xdt = torch.float64 if vdt == torch.float64 else torch.float32
+    x = torch.randn(k, pad, generator=g, dtype=xdt).cuda()
+    want = K.spmv_multi_plain(op, x)
+    got = K.spmv_multi(op, x)
+    torch.cuda.synchronize()
+    check(got.dtype == xdt and got.shape == (k, pad),
+          f"{tag}: B4 output {got.dtype} {tuple(got.shape)}")
+    scale = want.abs().max().item()
+    err = (got - want).abs().max().item()
+    ok = err <= TOL[vdt] * scale
+    ms = _time_ms(lambda: K.spmv_multi(op, x), flush)
+    plain_ms = _time_ms(lambda: K.spmv_multi_plain(op, x), flush)
+    xt = x.T.contiguous()
+    lib_variants = {
+        f"{idx} {lay}": _time_ms(lambda lib=lib, xv=xv: lib @ xv, flush)
+        for idx, lib in libs.items()
+        for lay, xv in (("col-major", x.T), ("row-major", xt))}
+    lib_ms = min(lib_variants.values())
+    vb = op.vals.element_size()
+    xb = x.element_size()
+    # values once, X read once, Y written once
+    nbytes = nd * pad * vb + 2 * k * pad * xb
+    bound_ms, bound_by = _bound(nbytes, 2 * nd * pad * k, xdt)
+    row = dict(op=tag, nd=nd, pad=pad, k=k, vals=str(vdt)[6:],
+               x=str(xdt)[6:], max_abs_err=err, rel_err=err / scale,
+               tol=TOL[vdt], ok=ok, ms=ms, plain_ms=plain_ms, lib_ms=lib_ms,
+               lib_variants=lib_variants, bound_ms=bound_ms,
+               bound_by=bound_by, bytes=nbytes, gbps=nbytes / ms / 1e6)
+    lib_txt = ", ".join(f"{v} {t:.4f}" for v, t in lib_variants.items())
+    log(f"[multi] {tag:8s} nd={nd:2d} pad={pad:7d} k={k:2d} "
+        f"{row['vals']:8s}/{row['x']:7s} err {err:.3e} "
+        f"(rel {err / scale:.2e} <= {TOL[vdt]:g}: {ok})  kernel {ms:.4f} ms "
+        f"{row['gbps']:.1f} GB/s  plain {plain_ms:.4f} ms  torch CSR "
+        f"{lib_ms:.4f} ms ({lib_txt})  bound {bound_ms:.4f} ms ({bound_by})")
+    return row
+
+
+def phase_multi_kernels(solver):
+    """10. B4 against plain on the structured solve's DIA levels and on
+    the 40-diagonal band (bf16 and f64), at k = 1, 4, 16."""
+    from amg_tpu_torch.sparse import Dia
+
+    hh = solver.host_hierarchy
+    ops = [(f"level{l}", lv.a, lambda l=l, lv=lv: _csr_on_card(
+                hh.a[l], torch.float64 if lv.a.vals.dtype == torch.float64
+                else torch.float32))
+           for l, lv in enumerate(solver.mg.levels) if isinstance(lv.a, Dia)]
+    offs, vals64 = _band40(solver.pad)
+    pad = vals64.shape[1]
+    for vdt in (torch.bfloat16, torch.float64):
+        d = Dia(vals64.to(vdt).cuda(), offs, (pad, pad), len(offs) * pad)
+        ops.append(("band40", d, lambda d=d, vdt=vdt: _dia_csr_on_card(
+            d, torch.float64 if vdt == torch.float64 else torch.float32)))
+    g = torch.Generator().manual_seed(5)
+    flush = torch.empty(FLUSH_BYTES, dtype=torch.uint8, device="cuda")
+    rows = []
+    for tag, op, make_lib in ops:
+        lib = make_lib()
+        libs = {"int64": lib, "int32": _int32_csr(lib)}
+        for k in (1, 4, N_RHS):
+            rows.append(_compare_multi(tag, op, k, g, flush, libs))
+        del lib, libs
+    del flush, ops
+    bad = [r for r in rows if not r["ok"]]
+    check(not bad, f"B4 disagrees with its plain version: {bad}")
+    return rows
+
+
+def phase_batched(solver, B):
+    """11. The batched main path: ``solve_batched`` on the (n, N_RHS)
+    right-hand sides B with phase 5's solver.  Returns B4's launches by
+    shape and the timings."""
+    import amg_tpu_torch as amg
+    from amg_tpu_torch.ops import dia_kernel as D, well_kernel as W
+
+    a = solver.a
+    for K in (D, W):
+        for e in K.launches:
+            K.launches[e] = 0
+        K.launches_by_shape.clear()
+    t0 = time.perf_counter()
+    x, info = solver.solve_batched(B, tol=BATCH_TOL)
+    torch.cuda.synchronize()
+    cold_s = time.perf_counter() - t0
+    launches = dict(D.launches)
+    by_shape = dict(D.launches_by_shape)
+    well_launches = dict(W.launches)
+
+    nb = np.linalg.norm(B, axis=0)
+    true_rel = np.array([np.linalg.norm(B[:, c] - a.matvec(
+        x[:, c].astype(np.float64))) / nb[c] for c in range(B.shape[1])])
+    log(f"[batch] poisson3d({N_SIDE}), k={B.shape[1]}: cold "
+        f"{cold_s:.4f} s (solve_seconds {info.solve_seconds:.4f}), "
+        f"its {info.nits}, worst rres {info.rres:.3e}, true rres (host "
+        f"f64) worst {true_rel.max():.3e} best {true_rel.min():.3e}")
+    log(f"[batch] history (worst column / ||b||): "
+        f"{[f'{r / nb.max():.3e}' for r in info.residuals]}")
+    log(f"[batch] DIA kernel launches: {launches}; WEll: {well_launches}")
+    for key, n in sorted(by_shape.items(), key=str):
+        ep, vdt, xdt, nd, pad = key[:5]
+        k_txt = f" k={key[5]}" if ep == "multi" else ""
+        log(f"[batch]   {ep:6s} {str(vdt)[6:]}/{str(xdt)[6:]} nd={nd} "
+            f"pad={pad}{k_txt}: {n}")
+    check(np.all(np.isfinite(x)) and x.shape == B.shape,
+          "batched solution not finite or wrong shape")
+    check(np.all(true_rel < BATCH_TOL) and info.nits < solver.pars.max_it,
+          f"batched path did not reach {BATCH_TOL:g} in every column "
+          f"(true rres {true_rel})")
+    check(all(launches[e] == 0 for e in D.EPILOGUES),
+          f"B1 launched during the batched solve: {launches}")
+    check(sum(well_launches.values()) == 0, "WEll kernel launched")
+    for l, lv in enumerate(solver.mg.levels):
+        if isinstance(lv.a, amg.Dia):
+            key = ("multi", lv.a.vals.dtype, torch.float32, lv.a.n_diags,
+                   lv.pad, B.shape[1])
+            check(by_shape.get(key, 0) > 0,
+                  f"B4 was not launched on level {l}'s shape {key}")
+    check(sum(by_shape.values()) == launches["multi"],
+          "per-shape launch counts do not add up")
+
+    t0 = time.perf_counter()
+    _, info2 = solver.solve_batched(B, tol=BATCH_TOL)
+    torch.cuda.synchronize()
+    warm_s = time.perf_counter() - t0
+    log(f"[batch] warm {warm_s:.4f} s (solve_seconds "
+        f"{info2.solve_seconds:.4f}), its {info2.nits}; per right-hand "
+        f"side {warm_s / B.shape[1]:.4f} s")
+    return by_shape, dict(cold_s=cold_s, warm_s=warm_s, nits=info.nits,
+                          true_rres=float(true_rel.max()))
+
+
+def phase_batched_one_column(solver, b):
+    """12. ``solve_batched`` on one column (B4 at k = 1) against the
+    single-rhs f32 solve of the same hierarchy (B1's epilogues)."""
+    import amg_tpu_torch as amg
+    from amg_tpu_torch.ops import dia_kernel as D
+
+    single = amg.AMGSolver(
+        solver.a, structured_pars(amg).replace(refine=False, tol=BATCH_TOL),
+        host_hierarchy=solver.host_hierarchy, device="cuda",
+        log=lambda *_: None)
+    before = dict(D.launches)
+    x1, i1 = single.solve(b)
+    torch.cuda.synchronize()
+    mid = dict(D.launches)
+    xb, ib = solver.solve_batched(b[:, None], tol=BATCH_TOL)
+    torch.cuda.synchronize()
+    after = dict(D.launches)
+    nb = float(np.linalg.norm(b))
+    hb, hs = np.array(ib.residuals), np.array(i1.residuals[1:])
+    m = min(len(hb), len(hs))
+    rel = np.abs(hb[:m] - hs[:m]) / hs[:m]
+    gap = np.abs(hb[:m] - hs[:m]).max() / nb
+    log(f"[one] single-rhs f32: its {i1.nits}, rres {i1.rres:.3e}; batched "
+        f"k=1: its {ib.nits}, rres {ib.rres:.3e}; history rel diff "
+        f"{[f'{v:.1e}' for v in rel]}, max abs diff {gap:.3e} ||b||; "
+        f"max |x_b - x_s| / max|x_s| "
+        f"{np.abs(xb[:, 0] - x1).max() / np.abs(x1).max():.3e}")
+    check(mid["multi"] == before["multi"] and
+          all(mid[e] > before[e] for e in ("update", "resid", "spmv")),
+          "the single-rhs solve did not run through B1 alone")
+    check(after["multi"] > mid["multi"] and
+          all(after[e] == mid[e] for e in D.EPILOGUES),
+          "the one-column batched solve did not run through B4 alone")
+    check(abs(ib.nits - i1.nits) <= 1,
+          f"iterations differ: batched {ib.nits}, single {i1.nits}")
+    check(np.allclose(hb[:m], hs[:m], rtol=1e-3, atol=ONE_COL_ATOL * nb),
+          f"residual histories differ beyond rtol 1e-3 + {ONE_COL_ATOL:g} "
+          f"||b||")
+    # the single-rhs solve warm, beside the batched one of phase 11
+    t0 = time.perf_counter()
+    _, i2 = single.solve(b)
+    torch.cuda.synchronize()
+    log(f"[one] warm single-rhs f32 solve {time.perf_counter() - t0:.4f} s, "
+        f"its {i2.nits}")
+
+
+def _kernel_entries(dia_rows, well_rows, multi_rows=()):
     """The ``kernels`` JSON entries: one per (epilogue, operator) of
-    phase 6 and per (entry, operator) of phase 9."""
+    phase 6, per (entry, operator) of phase 9 and per launch shape of
+    phase 11."""
     out = [{
         "name": f"dia_spmv.{r['epilogue']}[{r['op']} {r['vals']}/{r['x']} "
                 f"nd={r['nd']} pad={r['pad']}]",
@@ -646,6 +881,29 @@ def _kernel_entries(dia_rows, well_rows):
         "ms": r["ms"], "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
         "bound_by": r["bound_by"], "library_ms": r["lib_ms"],
         "lib_ms": r["lib_ms"]} for r in well_rows]
+    out += [{
+        "name": f"dia_spmv.multi[{r['op']} {r['vals']}/{r['x']} "
+                f"nd={r['nd']} pad={r['pad']} k={r['k']}]",
+        "route": "cuda", "source": "amg_tpu_torch/csrc/dia_spmv.cu",
+        "replaces": "amg_tpu/ops/pallas_dia.py:280",
+        "launches": r["launches"], "max_abs_err": r["max_abs_err"],
+        "ms": r["ms"], "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
+        "bound_by": r["bound_by"], "library_ms": r["lib_ms"],
+        "lib_ms": r["lib_ms"]} for r in multi_rows]
+    return out
+
+
+def _multi_main_rows(multi_rows, by_shape):
+    """Phase 10's rows for the launch shapes of phase 11 (the batched
+    solve's DIA levels at k = N_RHS), each with its launch count."""
+    out = []
+    for (_, vdt, _, nd, pad, k), n in sorted(by_shape.items(), key=str):
+        match = [r for r in multi_rows if r["op"].startswith("level")
+                 and (r["vals"], r["nd"], r["pad"], r["k"])
+                 == (str(vdt)[6:], nd, pad, k)]
+        check(match, f"phase 10 did not measure B4 at the batched solve's "
+                     f"launch shape {(vdt, nd, pad, k)}")
+        out += [dict(r, launches=n) for r in match]
     return out
 
 
@@ -670,8 +928,16 @@ def main() -> int:
     solver, by_shape, _ = phase_main_path()
     stamp("structured path")
     dia_rows = phase_main_shapes(solver, by_shape)
-    del solver
     stamp("structured shapes")
+    multi_rows = phase_multi_kernels(solver)
+    stamp("multi-rhs kernel")
+    B = np.random.default_rng(6).standard_normal((solver.a.n_rows, N_RHS))
+    multi_by_shape, _ = phase_batched(solver, B)
+    multi_rows = _multi_main_rows(multi_rows, multi_by_shape)
+    stamp("batched path")
+    phase_batched_one_column(solver, B[:, 0])
+    del solver
+    stamp("one column")
     import amg_tpu_torch as amg
 
     a = amg.fem2d(FEM_ROWS, seed=0)
@@ -691,7 +957,8 @@ def main() -> int:
     log(f"[done] {time.perf_counter() - t_start:.1f} s in all; "
         f"card: {smi}")
     log(smi)
-    log(json.dumps({"kernels": _kernel_entries(dia_rows, well_rows)}))
+    log(json.dumps({"kernels": _kernel_entries(dia_rows, well_rows,
+                                               multi_rows)}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,
         "count": torch.cuda.device_count()}}))

@@ -2,9 +2,12 @@
 
     python3 profile_torch.py                  # fem2d(1,000,000), unstructured
     python3 profile_torch.py --structured     # poisson3d(100), structured
+    python3 profile_torch.py --batched 16     # poisson3d(100), solve_batched
 
 Builds the main-path configuration of ``chip_smoke.py`` (phase 8, or
-phase 5 with ``--structured``), runs a cold and a warm solve, then one
+phase 5 with ``--structured``; with ``--batched K`` phase 5's solver runs
+``solve_batched`` on K seeded random right-hand sides to phase 11's
+tolerance), runs a cold and a warm solve, then one
 more warm solve under ``torch.profiler`` and prints: the wall time of the
 solves, the device time of every kernel by name (sums over the profiled
 solve), the same sums grouped by what the kernels do, and the device's
@@ -26,6 +29,7 @@ import torch
 GROUPS = (
     ("well_df64_kernel", "B3 WEll df64 (well_spmv.cu)"),
     ("well_kernel", "B2 WEll (well_spmv.cu)"),
+    ("dia_multi_kernel", "B4 DIA multi-rhs (dia_spmv.cu)"),
     ("dia_kernel", "B1 DIA (dia_spmv.cu)"),
     ("gemv", "dense matvec (cuBLAS)"),
     ("gemm", "dense matvec (cuBLAS)"),
@@ -51,31 +55,45 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--structured", action="store_true",
                     help="poisson3d(100) instead of fem2d(1,000,000)")
+    ap.add_argument("--batched", type=int, default=0, metavar="K",
+                    help="poisson3d(100) through solve_batched with K "
+                         "right-hand sides")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("profile_torch: needs a CUDA card", file=sys.stderr)
         return 1
     import amg_tpu_torch as amg
-    from chip_smoke import FEM_ROWS, structured_pars, unstructured_pars
+    from chip_smoke import (BATCH_TOL, FEM_ROWS, structured_pars,
+                            unstructured_pars)
     from torch.profiler import ProfilerActivity, profile
 
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True, timeout=60, check=True).stdout.strip()
     print(f"card: {smi}; torch {torch.__version__}, CUDA {torch.version.cuda}")
-    if args.structured:
+    if args.structured or args.batched:
         a, pars, what = amg.poisson3d(100), structured_pars(amg), \
             "poisson3d(100)"
     else:
         a, pars, what = amg.fem2d(FEM_ROWS, seed=0), \
             unstructured_pars(amg), f"fem2d({FEM_ROWS})"
-    b = np.ones(a.n_rows)
     solver = amg.AMGSolver(a, pars, log=lambda *_: None)
+    if args.batched:
+        what += f", solve_batched k={args.batched}"
+        B = np.random.default_rng(6).standard_normal((a.n_rows, args.batched))
+
+        def run():
+            return solver.solve_batched(B, tol=BATCH_TOL)
+    else:
+        b = np.ones(a.n_rows)
+
+        def run():
+            return solver.solve(b)
     times = []
     for _ in range(3):
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        _, info = solver.solve(b)
+        _, info = run()
         torch.cuda.synchronize()
         times.append(time.perf_counter() - t0)
     print(f"{what}: {info.nits} iterations, rres {info.rres:.3e}; solve "
@@ -85,7 +103,7 @@ def main() -> int:
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        solver.solve(b)
+        run()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
     rows = []

@@ -25,6 +25,7 @@ pytestmark = pytest.mark.gpu
 
 DATA = os.path.join(os.path.dirname(os.path.abspath(__file__)), "data")
 TOL = {torch.float32: 2e-6, torch.bfloat16: 1e-5, torch.float64: 1e-13}
+EPILOGUES = dia_kernel.EPILOGUES   # B1's counters (B4 counts as "multi")
 
 
 def _needs_card():
@@ -75,6 +76,35 @@ def test_dia_kernel_matches_plain(kind, vdtype):
         assert err <= TOL[vdt], (kind, vdtype, ep, err)
 
 
+@pytest.mark.parametrize("k", [1, 3, 4, 6, 8, 16])
+@pytest.mark.parametrize("vdtype", ["float32", "bfloat16", "float64"])
+@pytest.mark.parametrize("kind", ["band40", "p3d16"])
+def test_dia_multi_kernel_matches_plain(kind, vdtype, k):
+    """Kernel B4 against its plain version on the card, every dtype pair
+    (band40 bf16: the nd >= 32 product rule) and every column block: k = 1
+    and 3 (blocks of 1), 6 (of 2), 4, 8 and 16 (the batched solve's)."""
+    _needs_card()
+    a, pad = ((_band_csr(8192, 40, seed=0), 8192) if kind == "band40"
+              else (amg.poisson3d(16), 4096))
+    vdt = getattr(torch, vdtype)
+    xdt = torch.float64 if vdt == torch.float64 else torch.float32
+    cpu = Dia.from_csr(a, dtype=vdt, pad_rows_to=pad)
+    gpu = Dia(cpu.vals.cuda(), cpu.offsets, cpu.shape, cpu.nnz)
+    xb = torch.randn(k, pad, generator=torch.Generator().manual_seed(6),
+                     dtype=xdt)
+    key = ("multi", vdt, xdt, len(cpu.offsets), pad, k)
+    before = dia_kernel.launches["multi"]
+    before_shape = dia_kernel.launches_by_shape.get(key, 0)
+    got = dia_kernel.spmv_multi(gpu, xb.cuda())
+    torch.cuda.synchronize()
+    assert dia_kernel.launches["multi"] == before + 1
+    assert dia_kernel.launches_by_shape[key] == before_shape + 1
+    assert got.is_cuda and got.dtype == xdt and got.shape == (k, pad)
+    want = dia_kernel.spmv_multi_plain(cpu, xb)
+    err = (got.cpu() - want).abs().max().item() / want.abs().max().item()
+    assert err <= TOL[vdt], (kind, vdtype, k, err)
+
+
 def test_cuda_tensor_never_falls_back():
     """A CUDA tensor reaches the kernel or raises."""
     _needs_card()
@@ -121,7 +151,29 @@ def test_slice_on_card():
     true_rel = np.linalg.norm(1.0 - a.matvec(x.astype(np.float64))) \
         / np.sqrt(a.n_rows)
     assert info.rres < 1e-8 and true_rel < 1e-8
-    assert all(dia_kernel.launches[e] > before[e] for e in before)
+    assert all(dia_kernel.launches[e] > before[e] for e in EPILOGUES)
+
+
+def test_batched_slice_on_card():
+    """solve_batched on the card at test size: every column below the
+    tolerance (host-verified), B4 launched, B1 not."""
+    _needs_card()
+    a = amg.poisson3d(20)
+    pars = amg.AMGParams(
+        dtype="float32", smoother=amg.SmootherType.GS,
+        coarse_smoother=amg.SmootherType.CHEBYSHEV,
+        coarse_op_dtype="bfloat16", coarse_sparsify=0.005,
+        sparsify_from_level=2, coarse_stop_rows=3500, max_it=60, verbose=0,
+        embed_levels=0, use_well="off", use_banded="off")
+    solver = amg.AMGSolver(a, pars, device="cuda", log=lambda *_: None)
+    B = np.random.default_rng(7).standard_normal((a.n_rows, 5))
+    before = dict(dia_kernel.launches)
+    x, info = solver.solve_batched(B, tol=1e-6)
+    assert dia_kernel.launches["multi"] > before["multi"]
+    assert all(dia_kernel.launches[e] == before[e] for e in EPILOGUES)
+    for c in range(B.shape[1]):
+        r = B[:, c] - a.matvec(x[:, c].astype(np.float64))
+        assert np.linalg.norm(r) / np.linalg.norm(B[:, c]) < 1e-6
 
 
 def _well_pack(a, kind, device):
