@@ -1,58 +1,272 @@
-// Windowed-gather ELL (WEll) sparse matrix-vector products for NVIDIA
-// Hopper (sm_90a).
+// WEll sparse matrix-vector products for NVIDIA Hopper (sm_90a).
 //
 // Replaces the two TPU kernels of amg_tpu/ops/pallas_well.py:
 //
 //   _build       (B2)  y = A x           values f32 / bf16 (and f64), x f32 (f64)
 //   _build_df64  (B3)  y = (A_hi + A_lo) x   values two f32 planes, x and y f64
 //
-// It computes what those kernels compute, not their tiling.  The operator
-// is stored in row groups of 1024 rows (row g*1024 + s*128 + l at sublane
-// s, lane l) and, per group, S slots; every slot k has one window start
-// base[g, k] (in units of 128 columns) and per row at most one entry:
+// It computes what those kernels compute, not their tiling.  The TPU
+// stores the operator as WEll (windowed-gather ELL: row groups of 1024
+// rows, S slots per group, every slot's columns inside one 1024-column
+// window of x) because its gathers are slow; the port keeps that pack
+// array for array (the tests hold it equal to amg_tpu's) and derives from
+// it, once per operator and on the card, the layout these kernels read
+// (amg_tpu_torch/sparse.py::RowSlices):
 //
-//   loc = (Q << 7) | r        (int16; r < 128, Q < 8)
-//   col = (base[g, k] + Q[s, r]) * 128 + r,   r = loc[g, k, s, l] & 127,
-//                                             Q[s, j] = loc[g, k, s, j] >> 7
-//   y[g*1024 + s*128 + l] = sum_k vals[g, k, s, l] * x[col]
+//   rows in slices of 32 (SELL-32), each segment of rows (a GS class, or
+//   all rows) cut into its own slices; slot row t = 32 * slice + lane is
+//   output row row_idx[t] (-1: unused lane) with row_len[t] entries, and
+//   entry j of slot row t sits at slice_ptr[t / 32] + 32 * j + t % 32 of
+//   cols (int32) and vals.  Padding slots of the pack are dropped.
 //
-// Q of an entry is NOT stored at the entry's own lane but at lane r of the
-// same sublane (the TPU resolves it with a sublane gather followed by a
-// lane shuffle; amg_tpu/sparse.py:658-665).  So the block stages each
-// slot's (8, 128) loc tile in shared memory and reads Q from there.
-// Entries whose column is at or past the length of x read 0: the TPU
-// entries zero-pad x to pad_cols on every call; here the pad is a mask.
+// Design: one thread per slot row, blocks of 256 threads (8 slices).  A
+// thread loops to its own row length only; for each j the 32 lanes of a
+// warp read 32 consecutive column words and values (one coalesced run),
+// lanes past their row's end read nothing, and no block-wide barrier is
+// needed.  Entries go in predicated batches of 4 (all lanes of a warp run
+// the same batch, so each j stays one coalesced run), which gives each
+// thread 4 independent loads in flight; batches of 8, and an unpredicated
+// batch loop with a one-entry tail, were slower on the H100.  x is gathered through the read-only path: x of a 1M-row level
+// is 4 MB in f32 and 8 MB in f64 and stays in the 50 MB L2; the streamed
+// columns and values are loaded with the evict-first hint (__ldcs) so they
+// do not push x out.  Columns at or past the length of x read 0 (the TPU
+// entries zero-pad x to pad_cols on every call; here the pad is a mask).
+// Values are widened exactly to x's type and accumulated with FMA in it.
 //
-// B3 on Hopper: the TPU has no f64, so pallas_well builds an f64-quality
-// product from f32 arithmetic (Dekker split, TwoSum).  Hopper has f64: the
-// kernel widens the two f32 value planes exactly, v = double(hi) +
-// double(lo), and accumulates v * x[col] in native f64 with FMA.  The two
-// planes are kept (not merged into one f64 plane) because the level-0
-// f32 operator of the cycle shares the hi plane on the card.
+// Entries (all extern "C", launched on the caller's stream, returning
+// cudaGetLastError()):
 //
-// Design: one CUDA block of 1024 threads per row group, thread t = output
-// row (s = t >> 7, l = t & 127), a loop over the group's S slots.  Slot
-// tiles are contiguous 1024-entry runs of vals and loc, so every value
-// and loc load is coalesced; the loc tile goes to a double-buffered
-// shared array (one __syncthreads per slot).  The x reads gather within a
-// 1024-column window per slot and are served by L1/L2 (x of a 1M-row level
-// is 4 MB in f32, 8 MB in f64: it stays in the 50 MB L2).
+//   rows_spmv_<v>_<x>  B2: y[row] = sum_j v_j x[c_j] over all slices
+//   rows_df64          B3: the same with v_j = double(hi_j) + double(lo_j)
+//                      (exact: each f32 plane widens to f64 without
+//                      rounding, and hi, lo do not overlap)
+//   rows_gs_<v>_<x>    B2's Gauss-Seidel class update, over the slices of
+//                      one class only, IN PLACE on x:
+//                        t = (b - ax + diag * x) * inv_diag
+//                        t = (1 - relax) * x + relax * t   (with relax)
+//                        x[row] = inv_diag != 0 ? t : x[row]
+//                      each operation rounded as the torch expression of
+//                      amg_tpu_torch/solve/smoothers.py rounds it.  Safe
+//                      in place: rows of one class do not couple, so a row
+//                      reads only other classes' entries of x and its own.
+//   well_<v>_<x>, well_df64   the first port of B2 and B3, a walk over
+//                      every slot of the WEll pack (kept for comparison;
+//                      the solve does not launch them).
 //
-// What bounds it on an H100: device-memory bytes.  Per slot entry it
-// streams its value (4 B f32, 2 B bf16, 8 B for the df64 pair) and its
-// loc word (2 B) for 2 flops; the row group's output is written once.
-// Padding slots of a partly filled slot cost the same bytes as entries:
-// the format's fill (about 35% on an RCM-ordered Delaunay FEM matrix)
-// sets how far it stays from a CSR product's traffic.
-//
-// Bound with ctypes: plain extern "C" entries that launch on the given
-// stream and return cudaGetLastError().
+// What bounds them on an H100: device-memory bytes.  The row-slice
+// product streams per nonzero its value (4 B f32, 2 B bf16, 8 B f64 or the
+// df64 pair) and its column (4 B), per slot row its length and output row
+// (8 B), x once (from L2 after the first touch) and y once: 2 flops per
+// 6-12 bytes, far below the tensor cores' ratio, so neither tensor cores
+// nor TMA apply.  The levers are bytes (no padding slots), coalescing, no
+// barriers and x from L2.  The slot walk streams every slot entry, filled
+// or not (6 B f32 per slot entry; 22.5% filled on an RCM-ordered Delaunay
+// FEM level), and pays one __syncthreads per slot to stage the loc tile
+// for the lookup of Q, which lives in another lane.
 
 #include <cstdint>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 namespace {
+
+constexpr int kSlice = 32;    // rows per slice (one warp)
+constexpr int kBlock = 256;   // threads per block of the row-slice kernels
+
+// ---- loads -----------------------------------------------------------------
+
+// streamed once: evict-first, so that x stays in L2
+__device__ __forceinline__ float ld_val(const float* p) { return __ldcs(p); }
+__device__ __forceinline__ double ld_val(const double* p) { return __ldcs(p); }
+__device__ __forceinline__ float ld_val(const __nv_bfloat16* p) {
+  return __bfloat162float(__ushort_as_bfloat16(
+      __ldcs(reinterpret_cast<const unsigned short*>(p))));
+}
+
+// one value plane, widened to the vector type X
+template <typename V, typename X>
+struct OnePlane {
+  const V* v;
+  __device__ __forceinline__ X operator()(int64_t p) const {
+    return X(ld_val(v + p));
+  }
+};
+
+// the df64 pair: exact widening of both f32 planes
+struct TwoPlanes {
+  const float* hi;
+  const float* lo;
+  __device__ __forceinline__ double operator()(int64_t p) const {
+    return (double)ld_val(hi + p) + (double)ld_val(lo + p);
+  }
+};
+
+__device__ __forceinline__ float fma_(float a, float b, float c) {
+  return fmaf(a, b, c);
+}
+__device__ __forceinline__ double fma_(double a, double b, double c) {
+  return fma(a, b, c);
+}
+
+// x read through the read-only path where nothing writes x during the
+// launch (the products); by a plain load where the launch updates x (gs)
+template <bool kReadOnly, typename X>
+__device__ __forceinline__ X ld_x(const X* x, int c) {
+  if constexpr (kReadOnly) return __ldg(x + c);
+  return x[c];
+}
+
+constexpr int kBatch = 4;   // entries whose loads a thread issues together
+
+// sum_j v_j x[c_j] over the row_len entries of the slot row whose first
+// entry is at place p, in order of j.  Entries go in batches of kBatch:
+// all columns and values of a batch are loaded, then all its x entries,
+// so that a thread has kBatch independent loads in flight instead of one
+// chain of column -> x -> FMA per entry.
+template <bool kReadOnly, typename X, typename Vals>
+__device__ __forceinline__ X row_sum(const Vals& vals,
+                                     const int32_t* __restrict__ cols,
+                                     int64_t p, int len, const X* x,
+                                     int64_t n_x) {
+  X acc = X(0);
+  for (int j = 0; j < len; j += kBatch, p += kBatch * kSlice) {
+    int c[kBatch];
+    X v[kBatch], xv[kBatch];
+#pragma unroll
+    for (int u = 0; u < kBatch; ++u) {
+      const bool in = j + u < len;
+      c[u] = in ? __ldcs(cols + p + u * kSlice) : -1;
+      v[u] = in ? vals(p + u * kSlice) : X(0);
+    }
+#pragma unroll
+    for (int u = 0; u < kBatch; ++u)
+      xv[u] = (c[u] >= 0 && c[u] < n_x) ? ld_x<kReadOnly>(x, c[u]) : X(0);
+#pragma unroll
+    for (int u = 0; u < kBatch; ++u)
+      if (j + u < len) acc = fma_(v[u], xv[u], acc);
+  }
+  return acc;
+}
+
+// ---- rounded arithmetic of the GS epilogue (no FMA contraction) ------------
+
+__device__ __forceinline__ float add_rn(float a, float b) {
+  return __fadd_rn(a, b);
+}
+__device__ __forceinline__ double add_rn(double a, double b) {
+  return __dadd_rn(a, b);
+}
+__device__ __forceinline__ float sub_rn(float a, float b) {
+  return __fsub_rn(a, b);
+}
+__device__ __forceinline__ double sub_rn(double a, double b) {
+  return __dsub_rn(a, b);
+}
+__device__ __forceinline__ float mul_rn(float a, float b) {
+  return __fmul_rn(a, b);
+}
+__device__ __forceinline__ double mul_rn(double a, double b) {
+  return __dmul_rn(a, b);
+}
+
+// ---- row-slice kernels -----------------------------------------------------
+
+template <typename X, typename Vals>
+__global__ void __launch_bounds__(kBlock)
+rows_spmv_kernel(Vals vals, const int32_t* __restrict__ cols,
+                 const int64_t* __restrict__ slice_ptr,
+                 const int32_t* __restrict__ row_len,
+                 const int32_t* __restrict__ row_idx, int64_t n_slot_rows,
+                 const X* __restrict__ x, int64_t n_x, X* __restrict__ y) {
+  const int64_t t = (int64_t)blockIdx.x * kBlock + threadIdx.x;
+  if (t >= n_slot_rows) return;
+  const int row = row_idx[t];
+  if (row < 0) return;
+  const int64_t p = slice_ptr[t / kSlice] + (t % kSlice);
+  y[row] = row_sum<true>(vals, cols, p, row_len[t], x, n_x);
+}
+
+template <typename X, typename V>
+__global__ void __launch_bounds__(kBlock)
+rows_gs_kernel(OnePlane<V, X> vals, const int32_t* __restrict__ cols,
+               const int64_t* __restrict__ slice_ptr,
+               const int32_t* __restrict__ row_len,
+               const int32_t* __restrict__ row_idx, int64_t slot0,
+               int64_t n_slot_rows, X* x, int64_t n_x,
+               const X* __restrict__ b, const X* __restrict__ diag,
+               const X* __restrict__ inv_diag, X one_minus_relax, X relax,
+               int has_relax) {
+  const int64_t i = (int64_t)blockIdx.x * kBlock + threadIdx.x;
+  if (i >= n_slot_rows) return;
+  const int64_t t = slot0 + i;
+  const int row = row_idx[t];
+  if (row < 0) return;
+  const int64_t p = slice_ptr[t / kSlice] + (t % kSlice);
+  const X ax = row_sum<false>(vals, cols, p, row_len[t], x, n_x);
+  const X xi = x[row];
+  const X w = inv_diag[row];
+  X v = mul_rn(add_rn(sub_rn(b[row], ax), mul_rn(diag[row], xi)), w);
+  if (has_relax) v = add_rn(mul_rn(one_minus_relax, xi), mul_rn(relax, v));
+  x[row] = w != X(0) ? v : xi;
+}
+
+unsigned blocks_for(int64_t n_threads) {
+  return (unsigned)((n_threads + kBlock - 1) / kBlock);
+}
+
+bool bad_size(int64_t n_threads) {
+  return n_threads < 0 || (n_threads + kBlock - 1) / kBlock > 0x7fffffffLL;
+}
+
+template <typename V, typename X>
+int launch_rows(const void* vals, const void* cols, const void* slice_ptr,
+                const void* row_len, const void* row_idx,
+                int64_t n_slot_rows, const void* x, int64_t n_x, void* y,
+                void* stream) {
+  if (bad_size(n_slot_rows)) return (int)cudaErrorInvalidValue;
+  if (n_slot_rows == 0) return 0;
+  rows_spmv_kernel<X, OnePlane<V, X>>
+      <<<blocks_for(n_slot_rows), kBlock, 0,
+         static_cast<cudaStream_t>(stream)>>>(
+          OnePlane<V, X>{static_cast<const V*>(vals)},
+          static_cast<const int32_t*>(cols),
+          static_cast<const int64_t*>(slice_ptr),
+          static_cast<const int32_t*>(row_len),
+          static_cast<const int32_t*>(row_idx), n_slot_rows,
+          static_cast<const X*>(x), n_x, static_cast<X*>(y));
+  return (int)cudaGetLastError();
+}
+
+template <typename V, typename X>
+int launch_gs(const void* vals, const void* cols, const void* slice_ptr,
+              const void* row_len, const void* row_idx, int64_t slot0,
+              int64_t n_slot_rows, void* x, int64_t n_x, const void* b,
+              const void* diag, const void* inv_diag,
+              double one_minus_relax, double relax, int has_relax,
+              void* stream) {
+  if (bad_size(n_slot_rows) || slot0 < 0) return (int)cudaErrorInvalidValue;
+  if (n_slot_rows == 0) return 0;
+  rows_gs_kernel<X, V><<<blocks_for(n_slot_rows), kBlock, 0,
+                         static_cast<cudaStream_t>(stream)>>>(
+      OnePlane<V, X>{static_cast<const V*>(vals)},
+      static_cast<const int32_t*>(cols),
+      static_cast<const int64_t*>(slice_ptr),
+      static_cast<const int32_t*>(row_len),
+      static_cast<const int32_t*>(row_idx), slot0, n_slot_rows,
+      static_cast<X*>(x), n_x, static_cast<const X*>(b),
+      static_cast<const X*>(diag), static_cast<const X*>(inv_diag),
+      X(one_minus_relax), X(relax), has_relax);
+  return (int)cudaGetLastError();
+}
+
+// ---- the slot walk over the WEll pack (first port; not on the solve path) --
+//
+// One block of 1024 threads per row group (row g*1024 + s*128 + l at
+// thread s*128 + l), a loop over the group's S slots.  An entry's column
+// is (base[g, k] + Q[s, r]) * 128 + r with r = loc & 127 at the entry's
+// own lane and Q = loc >> 7 read at lane r of the same sublane, so each
+// slot's (8, 128) loc tile is staged in shared memory (double-buffered,
+// one __syncthreads per slot).
 
 constexpr int kGroupRows = 1024;  // rows per group = threads per block
 
@@ -109,8 +323,6 @@ well_df64_kernel(const float* __restrict__ hi, const float* __restrict__ lo,
     __syncthreads();
     const int64_t col = entry_col(tile, t, base[g * n_slots + k]);
     const double xj = col < n_x ? x[col] : 0.0;
-    // exact: each f32 plane widens to f64 without rounding, and hi, lo do
-    // not overlap, so their f64 sum is the packed f64 value to ~2^-48
     const double v = (double)hi[off + t] + (double)lo[off + t];
     acc = fma(v, xj, acc);
   }
@@ -118,9 +330,9 @@ well_df64_kernel(const float* __restrict__ hi, const float* __restrict__ lo,
 }
 
 template <typename V, typename X>
-int launch(const void* vals, const void* loc, const void* base,
-           int64_t ngroups, int n_slots, const void* x, int64_t n_x,
-           void* y, void* stream) {
+int launch_walk(const void* vals, const void* loc, const void* base,
+                int64_t ngroups, int n_slots, const void* x, int64_t n_x,
+                void* y, void* stream) {
   if (ngroups <= 0) return 0;
   if (ngroups > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
   well_kernel<V, X><<<(unsigned)ngroups, kGroupRows, 0,
@@ -135,25 +347,74 @@ int launch(const void* vals, const void* loc, const void* base,
 
 extern "C" {
 
+// ---- row slices: B2 (spmv, gs) and B3 (df64) --------------------------------
+
+#define ROWS_ENTRIES(SUFFIX, V, X)                                           \
+  int rows_spmv_##SUFFIX(const void* vals, const void* cols,                 \
+                         const void* slice_ptr, const void* row_len,         \
+                         const void* row_idx, int64_t n_slot_rows,           \
+                         const void* x, int64_t n_x, void* y, void* stream) { \
+    return launch_rows<V, X>(vals, cols, slice_ptr, row_len, row_idx,        \
+                             n_slot_rows, x, n_x, y, stream);                \
+  }                                                                          \
+  int rows_gs_##SUFFIX(const void* vals, const void* cols,                   \
+                       const void* slice_ptr, const void* row_len,           \
+                       const void* row_idx, int64_t slot0,                   \
+                       int64_t n_slot_rows, void* x, int64_t n_x,            \
+                       const void* b, const void* diag,                      \
+                       const void* inv_diag, double one_minus_relax,         \
+                       double relax, int has_relax, void* stream) {          \
+    return launch_gs<V, X>(vals, cols, slice_ptr, row_len, row_idx, slot0,   \
+                           n_slot_rows, x, n_x, b, diag, inv_diag,           \
+                           one_minus_relax, relax, has_relax, stream);       \
+  }
+
+ROWS_ENTRIES(f32_f32, float, float)
+ROWS_ENTRIES(bf16_f32, __nv_bfloat16, float)
+ROWS_ENTRIES(f64_f64, double, double)
+
+#undef ROWS_ENTRIES
+
+int rows_df64(const void* hi, const void* lo, const void* cols,
+              const void* slice_ptr, const void* row_len,
+              const void* row_idx, int64_t n_slot_rows, const void* x,
+              int64_t n_x, void* y, void* stream) {
+  if (bad_size(n_slot_rows)) return (int)cudaErrorInvalidValue;
+  if (n_slot_rows == 0) return 0;
+  rows_spmv_kernel<double, TwoPlanes>
+      <<<blocks_for(n_slot_rows), kBlock, 0,
+         static_cast<cudaStream_t>(stream)>>>(
+          TwoPlanes{static_cast<const float*>(hi),
+                    static_cast<const float*>(lo)},
+          static_cast<const int32_t*>(cols),
+          static_cast<const int64_t*>(slice_ptr),
+          static_cast<const int32_t*>(row_len),
+          static_cast<const int32_t*>(row_idx), n_slot_rows,
+          static_cast<const double*>(x), n_x, static_cast<double*>(y));
+  return (int)cudaGetLastError();
+}
+
+// ---- the slot walk (first port of B2 and B3) --------------------------------
+
 int well_f32_f32(const void* vals, const void* loc, const void* base,
                  int64_t ngroups, int n_slots, const void* x, int64_t n_x,
                  void* y, void* stream) {
-  return launch<float, float>(vals, loc, base, ngroups, n_slots, x, n_x, y,
-                              stream);
+  return launch_walk<float, float>(vals, loc, base, ngroups, n_slots, x, n_x,
+                                   y, stream);
 }
 
 int well_bf16_f32(const void* vals, const void* loc, const void* base,
                   int64_t ngroups, int n_slots, const void* x, int64_t n_x,
                   void* y, void* stream) {
-  return launch<__nv_bfloat16, float>(vals, loc, base, ngroups, n_slots, x,
-                                      n_x, y, stream);
+  return launch_walk<__nv_bfloat16, float>(vals, loc, base, ngroups, n_slots,
+                                           x, n_x, y, stream);
 }
 
 int well_f64_f64(const void* vals, const void* loc, const void* base,
                  int64_t ngroups, int n_slots, const void* x, int64_t n_x,
                  void* y, void* stream) {
-  return launch<double, double>(vals, loc, base, ngroups, n_slots, x, n_x, y,
-                                stream);
+  return launch_walk<double, double>(vals, loc, base, ngroups, n_slots, x,
+                                     n_x, y, stream);
 }
 
 int well_df64(const void* hi, const void* lo, const void* loc,

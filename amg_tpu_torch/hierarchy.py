@@ -548,8 +548,7 @@ def _level_from_csr(
         a_dev = Dense.from_csr(al, dtype=op_dtype, pad_rows_to=pad,
                                pad_cols_to=pad, device=device)
     elif fmt == "well":
-        a_dev = WEll.from_csr(al, dtype=op_dtype, pad_rows_to=pad,
-                              pad_cols_to=pad, device=device)
+        a_dev = None   # packed below, once its GS classes are known
     else:
         ell_cols_np, ell_vals_np = Ell.pack_host(al, pad_rows_to=pad)
         a_dev = Ell(
@@ -613,7 +612,8 @@ def _level_from_csr(
         )
         group_cf = [int(gs_key[s] % 2) for s in starts]
     elif fmt in ("dia", "dense", "well"):
-        # gather-free masked GS path (full-operator product + class mask)
+        # gather-free masked GS path (full-operator product + class mask;
+        # on WEll one class-update launch over the class's rows)
         groups, group_cf, gid = build_groups(al, cfmark, pad_to=pad)
         gid_dev = _to_device(gid, torch.int32, device)
         if fmt == "dia":
@@ -627,6 +627,13 @@ def _level_from_csr(
         groups, group_cf, gid = build_groups(al, cfmark, pad_to=pad)
         groups_dev = tuple(_to_device(g[g < pad], torch.int64, device)
                            for g in np.asarray(groups, dtype=np.int64))
+
+    if fmt == "well":
+        # the derived layout groups its rows by GS class where the level
+        # takes the masked path (gid), else keeps them in row order
+        a_dev = WEll.from_csr(al, dtype=op_dtype, pad_rows_to=pad,
+                              pad_cols_to=pad, device=device,
+                              classes=gid_dev)
 
     # spectral radius of D^{-1} A (host power iteration; only the
     # Chebyshev/poly smoothers consume it).  The coarse-smoother override

@@ -49,9 +49,10 @@ def spmv_dense(a: Dense, x: torch.Tensor) -> torch.Tensor:
 
 
 def spmv_well(a: WEll, x: torch.Tensor) -> torch.Tensor:
-    """Windowed-gather ELL SpMV: the f64 product of the two f32 value
-    planes (kernel B3) when ``a.vals_lo`` is set and x is f64, otherwise
-    kernel B2 on ``a.vals``.  A batch runs one launch per column."""
+    """Windowed-gather ELL SpMV, on the operator's row-slice layout: the
+    f64 product of the two f32 value planes (kernel B3) when ``a.vals_lo``
+    is set and x is f64, otherwise kernel B2.  A batch runs one launch per
+    column."""
     if x.dim() == 2:
         return torch.stack([spmv_well(a, xc) for xc in x])
     if a.vals_lo is not None and x.dtype == torch.float64:

@@ -2,27 +2,37 @@
 
 Port of ``amg_tpu/ops/pallas_well.py``: ``_build`` with its entry ``spmv``
 (kernel B2) and ``_build_df64`` with its entry ``spmv_df64`` (kernel B3).
-For a :class:`~amg_tpu_torch.sparse.WEll` operator ``a`` with ``ngroups``
-row groups of 1024 rows and ``n_slots`` slots::
+The kernels read the operator's row-slice layout ``a.rows``
+(:class:`~amg_tpu_torch.sparse.RowSlices`, derived from the WEll pack when
+the operator is made: no padding slots, one thread per row)::
 
-    spmv(a, x)       y = A x             (vals f32 or bf16 with x f32;
-                                          vals f64 with x f64)
-    spmv_df64(a, x)  y = (A_hi + A_lo) x  (a.vals, a.vals_lo f32; x f64)
+    spmv(a, x)        y = A x             (vals f32 or bf16 with x f32;
+                                           vals f64 with x f64)
+    spmv_df64(a, x)   y = (A_hi + A_lo) x  (two f32 planes; x f64)
+    gs_update_(a, x, b, g, diag, inv_diag, relax=None)
+                      the Gauss-Seidel update of GS class g, IN PLACE on x:
+                      x_i <- (b_i - (Ax)_i + d_i x_i) / d_i for the rows i
+                      of class g with inv_diag_i != 0 (relaxed with
+                      ``relax``), one launch over that class's slices
 
-Both return ``ngroups * 1024`` entries (padding rows are 0).  ``x`` may be
-shorter than ``a.pad_cols``: columns at or past its length read 0, which
-is what the TPU entries' zero-padded copy of x gives; a longer ``x`` is
-read up to ``pad_cols`` only.  Values are widened exactly to the vector
-type and the products accumulated in it (no bf16 product rule, unlike
-the DIA kernel).
+``spmv``/``spmv_df64`` return ``a.padded_rows`` entries (padding rows are
+0).  ``x`` may be shorter than ``a.pad_cols``: columns at or past its
+length read 0, which is what the TPU entries' zero-padded copy of x
+gives; a longer ``x`` is read up to ``pad_cols`` only.  Values are widened
+exactly to the vector type and the products accumulated in it (no bf16
+product rule, unlike the DIA kernel).
+
+The first port of B2 and B3 walks the WEll pack itself, every slot of
+every row group (``spmv_walk``, ``spmv_df64_walk``).  Those kernels stay
+for comparison (``chip_smoke.py`` times them beside the row-slice ones);
+nothing on the solve path calls them.
 
 Dispatch is by the tensors' device: CUDA tensors launch the kernels in
 ``amg_tpu_torch/csrc/well_spmv.cu`` (built with ``nvcc`` on first use,
 bound with ctypes) or raise; CPU tensors take the plain versions
-(``*_plain``), the gather of ``amg_tpu/ops/spmv.py:50-63``, which the tests
-and ``chip_smoke.py`` also use as the reference.  ``launches`` counts
-kernel launches per entry, ``launches_by_shape`` per (entry, values dtype,
-n_slots, ngroups).
+(``*_plain``), which the tests and ``chip_smoke.py`` also use as the
+reference.  ``launches`` counts kernel launches per entry,
+``launches_by_shape`` per (entry, values dtype, rows, nnz).
 """
 
 from __future__ import annotations
@@ -34,26 +44,40 @@ import torch.nn.functional as F
 
 from .cuda_build import CudaLibrary
 
-ENTRIES = ("spmv", "df64")
+ENTRIES = ("spmv", "df64", "gs", "spmv_walk", "df64_walk")
 # kernel launches per entry (plain-version calls are not counted), and per
-# (entry, values dtype, n_slots, ngroups) launch shape
+# (entry, values dtype, rows, nnz) launch shape
 launches = {e: 0 for e in ENTRIES}
 launches_by_shape: dict = {}
 
-# (values dtype, vector dtype) pairs of the B2 kernel
+# (values dtype, vector dtype) pairs of B2 -> suffix of its C entries
 _PAIRS = {
-    (torch.float32, torch.float32): "well_f32_f32",
-    (torch.bfloat16, torch.float32): "well_bf16_f32",
-    (torch.float64, torch.float64): "well_f64_f64",
+    (torch.float32, torch.float32): "f32_f32",
+    (torch.bfloat16, torch.float32): "bf16_f32",
+    (torch.float64, torch.float64): "f64_f64",
 }
 
 
 def _bind(dll):
-    p, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
-    for name in _PAIRS.values():
-        fn = getattr(dll, name)
-        fn.argtypes = [p, p, p, i64, i32, p, i64, p, p]
-        fn.restype = i32
+    p, i32, i64, f64 = (ctypes.c_void_p, ctypes.c_int, ctypes.c_int64,
+                        ctypes.c_double)
+    for pair in _PAIRS.values():
+        for name, args in (
+                # vals, cols, slice_ptr, row_len, row_idx, n_slot_rows,
+                # x, n_x, y, stream
+                (f"rows_spmv_{pair}", [p, p, p, p, p, i64, p, i64, p, p]),
+                # vals, cols, slice_ptr, row_len, row_idx, first slot row,
+                # n_slot_rows, x, n_x, b, diag, inv_diag, 1 - relax, relax,
+                # has_relax, stream
+                (f"rows_gs_{pair}", [p, p, p, p, p, i64, i64, p, i64, p, p,
+                                     p, f64, f64, i32, p]),
+                # vals, loc, base, ngroups, n_slots, x, n_x, y, stream
+                (f"well_{pair}", [p, p, p, i64, i32, p, i64, p, p])):
+            fn = getattr(dll, name)
+            fn.argtypes = args
+            fn.restype = i32
+    dll.rows_df64.argtypes = [p, p, p, p, p, p, i64, p, i64, p, p]
+    dll.rows_df64.restype = i32
     dll.well_df64.argtypes = [p, p, p, p, i64, i32, p, i64, p, p]
     dll.well_df64.restype = i32
 
@@ -73,25 +97,14 @@ def build() -> str:
 # ---------------------------------------------------------------------------
 
 
-def _check(a, x, df64: bool):
-    vals = a.vals
-    ngroups, n_slots = a.base.shape
-    tile = (ngroups, n_slots, 8, 128)
-    for name, t in (("vals", vals), ("loc", a.loc),
-                    ("vals_lo", a.vals_lo if df64 else None)):
-        if t is not None and tuple(t.shape) != tile:
-            raise ValueError(f"WEll {name} must be {tile}; got "
-                             f"{tuple(t.shape)}")
-    if a.loc.dtype != torch.int16 or a.base.dtype != torch.int32:
-        raise TypeError(f"WEll loc must be int16 and base int32; got "
-                        f"{a.loc.dtype}, {a.base.dtype}")
+def _check_dtypes(vals, vals_lo, x, df64: bool):
     if df64:
-        if a.vals_lo is None:
+        if vals_lo is None:
             raise ValueError("spmv_df64 needs the vals_lo plane")
-        if (vals.dtype, a.vals_lo.dtype, x.dtype) != (
+        if (vals.dtype, vals_lo.dtype, x.dtype) != (
                 torch.float32, torch.float32, torch.float64):
             raise TypeError(f"spmv_df64 takes f32 value planes and an f64 "
-                            f"vector; got ({vals.dtype}, {a.vals_lo.dtype}, "
+                            f"vector; got ({vals.dtype}, {vals_lo.dtype}, "
                             f"{x.dtype})")
     elif (vals.dtype, x.dtype) not in _PAIRS:
         raise TypeError(f"unsupported (values, vector) dtypes "
@@ -99,15 +112,62 @@ def _check(a, x, df64: bool):
                         f"{sorted((str(v), str(u)) for v, u in _PAIRS)}")
     if x.dim() != 1:
         raise ValueError(f"x must be 1-D; got {tuple(x.shape)}")
-    for name, t in (("loc", a.loc), ("base", a.base), ("x", x),
+
+
+def _check_devices(named, device):
+    for name, t in named:
+        if t is not None and t.device != device:
+            raise ValueError(f"{name} is on {t.device}, values on {device}")
+
+
+def _check(a, x, df64: bool):
+    """The row-slice layout's planes against x."""
+    s = a.rows
+    _check_dtypes(s.vals, s.vals_lo if df64 else None, x, df64)
+    if s.cols.dtype != torch.int32 or s.row_len.dtype != torch.int32 or \
+            s.row_idx.dtype != torch.int32 or s.slice_ptr.dtype != torch.int64:
+        raise TypeError("row slices need int32 cols, row_len, row_idx and "
+                        "int64 slice_ptr")
+    _check_devices((("cols", s.cols), ("slice_ptr", s.slice_ptr),
+                    ("row_len", s.row_len), ("row_idx", s.row_idx),
+                    ("x", x), ("vals_lo", s.vals_lo if df64 else None)),
+                   s.vals.device)
+
+
+def _check_walk(a, x, df64: bool):
+    """The WEll pack's planes against x."""
+    ngroups, n_slots = a.base.shape
+    tile = (ngroups, n_slots, 8, 128)
+    for name, t in (("vals", a.vals), ("loc", a.loc),
                     ("vals_lo", a.vals_lo if df64 else None)):
-        if t is not None and t.device != vals.device:
-            raise ValueError(f"{name} is on {t.device}, values on "
-                             f"{vals.device}")
+        if t is not None and tuple(t.shape) != tile:
+            raise ValueError(f"WEll {name} must be {tile}; got "
+                             f"{tuple(t.shape)}")
+    if a.loc.dtype != torch.int16 or a.base.dtype != torch.int32:
+        raise TypeError(f"WEll loc must be int16 and base int32; got "
+                        f"{a.loc.dtype}, {a.base.dtype}")
+    _check_dtypes(a.vals, a.vals_lo if df64 else None, x, df64)
+    _check_devices((("loc", a.loc), ("base", a.base), ("x", x),
+                    ("vals_lo", a.vals_lo if df64 else None)),
+                   a.vals.device)
+
+
+def _check_gs(a, x, b, g, diag, inv_diag):
+    _check(a, x, df64=False)
+    first, n = a.rows.class_segment(g)
+    pr = a.padded_rows
+    for name, t in (("x", x), ("b", b), ("diag", diag),
+                    ("inv_diag", inv_diag)):
+        if t.dim() != 1 or t.shape[0] != pr or t.dtype != x.dtype:
+            raise ValueError(f"{name} must be ({pr},) {x.dtype}; got "
+                             f"{tuple(t.shape)} {t.dtype}")
+    _check_devices((("b", b), ("diag", diag), ("inv_diag", inv_diag)),
+                   a.rows.vals.device)
+    return first, n
 
 
 # ---------------------------------------------------------------------------
-# Plain PyTorch version (CPU tensors; the reference on the card)
+# Plain PyTorch versions (CPU tensors; the reference on the card)
 # ---------------------------------------------------------------------------
 
 
@@ -125,52 +185,161 @@ def _padded_x(a, x):
     return F.pad(x, (0, pc - x.shape[0])) if x.shape[0] < pc else x[:pc]
 
 
+def _slot_sums(a, x, first: int, n: int, df64: bool) -> torch.Tensor:
+    """``(A x)`` of the ``32 n`` slot rows of slices ``[first, first +
+    n)``: a gather of x at the entries' columns and a row sum."""
+    s = a.rows
+    place, slot = s.entries(first, n)
+    v = s.vals[place].to(x.dtype)
+    if df64:
+        v = v + s.vals_lo[place].to(x.dtype)
+    prod = v * _padded_x(a, x)[s.cols[place].long()]
+    out = torch.zeros(n * 32, dtype=x.dtype, device=x.device)
+    return out.index_add_(0, slot - first * 32, prod)
+
+
+def _product_plain(a, x, df64: bool) -> torch.Tensor:
+    _check(a, x, df64)
+    s = a.rows
+    y_slot = _slot_sums(a, x, 0, s.n_slices, df64)
+    used = s.row_idx >= 0
+    # NaN marks a row no segment covers (the kernel would leave it unset)
+    y = torch.full((a.padded_rows,), float("nan"), dtype=x.dtype,
+                   device=x.device)
+    y[s.row_idx[used].long()] = y_slot[used]
+    return y
+
+
 def spmv_plain(a, x: torch.Tensor) -> torch.Tensor:
-    _check(a, x, df64=False)
+    return _product_plain(a, x, df64=False)
+
+
+def spmv_df64_plain(a, x: torch.Tensor) -> torch.Tensor:
+    return _product_plain(a, x, df64=True)
+
+
+def _gs_epilogue(ax, xr, br, dr, wr, relax):
+    """The masked GS update of smoothers._masked_group_update, on the
+    rows' own entries."""
+    t = (br - ax + dr * xr) * wr
+    if relax is not None:
+        t = (1.0 - relax) * xr + relax * t
+    return torch.where(wr != 0, t, xr)
+
+
+def gs_update_plain_(a, x, b, g: int, diag, inv_diag, relax=None):
+    """Plain version of :func:`gs_update_`; updates ``x`` in place and
+    returns it."""
+    first, n = _check_gs(a, x, b, g, diag, inv_diag)
+    ax = _slot_sums(a, x, first, n, df64=False)
+    rows = a.rows.row_idx[first * 32:(first + n) * 32]
+    used = rows >= 0
+    rows = rows[used].long()
+    x[rows] = _gs_epilogue(ax[used], x[rows], b[rows], diag[rows],
+                           inv_diag[rows], relax)
+    return x
+
+
+def spmv_walk_plain(a, x: torch.Tensor) -> torch.Tensor:
+    """The slot walk's plain version (``amg_tpu/ops/spmv.py:50-63``)."""
+    _check_walk(a, x, df64=False)
     y = torch.sum(a.vals.to(x.dtype) * _padded_x(a, x)[gather_index(a)],
                   dim=1)
     return y.reshape(-1)
 
 
-def spmv_df64_plain(a, x: torch.Tensor) -> torch.Tensor:
-    _check(a, x, df64=True)
+def spmv_df64_walk_plain(a, x: torch.Tensor) -> torch.Tensor:
+    _check_walk(a, x, df64=True)
     v = a.vals.to(torch.float64) + a.vals_lo.to(torch.float64)
     y = torch.sum(v * _padded_x(a, x)[gather_index(a)], dim=1)
     return y.reshape(-1)
 
 
 # ---------------------------------------------------------------------------
-# Kernel launch
+# Kernel launches
 # ---------------------------------------------------------------------------
 
 
-def _launch(a, x, df64: bool) -> torch.Tensor:
-    planes = [("vals", a.vals), ("loc", a.loc), ("base", a.base), ("x", x)]
-    if df64:
-        planes.append(("vals_lo", a.vals_lo))
-    for name, t in planes:
-        if not t.is_contiguous():
+def _contiguous(named):
+    for name, t in named:
+        if t is not None and not t.is_contiguous():
             raise ValueError(f"{name} must be contiguous")
+
+
+def _count(entry, a, err):
+    if err != 0:
+        raise RuntimeError(f"WEll kernel launch failed ({entry}): CUDA "
+                           f"error {err}")
+    launches[entry] += 1
+    key = (entry, a.vals.dtype, a.n_rows, a.nnz)
+    launches_by_shape[key] = launches_by_shape.get(key, 0) + 1
+
+
+def _stream(x):
+    return torch.cuda.current_stream(x.device).cuda_stream
+
+
+def _layout_ptrs(s):
+    return (s.vals.data_ptr(), s.cols.data_ptr(), s.slice_ptr.data_ptr(),
+            s.row_len.data_ptr(), s.row_idx.data_ptr())
+
+
+def _launch(a, x, df64: bool) -> torch.Tensor:
+    s = a.rows
+    _contiguous((("cols", s.cols), ("vals", s.vals), ("x", x),
+                 ("vals_lo", s.vals_lo if df64 else None)))
+    lib = _LIB.load()
+    y = torch.empty(a.padded_rows, dtype=x.dtype, device=x.device)
+    n_x = min(x.shape[0], a.pad_cols)
+    rest = (s.n_slices * 32, x.data_ptr(), n_x, y.data_ptr(), _stream(x))
+    if df64:
+        entry = "df64"
+        err = lib.rows_df64(s.vals.data_ptr(), s.vals_lo.data_ptr(),
+                            *_layout_ptrs(s)[1:], *rest)
+    else:
+        entry = "spmv"
+        fn = getattr(lib, f"rows_spmv_{_PAIRS[(s.vals.dtype, x.dtype)]}")
+        err = fn(*_layout_ptrs(s), *rest)
+    _count(entry, a, err)
+    return y
+
+
+def _launch_gs(a, x, b, first, n, diag, inv_diag, relax):
+    s = a.rows
+    _contiguous((("cols", s.cols), ("vals", s.vals), ("x", x), ("b", b),
+                 ("diag", diag), ("inv_diag", inv_diag)))
+    if n == 0:
+        return x
+    fn = getattr(_LIB.load(), f"rows_gs_{_PAIRS[(s.vals.dtype, x.dtype)]}")
+    err = fn(*_layout_ptrs(s), first * 32, n * 32, x.data_ptr(),
+             min(x.shape[0], a.pad_cols), b.data_ptr(), diag.data_ptr(),
+             inv_diag.data_ptr(), 0.0 if relax is None else 1.0 - relax,
+             0.0 if relax is None else float(relax), int(relax is not None),
+             _stream(x))
+    _count("gs", a, err)
+    return x
+
+
+def _launch_walk(a, x, df64: bool) -> torch.Tensor:
+    _contiguous((("vals", a.vals), ("loc", a.loc), ("base", a.base),
+                 ("x", x), ("vals_lo", a.vals_lo if df64 else None)))
     ngroups, n_slots = a.base.shape
     lib = _LIB.load()
     y = torch.empty(ngroups * 1024, dtype=x.dtype, device=x.device)
     n_x = min(x.shape[0], a.pad_cols)
-    stream = torch.cuda.current_stream(x.device).cuda_stream
     if df64:
-        entry = "df64"
+        entry = "df64_walk"
         err = lib.well_df64(a.vals.data_ptr(), a.vals_lo.data_ptr(),
                             a.loc.data_ptr(), a.base.data_ptr(), ngroups,
-                            n_slots, x.data_ptr(), n_x, y.data_ptr(), stream)
+                            n_slots, x.data_ptr(), n_x, y.data_ptr(),
+                            _stream(x))
     else:
-        entry = "spmv"
-        fn = getattr(lib, _PAIRS[(a.vals.dtype, x.dtype)])
+        entry = "spmv_walk"
+        fn = getattr(lib, f"well_{_PAIRS[(a.vals.dtype, x.dtype)]}")
         err = fn(a.vals.data_ptr(), a.loc.data_ptr(), a.base.data_ptr(),
-                 ngroups, n_slots, x.data_ptr(), n_x, y.data_ptr(), stream)
-    if err != 0:
-        raise RuntimeError(f"WEll kernel launch failed: CUDA error {err}")
-    launches[entry] += 1
-    key = (entry, a.vals.dtype, n_slots, ngroups)
-    launches_by_shape[key] = launches_by_shape.get(key, 0) + 1
+                 ngroups, n_slots, x.data_ptr(), n_x, y.data_ptr(),
+                 _stream(x))
+    _count(entry, a, err)
     return y
 
 
@@ -192,3 +361,31 @@ def spmv_df64(a, x: torch.Tensor) -> torch.Tensor:
         return spmv_df64_plain(a, x)
     _check(a, x, df64=True)
     return _launch(a, x, df64=True)
+
+
+def gs_update_(a, x, b, g: int, diag, inv_diag, relax=None):
+    """Gauss-Seidel update of GS class ``g`` of a class-grouped WEll
+    operator, in place on ``x`` (the sweep's private copy), which it
+    returns: kernel B2's ``gs`` entry on CUDA tensors.  In-place is exact
+    Gauss-Seidel because rows of one class do not couple: a row reads only
+    other classes' entries of x and its own."""
+    if not _is_cuda(a, x):
+        return gs_update_plain_(a, x, b, g, diag, inv_diag, relax)
+    first, n = _check_gs(a, x, b, g, diag, inv_diag)
+    return _launch_gs(a, x, b, first, n, diag, inv_diag, relax)
+
+
+def spmv_walk(a, x: torch.Tensor) -> torch.Tensor:
+    """y = A x by the slot walk over the WEll pack (the first B2 port)."""
+    if not _is_cuda(a, x):
+        return spmv_walk_plain(a, x)
+    _check_walk(a, x, df64=False)
+    return _launch_walk(a, x, df64=False)
+
+
+def spmv_df64_walk(a, x: torch.Tensor) -> torch.Tensor:
+    """y = (A_hi + A_lo) x by the slot walk (the first B3 port)."""
+    if not _is_cuda(a, x):
+        return spmv_df64_walk_plain(a, x)
+    _check_walk(a, x, df64=True)
+    return _launch_walk(a, x, df64=True)

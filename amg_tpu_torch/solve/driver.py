@@ -183,10 +183,11 @@ class AMGSolver:
             elif fmt == "dense":
                 self.a0_hi = Dense.from_csr(a_int, pad_cols_to=self.pad, **kw)
             elif fmt == "well":
-                # two f32 planes whose sum is the f64 operator (kernel B3)
-                self.a0_hi = WEll.from_csr_df64(a_int, pad_rows_to=self.pad,
-                                                pad_cols_to=self.pad,
-                                                device=self.device)
+                # two f32 planes whose sum is the f64 operator (kernel B3),
+                # rows grouped by level 0's GS classes as level 0's are
+                self.a0_hi = WEll.from_csr_df64(
+                    a_int, pad_rows_to=self.pad, pad_cols_to=self.pad,
+                    device=self.device, classes=self.mg.levels[0].gid)
                 self._share_level0_plane()
             else:
                 self.a0_hi = Ell.from_csr(a_int, **kw)
@@ -197,13 +198,16 @@ class AMGSolver:
     def _share_level0_plane(self):
         """The df64 hi plane IS the f32 pack of level 0 (same packer, same
         slots, the same f64 -> f32 rounding): the cycle's level-0 operator
-        takes it over, so level 0 sits on the card once, not twice."""
+        takes it over, with the df64 operator's row-slice structure and hi
+        plane, so level 0 sits on the card once, not twice."""
         w0 = self.mg.levels[0].a
         hi = self.a0_hi
         if isinstance(w0, WEll) and w0.vals.dtype == hi.vals.dtype \
-                and w0.vals.shape == hi.vals.shape:
+                and w0.vals.shape == hi.vals.shape \
+                and w0.rows.segments == hi.rows.segments:
             shared = WEll(hi.vals, hi.loc, hi.base, w0.shape, w0.nnz,
-                          w0.pad_cols)
+                          w0.pad_cols,
+                          rows=dataclasses.replace(hi.rows, vals_lo=None))
             lv0 = dataclasses.replace(self.mg.levels[0], a=shared)
             self.mg = dataclasses.replace(
                 self.mg, levels=(lv0,) + self.mg.levels[1:])

@@ -13,8 +13,9 @@ Here every smoother is a function over the device
   C/F ordering (``cf_order=1``) replicates the reference's F-then-C
   pre-smooth and C-then-F post-smooth (amg/Solve/SSS_smooth.c:4-87).
   On a Dia level with group weights the group update is one fused pass of
-  the DIA kernel (``dia_kernel.gs_update``); on a WEll level it is one
-  WEll kernel product and a masked update.
+  the DIA kernel (``dia_kernel.gs_update``); on a WEll level whose layout
+  groups rows by GS class it is one launch of the WEll kernel's class
+  update (``well_kernel.gs_update_``) over that class's rows only.
 * SGS, SOR, SSOR, GSOR, SGSOR: symmetric / relaxed variants on the same
   machinery (reference enum amg/SSS_main.h:133-145).
 * Jacobi / weighted Jacobi / L1-Jacobi: one SpMV + axpy.
@@ -33,12 +34,21 @@ import torch
 
 from ..params import SmootherType
 from ..sparse import Dia, Dense, WEll
-from ..ops import dia_kernel
+from ..ops import dia_kernel, well_kernel
 from ..ops.spmv import spmv
 from ..ops.blas import dot
 
 
-def _masked_group_update(level, x, b, g: int, relax=None):
+def _well_classes(level, x) -> bool:
+    """True when the level's GS class updates go to the WEll kernel's
+    class-update entry: one vector on a WEll level whose layout groups
+    its rows by class."""
+    return (x.dim() == 1 and isinstance(level.a, WEll)
+            and level.a.rows.classes)
+
+
+def _masked_group_update(level, x, b, g: int, relax=None,
+                         inplace: bool = False):
     """Gauss-Seidel update of group ``g`` on a Dia, Dense or WEll level.
 
     Gather-free: one full SpMV, then a masked update of the group's rows.
@@ -50,7 +60,16 @@ def _masked_group_update(level, x, b, g: int, relax=None):
     (the select, diagonal add-back and division fold into the epilogue).
     A batch computes the same ``x + w_g * (b - A x)`` from one multi-rhs
     product and one elementwise pass (B4 has no fused epilogue).
+
+    On a WEll level with class-grouped rows one vector takes the WEll
+    kernel's class update instead: the same formula over group ``g``'s
+    rows only, one launch, no full product.  It writes ``x`` in place when
+    ``inplace`` (the sweep's private copy), else a copy.
     """
+    if _well_classes(level, x):
+        return well_kernel.gs_update_(
+            level.a, x if inplace else x.clone(), b, g, level.diag,
+            level.inv_diag, relax=relax)
     if (relax is None and level.gs_w is not None
             and isinstance(level.a, Dia)
             and 0 in level.a.offsets
@@ -151,8 +170,12 @@ def gs_sweep(level, x, b, order, relax=None):
             start, size = level.ranges[g]
             upd(level, x, b, start, size, relax=relax)
     elif isinstance(level.a, (Dia, Dense, WEll)):
+        inplace = _well_classes(level, x)
+        if inplace:
+            x = x.clone()   # one private copy per sweep, updated in place
         for g in order:
-            x = _masked_group_update(level, x, b, g, relax=relax)
+            x = _masked_group_update(level, x, b, g, relax=relax,
+                                     inplace=inplace)
     else:
         x = x.clone()
         for g in order:

@@ -12,7 +12,8 @@ Two worlds:
   banded fast path, applied by the hand-written DIA kernel in
   ``ops/dia_kernel.py``), :class:`WEll` (windowed-gather ELL for large
   unstructured levels, applied by the hand-written WEll kernels in
-  ``ops/well_kernel.py``), :class:`Ell` (padded ELLPACK, gather SpMV) and
+  ``ops/well_kernel.py`` through its derived :class:`RowSlices` layout),
+  :class:`Ell` (padded ELLPACK, gather SpMV) and
   :class:`Dense` (small deep levels, one matmul).  Each is built from a
   host CSR with the same padding as ``amg_tpu.sparse`` so vectors compare
   entry for entry, and has a ``to_csr`` for round-trip tests.
@@ -563,8 +564,166 @@ class Dia:
 
 
 # ---------------------------------------------------------------------------
-# Device WEll (windowed-gather ELL) format
+# Device WEll (windowed-gather ELL) format and its row-slice layout
 # ---------------------------------------------------------------------------
+
+
+SLICE_ROWS = 32   # rows per slice of the RowSlices layout (one warp)
+
+
+@dataclasses.dataclass
+class RowSlices:
+    """The layout the WEll kernels read on the card: a WEll pack's entries
+    without its padding slots, as row slices of 32 rows (SELL-32).
+
+    Rows are split into segments and each segment into slices of 32 slot
+    rows.  With GS classes (``classes``: a class id per padded row, -1 for
+    none) segment ``g`` holds class ``g``'s rows in ascending order and the
+    last segment the rows of no class; otherwise one segment holds every
+    padded row in row order.  Every padded row lies in exactly one segment,
+    so a product over all slices writes every entry of ``y``.
+
+    Slot row ``t`` (``t = 32 * slice + lane``) is output row
+    ``row_idx[t]`` (-1 for the lanes past a segment's end) with
+    ``row_len[t]`` entries, sorted by column; entry ``j`` sits at
+    ``slice_ptr[t // 32] + 32 * j + t % 32`` of ``cols``/``vals``, so the
+    lanes of a slice read one coalesced run per ``j``.  A slice is as wide
+    as its longest row; the shorter rows' places are never read.
+
+    ``vals_lo`` is the second f32 plane of a df64 operator (``vals +
+    vals_lo`` is the f64 value).  Level 0's f32 operator and the df64
+    operator of FCG share ``cols``, ``slice_ptr``, ``row_len``,
+    ``row_idx`` and the hi plane ``vals``.
+    """
+
+    cols: torch.Tensor        # (n_stored,) int32, column per place
+    vals: torch.Tensor        # (n_stored,) values dtype (f32 hi plane: df64)
+    slice_ptr: torch.Tensor   # (n_slices + 1,) int64, first place per slice
+    row_len: torch.Tensor     # (n_slices * 32,) int32 entries per slot row
+    row_idx: torch.Tensor     # (n_slices * 32,) int32 output row, -1 unused
+    segments: Tuple[Tuple[int, int], ...]   # (first slice, slices) each
+    classes: bool             # segment g is GS class g (last: no class)
+    nnz: int                  # entries kept (nonzero values)
+    vals_lo: Optional[torch.Tensor] = None  # (n_stored,) f32 lo plane
+
+    @property
+    def n_slices(self) -> int:
+        return self.slice_ptr.shape[0] - 1
+
+    @property
+    def n_stored(self) -> int:
+        return self.cols.shape[0]
+
+    @staticmethod
+    def from_well(w: "WEll", classes: Optional[torch.Tensor] = None
+                  ) -> "RowSlices":
+        """Derive the layout from a WEll pack, on the pack's device with
+        torch ops (no host copy of the pack): decode every slot entry's
+        column, keep the entries with a nonzero value (for a df64 pack:
+        ``hi != 0 or lo != 0``), order each segment's rows and each row's
+        entries by column, and place them in slices."""
+        from .ops.well_kernel import gather_index
+
+        dev = w.vals.device
+        ngroups, n_slots = w.base.shape
+        pr = ngroups * 1024
+        nz = w.vals != 0
+        if w.vals_lo is not None:
+            nz |= w.vals_lo != 0
+        # flat index (((g * S + k) * 8 + s) * 128 + l) of each kept entry;
+        # its row is g * 1024 + s * 128 + l
+        flat = nz.reshape(-1).nonzero().squeeze(1)
+        row = flat // (n_slots * 1024) * 1024 + flat % 1024
+        inside = row < w.n_rows
+        flat, row = flat[inside], row[inside]
+        col = gather_index(w).reshape(-1)[flat]
+
+        rows_all = torch.arange(pr, device=dev)
+        if classes is None:
+            seg = torch.zeros(pr, dtype=torch.int64, device=dev)
+            n_seg = 1
+        else:
+            cls = classes.to(device=dev, dtype=torch.int64)
+            if cls.shape != (pr,):
+                raise ValueError(f"classes must have one entry per padded "
+                                 f"row ({pr}); got {tuple(cls.shape)}")
+            n_cls = int(cls.max()) + 1 if pr else 0
+            seg = torch.where(cls >= 0, cls, n_cls)
+            n_seg = n_cls + 1
+        # slot row of every padded row: segments in order, rows ascending
+        seg_rows = torch.bincount(seg, minlength=n_seg)
+        seg_slices = (seg_rows + SLICE_ROWS - 1) // SLICE_ROWS
+        seg_first_row = torch.cumsum(seg_rows, 0) - seg_rows
+        seg_first_slice = torch.cumsum(seg_slices, 0) - seg_slices
+        rank = torch.empty(pr, dtype=torch.int64, device=dev)
+        rank[torch.argsort(seg * pr + rows_all)] = rows_all
+        slot_of_row = (seg_first_slice[seg] * SLICE_ROWS
+                       + rank - seg_first_row[seg])
+        n_slices = int(seg_slices.sum())
+        n_slot_rows = n_slices * SLICE_ROWS
+
+        # entries ordered by (slot row, column)
+        slot = slot_of_row[row]
+        order = torch.argsort(slot * max(w.pad_cols, 1) + col)
+        slot, col, flat = slot[order], col[order], flat[order]
+        row_len = torch.bincount(slot, minlength=n_slot_rows)
+        width = row_len.reshape(n_slices, SLICE_ROWS).amax(1)
+        slice_ptr = torch.cat([width.new_zeros(1),
+                               torch.cumsum(width * SLICE_ROWS, 0)])
+        j = (torch.arange(slot.shape[0], device=dev)
+             - (torch.cumsum(row_len, 0) - row_len)[slot])
+        place = (slice_ptr[slot // SLICE_ROWS] + SLICE_ROWS * j
+                 + slot % SLICE_ROWS)
+        n_stored = int(slice_ptr[-1])
+
+        def plane(v):
+            out = torch.zeros(n_stored, dtype=v.dtype, device=dev)
+            out[place] = v.reshape(-1)[flat]
+            return out
+
+        cols = torch.zeros(n_stored, dtype=torch.int32, device=dev)
+        cols[place] = col.to(torch.int32)
+        row_idx = torch.full((n_slot_rows,), -1, dtype=torch.int32,
+                             device=dev)
+        row_idx[slot_of_row] = rows_all.to(torch.int32)
+        segments = tuple(zip(seg_first_slice.tolist(), seg_slices.tolist()))
+        return RowSlices(
+            cols=cols, vals=plane(w.vals), slice_ptr=slice_ptr,
+            row_len=row_len.to(torch.int32), row_idx=row_idx,
+            segments=segments, classes=classes is not None,
+            nnz=int(slot.shape[0]),
+            vals_lo=None if w.vals_lo is None else plane(w.vals_lo))
+
+    def class_segment(self, g: int) -> Tuple[int, int]:
+        """(first slice, slices) of GS class ``g``."""
+        if not self.classes or not 0 <= g < len(self.segments) - 1:
+            raise ValueError(f"the layout has no GS class {g} (classes: "
+                             f"{len(self.segments) - 1 if self.classes else 0})")
+        return self.segments[g]
+
+    def entries(self, first: int = 0, n: Optional[int] = None):
+        """(places, slot rows) of the real entries of slices ``[first,
+        first + n)`` (default: all), in place order."""
+        n = self.n_slices - first if n is None else n
+        ptr = self.slice_ptr
+        place = torch.arange(int(ptr[first]), int(ptr[first + n]),
+                             device=ptr.device)
+        s = torch.searchsorted(ptr, place, right=True) - 1
+        off = place - ptr[s]
+        slot = s * SLICE_ROWS + off % SLICE_ROWS
+        real = off // SLICE_ROWS < self.row_len[slot].long()
+        return place[real], slot[real]
+
+    def to_csr(self, shape: Tuple[int, int]) -> CSR:
+        """Host CSR of the entries (f64 values; ``vals + vals_lo`` for a
+        df64 layout)."""
+        place, slot = self.entries()
+        vals = self.vals[place].cpu().double().numpy()
+        if self.vals_lo is not None:
+            vals = vals + self.vals_lo[place].cpu().double().numpy()
+        rows = self.row_idx[slot].cpu().numpy().astype(np.int64)
+        cols = self.cols[place].cpu().numpy().astype(np.int64)
+        return CSR.from_coo(rows, cols, vals, shape)
 
 
 @dataclasses.dataclass
@@ -586,6 +745,11 @@ class WEll:
     ``vals_lo`` (f32, same layout) is set by :meth:`from_csr_df64`: ``vals
     + vals_lo`` reproduces the f64 operator to ~2^-48 relative, the input
     of the f64 product ``well_kernel.spmv_df64``.
+
+    ``rows`` is the layout the kernels read (:class:`RowSlices`), derived
+    from the pack when the operator is made; ``classes`` (a GS class id per
+    padded row, -1 for none) groups its rows by class, so that one class's
+    Gauss-Seidel update reads only that class's entries.
     """
 
     vals: torch.Tensor    # (ngroups, S, 8, 128) dtype
@@ -595,6 +759,14 @@ class WEll:
     nnz: int
     pad_cols: int         # x padding the windows were clamped against
     vals_lo: Optional[torch.Tensor] = None
+    rows: Optional[RowSlices] = None
+    classes: dataclasses.InitVar[Optional[torch.Tensor]] = None
+
+    def __post_init__(self, classes):
+        if self.rows is None:
+            self.rows = RowSlices.from_well(self, classes)
+        elif classes is not None:
+            raise ValueError("pass classes or a derived layout, not both")
 
     @property
     def n_rows(self) -> int:
@@ -712,8 +884,10 @@ class WEll:
 
     @staticmethod
     def from_csr(a: CSR, dtype=torch.float32, pad_rows_to: int | None = None,
-                 pad_cols_to: int | None = None, device="cpu") -> "WEll":
-        """Pack a host CSR (values rounded from f64 to ``dtype``)."""
+                 pad_cols_to: int | None = None, device="cpu",
+                 classes: Optional[torch.Tensor] = None) -> "WEll":
+        """Pack a host CSR (values rounded from f64 to ``dtype``);
+        ``classes`` groups the derived layout's rows by GS class."""
         vals, loc, base = WEll.pack_host(a, dtype=np.float64,
                                          pad_rows_to=pad_rows_to,
                                          pad_cols_to=pad_cols_to)
@@ -721,12 +895,13 @@ class WEll:
         return WEll(_to_device(vals, dtype, device),
                     torch.from_numpy(loc).to(device),
                     torch.from_numpy(base).to(device),
-                    a.shape, a.nnz, pc)
+                    a.shape, a.nnz, pc, classes=classes)
 
     @staticmethod
     def from_csr_df64(a: CSR, pad_rows_to: int | None = None,
                       pad_cols_to: int | None = None,
-                      device="cpu") -> "WEll":
+                      device="cpu",
+                      classes: Optional[torch.Tensor] = None) -> "WEll":
         """Pack with the operator split into non-overlapping f32 planes
         (``vals = f32(v)``, ``vals_lo = f32(v - vals)``)."""
         vals64, loc, base = WEll.pack_host(a, dtype=np.float64,
@@ -739,11 +914,12 @@ class WEll:
                     torch.from_numpy(loc).to(device),
                     torch.from_numpy(base).to(device),
                     a.shape, a.nnz, pc,
-                    vals_lo=torch.from_numpy(lo).to(device))
+                    vals_lo=torch.from_numpy(lo).to(device), classes=classes)
 
     @staticmethod
     def from_numpy(vals, loc, base, shape, nnz: int, pad_cols: int,
-                   vals_lo=None, device="cpu", dtype=None) -> "WEll":
+                   vals_lo=None, device="cpu", dtype=None,
+                   classes: Optional[torch.Tensor] = None) -> "WEll":
         """Wrap already-packed arrays (e.g. ``amg_tpu``'s ``WEll`` fields
         as numpy) without repacking.  ``dtype`` defaults to the values'
         own; pass ``torch.bfloat16`` for bf16 values handed over as float32
@@ -760,7 +936,8 @@ class WEll:
         return WEll(_to_device(vals, dt, device),
                     torch.from_numpy(np.array(loc, dtype=np.int16)).to(device),
                     _to_device(np.asarray(base), torch.int32, device),
-                    tuple(shape), int(nnz), int(pad_cols), vals_lo=lo)
+                    tuple(shape), int(nnz), int(pad_cols), vals_lo=lo,
+                    classes=classes)
 
     def to_csr(self) -> CSR:
         vals = self.vals.cpu().double().numpy()

@@ -24,16 +24,23 @@ Phases (any failure raises and the script exits nonzero):
    for every epilogue the solve launched on it;
 7. WEll kernels against plain: the level-0 operator of fem2d(1,000,000)
    after RCM, packed as WEll with f32 values, bf16 values and as the df64
-   pair, through B2 (f32, bf16) and B3 (df64), held to 2e-6, 1e-5 and
-   1e-13 of max|Ax| and timed beside a torch sparse CSR product (f32 for
-   B2, f64 for B3) on the same operator;
+   pair (its row-slice layout in row order), through B2 (f32, bf16) and
+   B3 (df64), held to 2e-6, 1e-5 and 1e-13 of max|Ax| and timed beside
+   the slot-walk kernels of the first port and the fastest of two torch
+   sparse CSR products (int64 and int32 indices; f32 values for B2, f64
+   for B3) on the same operator;
 8. unstructured main path: fem2d(1,000,000) with bench.py's matrix-class
    defaults (f32 cycles, FCG in f64, GS on level 0 and Chebyshev below,
    f32 coarse operators, no sparsification) and WEll on, solved to 1e-8
-   (host-verified in float64), with B2 launched on level 0's A and on a
-   WEll P/R, and B3 launched;
-9. unstructured main-path shapes: kernel against plain, timed, on every
-   WEll operator of that solve the kernels were launched on;
+   (host-verified in float64), with B2's ``spmv`` launched on level 0's A
+   and on a WEll P/R, its ``gs`` class update on level 0, B3 launched, no
+   slot-walk kernel launched, and level 0 sharing the df64 operator's
+   row-slice structure and hi plane; logs the device memory the solver
+   holds after setup and the seconds to derive level 0's layout;
+9. unstructured main-path shapes: kernel against plain, timed as in phase
+   7, on every WEll operator of that solve the kernels were launched on,
+   and the ``gs`` entry against its plain version on every GS class of
+   level 0;
 10. multi-rhs kernel B4 against plain: phase 5's level-0 (f32, nd=7) and
    level-1 (bf16, nd=23) operators and phase 3's 40-diagonal band in bf16
    (bf16 products) and f64, at k = 1, 4 and 16 right-hand sides, held to
@@ -443,61 +450,152 @@ def unstructured_pars(amg):
         embed_levels=0)
 
 
+def _lib_variants(csr, xdt):
+    """The operator's host ``csr`` as torch sparse CSR tensors on the card
+    with int64 and with int32 indices (the library yardstick)."""
+    lib = _csr_on_card(csr, xdt)
+    return {"int64": lib, "int32": _int32_csr(lib)}
+
+
+def _layout_bytes(op, df64, n_x, xb, first=0, n=None):
+    """Bytes the row-slice kernel must move over slices ``[first, first +
+    n)`` (default all): per nonzero its value(s) and 4 B column, per slot
+    row its length and output row (4 B each), the slices' pointers, x
+    once (``n_x`` entries) and y once (one per slot row with a row)."""
+    s = op.rows
+    n = s.n_slices - first if n is None else n
+    nnz = int(s.row_len[first * 32:(first + n) * 32].sum())
+    vb = 8 if df64 else s.vals.element_size()
+    rows = int((s.row_idx[first * 32:(first + n) * 32] >= 0).sum())
+    return (nnz * (vb + 4) + n * 32 * 8 + (n + 1) * 8 + n_x * xb
+            + rows * xb), nnz
+
+
 def _compare_well(tag, op, entry, n_x, csr, g, flush):
-    """Kernel B2 (``entry="spmv"``) or B3 (``"df64"``) against its plain
-    version on one WEll operator, on a random x of length ``n_x`` (the
-    length the solve gives it), held to TOL of max|Ax|; both timed, and
-    the torch sparse CSR product of the operator's host ``csr`` beside
-    them (f32 values for B2, f64 for B3).  Returns one result row."""
+    """The row-slice kernel B2 (``entry="spmv"``) or B3 (``"df64"``)
+    against its plain version on one WEll operator, on a random x of
+    length ``n_x`` (the length the solve gives it), held to TOL of
+    max|Ax|; timed beside its plain version, the slot-walk kernel of the
+    first port (also held to TOL) and the torch sparse CSR product of the
+    operator's host ``csr`` with int64 and int32 indices (f32 values for
+    B2, f64 for B3; the fastest is the library time).  Returns one result
+    row."""
     from amg_tpu_torch.ops import well_kernel as K
 
     df64 = entry == "df64"
-    fn, plain = ((K.spmv_df64, K.spmv_df64_plain) if df64
-                 else (K.spmv, K.spmv_plain))
+    fn, plain, walk = ((K.spmv_df64, K.spmv_df64_plain, K.spmv_df64_walk)
+                       if df64 else (K.spmv, K.spmv_plain, K.spmv_walk))
     vdt = op.vals.dtype
     xdt = torch.float64 if (df64 or vdt == torch.float64) else torch.float32
     tol = TOL[torch.float64 if df64 else vdt]
     x = torch.randn(n_x, generator=g, dtype=xdt).cuda()
     want = plain(op, x)
     got = fn(op, x)
+    got_walk = walk(op, x)
     torch.cuda.synchronize()
     check(got.dtype == xdt and got.shape == want.shape,
           f"{tag}: kernel output {got.dtype} {tuple(got.shape)}")
     scale = want.abs().max().item()
     err = (got - want).abs().max().item()
-    ok = err <= tol * scale
+    walk_err = (got_walk - want).abs().max().item()
+    ok = err <= tol * scale and walk_err <= tol * scale
     ms = _time_ms(lambda: fn(op, x), flush)
+    walk_ms = _time_ms(lambda: walk(op, x), flush)
     plain_ms = _time_ms(lambda: plain(op, x), flush)
-    lib = _csr_on_card(csr, xdt)
+    walk_plain = K.spmv_df64_walk_plain if df64 else K.spmv_walk_plain
+    walk_plain_ms = _time_ms(lambda: walk_plain(op, x), flush)
     xs = x[: csr.shape[1]]
-    lib_ms = _time_ms(lambda: lib @ xs, flush)
-    del lib
+    lib_variants = {idx: _time_ms(lambda lib=lib: lib @ xs, flush)
+                    for idx, lib in _lib_variants(csr, xdt).items()}
+    lib_ms = min(lib_variants.values())
+    xb = x.element_size()
+    n_xr = min(n_x, op.pad_cols)
+    nbytes, nnz = _layout_bytes(op, df64, n_xr, xb)
+    bound_ms, bound_by = _bound(nbytes, 2 * nnz, xdt)
+    # the walk streams every slot entry: values (both planes), loc, base
     ngroups, n_slots = op.base.shape
     entries = ngroups * n_slots * 1024
-    xb = torch.tensor([], dtype=xdt).element_size()
-    # the packed planes once (vals, vals_lo, loc, base), x once, y written
-    nbytes = (entries * (op.vals.element_size() + 2) + op.base.numel() * 4
-              + min(n_x, op.pad_cols) * xb + ngroups * 1024 * xb)
-    if df64:
-        nbytes += entries * op.vals_lo.element_size()
-    bound_ms, bound_by = _bound(nbytes, 2 * csr.nnz, xdt)
+    walk_bytes = (entries * ((8 if df64 else op.vals.element_size()) + 2)
+                  + op.base.numel() * 4 + n_xr * xb + ngroups * 1024 * xb)
+    walk_bound_ms, walk_bound_by = _bound(walk_bytes, 2 * nnz, xdt)
+    s = op.rows
     row = dict(op=tag, entry=entry, vals=str(vdt)[6:], x=str(xdt)[6:],
-               ngroups=ngroups, n_slots=n_slots, n_x=n_x, nnz=csr.nnz,
-               fill=csr.nnz / entries, max_abs_err=err, rel_err=err / scale,
-               tol=tol, ok=ok, ms=ms, plain_ms=plain_ms, lib_ms=lib_ms,
-               bound_ms=bound_ms, bound_by=bound_by, bytes=nbytes,
+               rows=op.n_rows, nnz=nnz, n_x=n_x, classes=s.classes,
+               slices=s.n_slices, fill=nnz / max(s.n_stored, 1),
+               ngroups=ngroups, n_slots=n_slots, slot_fill=nnz / entries,
+               max_abs_err=err, walk_err=walk_err, rel_err=err / scale,
+               tol=tol, ok=ok, ms=ms, walk_ms=walk_ms, plain_ms=plain_ms,
+               walk_plain_ms=walk_plain_ms,
+               lib_ms=lib_ms, lib_variants=lib_variants, bound_ms=bound_ms,
+               bound_by=bound_by, bytes=nbytes, walk_bytes=walk_bytes,
+               walk_bound_ms=walk_bound_ms, walk_bound_by=walk_bound_by,
                gbps=nbytes / ms / 1e6)
     log(f"[well] {tag:10s} {entry:4s} {row['vals']:8s}/{row['x']:7s} "
-        f"groups={ngroups} S={n_slots} fill {row['fill']:.3f} "
-        f"err {err:.3e} (rel {err / scale:.2e} <= {tol:g}: {ok})  "
-        f"kernel {ms:.4f} ms {row['gbps']:.1f} GB/s  plain {plain_ms:.4f} ms  "
-        f"torch CSR {lib_ms:.4f} ms  bound {bound_ms:.4f} ms ({bound_by})")
+        f"rows={op.n_rows} nnz={nnz} slices={s.n_slices} fill "
+        f"{row['fill']:.3f} ({nbytes / 1e6:.1f} MB; WEll S={n_slots} fill "
+        f"{row['slot_fill']:.3f}, {walk_bytes / 1e6:.1f} MB) err {err:.3e} "
+        f"(rel {err / scale:.2e}, walk {walk_err / scale:.2e} <= {tol:g}: "
+        f"{ok})  kernel {ms:.4f} ms {row['gbps']:.1f} GB/s  walk "
+        f"{walk_ms:.4f} ms  plain {plain_ms:.4f} ms  torch CSR "
+        f"{lib_ms:.4f} ms (int64 {lib_variants['int64']:.4f}, int32 "
+        f"{lib_variants['int32']:.4f})  bound {bound_ms:.4f} ms "
+        f"({bound_by}; walk {walk_bound_ms:.4f})")
+    return row
+
+
+def _compare_gs(tag, lv, g, gen, flush):
+    """The ``gs`` entry (B2's Gauss-Seidel class update) against its plain
+    version on class ``g`` of a class-grouped WEll level, on random x and
+    b: x updated by the kernel against x updated by the plain entry, held
+    to the f32 TOL of max|x|; both timed (in place on a scratch copy; no
+    single library call computes the update).  Returns one result row."""
+    from amg_tpu_torch.ops import well_kernel as K
+
+    op = lv.a
+    xdt = lv.diag.dtype
+    x = torch.randn(lv.pad, generator=gen, dtype=xdt).cuda()
+    b = torch.randn(lv.pad, generator=gen, dtype=xdt).cuda()
+    want = K.gs_update_plain_(op, x.clone(), b, g, lv.diag, lv.inv_diag)
+    got = K.gs_update_(op, x.clone(), b, g, lv.diag, lv.inv_diag)
+    torch.cuda.synchronize()
+    scale = want.abs().max().item()
+    err = (got - want).abs().max().item()
+    tol = TOL[xdt]
+    ok = err <= tol * scale
+    scratch = x.clone()
+    ms = _time_ms(lambda: K.gs_update_(op, scratch, b, g, lv.diag,
+                                       lv.inv_diag), flush)
+    plain_ms = _time_ms(lambda: K.gs_update_plain_(op, scratch, b, g,
+                                                   lv.diag, lv.inv_diag),
+                        flush)
+    first, n = op.rows.class_segment(g)
+    s = op.rows
+    place, _ = s.entries(first, n)
+    n_cols = int(torch.unique(s.cols[place]).numel())
+    xb = x.element_size()
+    nbytes, nnz = _layout_bytes(op, False, n_cols, xb, first, n)
+    # and per row b, diag and inv_diag (its own x is one of the columns)
+    rows = int((s.row_idx[first * 32:(first + n) * 32] >= 0).sum())
+    nbytes += 3 * rows * xb
+    bound_ms, bound_by = _bound(nbytes, 2 * nnz + 6 * rows, xdt)
+    row = dict(op=f"{tag} class {g}", entry="gs", vals=str(op.vals.dtype)[6:],
+               x=str(xdt)[6:], rows=rows, nnz=nnz, slices=n,
+               fill=nnz / max(int(s.slice_ptr[first + n] - s.slice_ptr[first]),
+                              1),
+               max_abs_err=err, rel_err=err / scale, tol=tol, ok=ok, ms=ms,
+               plain_ms=plain_ms, lib_ms=None, bound_ms=bound_ms,
+               bound_by=bound_by, bytes=nbytes, gbps=nbytes / ms / 1e6)
+    log(f"[gs] {tag} class {g:2d}: rows={rows} nnz={nnz} slices={n} fill "
+        f"{row['fill']:.3f} x columns read {n_cols}, err {err:.3e} (rel "
+        f"{err / scale:.2e} <= {tol:g}: {ok})  kernel {ms:.4f} ms "
+        f"{row['gbps']:.1f} GB/s  plain {plain_ms:.4f} ms  bound "
+        f"{bound_ms:.4f} ms ({bound_by}, {nbytes / 1e6:.2f} MB)")
     return row
 
 
 def phase_well_kernels(a):
     """7. B2 and B3 against plain on fem2d's level 0 after RCM (the
-    ordering the solve packs)."""
+    ordering the solve packs), its layout in row order."""
     from scipy.sparse.csgraph import reverse_cuthill_mckee
     from amg_tpu_torch.sparse import WEll
 
@@ -534,6 +632,7 @@ def phase_unstructured(a):
     """8. The unstructured main path, driven through AMGSolver."""
     import amg_tpu_torch as amg
     from amg_tpu_torch.ops import dia_kernel as D, well_kernel as W
+    from amg_tpu_torch.sparse import RowSlices
 
     pars = unstructured_pars(amg)
     b = np.ones(a.n_rows)
@@ -543,10 +642,12 @@ def phase_unstructured(a):
         for e in K.launches:
             K.launches[e] = 0
         K.launches_by_shape.clear()
+    mem0 = torch.cuda.memory_allocated()
     t0 = time.perf_counter()
     solver = amg.AMGSolver(a, pars, device="cuda", log=lambda *_: None)
     torch.cuda.synchronize()
     setup_s = time.perf_counter() - t0
+    mem = torch.cuda.memory_allocated() - mem0
     x, info = solver.solve(b)
     torch.cuda.synchronize()
     launches = dict(W.launches)
@@ -557,7 +658,11 @@ def phase_unstructured(a):
     for l, lv in enumerate(mg.levels):
         desc = [f"{type(lv.a).__name__} {str(lv.a.vals.dtype)[6:]}"]
         if isinstance(lv.a, amg.WEll):
-            desc.append(f"n_slots {lv.a.n_slots}")
+            s = lv.a.rows
+            desc.append(f"n_slots {lv.a.n_slots}, {s.n_slices} slices "
+                        f"(fill {s.nnz / max(s.n_stored, 1):.3f}), "
+                        f"{len(s.segments) - 1 if s.classes else 0} GS "
+                        f"class segments")
         for name in ("p", "r"):
             op = getattr(lv, name)
             if op is not None:
@@ -566,38 +671,53 @@ def phase_unstructured(a):
                 desc.append(f"{name.upper()} {type(op).__name__} "
                             f"{str(op.vals.dtype)[6:]}{s_txt}")
         log(f"[fem] level {l}: {lv.n} rows, pad {lv.pad}, {', '.join(desc)}")
-    shared = mg.levels[0].a.vals is solver.a0_hi.vals
-    log(f"[fem] f64 operator: {type(solver.a0_hi).__name__} df64 "
-        f"(hi plane shared with level 0: {shared})")
+    a0, hi = mg.levels[0].a, solver.a0_hi
+    shared = (a0.vals is hi.vals and a0.rows.vals is hi.rows.vals
+              and a0.rows.cols is hi.rows.cols)
+    log(f"[fem] f64 operator: {type(hi).__name__} df64 (hi plane and "
+        f"row-slice structure shared with level 0: {shared})")
+    # the derived layout's construction, timed once on the card (the
+    # largest: the df64 operator's, grouped by level 0's classes)
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    RowSlices.from_well(hi, mg.levels[0].gid)
+    torch.cuda.synchronize()
+    layout_s = time.perf_counter() - t1
     true_rel = float(np.linalg.norm(b - a.matvec(x.astype(np.float64)))
                      / np.linalg.norm(b))
     log(f"[fem] setup {setup_s:.2f} s (host hierarchy "
-        f"{solver.host_hierarchy.setup_seconds:.2f} s), cold solve "
+        f"{solver.host_hierarchy.setup_seconds:.2f} s; level 0's df64 "
+        f"row-slice layout {layout_s:.3f} s to derive), device memory held "
+        f"after setup {mem / 2**20:.1f} MiB, cold solve "
         f"{info.solve_seconds:.4f} s, FCG its {info.nits}, rres "
         f"{info.rres:.3e}, true rres (host f64) {true_rel:.3e}")
     log(f"[fem] WEll kernel launches in the main path: {launches}; DIA: "
         f"{dia_launches}")
-    for (entry, vdt, n_slots, ngroups), n in sorted(by_shape.items(),
-                                                     key=str):
-        log(f"[fem]   {entry:4s} {str(vdt)[6:]} S={n_slots} "
-            f"groups={ngroups}: {n}")
+    for (entry, vdt, n_rows, nnz), n in sorted(by_shape.items(), key=str):
+        log(f"[fem]   {entry:9s} {str(vdt)[6:]} rows={n_rows} nnz={nnz}: "
+            f"{n}")
     check(np.all(np.isfinite(x)) and x.shape == (a.n_rows,),
           "solution not finite or wrong shape")
     check(true_rel < 1e-8 and info.nits <= pars.max_it,
           f"unstructured path did not reach 1e-8 (true rres {true_rel:.3e})")
-    check(shared, "level 0 does not share the df64 hi plane")
+    check(shared, "level 0 does not share the df64 hi plane and structure")
 
-    def key(op, entry="spmv"):
-        return (entry, op.vals.dtype, op.n_slots, op.vals.shape[0])
+    def key(op, entry):
+        return (entry, op.vals.dtype, op.n_rows, op.nnz)
 
-    a0 = mg.levels[0].a
-    check(isinstance(a0, amg.WEll) and by_shape.get(key(a0), 0) > 0,
+    check(isinstance(a0, amg.WEll) and a0.rows.classes,
+          "level 0 is not a class-grouped WEll operator")
+    check(by_shape.get(key(a0, "spmv"), 0) > 0,
           "B2 was not launched on level 0's A")
+    check(by_shape.get(key(a0, "gs"), 0) > 0,
+          "the gs entry was not launched on level 0")
     transfers = [op for lv in mg.levels for op in (lv.p, lv.r)
                  if isinstance(op, amg.WEll)]
-    check(any(by_shape.get(key(op), 0) > 0 for op in transfers),
+    check(any(by_shape.get(key(op, "spmv"), 0) > 0 for op in transfers),
           "B2 was not launched on a WEll P/R")
     check(launches["df64"] > 0, "B3 was not launched")
+    check(launches["spmv_walk"] == 0 and launches["df64_walk"] == 0,
+          f"a slot-walk kernel was launched on the main path: {launches}")
     check(sum(by_shape.values()) == sum(launches.values()),
           "per-shape launch counts do not add up")
 
@@ -610,39 +730,54 @@ def phase_unstructured(a):
 
 def phase_unstructured_shapes(solver, by_shape):
     """9. Kernel against plain on every WEll operator of the solve the
-    kernels were launched on, with x of the length the cycle gives it.
-    Returns one row per (launch shape, operator), with the main path's
-    launch count."""
+    kernels were launched on, with x of the length the cycle gives it
+    (``spmv``, ``df64``), and the ``gs`` entry on every class of each
+    class-grouped level it was launched on.  Returns one row per (launch
+    shape, operator) and per class, with the main path's launch count
+    (per class: the level's gs launches over its classes, as every sweep
+    visits every class once)."""
     import amg_tpu_torch as amg
 
     mg, hh = solver.mg, solver.host_hierarchy
-    ops = []   # (tag, op, entry, n_x, host csr)
+    ops = []   # (tag, op, entry, n_x, host csr, level)
     for l, lv in enumerate(mg.levels):
         if isinstance(lv.a, amg.WEll):
-            ops.append((f"A{l}", lv.a, "spmv", lv.pad, hh.a[l]))
+            ops.append((f"A{l}", lv.a, "spmv", lv.pad, hh.a[l], lv))
+            if lv.a.rows.classes:
+                ops.append((f"A{l}", lv.a, "gs", lv.pad, hh.a[l], lv))
         if isinstance(lv.p, amg.WEll):
             ops.append((f"P{l}", lv.p, "spmv", mg.levels[l + 1].pad,
-                        hh.p[l]))
+                        hh.p[l], lv))
         if isinstance(lv.r, amg.WEll):
-            ops.append((f"R{l}", lv.r, "spmv", lv.pad, hh.r[l]))
-    ops.append(("a0_hi", solver.a0_hi, "df64", solver.pad, hh.a[0]))
+            ops.append((f"R{l}", lv.r, "spmv", lv.pad, hh.r[l], lv))
+    ops.append(("a0_hi", solver.a0_hi, "df64", solver.pad, hh.a[0], None))
     g = torch.Generator().manual_seed(4)
     flush = torch.empty(FLUSH_BYTES, dtype=torch.uint8, device="cuda")
     rows = []
-    for (entry, vdt, n_slots, ngroups), n in sorted(by_shape.items(),
-                                                     key=str):
+    for (entry, vdt, n_rows, nnz), n in sorted(by_shape.items(), key=str):
         match = [o for o in ops if o[2] == entry
-                 and (o[1].vals.dtype, o[1].n_slots, o[1].vals.shape[0])
-                 == (vdt, n_slots, ngroups)]
+                 and (o[1].vals.dtype, o[1].n_rows, o[1].nnz)
+                 == (vdt, n_rows, nnz)]
         check(match, f"no WEll operator of the solve has the launch shape "
-                     f"{(entry, vdt, n_slots, ngroups)}")
-        for tag, op, entry_, n_x, csr in match:
-            rows.append(dict(_compare_well(tag, op, entry_, n_x, csr, g,
-                                           flush), launches=n))
+                     f"{(entry, vdt, n_rows, nnz)}")
+        for tag, op, entry_, n_x, csr, lv in match:
+            if entry_ == "gs":
+                n_cls = len(op.rows.segments) - 1
+                check(n % n_cls == 0, f"{tag}: {n} gs launches over "
+                                      f"{n_cls} classes")
+                rows += [dict(_compare_gs(tag, lv, c, g, flush),
+                              launches=n // n_cls) for c in range(n_cls)]
+            else:
+                walk_n = by_shape.get((f"{entry_}_walk", vdt, n_rows, nnz),
+                                      0)
+                rows.append(dict(_compare_well(tag, op, entry_, n_x, csr, g,
+                                               flush), launches=n,
+                                 walk_launches=walk_n))
     del flush
     bad = [r for r in rows if not r["ok"]]
     check(not bad, f"WEll kernel disagrees with plain version on the "
                    f"unstructured path's operators: {bad}")
+    check(any(r["entry"] == "gs" for r in rows), "no gs entry compared")
     return rows
 
 
@@ -860,8 +995,10 @@ def phase_batched_one_column(solver, b):
 
 def _kernel_entries(dia_rows, well_rows, multi_rows=()):
     """The ``kernels`` JSON entries: one per (epilogue, operator) of
-    phase 6, per (entry, operator) of phase 9 and per launch shape of
-    phase 11."""
+    phase 6, per (entry, operator) of phase 9 with the slot walk of the
+    first port beside each product (never launched on the main path),
+    per GS class for the ``gs`` entry, and per launch shape of phase
+    11."""
     out = [{
         "name": f"dia_spmv.{r['epilogue']}[{r['op']} {r['vals']}/{r['x']} "
                 f"nd={r['nd']} pad={r['pad']}]",
@@ -871,16 +1008,27 @@ def _kernel_entries(dia_rows, well_rows, multi_rows=()):
         "ms": r["ms"], "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
         "bound_by": r["bound_by"], "library_ms": r["lib_ms"],
         "lib_ms": r["lib_ms"]} for r in dia_rows]
-    out += [{
-        "name": f"well_spmv.{r['entry']}[{r['op']} {r['vals']}/{r['x']} "
-                f"S={r['n_slots']} groups={r['ngroups']}]",
-        "route": "cuda", "source": "amg_tpu_torch/csrc/well_spmv.cu",
-        "replaces": ("amg_tpu/ops/pallas_well.py:146" if r["entry"] == "df64"
-                     else "amg_tpu/ops/pallas_well.py:77"),
-        "launches": r["launches"], "max_abs_err": r["max_abs_err"],
-        "ms": r["ms"], "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
-        "bound_by": r["bound_by"], "library_ms": r["lib_ms"],
-        "lib_ms": r["lib_ms"]} for r in well_rows]
+    for r in well_rows:
+        shape = (f"{r['op']} {r['vals']}/{r['x']} rows={r['rows']} "
+                 f"nnz={r['nnz']}")
+        common = {"route": "cuda", "source": "amg_tpu_torch/csrc/well_spmv.cu",
+                  "replaces": ("amg_tpu/ops/pallas_well.py:146"
+                               if r["entry"] == "df64"
+                               else "amg_tpu/ops/pallas_well.py:77"),
+                  "library_ms": r["lib_ms"], "lib_ms": r["lib_ms"]}
+        out.append(dict(common, name=f"well_spmv.{r['entry']}[{shape}]",
+                        launches=r["launches"],
+                        max_abs_err=r["max_abs_err"], ms=r["ms"],
+                        plain_ms=r["plain_ms"], bound_ms=r["bound_ms"],
+                        bound_by=r["bound_by"]))
+        if r["entry"] != "gs":   # the slot walk of the first port
+            out.append(dict(common, name=f"well_spmv.{r['entry']}_walk"
+                                         f"[{shape} S={r['n_slots']}]",
+                            launches=r["walk_launches"],
+                            max_abs_err=r["walk_err"], ms=r["walk_ms"],
+                            plain_ms=r["walk_plain_ms"],
+                            bound_ms=r["walk_bound_ms"],
+                            bound_by=r["walk_bound_by"]))
     out += [{
         "name": f"dia_spmv.multi[{r['op']} {r['vals']}/{r['x']} "
                 f"nd={r['nd']} pad={r['pad']} k={r['k']}]",

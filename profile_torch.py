@@ -27,8 +27,11 @@ import torch
 
 # kernel-name fragments -> group (first match wins)
 GROUPS = (
-    ("well_df64_kernel", "B3 WEll df64 (well_spmv.cu)"),
-    ("well_kernel", "B2 WEll (well_spmv.cu)"),
+    ("TwoPlanes", "B3 WEll df64, row slices (well_spmv.cu)"),
+    ("rows_gs_kernel", "B2 WEll GS class update (well_spmv.cu)"),
+    ("rows_spmv_kernel", "B2 WEll, row slices (well_spmv.cu)"),
+    ("well_df64_kernel", "B3 WEll df64, slot walk (well_spmv.cu)"),
+    ("well_kernel", "B2 WEll, slot walk (well_spmv.cu)"),
     ("dia_multi_kernel", "B4 DIA multi-rhs (dia_spmv.cu)"),
     ("dia_kernel", "B1 DIA (dia_spmv.cu)"),
     ("gemv", "dense matvec (cuBLAS)"),

@@ -176,25 +176,42 @@ def test_batched_slice_on_card():
         assert np.linalg.norm(r) / np.linalg.norm(B[:, c]) < 1e-6
 
 
-def _well_pack(a, kind, device):
+def _rcm_fem(n=5000, seed=9):
+    from scipy.sparse.csgraph import reverse_cuthill_mckee
+
+    a = amg.fem2d(n, seed=seed)
+    return a.permute(np.asarray(reverse_cuthill_mckee(
+        a.to_scipy(), symmetric_mode=True), dtype=np.int64))
+
+
+def _gs_classes(a, pad):
+    """GS classes of ``a`` (colour classes split by C/F, as the hierarchy
+    builds them), one id per padded row."""
+    from amg_tpu_torch.setup_phase.coloring import build_groups
+
+    _, group_cf, gid = build_groups(a, None, pad_to=pad)
+    return torch.from_numpy(gid), len(group_cf)
+
+
+def _well_pack(a, kind, device, classes=None):
     if kind == "df64":
-        return WEll.from_csr_df64(a, device=device)
-    return WEll.from_csr(a, dtype=getattr(torch, kind), device=device)
+        return WEll.from_csr_df64(a, device=device, classes=classes)
+    return WEll.from_csr(a, dtype=getattr(torch, kind), device=device,
+                         classes=classes)
 
 
 @pytest.mark.parametrize("short_x", [False, True])
 @pytest.mark.parametrize("kind", ["float32", "bfloat16", "float64", "df64"])
 def test_well_kernel_matches_plain(kind, short_x):
-    """Kernels B2 (f32, bf16, f64 values) and B3 (df64) against their plain
-    versions on the card, on an RCM-ordered fem2d operator, with x of
+    """Kernels B2 (f32, bf16, f64 values) and B3 (df64) on the row-slice
+    layout against their plain versions on the card, on an RCM-ordered
+    fem2d operator (rows in row order, and grouped by GS class), with x of
     length pad_cols and shorter (reads past its end are 0)."""
     _needs_card()
-    from scipy.sparse.csgraph import reverse_cuthill_mckee
-
-    a = amg.fem2d(5000, seed=9)
-    a = a.permute(np.asarray(reverse_cuthill_mckee(
-        a.to_scipy(), symmetric_mode=True), dtype=np.int64))
+    a = _rcm_fem()
     cpu, gpu = _well_pack(a, kind, "cpu"), _well_pack(a, kind, "cuda")
+    gid, _ = _gs_classes(a, cpu.padded_rows)
+    grouped = _well_pack(a, kind, "cuda", classes=gid.cuda())
     df64 = kind == "df64"
     xdt = torch.float64 if kind in ("float64", "df64") else torch.float32
     n_x = a.n_cols if short_x else cpu.pad_cols
@@ -202,7 +219,7 @@ def test_well_kernel_matches_plain(kind, short_x):
                     dtype=xdt)
     fn = well_kernel.spmv_df64 if df64 else well_kernel.spmv
     entry = "df64" if df64 else "spmv"
-    key = (entry, gpu.vals.dtype, gpu.n_slots, gpu.vals.shape[0])
+    key = (entry, gpu.vals.dtype, gpu.n_rows, gpu.nnz)
     before = well_kernel.launches[entry]
     before_shape = well_kernel.launches_by_shape.get(key, 0)
     got = fn(gpu, x.cuda())
@@ -216,6 +233,69 @@ def test_well_kernel_matches_plain(kind, short_x):
            "df64": 1e-13}[kind]
     err = (got.cpu() - want).abs().max().item() / want.abs().max().item()
     assert err <= tol, (kind, short_x, err)
+    got = fn(grouped, x.cuda())
+    err = (got.cpu() - want).abs().max().item() / want.abs().max().item()
+    assert err <= tol, (kind, short_x, "classes", err)
+
+
+@pytest.mark.parametrize("kind", ["float32", "bfloat16", "float64", "df64"])
+def test_well_walk_kernel_matches_plain(kind):
+    """The slot-walk kernels of the first port (off the solve path, kept
+    for comparison) against their plain versions on the card."""
+    _needs_card()
+    a = _rcm_fem()
+    cpu, gpu = _well_pack(a, kind, "cpu"), _well_pack(a, kind, "cuda")
+    df64 = kind == "df64"
+    xdt = torch.float64 if kind in ("float64", "df64") else torch.float32
+    x = torch.randn(a.n_cols, generator=torch.Generator().manual_seed(6),
+                    dtype=xdt)
+    fn = well_kernel.spmv_df64_walk if df64 else well_kernel.spmv_walk
+    entry = "df64_walk" if df64 else "spmv_walk"
+    before = well_kernel.launches[entry]
+    got = fn(gpu, x.cuda())
+    torch.cuda.synchronize()
+    assert well_kernel.launches[entry] == before + 1
+    want = fn(cpu, x)
+    tol = {"float32": 2e-6, "bfloat16": 1e-5, "float64": 1e-13,
+           "df64": 1e-13}[kind]
+    err = (got.cpu() - want).abs().max().item() / want.abs().max().item()
+    assert err <= tol, (kind, err)
+
+
+@pytest.mark.parametrize("relax", [None, 0.9], ids=["gs", "sor"])
+@pytest.mark.parametrize("kind", ["float32", "bfloat16", "float64"])
+def test_well_gs_kernel_matches_plain(kind, relax):
+    """The gs entry (B2's Gauss-Seidel class update, in place) against its
+    plain version on the card, every class of an RCM-ordered fem2d
+    operator: x updated by the kernel against x updated by the plain
+    entry, at the vector type's tolerance of max|x| (only the rows'
+    products are summed in another order)."""
+    _needs_card()
+    a = _rcm_fem()
+    pad = WEll._pads(a, None, None)[0]
+    gid, n_cls = _gs_classes(a, pad)
+    cpu = _well_pack(a, kind, "cpu", classes=gid)
+    gpu = _well_pack(a, kind, "cuda", classes=gid.cuda())
+    xdt = torch.float64 if kind == "float64" else torch.float32
+    diag = torch.zeros(pad, dtype=xdt)
+    diag[: a.n_rows] = torch.from_numpy(a.diagonal_fast())
+    inv = torch.where(diag != 0, 1.0 / torch.where(diag != 0, diag, 1.0),
+                      torch.zeros((), dtype=xdt))
+    gen = torch.Generator().manual_seed(7)
+    x, b = (torch.randn(pad, generator=gen, dtype=xdt) for _ in range(2))
+    tol = {torch.float32: 2e-6, torch.float64: 1e-13}[xdt]
+    key = ("gs", gpu.vals.dtype, gpu.n_rows, gpu.nnz)
+    for g in range(n_cls):
+        want = well_kernel.gs_update_(cpu, x.clone(), b, g, diag, inv, relax)
+        before = well_kernel.launches_by_shape.get(key, 0)
+        xg = x.cuda()
+        out = well_kernel.gs_update_(gpu, xg, b.cuda(), g, diag.cuda(),
+                                     inv.cuda(), relax)
+        torch.cuda.synchronize()
+        assert out is xg and well_kernel.launches_by_shape[key] == before + 1
+        err = (xg.cpu() - want).abs().max().item() / want.abs().max().item()
+        assert err <= tol, (kind, relax, g, err)
+        x = want
 
 
 def test_well_cuda_tensor_never_falls_back():
@@ -230,12 +310,21 @@ def test_well_cuda_tensor_never_falls_back():
     with pytest.raises(ValueError, match="vals_lo"):
         well_kernel.spmv_df64(w, torch.zeros(w.pad_cols, dtype=torch.float64,
                                              device="cuda"))
+    z = torch.zeros(w.padded_rows, device="cuda")
+    with pytest.raises(ValueError, match="no GS class"):   # row order
+        well_kernel.gs_update_(w, z, z, 0, z, z)
+    a = amg.fem2d(2500, seed=2)
+    gid, _ = _gs_classes(a, w.padded_rows)
+    wc = WEll.from_csr(a, device="cuda", classes=gid.cuda())
+    with pytest.raises(ValueError):
+        well_kernel.gs_update_(wc, z, z.cpu(), 0, z, z)   # CPU b
 
 
 def test_unstructured_slice_on_card():
     """The unstructured main-path configuration at test size on the card:
     WEll levels, FCG in f64 through B3, converges to 1e-8 (host-verified)
-    with both kernels launched."""
+    through the row-slice entries (spmv, df64, and gs on level 0's
+    classes), never the slot walk."""
     _needs_card()
     a = amg.fem2d(20000, seed=17)
     pars = amg.AMGParams(
@@ -256,4 +345,8 @@ def test_unstructured_slice_on_card():
     true_rel = np.linalg.norm(b - a.matvec(x.astype(np.float64))) \
         / np.linalg.norm(b)
     assert info.rres < 1e-8 and true_rel < 1e-8 and info.nits <= 20
-    assert all(well_kernel.launches[e] > before[e] for e in before)
+    assert solver.mg.levels[0].a.rows.classes
+    for e in ("spmv", "df64", "gs"):
+        assert well_kernel.launches[e] > before[e], e
+    for e in ("spmv_walk", "df64_walk"):
+        assert well_kernel.launches[e] == before[e], e
