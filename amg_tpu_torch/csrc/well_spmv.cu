@@ -26,10 +26,11 @@
 // needed.  Entries go in predicated batches of 4 (all lanes of a warp run
 // the same batch, so each j stays one coalesced run), which gives each
 // thread 4 independent loads in flight; batches of 8, and an unpredicated
-// batch loop with a one-entry tail, were slower on the H100.  x is gathered through the read-only path: x of a 1M-row level
-// is 4 MB in f32 and 8 MB in f64 and stays in the 50 MB L2; the streamed
-// columns and values are loaded with the evict-first hint (__ldcs) so they
-// do not push x out.  Columns at or past the length of x read 0 (the TPU
+// batch loop with a one-entry tail, were slower on the H100.  x is
+// gathered through the read-only path: x of a 1M-row level is 4 MB in f32
+// and 8 MB in f64 and stays in the 50 MB L2; the streamed columns and
+// values are loaded with the evict-first hint (__ldcs) so they do not
+// push x out.  Columns at or past the length of x read 0 (the TPU
 // entries zero-pad x to pad_cols on every call; here the pad is a mask).
 // Values are widened exactly to x's type and accumulated with FMA in it.
 //
@@ -49,9 +50,6 @@
 //                      amg_tpu_torch/solve/smoothers.py rounds it.  Safe
 //                      in place: rows of one class do not couple, so a row
 //                      reads only other classes' entries of x and its own.
-//   well_<v>_<x>, well_df64   the first port of B2 and B3, a walk over
-//                      every slot of the WEll pack (kept for comparison;
-//                      the solve does not launch them).
 //
 // What bounds them on an H100: device-memory bytes.  The row-slice
 // product streams per nonzero its value (4 B f32, 2 B bf16, 8 B f64 or the
@@ -59,9 +57,9 @@
 // (8 B), x once (from L2 after the first touch) and y once: 2 flops per
 // 6-12 bytes, far below the tensor cores' ratio, so neither tensor cores
 // nor TMA apply.  The levers are bytes (no padding slots), coalescing, no
-// barriers and x from L2.  The slot walk streams every slot entry, filled
-// or not (6 B f32 per slot entry; 22.5% filled on an RCM-ordered Delaunay
-// FEM level), and pays one __syncthreads per slot to stage the loc tile
+// barriers and x from L2.  A walk over the pack itself would stream every
+// slot entry, filled or not (22.5% are filled on an RCM-ordered Delaunay
+// FEM level), and pay one __syncthreads per slot to stage the loc tile
 // for the lookup of Q, which lives in another lane.
 
 #include <cstdint>
@@ -259,90 +257,6 @@ int launch_gs(const void* vals, const void* cols, const void* slice_ptr,
   return (int)cudaGetLastError();
 }
 
-// ---- the slot walk over the WEll pack (first port; not on the solve path) --
-//
-// One block of 1024 threads per row group (row g*1024 + s*128 + l at
-// thread s*128 + l), a loop over the group's S slots.  An entry's column
-// is (base[g, k] + Q[s, r]) * 128 + r with r = loc & 127 at the entry's
-// own lane and Q = loc >> 7 read at lane r of the same sublane, so each
-// slot's (8, 128) loc tile is staged in shared memory (double-buffered,
-// one __syncthreads per slot).
-
-constexpr int kGroupRows = 1024;  // rows per group = threads per block
-
-__device__ __forceinline__ float widen(float v) { return v; }
-__device__ __forceinline__ float widen(__nv_bfloat16 v) {
-  return __bfloat162float(v);
-}
-__device__ __forceinline__ double widen(double v) { return v; }
-
-// Column of this thread's entry in slot tile `tile` (the staged loc tile).
-__device__ __forceinline__ int64_t entry_col(const int16_t* tile, int t,
-                                             int32_t base) {
-  const int my = tile[t];
-  const int r = my & 127;
-  const int q = tile[(t & ~127) | r] >> 7;  // Q at lane r of sublane t >> 7
-  return ((int64_t)base + q) * 128 + r;
-}
-
-template <typename V, typename X>
-__global__ void __launch_bounds__(kGroupRows)
-well_kernel(const V* __restrict__ vals, const int16_t* __restrict__ loc,
-            const int32_t* __restrict__ base, int n_slots,
-            const X* __restrict__ x, int64_t n_x, X* __restrict__ y) {
-  __shared__ int16_t s_loc[2][kGroupRows];
-  const int t = threadIdx.x;
-  const int64_t g = blockIdx.x;
-  X acc = X(0);
-  for (int k = 0; k < n_slots; ++k) {
-    const int64_t off = (g * n_slots + k) * kGroupRows;
-    int16_t* tile = s_loc[k & 1];
-    tile[t] = loc[off + t];
-    __syncthreads();
-    const int64_t col = entry_col(tile, t, base[g * n_slots + k]);
-    const X xj = col < n_x ? x[col] : X(0);
-    acc += X(widen(vals[off + t])) * xj;
-  }
-  y[g * kGroupRows + t] = acc;
-}
-
-__global__ void __launch_bounds__(kGroupRows)
-well_df64_kernel(const float* __restrict__ hi, const float* __restrict__ lo,
-                 const int16_t* __restrict__ loc,
-                 const int32_t* __restrict__ base, int n_slots,
-                 const double* __restrict__ x, int64_t n_x,
-                 double* __restrict__ y) {
-  __shared__ int16_t s_loc[2][kGroupRows];
-  const int t = threadIdx.x;
-  const int64_t g = blockIdx.x;
-  double acc = 0.0;
-  for (int k = 0; k < n_slots; ++k) {
-    const int64_t off = (g * n_slots + k) * kGroupRows;
-    int16_t* tile = s_loc[k & 1];
-    tile[t] = loc[off + t];
-    __syncthreads();
-    const int64_t col = entry_col(tile, t, base[g * n_slots + k]);
-    const double xj = col < n_x ? x[col] : 0.0;
-    const double v = (double)hi[off + t] + (double)lo[off + t];
-    acc = fma(v, xj, acc);
-  }
-  y[g * kGroupRows + t] = acc;
-}
-
-template <typename V, typename X>
-int launch_walk(const void* vals, const void* loc, const void* base,
-                int64_t ngroups, int n_slots, const void* x, int64_t n_x,
-                void* y, void* stream) {
-  if (ngroups <= 0) return 0;
-  if (ngroups > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
-  well_kernel<V, X><<<(unsigned)ngroups, kGroupRows, 0,
-                      static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const V*>(vals), static_cast<const int16_t*>(loc),
-      static_cast<const int32_t*>(base), n_slots,
-      static_cast<const X*>(x), n_x, static_cast<X*>(y));
-  return (int)cudaGetLastError();
-}
-
 }  // namespace
 
 extern "C" {
@@ -391,43 +305,6 @@ int rows_df64(const void* hi, const void* lo, const void* cols,
           static_cast<const int32_t*>(row_len),
           static_cast<const int32_t*>(row_idx), n_slot_rows,
           static_cast<const double*>(x), n_x, static_cast<double*>(y));
-  return (int)cudaGetLastError();
-}
-
-// ---- the slot walk (first port of B2 and B3) --------------------------------
-
-int well_f32_f32(const void* vals, const void* loc, const void* base,
-                 int64_t ngroups, int n_slots, const void* x, int64_t n_x,
-                 void* y, void* stream) {
-  return launch_walk<float, float>(vals, loc, base, ngroups, n_slots, x, n_x,
-                                   y, stream);
-}
-
-int well_bf16_f32(const void* vals, const void* loc, const void* base,
-                  int64_t ngroups, int n_slots, const void* x, int64_t n_x,
-                  void* y, void* stream) {
-  return launch_walk<__nv_bfloat16, float>(vals, loc, base, ngroups, n_slots,
-                                           x, n_x, y, stream);
-}
-
-int well_f64_f64(const void* vals, const void* loc, const void* base,
-                 int64_t ngroups, int n_slots, const void* x, int64_t n_x,
-                 void* y, void* stream) {
-  return launch_walk<double, double>(vals, loc, base, ngroups, n_slots, x,
-                                     n_x, y, stream);
-}
-
-int well_df64(const void* hi, const void* lo, const void* loc,
-              const void* base, int64_t ngroups, int n_slots, const void* x,
-              int64_t n_x, void* y, void* stream) {
-  if (ngroups <= 0) return 0;
-  if (ngroups > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
-  well_df64_kernel<<<(unsigned)ngroups, kGroupRows, 0,
-                     static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float*>(hi), static_cast<const float*>(lo),
-      static_cast<const int16_t*>(loc), static_cast<const int32_t*>(base),
-      n_slots, static_cast<const double*>(x), n_x,
-      static_cast<double*>(y));
   return (int)cudaGetLastError();
 }
 

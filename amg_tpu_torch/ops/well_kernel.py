@@ -22,11 +22,6 @@ gives; a longer ``x`` is read up to ``pad_cols`` only.  Values are widened
 exactly to the vector type and the products accumulated in it (no bf16
 product rule, unlike the DIA kernel).
 
-The first port of B2 and B3 walks the WEll pack itself, every slot of
-every row group (``spmv_walk``, ``spmv_df64_walk``).  Those kernels stay
-for comparison (``chip_smoke.py`` times them beside the row-slice ones);
-nothing on the solve path calls them.
-
 Dispatch is by the tensors' device: CUDA tensors launch the kernels in
 ``amg_tpu_torch/csrc/well_spmv.cu`` (built with ``nvcc`` on first use,
 bound with ctypes) or raise; CPU tensors take the plain versions
@@ -44,7 +39,7 @@ import torch.nn.functional as F
 
 from .cuda_build import CudaLibrary
 
-ENTRIES = ("spmv", "df64", "gs", "spmv_walk", "df64_walk")
+ENTRIES = ("spmv", "df64", "gs")
 # kernel launches per entry (plain-version calls are not counted), and per
 # (entry, values dtype, rows, nnz) launch shape
 launches = {e: 0 for e in ENTRIES}
@@ -70,16 +65,12 @@ def _bind(dll):
                 # n_slot_rows, x, n_x, b, diag, inv_diag, 1 - relax, relax,
                 # has_relax, stream
                 (f"rows_gs_{pair}", [p, p, p, p, p, i64, i64, p, i64, p, p,
-                                     p, f64, f64, i32, p]),
-                # vals, loc, base, ngroups, n_slots, x, n_x, y, stream
-                (f"well_{pair}", [p, p, p, i64, i32, p, i64, p, p])):
+                                     p, f64, f64, i32, p])):
             fn = getattr(dll, name)
             fn.argtypes = args
             fn.restype = i32
     dll.rows_df64.argtypes = [p, p, p, p, p, p, i64, p, i64, p, p]
     dll.rows_df64.restype = i32
-    dll.well_df64.argtypes = [p, p, p, p, i64, i32, p, i64, p, p]
-    dll.well_df64.restype = i32
 
 
 _LIB = CudaLibrary("well_spmv.cu", _bind)
@@ -134,24 +125,6 @@ def _check(a, x, df64: bool):
                    s.vals.device)
 
 
-def _check_walk(a, x, df64: bool):
-    """The WEll pack's planes against x."""
-    ngroups, n_slots = a.base.shape
-    tile = (ngroups, n_slots, 8, 128)
-    for name, t in (("vals", a.vals), ("loc", a.loc),
-                    ("vals_lo", a.vals_lo if df64 else None)):
-        if t is not None and tuple(t.shape) != tile:
-            raise ValueError(f"WEll {name} must be {tile}; got "
-                             f"{tuple(t.shape)}")
-    if a.loc.dtype != torch.int16 or a.base.dtype != torch.int32:
-        raise TypeError(f"WEll loc must be int16 and base int32; got "
-                        f"{a.loc.dtype}, {a.base.dtype}")
-    _check_dtypes(a.vals, a.vals_lo if df64 else None, x, df64)
-    _check_devices((("loc", a.loc), ("base", a.base), ("x", x),
-                    ("vals_lo", a.vals_lo if df64 else None)),
-                   a.vals.device)
-
-
 def _check_gs(a, x, b, g, diag, inv_diag):
     _check(a, x, df64=False)
     first, n = a.rows.class_segment(g)
@@ -169,15 +142,6 @@ def _check_gs(a, x, b, g, diag, inv_diag):
 # ---------------------------------------------------------------------------
 # Plain PyTorch versions (CPU tensors; the reference on the card)
 # ---------------------------------------------------------------------------
-
-
-def gather_index(a) -> torch.Tensor:
-    """Column of every slot entry, ``(base + Q[s, r]) * 128 + r`` with
-    ``r = loc & 127`` and Q read at lane ``r`` of the same sublane."""
-    loc = a.loc.to(torch.int64)
-    r = loc & 127
-    q = torch.gather(loc, 3, r) >> 7
-    return (a.base.to(torch.int64)[:, :, None, None] + q) * 128 + r
 
 
 def _padded_x(a, x):
@@ -240,21 +204,6 @@ def gs_update_plain_(a, x, b, g: int, diag, inv_diag, relax=None):
     return x
 
 
-def spmv_walk_plain(a, x: torch.Tensor) -> torch.Tensor:
-    """The slot walk's plain version (``amg_tpu/ops/spmv.py:50-63``)."""
-    _check_walk(a, x, df64=False)
-    y = torch.sum(a.vals.to(x.dtype) * _padded_x(a, x)[gather_index(a)],
-                  dim=1)
-    return y.reshape(-1)
-
-
-def spmv_df64_walk_plain(a, x: torch.Tensor) -> torch.Tensor:
-    _check_walk(a, x, df64=True)
-    v = a.vals.to(torch.float64) + a.vals_lo.to(torch.float64)
-    y = torch.sum(v * _padded_x(a, x)[gather_index(a)], dim=1)
-    return y.reshape(-1)
-
-
 # ---------------------------------------------------------------------------
 # Kernel launches
 # ---------------------------------------------------------------------------
@@ -271,7 +220,7 @@ def _count(entry, a, err):
         raise RuntimeError(f"WEll kernel launch failed ({entry}): CUDA "
                            f"error {err}")
     launches[entry] += 1
-    key = (entry, a.vals.dtype, a.n_rows, a.nnz)
+    key = (entry, a.rows.vals.dtype, a.n_rows, a.nnz)
     launches_by_shape[key] = launches_by_shape.get(key, 0) + 1
 
 
@@ -320,31 +269,8 @@ def _launch_gs(a, x, b, first, n, diag, inv_diag, relax):
     return x
 
 
-def _launch_walk(a, x, df64: bool) -> torch.Tensor:
-    _contiguous((("vals", a.vals), ("loc", a.loc), ("base", a.base),
-                 ("x", x), ("vals_lo", a.vals_lo if df64 else None)))
-    ngroups, n_slots = a.base.shape
-    lib = _LIB.load()
-    y = torch.empty(ngroups * 1024, dtype=x.dtype, device=x.device)
-    n_x = min(x.shape[0], a.pad_cols)
-    if df64:
-        entry = "df64_walk"
-        err = lib.well_df64(a.vals.data_ptr(), a.vals_lo.data_ptr(),
-                            a.loc.data_ptr(), a.base.data_ptr(), ngroups,
-                            n_slots, x.data_ptr(), n_x, y.data_ptr(),
-                            _stream(x))
-    else:
-        entry = "spmv_walk"
-        fn = getattr(lib, f"well_{_PAIRS[(a.vals.dtype, x.dtype)]}")
-        err = fn(a.vals.data_ptr(), a.loc.data_ptr(), a.base.data_ptr(),
-                 ngroups, n_slots, x.data_ptr(), n_x, y.data_ptr(),
-                 _stream(x))
-    _count(entry, a, err)
-    return y
-
-
 def _is_cuda(a, x) -> bool:
-    return x.is_cuda or a.vals.is_cuda
+    return x.is_cuda or a.rows.vals.is_cuda
 
 
 def spmv(a, x: torch.Tensor) -> torch.Tensor:
@@ -373,19 +299,3 @@ def gs_update_(a, x, b, g: int, diag, inv_diag, relax=None):
         return gs_update_plain_(a, x, b, g, diag, inv_diag, relax)
     first, n = _check_gs(a, x, b, g, diag, inv_diag)
     return _launch_gs(a, x, b, first, n, diag, inv_diag, relax)
-
-
-def spmv_walk(a, x: torch.Tensor) -> torch.Tensor:
-    """y = A x by the slot walk over the WEll pack (the first B2 port)."""
-    if not _is_cuda(a, x):
-        return spmv_walk_plain(a, x)
-    _check_walk(a, x, df64=False)
-    return _launch_walk(a, x, df64=False)
-
-
-def spmv_df64_walk(a, x: torch.Tensor) -> torch.Tensor:
-    """y = (A_hi + A_lo) x by the slot walk (the first B3 port)."""
-    if not _is_cuda(a, x):
-        return spmv_df64_walk_plain(a, x)
-    _check_walk(a, x, df64=True)
-    return _launch_walk(a, x, df64=True)

@@ -571,6 +571,16 @@ class Dia:
 SLICE_ROWS = 32   # rows per slice of the RowSlices layout (one warp)
 
 
+def _slot_columns(loc: torch.Tensor, base: torch.Tensor) -> torch.Tensor:
+    """Column of every slot entry of a WEll pack, ``(base + Q[s, r]) * 128
+    + r`` with ``r = loc & 127`` and Q read at lane ``r`` of the same
+    sublane (int64, the shape of ``loc``)."""
+    loc = loc.to(torch.int64)
+    r = loc & 127
+    q = torch.gather(loc, 3, r) >> 7
+    return (base.to(torch.int64)[:, :, None, None] + q) * 128 + r
+
+
 @dataclasses.dataclass
 class RowSlices:
     """The layout the WEll kernels read on the card: a WEll pack's entries
@@ -615,28 +625,29 @@ class RowSlices:
         return self.cols.shape[0]
 
     @staticmethod
-    def from_well(w: "WEll", classes: Optional[torch.Tensor] = None
-                  ) -> "RowSlices":
-        """Derive the layout from a WEll pack, on the pack's device with
-        torch ops (no host copy of the pack): decode every slot entry's
-        column, keep the entries with a nonzero value (for a df64 pack:
-        ``hi != 0 or lo != 0``), order each segment's rows and each row's
-        entries by column, and place them in slices."""
-        from .ops.well_kernel import gather_index
-
-        dev = w.vals.device
-        ngroups, n_slots = w.base.shape
+    def from_well(w: "WEll", classes: Optional[torch.Tensor] = None,
+                  device=None) -> "RowSlices":
+        """Derive the layout from a WEll pack on ``device`` (default: the
+        pack's) with torch ops: copy the pack there, decode every slot
+        entry's column, keep the entries with a nonzero value (for a df64
+        pack: ``hi != 0 or lo != 0``), order each segment's rows and each
+        row's entries by column, and place them in slices.  The pack's
+        copy on ``device`` is freed when this returns."""
+        dev = w.vals.device if device is None else torch.device(device)
+        w_vals, loc, base = (t.to(dev) for t in (w.vals, w.loc, w.base))
+        w_lo = None if w.vals_lo is None else w.vals_lo.to(dev)
+        ngroups, n_slots = base.shape
         pr = ngroups * 1024
-        nz = w.vals != 0
-        if w.vals_lo is not None:
-            nz |= w.vals_lo != 0
+        nz = w_vals != 0
+        if w_lo is not None:
+            nz |= w_lo != 0
         # flat index (((g * S + k) * 8 + s) * 128 + l) of each kept entry;
         # its row is g * 1024 + s * 128 + l
         flat = nz.reshape(-1).nonzero().squeeze(1)
         row = flat // (n_slots * 1024) * 1024 + flat % 1024
         inside = row < w.n_rows
         flat, row = flat[inside], row[inside]
-        col = gather_index(w).reshape(-1)[flat]
+        col = _slot_columns(loc, base).reshape(-1)[flat]
 
         rows_all = torch.arange(pr, device=dev)
         if classes is None:
@@ -688,11 +699,11 @@ class RowSlices:
         row_idx[slot_of_row] = rows_all.to(torch.int32)
         segments = tuple(zip(seg_first_slice.tolist(), seg_slices.tolist()))
         return RowSlices(
-            cols=cols, vals=plane(w.vals), slice_ptr=slice_ptr,
+            cols=cols, vals=plane(w_vals), slice_ptr=slice_ptr,
             row_len=row_len.to(torch.int32), row_idx=row_idx,
             segments=segments, classes=classes is not None,
             nnz=int(slot.shape[0]),
-            vals_lo=None if w.vals_lo is None else plane(w.vals_lo))
+            vals_lo=None if w_lo is None else plane(w_lo))
 
     def class_segment(self, g: int) -> Tuple[int, int]:
         """(first slice, slices) of GS class ``g``."""
@@ -747,9 +758,13 @@ class WEll:
     of the f64 product ``well_kernel.spmv_df64``.
 
     ``rows`` is the layout the kernels read (:class:`RowSlices`), derived
-    from the pack when the operator is made; ``classes`` (a GS class id per
-    padded row, -1 for none) groups its rows by class, so that one class's
-    Gauss-Seidel update reads only that class's entries.
+    from the pack when the operator is made, on ``device`` (default: the
+    pack's device); ``classes`` (a GS class id per padded row, -1 for
+    none) groups its rows by class, so that one class's Gauss-Seidel
+    update reads only that class's entries.  The pack itself (``vals``,
+    ``loc``, ``base``, ``vals_lo``) is then kept on the host, for
+    ``to_csr`` and the comparison with ``amg_tpu``'s: the card holds only
+    the layout the kernels read.
     """
 
     vals: torch.Tensor    # (ngroups, S, 8, 128) dtype
@@ -761,12 +776,18 @@ class WEll:
     vals_lo: Optional[torch.Tensor] = None
     rows: Optional[RowSlices] = None
     classes: dataclasses.InitVar[Optional[torch.Tensor]] = None
+    device: dataclasses.InitVar[Optional[object]] = None
 
-    def __post_init__(self, classes):
+    def __post_init__(self, classes, device):
         if self.rows is None:
-            self.rows = RowSlices.from_well(self, classes)
-        elif classes is not None:
-            raise ValueError("pass classes or a derived layout, not both")
+            self.rows = RowSlices.from_well(self, classes, device)
+        elif classes is not None or device is not None:
+            raise ValueError("pass classes and device, or a derived layout, "
+                             "not both")
+        self.vals, self.loc, self.base = (
+            t.cpu() for t in (self.vals, self.loc, self.base))
+        if self.vals_lo is not None:
+            self.vals_lo = self.vals_lo.cpu()
 
     @property
     def n_rows(self) -> int:
@@ -892,10 +913,9 @@ class WEll:
                                          pad_rows_to=pad_rows_to,
                                          pad_cols_to=pad_cols_to)
         _, pc = WEll._pads(a, pad_rows_to, pad_cols_to)
-        return WEll(_to_device(vals, dtype, device),
-                    torch.from_numpy(loc).to(device),
-                    torch.from_numpy(base).to(device),
-                    a.shape, a.nnz, pc, classes=classes)
+        return WEll(_to_device(vals, dtype, "cpu"), torch.from_numpy(loc),
+                    torch.from_numpy(base), a.shape, a.nnz, pc,
+                    classes=classes, device=device)
 
     @staticmethod
     def from_csr_df64(a: CSR, pad_rows_to: int | None = None,
@@ -910,11 +930,10 @@ class WEll:
         hi = vals64.astype(np.float32)
         lo = (vals64 - hi.astype(np.float64)).astype(np.float32)
         _, pc = WEll._pads(a, pad_rows_to, pad_cols_to)
-        return WEll(torch.from_numpy(hi).to(device),
-                    torch.from_numpy(loc).to(device),
-                    torch.from_numpy(base).to(device),
-                    a.shape, a.nnz, pc,
-                    vals_lo=torch.from_numpy(lo).to(device), classes=classes)
+        return WEll(torch.from_numpy(hi), torch.from_numpy(loc),
+                    torch.from_numpy(base), a.shape, a.nnz, pc,
+                    vals_lo=torch.from_numpy(lo), classes=classes,
+                    device=device)
 
     @staticmethod
     def from_numpy(vals, loc, base, shape, nnz: int, pad_cols: int,
@@ -932,12 +951,12 @@ class WEll:
             else torch.from_numpy(np.empty(0, dtype=vals.dtype)).dtype
         lo = None
         if vals_lo is not None:
-            lo = _to_device(np.asarray(vals_lo), torch.float32, device)
-        return WEll(_to_device(vals, dt, device),
-                    torch.from_numpy(np.array(loc, dtype=np.int16)).to(device),
-                    _to_device(np.asarray(base), torch.int32, device),
+            lo = _to_device(np.asarray(vals_lo), torch.float32, "cpu")
+        return WEll(_to_device(vals, dt, "cpu"),
+                    torch.from_numpy(np.array(loc, dtype=np.int16)),
+                    _to_device(np.asarray(base), torch.int32, "cpu"),
                     tuple(shape), int(nnz), int(pad_cols), vals_lo=lo,
-                    classes=classes)
+                    classes=classes, device=device)
 
     def to_csr(self) -> CSR:
         vals = self.vals.cpu().double().numpy()

@@ -26,17 +26,17 @@ Phases (any failure raises and the script exits nonzero):
    after RCM, packed as WEll with f32 values, bf16 values and as the df64
    pair (its row-slice layout in row order), through B2 (f32, bf16) and
    B3 (df64), held to 2e-6, 1e-5 and 1e-13 of max|Ax| and timed beside
-   the slot-walk kernels of the first port and the fastest of two torch
-   sparse CSR products (int64 and int32 indices; f32 values for B2, f64
-   for B3) on the same operator;
+   the fastest of two torch sparse CSR products (int64 and int32
+   indices; f32 values for B2, f64 for B3) on the same operator;
 8. unstructured main path: fem2d(1,000,000) with bench.py's matrix-class
    defaults (f32 cycles, FCG in f64, GS on level 0 and Chebyshev below,
    f32 coarse operators, no sparsification) and WEll on, solved to 1e-8
    (host-verified in float64), with B2's ``spmv`` launched on level 0's A
-   and on a WEll P/R, its ``gs`` class update on level 0, B3 launched, no
-   slot-walk kernel launched, and level 0 sharing the df64 operator's
-   row-slice structure and hi plane; logs the device memory the solver
-   holds after setup and the seconds to derive level 0's layout;
+   and on a WEll P/R, its ``gs`` class update on level 0, B3 launched,
+   level 0 sharing the df64 operator's row-slice structure and hi plane,
+   and every WEll pack kept on the host (the card holds the row-slice
+   layouts only); logs the device memory the solver holds after setup,
+   the layouts' share of it and the seconds to derive level 0's layout;
 9. unstructured main-path shapes: kernel against plain, timed as in phase
    7, on every WEll operator of that solve the kernels were launched on,
    and the ``gs`` entry against its plain version on every GS class of
@@ -68,6 +68,7 @@ torch, numpy, scipy and amg_tpu_torch only.
 
 from __future__ import annotations
 
+import dataclasses
 import json
 import os
 import statistics
@@ -475,35 +476,29 @@ def _compare_well(tag, op, entry, n_x, csr, g, flush):
     """The row-slice kernel B2 (``entry="spmv"``) or B3 (``"df64"``)
     against its plain version on one WEll operator, on a random x of
     length ``n_x`` (the length the solve gives it), held to TOL of
-    max|Ax|; timed beside its plain version, the slot-walk kernel of the
-    first port (also held to TOL) and the torch sparse CSR product of the
-    operator's host ``csr`` with int64 and int32 indices (f32 values for
-    B2, f64 for B3; the fastest is the library time).  Returns one result
-    row."""
+    max|Ax|; timed beside its plain version and the torch sparse CSR
+    product of the operator's host ``csr`` with int64 and int32 indices
+    (f32 values for B2, f64 for B3; the fastest is the library time).
+    Returns one result row."""
     from amg_tpu_torch.ops import well_kernel as K
 
     df64 = entry == "df64"
-    fn, plain, walk = ((K.spmv_df64, K.spmv_df64_plain, K.spmv_df64_walk)
-                       if df64 else (K.spmv, K.spmv_plain, K.spmv_walk))
+    fn, plain = ((K.spmv_df64, K.spmv_df64_plain) if df64
+                 else (K.spmv, K.spmv_plain))
     vdt = op.vals.dtype
     xdt = torch.float64 if (df64 or vdt == torch.float64) else torch.float32
     tol = TOL[torch.float64 if df64 else vdt]
     x = torch.randn(n_x, generator=g, dtype=xdt).cuda()
     want = plain(op, x)
     got = fn(op, x)
-    got_walk = walk(op, x)
     torch.cuda.synchronize()
     check(got.dtype == xdt and got.shape == want.shape,
           f"{tag}: kernel output {got.dtype} {tuple(got.shape)}")
     scale = want.abs().max().item()
     err = (got - want).abs().max().item()
-    walk_err = (got_walk - want).abs().max().item()
-    ok = err <= tol * scale and walk_err <= tol * scale
+    ok = err <= tol * scale
     ms = _time_ms(lambda: fn(op, x), flush)
-    walk_ms = _time_ms(lambda: walk(op, x), flush)
     plain_ms = _time_ms(lambda: plain(op, x), flush)
-    walk_plain = K.spmv_df64_walk_plain if df64 else K.spmv_walk_plain
-    walk_plain_ms = _time_ms(lambda: walk_plain(op, x), flush)
     xs = x[: csr.shape[1]]
     lib_variants = {idx: _time_ms(lambda lib=lib: lib @ xs, flush)
                     for idx, lib in _lib_variants(csr, xdt).items()}
@@ -512,34 +507,23 @@ def _compare_well(tag, op, entry, n_x, csr, g, flush):
     n_xr = min(n_x, op.pad_cols)
     nbytes, nnz = _layout_bytes(op, df64, n_xr, xb)
     bound_ms, bound_by = _bound(nbytes, 2 * nnz, xdt)
-    # the walk streams every slot entry: values (both planes), loc, base
-    ngroups, n_slots = op.base.shape
-    entries = ngroups * n_slots * 1024
-    walk_bytes = (entries * ((8 if df64 else op.vals.element_size()) + 2)
-                  + op.base.numel() * 4 + n_xr * xb + ngroups * 1024 * xb)
-    walk_bound_ms, walk_bound_by = _bound(walk_bytes, 2 * nnz, xdt)
     s = op.rows
     row = dict(op=tag, entry=entry, vals=str(vdt)[6:], x=str(xdt)[6:],
                rows=op.n_rows, nnz=nnz, n_x=n_x, classes=s.classes,
                slices=s.n_slices, fill=nnz / max(s.n_stored, 1),
-               ngroups=ngroups, n_slots=n_slots, slot_fill=nnz / entries,
-               max_abs_err=err, walk_err=walk_err, rel_err=err / scale,
-               tol=tol, ok=ok, ms=ms, walk_ms=walk_ms, plain_ms=plain_ms,
-               walk_plain_ms=walk_plain_ms,
+               slot_fill=nnz / op.vals.numel(), max_abs_err=err,
+               rel_err=err / scale, tol=tol, ok=ok, ms=ms, plain_ms=plain_ms,
                lib_ms=lib_ms, lib_variants=lib_variants, bound_ms=bound_ms,
-               bound_by=bound_by, bytes=nbytes, walk_bytes=walk_bytes,
-               walk_bound_ms=walk_bound_ms, walk_bound_by=walk_bound_by,
-               gbps=nbytes / ms / 1e6)
+               bound_by=bound_by, bytes=nbytes, gbps=nbytes / ms / 1e6)
     log(f"[well] {tag:10s} {entry:4s} {row['vals']:8s}/{row['x']:7s} "
         f"rows={op.n_rows} nnz={nnz} slices={s.n_slices} fill "
-        f"{row['fill']:.3f} ({nbytes / 1e6:.1f} MB; WEll S={n_slots} fill "
-        f"{row['slot_fill']:.3f}, {walk_bytes / 1e6:.1f} MB) err {err:.3e} "
-        f"(rel {err / scale:.2e}, walk {walk_err / scale:.2e} <= {tol:g}: "
-        f"{ok})  kernel {ms:.4f} ms {row['gbps']:.1f} GB/s  walk "
-        f"{walk_ms:.4f} ms  plain {plain_ms:.4f} ms  torch CSR "
+        f"{row['fill']:.3f} ({nbytes / 1e6:.1f} MB; WEll pack S="
+        f"{op.n_slots} fill {row['slot_fill']:.3f}) err {err:.3e} (rel "
+        f"{err / scale:.2e} <= {tol:g}: {ok})  kernel {ms:.4f} ms "
+        f"{row['gbps']:.1f} GB/s  plain {plain_ms:.4f} ms  torch CSR "
         f"{lib_ms:.4f} ms (int64 {lib_variants['int64']:.4f}, int32 "
         f"{lib_variants['int32']:.4f})  bound {bound_ms:.4f} ms "
-        f"({bound_by}; walk {walk_bound_ms:.4f})")
+        f"({bound_by})")
     return row
 
 
@@ -677,18 +661,26 @@ def phase_unstructured(a):
     log(f"[fem] f64 operator: {type(hi).__name__} df64 (hi plane and "
         f"row-slice structure shared with level 0: {shared})")
     # the derived layout's construction, timed once on the card (the
-    # largest: the df64 operator's, grouped by level 0's classes)
+    # largest: the df64 operator's, grouped by level 0's classes; the
+    # copy of its host pack to the card included)
     torch.cuda.synchronize()
     t1 = time.perf_counter()
-    RowSlices.from_well(hi, mg.levels[0].gid)
+    RowSlices.from_well(hi, mg.levels[0].gid, device="cuda")
     torch.cuda.synchronize()
     layout_s = time.perf_counter() - t1
+    wells = [op for lv in mg.levels for op in (lv.a, lv.p, lv.r)
+             if isinstance(op, amg.WEll)] + [hi]
+    planes = {t.data_ptr(): t.numel() * t.element_size()
+              for op in wells for f in dataclasses.fields(op.rows)
+              if isinstance(t := getattr(op.rows, f.name), torch.Tensor)}
+    layout_mib = sum(planes.values()) / 2**20
     true_rel = float(np.linalg.norm(b - a.matvec(x.astype(np.float64)))
                      / np.linalg.norm(b))
     log(f"[fem] setup {setup_s:.2f} s (host hierarchy "
         f"{solver.host_hierarchy.setup_seconds:.2f} s; level 0's df64 "
         f"row-slice layout {layout_s:.3f} s to derive), device memory held "
-        f"after setup {mem / 2**20:.1f} MiB, cold solve "
+        f"after setup {mem / 2**20:.1f} MiB (WEll row-slice layouts "
+        f"{layout_mib:.1f} MiB), cold solve "
         f"{info.solve_seconds:.4f} s, FCG its {info.nits}, rres "
         f"{info.rres:.3e}, true rres (host f64) {true_rel:.3e}")
     log(f"[fem] WEll kernel launches in the main path: {launches}; DIA: "
@@ -716,8 +708,8 @@ def phase_unstructured(a):
     check(any(by_shape.get(key(op, "spmv"), 0) > 0 for op in transfers),
           "B2 was not launched on a WEll P/R")
     check(launches["df64"] > 0, "B3 was not launched")
-    check(launches["spmv_walk"] == 0 and launches["df64_walk"] == 0,
-          f"a slot-walk kernel was launched on the main path: {launches}")
+    check(all(op.rows.cols.is_cuda and not op.vals.is_cuda for op in wells),
+          "a WEll operator's pack is on the card or its layout is not")
     check(sum(by_shape.values()) == sum(launches.values()),
           "per-shape launch counts do not add up")
 
@@ -768,11 +760,8 @@ def phase_unstructured_shapes(solver, by_shape):
                 rows += [dict(_compare_gs(tag, lv, c, g, flush),
                               launches=n // n_cls) for c in range(n_cls)]
             else:
-                walk_n = by_shape.get((f"{entry_}_walk", vdt, n_rows, nnz),
-                                      0)
                 rows.append(dict(_compare_well(tag, op, entry_, n_x, csr, g,
-                                               flush), launches=n,
-                                 walk_launches=walk_n))
+                                               flush), launches=n))
     del flush
     bad = [r for r in rows if not r["ok"]]
     check(not bad, f"WEll kernel disagrees with plain version on the "
@@ -995,10 +984,8 @@ def phase_batched_one_column(solver, b):
 
 def _kernel_entries(dia_rows, well_rows, multi_rows=()):
     """The ``kernels`` JSON entries: one per (epilogue, operator) of
-    phase 6, per (entry, operator) of phase 9 with the slot walk of the
-    first port beside each product (never launched on the main path),
-    per GS class for the ``gs`` entry, and per launch shape of phase
-    11."""
+    phase 6, per (entry, operator) of phase 9 (per GS class for the
+    ``gs`` entry), and per launch shape of phase 11."""
     out = [{
         "name": f"dia_spmv.{r['epilogue']}[{r['op']} {r['vals']}/{r['x']} "
                 f"nd={r['nd']} pad={r['pad']}]",
@@ -1008,27 +995,16 @@ def _kernel_entries(dia_rows, well_rows, multi_rows=()):
         "ms": r["ms"], "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
         "bound_by": r["bound_by"], "library_ms": r["lib_ms"],
         "lib_ms": r["lib_ms"]} for r in dia_rows]
-    for r in well_rows:
-        shape = (f"{r['op']} {r['vals']}/{r['x']} rows={r['rows']} "
-                 f"nnz={r['nnz']}")
-        common = {"route": "cuda", "source": "amg_tpu_torch/csrc/well_spmv.cu",
-                  "replaces": ("amg_tpu/ops/pallas_well.py:146"
-                               if r["entry"] == "df64"
-                               else "amg_tpu/ops/pallas_well.py:77"),
-                  "library_ms": r["lib_ms"], "lib_ms": r["lib_ms"]}
-        out.append(dict(common, name=f"well_spmv.{r['entry']}[{shape}]",
-                        launches=r["launches"],
-                        max_abs_err=r["max_abs_err"], ms=r["ms"],
-                        plain_ms=r["plain_ms"], bound_ms=r["bound_ms"],
-                        bound_by=r["bound_by"]))
-        if r["entry"] != "gs":   # the slot walk of the first port
-            out.append(dict(common, name=f"well_spmv.{r['entry']}_walk"
-                                         f"[{shape} S={r['n_slots']}]",
-                            launches=r["walk_launches"],
-                            max_abs_err=r["walk_err"], ms=r["walk_ms"],
-                            plain_ms=r["walk_plain_ms"],
-                            bound_ms=r["walk_bound_ms"],
-                            bound_by=r["walk_bound_by"]))
+    out += [{
+        "name": f"well_spmv.{r['entry']}[{r['op']} {r['vals']}/{r['x']} "
+                f"rows={r['rows']} nnz={r['nnz']}]",
+        "route": "cuda", "source": "amg_tpu_torch/csrc/well_spmv.cu",
+        "replaces": ("amg_tpu/ops/pallas_well.py:146" if r["entry"] == "df64"
+                     else "amg_tpu/ops/pallas_well.py:77"),
+        "launches": r["launches"], "max_abs_err": r["max_abs_err"],
+        "ms": r["ms"], "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
+        "bound_by": r["bound_by"], "library_ms": r["lib_ms"],
+        "lib_ms": r["lib_ms"]} for r in well_rows]
     out += [{
         "name": f"dia_spmv.multi[{r['op']} {r['vals']}/{r['x']} "
                 f"nd={r['nd']} pad={r['pad']} k={r['k']}]",

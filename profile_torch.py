@@ -3,21 +3,28 @@
     python3 profile_torch.py                  # fem2d(1,000,000), unstructured
     python3 profile_torch.py --structured     # poisson3d(100), structured
     python3 profile_torch.py --batched 16     # poisson3d(100), solve_batched
+    python3 profile_torch.py --package DIR    # the port of another checkout
 
 Builds the main-path configuration of ``chip_smoke.py`` (phase 8, or
 phase 5 with ``--structured``; with ``--batched K`` phase 5's solver runs
 ``solve_batched`` on K seeded random right-hand sides to phase 11's
 tolerance), runs a cold and a warm solve, then one
-more warm solve under ``torch.profiler`` and prints: the wall time of the
-solves, the device time of every kernel by name (sums over the profiled
-solve), the same sums grouped by what the kernels do, and the device's
-busy share of the profiled window.  Prints the card's name and power
-limit (nvidia-smi) first.  Needs a CUDA card; imports no JAX.
+more warm solve under ``torch.profiler`` and prints: the setup seconds
+and the device memory the solver holds after setup
+(``torch.cuda.memory_allocated``), the wall time of the solves, the
+device time of every kernel by name (sums over the profiled solve), the
+same sums grouped by what the kernels do, and the device's busy share of
+the profiled window.  ``--package DIR`` imports ``amg_tpu_torch`` from
+the checkout at DIR (e.g. a parent commit unpacked with ``git archive``
+into an ignored directory), so that two trees run in one call.  Prints
+the card's name and power limit (nvidia-smi) first.  Needs a CUDA card;
+imports no JAX.
 """
 
 from __future__ import annotations
 
 import argparse
+import os
 import subprocess
 import sys
 import time
@@ -25,13 +32,15 @@ import time
 import numpy as np
 import torch
 
-# kernel-name fragments -> group (first match wins)
+# kernel-name fragments -> group (first match wins); the WEll kernels of
+# older checkouts (a slot walk over the pack: well_kernel,
+# well_df64_kernel) fall into the same B2/B3 groups under --package
 GROUPS = (
-    ("TwoPlanes", "B3 WEll df64, row slices (well_spmv.cu)"),
+    ("TwoPlanes", "B3 WEll df64 (well_spmv.cu)"),
+    ("well_df64_kernel", "B3 WEll df64 (well_spmv.cu)"),
     ("rows_gs_kernel", "B2 WEll GS class update (well_spmv.cu)"),
-    ("rows_spmv_kernel", "B2 WEll, row slices (well_spmv.cu)"),
-    ("well_df64_kernel", "B3 WEll df64, slot walk (well_spmv.cu)"),
-    ("well_kernel", "B2 WEll, slot walk (well_spmv.cu)"),
+    ("rows_spmv_kernel", "B2 WEll (well_spmv.cu)"),
+    ("well_kernel", "B2 WEll (well_spmv.cu)"),
     ("dia_multi_kernel", "B4 DIA multi-rhs (dia_spmv.cu)"),
     ("dia_kernel", "B1 DIA (dia_spmv.cu)"),
     ("gemv", "dense matvec (cuBLAS)"),
@@ -61,26 +70,37 @@ def main() -> int:
     ap.add_argument("--batched", type=int, default=0, metavar="K",
                     help="poisson3d(100) through solve_batched with K "
                          "right-hand sides")
+    ap.add_argument("--package", metavar="DIR",
+                    help="import amg_tpu_torch from the checkout at DIR")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("profile_torch: needs a CUDA card", file=sys.stderr)
         return 1
-    import amg_tpu_torch as amg
     from chip_smoke import (BATCH_TOL, FEM_ROWS, structured_pars,
                             unstructured_pars)
+    if args.package:
+        sys.path.insert(0, os.path.abspath(args.package))
+    import amg_tpu_torch as amg
     from torch.profiler import ProfilerActivity, profile
 
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True, timeout=60, check=True).stdout.strip()
     print(f"card: {smi}; torch {torch.__version__}, CUDA {torch.version.cuda}")
+    print(f"amg_tpu_torch from {os.path.dirname(amg.__file__)}")
     if args.structured or args.batched:
         a, pars, what = amg.poisson3d(100), structured_pars(amg), \
             "poisson3d(100)"
     else:
         a, pars, what = amg.fem2d(FEM_ROWS, seed=0), \
             unstructured_pars(amg), f"fem2d({FEM_ROWS})"
+    mem0 = torch.cuda.memory_allocated()
+    t0 = time.perf_counter()
     solver = amg.AMGSolver(a, pars, log=lambda *_: None)
+    torch.cuda.synchronize()
+    print(f"{what}: setup {time.perf_counter() - t0:.2f} s, device memory "
+          f"held after setup "
+          f"{(torch.cuda.memory_allocated() - mem0) / 2**20:.1f} MiB")
     if args.batched:
         what += f", solve_batched k={args.batched}"
         B = np.random.default_rng(6).standard_normal((a.n_rows, args.batched))

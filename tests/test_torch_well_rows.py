@@ -5,12 +5,12 @@ and the plain versions of the WEll kernels that read it
 The layout is derived from the WEll pack, which tests/test_torch_well.py
 holds equal to amg_tpu's array for array; here it must give back the
 pack's operator exactly (``to_csr``), cover every padded row once, and
-its products must agree with the slot walk's plain versions and with
-amg_tpu's XLA product.  Operators: fem2d(20000) (level 0 in RCM order with
+its products must agree with the pack's own operator (its ``to_csr``,
+applied by scipy in f64) and with amg_tpu's XLA product.  Operators: fem2d(20000) (level 0 in RCM order with
 its GS classes, as the unstructured solve packs it, and its P/R,
 rectangular), and a random rectangular operator whose WEll slots are under
 5% filled.  Tolerances, and why they are not zero (the row-slice sums run
-in column order, the walk's and XLA's in slot order):
+in column order and in x's type, XLA's in slot order, scipy's in f64):
 
 * B2, f32 values: ``2e-6 * max|Ax|``; bf16 values: ``1e-5 * max|Ax|``;
   f64 values and B3 (df64 pair, f64 x): ``1e-13 * max|Ax|``.
@@ -183,17 +183,18 @@ def test_segments_cover_every_row_once(fem, grouped):
 
 
 @pytest.mark.parametrize("kind", KINDS)
-def test_plain_products_match_walk_and_amg_tpu(fem, kind):
-    """The row-slice plain ``spmv``/``spmv_df64`` against the slot walk's
-    plain versions and amg_tpu's XLA product of amg_tpu's own pack, with x
-    of length pad_cols and of n_cols (reads past its end are 0)."""
+def test_plain_products_match_pack_and_amg_tpu(fem, kind):
+    """The row-slice plain ``spmv``/``spmv_df64`` against the pack's own
+    operator (``WEll.to_csr``, decoded on the host from the pack, applied
+    in f64) and amg_tpu's XLA product of amg_tpu's own pack, with x of
+    length pad_cols and of n_cols (reads past its end are 0)."""
     rng = np.random.default_rng(11)
     df64 = kind == "df64"
     xdt = np.float64 if kind in ("float64", "df64") else np.float32
-    fn, walk = ((well_kernel.spmv_df64, well_kernel.spmv_df64_walk) if df64
-                else (well_kernel.spmv, well_kernel.spmv_walk))
+    fn = well_kernel.spmv_df64 if df64 else well_kernel.spmv
     for tag, a, pad_r, pad_c, classes in _operators(fem):
         w = _pack(a, kind, pad_r, pad_c, classes)
+        packed = w.to_csr().to_scipy()
         aj = JCSR(a.indptr, a.indices, a.data, a.shape)
         if df64:
             wj = JWEll.from_csr_df64(aj, pad_rows_to=pad_r, pad_cols_to=pad_c)
@@ -203,7 +204,8 @@ def test_plain_products_match_walk_and_amg_tpu(fem, kind):
         for n_x in (w.pad_cols, a.n_cols):
             x = rng.standard_normal(n_x).astype(xdt)
             got = fn(w, torch.from_numpy(x)).numpy()
-            want = walk(w, torch.from_numpy(x)).numpy()
+            want = np.zeros(w.padded_rows)
+            want[: a.n_rows] = packed @ x[: a.n_cols].astype(np.float64)
             xla = np.asarray(jax_spmv(wj, jnp.asarray(x)))
             scale = np.abs(want).max()
             assert got.shape == (w.padded_rows,) and got.dtype == xdt
@@ -324,5 +326,5 @@ def test_gs_entry_rejects_what_it_does_not_take(fem):
               lv.a.pad_cols, rows=lv.a.rows, classes=lv.gid)
     counts = dict(well_kernel.launches)
     well_kernel.gs_update_(lv.a, x, x, 0, lv.diag, lv.inv_diag)
-    well_kernel.spmv_walk(lv.a, x)
+    well_kernel.spmv(lv.a, x)
     assert well_kernel.launches == counts   # CPU tensors: no launch
