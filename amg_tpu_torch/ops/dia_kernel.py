@@ -1,16 +1,19 @@
-"""DIA SpMV with fused epilogues, and its multi-rhs variant: the
+"""DIA SpMV with fused epilogues, for one vector and for a batch: the
 hand-written CUDA kernels and their plain PyTorch versions.
 
 Port of ``amg_tpu/ops/pallas_dia.py::_build`` (kernel B1) with its entries
 ``spmv``, ``resid`` and ``gs_update``, and of ``_build_multi`` (kernel B4)
-with its entry ``spmv_multi``.  For a :class:`~amg_tpu_torch.sparse.Dia`
-operator ``a`` with values ``(nd, pad)``, vectors of length ``pad`` and
-batches ``X`` of ``k`` vectors, ``(k, pad)``::
+with its entry ``spmv_multi``; B4 also takes B1's two fused epilogues, over
+the batch.  For a :class:`~amg_tpu_torch.sparse.Dia` operator ``a`` with
+values ``(nd, pad)``, vectors of length ``pad`` and batches ``X``, ``B`` of
+``k`` vectors, ``(k, pad)``::
 
-    spmv(a, x)            y = A x
-    resid(a, x, b)        y = b - A x
-    gs_update(a, x, b, w) y = x + w * (b - A x)   (needs the main diagonal)
-    spmv_multi(a, X)      Y[c] = A X[c]           (values read once for all c)
+    spmv(a, x)                  y = A x
+    resid(a, x, b)              y = b - A x
+    gs_update(a, x, b, w)       y = x + w * (b - A x)   (needs the main diagonal)
+    spmv_multi(a, X)            Y[c] = A X[c]           (values read once for all c)
+    resid_multi(a, X, B)        Y[c] = B[c] - A X[c]
+    gs_update_multi(a, X, B, w) Y[c] = X[c] + w * (B[c] - A X[c])   (w (pad,))
 
 where ``(A x)[i] = sum_d vals[d, i] * x[i + off_d]`` and ``x`` reads 0
 outside ``[0, pad)``.  Supported (values, vectors) dtypes: (f32, f32),
@@ -25,25 +28,28 @@ Dispatch is by the tensors' device and nothing else: CUDA tensors launch
 the kernel in ``amg_tpu_torch/csrc/dia_spmv.cu`` (built with ``nvcc`` on
 first use into ``amg_tpu_torch/build/``, bound with ctypes) or raise; CPU
 tensors take the plain version (``*_plain``), which the tests and
-``chip_smoke.py`` also use as the reference.  ``launches`` counts kernel
-launches per epilogue (B1) and under ``"multi"`` (B4).
+``chip_smoke.py`` also use as the reference.  B1 reads ``x`` through
+shared-memory windows laid out by :func:`plan`.  ``launches``
+counts kernel launches per B1 epilogue (:data:`EPILOGUES`) and per B4
+epilogue (:data:`MULTI`).
 """
 
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import torch
 import torch.nn.functional as F
 
 from .cuda_build import CudaLibrary
 
-EPILOGUES = ("spmv", "resid", "update")
-# kernel launches per B1 epilogue and of B4 ("multi"; plain-version calls
-# are not counted), and per launch shape: (epilogue, values dtype, vector
-# dtype, nd, pad) for B1, ("multi", values dtype, vector dtype, nd, pad, k)
-# for B4
-launches = {e: 0 for e in EPILOGUES + ("multi",)}
+EPILOGUES = ("spmv", "resid", "update")            # B1
+MULTI = ("multi", "multi_resid", "multi_update")   # B4, the same epilogues
+# kernel launches per epilogue (plain-version calls are not counted), and
+# per launch shape: (epilogue, values dtype, vector dtype, nd, pad) for B1,
+# (epilogue, values dtype, vector dtype, nd, pad, k) for B4
+launches = {e: 0 for e in EPILOGUES + MULTI}
 launches_by_shape: dict = {}
 
 # (values dtype, vector dtype) pairs the kernels are instantiated for; the
@@ -53,8 +59,12 @@ _PAIRS = {
     (torch.bfloat16, torch.float32): "dia_bf16_f32",
     (torch.float64, torch.float64): "dia_f64_f64",
 }
-# offsets live in shared memory: 48 KB of int32
+# B4 keeps the offsets in shared memory: 48 KB of int32
 _MAX_DIAGS = 12288
+# the widest run of offsets read through one shared-memory window
+# (kMaxSpan in csrc/dia_spmv.cu), and the most segments a plan holds
+WINDOW_SPAN = 256
+MAX_SEGMENTS = 64
 
 
 def bf16_products(nd: int, vals_dtype, x_dtype) -> bool:
@@ -65,6 +75,55 @@ def bf16_products(nd: int, vals_dtype, x_dtype) -> bool:
         and x_dtype == torch.float32
 
 
+@functools.lru_cache(maxsize=256)
+def plan(offsets: tuple) -> tuple:
+    """How B1 reads ``x``: segments ``(first, end, lo, span)`` that cover
+    the diagonals ``[first, end)`` in offsets order.
+
+    Greedily, consecutive offsets form a run while their span (largest
+    minus smallest) stays within :data:`WINDOW_SPAN`.  A run of two or more
+    diagonals is one windowed segment: ``lo`` is its smallest offset and
+    ``span`` its span, and the kernel stages ``x`` over the block's rows
+    plus that span in shared memory once for the whole run.  Runs of one
+    diagonal read ``x`` directly (a window would be used once); adjacent
+    ones merge into one segment with ``lo = 0, span = -1``.  At most
+    ``(MAX_SEGMENTS - 1) // 2`` runs are windowed, the rest read directly,
+    so no plan exceeds ``MAX_SEGMENTS``.  The plan does not change the
+    arithmetic: every row sums its products in offsets order."""
+    runs = []
+    i, nd = 0, len(offsets)
+    while i < nd:
+        lo = hi = offsets[i]
+        j = i + 1
+        while j < nd and max(hi, offsets[j]) - min(lo, offsets[j]) \
+                <= WINDOW_SPAN:
+            lo, hi = min(lo, offsets[j]), max(hi, offsets[j])
+            j += 1
+        runs.append((i, j, lo, hi - lo))
+        i = j
+    segs, n_win = [], 0
+    for first, end, lo, span in runs:
+        if end - first >= 2 and n_win < (MAX_SEGMENTS - 1) // 2:
+            segs.append((first, end, lo, span))
+            n_win += 1
+        elif segs and segs[-1][3] < 0:
+            segs[-1] = (segs[-1][0], end, 0, -1)
+        else:
+            segs.append((first, end, 0, -1))
+    return tuple(segs)
+
+
+@functools.lru_cache(maxsize=64)
+def _plan_on(offsets: tuple, device: torch.device):
+    """(the plan as an ``(n, 4)`` int32 tensor on ``device``, n, the number
+    of windowed runs, the widest span or -1)."""
+    segs = plan(offsets)
+    t = torch.tensor(segs or ((0, 0, 0, -1),), dtype=torch.int32,
+                     device=device)
+    return (t, len(segs), sum(s[3] >= 0 for s in segs),
+            max((s[3] for s in segs), default=-1))
+
+
 # ---------------------------------------------------------------------------
 # Build and bind
 # ---------------------------------------------------------------------------
@@ -72,20 +131,18 @@ def bf16_products(nd: int, vals_dtype, x_dtype) -> bool:
 
 def _bind(dll):
     p, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
-    common = [p, p, i32, i64, p, p, p, p, i32]
-    for name in ("dia_f32_f32", "dia_f64_f64"):
-        fn = getattr(dll, name)
-        fn.argtypes = common + [p]
+    # B1: vals, offs, plan, n_segs, n_win, max_span, pad, x, b, w, y,
+    # epilogue; B4: vals, offs, nd, pad, k, x, b, w, y, epilogue
+    single = [p, p, p, i32, i32, i32, i64, p, p, p, p, i32]
+    multi = [p, p, i32, i64, i32, p, p, p, p, i32]
+    for prefix, common in (("dia", single), ("dia_multi", multi)):
+        for suffix in ("_f32_f32", "_f64_f64"):
+            fn = getattr(dll, prefix + suffix)
+            fn.argtypes = common + [p]
+            fn.restype = i32
+        fn = getattr(dll, prefix + "_bf16_f32")
+        fn.argtypes = common + [i32, p]
         fn.restype = i32
-    dll.dia_bf16_f32.argtypes = common + [i32, p]
-    dll.dia_bf16_f32.restype = i32
-    multi = [p, p, i32, i64, i32, p, p]
-    for name in ("dia_multi_f32_f32", "dia_multi_f64_f64"):
-        fn = getattr(dll, name)
-        fn.argtypes = multi + [p]
-        fn.restype = i32
-    dll.dia_multi_bf16_f32.argtypes = multi + [i32, p]
-    dll.dia_multi_bf16_f32.restype = i32
 
 
 _LIB = CudaLibrary("dia_spmv.cu", _bind)
@@ -113,17 +170,22 @@ def _check(a, x, b=None, w=None, epilogue="spmv"):
         raise TypeError(f"unsupported (values, vector) dtypes "
                         f"({vals.dtype}, {x.dtype}); supported: "
                         f"{sorted((str(v), str(u)) for v, u in _PAIRS)}")
-    if epilogue == "update" and 0 not in a.offsets:
+    if epilogue in ("update", "multi_update") and 0 not in a.offsets:
         raise ValueError("update epilogue requires the main diagonal")
-    if epilogue == "multi" and (x.dim() != 2 or x.shape[0] < 1
-                                or x.shape[1] != pad):
-        raise ValueError(f"X must be (k, {pad}) with k >= 1; got "
-                         f"{tuple(x.shape)}")
-    for name, t in (("x", x), ("b", b), ("w", w)):
+    if epilogue in MULTI:
+        if x.dim() != 2 or x.shape[0] < 1 or x.shape[1] != pad:
+            raise ValueError(f"X must be (k, {pad}) with k >= 1; got "
+                             f"{tuple(x.shape)}")
+    elif x.dim() != 1 or x.shape[0] != pad:
+        raise ValueError(f"x must be ({pad},); got {tuple(x.shape)}")
+    # b has x's shape (a batch B for B4); w is one vector for every column
+    for name, t, shape in (("x", x, x.shape), ("b", b, x.shape),
+                           ("w", w, (pad,))):
         if t is None:
             continue
-        if epilogue != "multi" and (t.dim() != 1 or t.shape[0] != pad):
-            raise ValueError(f"{name} must be ({pad},); got {tuple(t.shape)}")
+        if t.shape != shape:
+            raise ValueError(f"{name} must be {tuple(shape)}; got "
+                             f"{tuple(t.shape)}")
         if t.dtype != x.dtype:
             raise TypeError(f"{name} is {t.dtype}, x is {x.dtype}")
         if t.device != vals.device:
@@ -185,14 +247,26 @@ def spmv_multi_plain(a, x: torch.Tensor) -> torch.Tensor:
     return _acc_plain(a, x)
 
 
+def resid_multi_plain(a, x: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    _check(a, x, b, epilogue="multi_resid")
+    return b - _acc_plain(a, x)
+
+
+def gs_update_multi_plain(a, x: torch.Tensor, b: torch.Tensor,
+                          w: torch.Tensor) -> torch.Tensor:
+    _check(a, x, b, w, epilogue="multi_update")
+    return x + w * (b - _acc_plain(a, x))
+
+
 # ---------------------------------------------------------------------------
 # Kernel launch
 # ---------------------------------------------------------------------------
 
 
 def _launch(a, x, b, w, epilogue: str) -> torch.Tensor:
-    """Launch B1 (epilogue spmv, resid or update) or B4 (``"multi"``, x a
-    ``(k, pad)`` batch) on the current stream; count the launch."""
+    """Launch B1 (an epilogue of :data:`EPILOGUES`, x one vector) or B4 (of
+    :data:`MULTI`, x a ``(k, pad)`` batch) on the current stream; count the
+    launch."""
     vals = a.vals
     nd, pad = len(a.offsets), vals.shape[1]
     if nd > _MAX_DIAGS:
@@ -207,18 +281,20 @@ def _launch(a, x, b, w, epilogue: str) -> torch.Tensor:
     y = torch.empty(x.shape, dtype=x.dtype, device=x.device)
     stream = torch.cuda.current_stream(x.device).cuda_stream
     name = _PAIRS[(vals.dtype, x.dtype)]
-    if epilogue == "multi":
+    if epilogue in MULTI:
         k = x.shape[0]
-        args = [vals.data_ptr(), a.offs.data_ptr(), nd, pad, k, x.data_ptr(),
-                y.data_ptr()]
+        args = [vals.data_ptr(), a.offs.data_ptr(), nd, pad, k]
         name = "dia_multi" + name[3:]
         key = (epilogue, vals.dtype, x.dtype, nd, pad, k)
+        index = MULTI.index(epilogue)
     else:
-        args = [vals.data_ptr(), a.offs.data_ptr(), nd, pad, x.data_ptr(),
-                b.data_ptr() if b is not None else None,
-                w.data_ptr() if w is not None else None,
-                y.data_ptr(), EPILOGUES.index(epilogue)]
+        segs, n_segs, n_win, max_span = _plan_on(a.offsets, vals.device)
+        args = [vals.data_ptr(), a.offs.data_ptr(), segs.data_ptr(), n_segs,
+                n_win, max_span, pad]
         key = (epilogue, vals.dtype, x.dtype, nd, pad)
+        index = EPILOGUES.index(epilogue)
+    args += [x.data_ptr(), b.data_ptr() if b is not None else None,
+             w.data_ptr() if w is not None else None, y.data_ptr(), index]
     if vals.dtype == torch.bfloat16:
         args.append(int(bf16_products(nd, vals.dtype, x.dtype)))
     err = getattr(lib, name)(*args, stream)
@@ -267,3 +343,23 @@ def spmv_multi(a, x: torch.Tensor) -> torch.Tensor:
         return spmv_multi_plain(a, x)
     _check(a, x, epilogue="multi")
     return _launch(a, x, None, None, "multi")
+
+
+def resid_multi(a, x: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """R = B - A X for batches ``X``, ``B`` of shape ``(k, pad)`` in one
+    pass of B4."""
+    if not _is_cuda(a, x):
+        return resid_multi_plain(a, x, b)
+    _check(a, x, b, epilogue="multi_resid")
+    return _launch(a, x, b, None, "multi_resid")
+
+
+def gs_update_multi(a, x: torch.Tensor, b: torch.Tensor,
+                    w: torch.Tensor) -> torch.Tensor:
+    """X + w * (B - A X) for batches ``X``, ``B`` of shape ``(k, pad)`` and
+    one weight vector ``w`` of shape ``(pad,)`` in one pass of B4: the
+    batched masked-GS group update.  Returns a new batch."""
+    if not _is_cuda(a, x):
+        return gs_update_multi_plain(a, x, b, w)
+    _check(a, x, b, w, epilogue="multi_update")
+    return _launch(a, x, b, w, "multi_update")

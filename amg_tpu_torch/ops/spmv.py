@@ -12,7 +12,8 @@ matmul) are plain torch, as they are XLA in ``amg_tpu``.
 
 Every product takes one vector ``(pad,)`` or a batch ``(k, pad)`` of k
 right-hand sides, rows on the last axis (the batched solve): a batch on a
-:class:`Dia` goes to the multi-rhs DIA kernel (B4), on a :class:`WEll`
+:class:`Dia` goes to the multi-rhs DIA kernel (B4, which also fuses the
+residual), on a :class:`WEll`
 through one WEll kernel launch per column, as ``amg_tpu`` runs it under
 ``vmap``.
 """
@@ -86,8 +87,11 @@ def residual(a, x: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
 
 def residual_fused(a, x: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """r = b - A @ x, with the subtraction fused into the DIA kernel for a
-    Dia operator and one vector (one pass instead of SpMV + a separate
-    elementwise pass; B4 has no fused epilogue, nor has ``amg_tpu``'s)."""
-    if isinstance(a, Dia) and x.dim() == 1 and b.shape[-1] == a.padded_rows:
+    Dia operator: one pass of B1's ``resid`` epilogue for one vector, of
+    B4's for a ``(k, pad)`` batch, instead of a product and a separate
+    elementwise pass."""
+    if isinstance(a, Dia) and b.shape[-1] == a.padded_rows:
+        if x.dim() == 2:
+            return dia_kernel.resid_multi(a, x, b)
         return dia_kernel.resid(a, x, b)
     return b - spmv(a, x)[..., : b.shape[-1]]

@@ -13,7 +13,8 @@ Here every smoother is a function over the device
   C/F ordering (``cf_order=1``) replicates the reference's F-then-C
   pre-smooth and C-then-F post-smooth (amg/Solve/SSS_smooth.c:4-87).
   On a Dia level with group weights the group update is one fused pass of
-  the DIA kernel (``dia_kernel.gs_update``); on a WEll level whose layout
+  the DIA kernel (``dia_kernel.gs_update``, ``gs_update_multi`` for a
+  batch); on a WEll level whose layout
   groups rows by GS class it is one launch of the WEll kernel's class
   update (``well_kernel.gs_update_``) over that class's rows only.
 * SGS, SOR, SSOR, GSOR, SGSOR: symmetric / relaxed variants on the same
@@ -57,9 +58,9 @@ def _masked_group_update(level, x, b, g: int, relax=None,
 
     With a precomputed group-weight stack (``level.gs_w``) on a Dia level,
     the whole update runs as ONE fused DIA kernel pass ``x + w_g * (b - A x)``
-    (the select, diagonal add-back and division fold into the epilogue).
-    A batch computes the same ``x + w_g * (b - A x)`` from one multi-rhs
-    product and one elementwise pass (B4 has no fused epilogue).
+    (the select, diagonal add-back and division fold into the epilogue);
+    a batch takes the same epilogue of the multi-rhs kernel
+    (``dia_kernel.gs_update_multi``, one launch for every column).
 
     On a WEll level with class-grouped rows one vector takes the WEll
     kernel's class update instead: the same formula over group ``g``'s
@@ -75,7 +76,7 @@ def _masked_group_update(level, x, b, g: int, relax=None,
             and 0 in level.a.offsets
             and b.shape[-1] == level.a.padded_rows):
         if x.dim() == 2:
-            return x + level.gs_w[g] * (b - dia_kernel.spmv_multi(level.a, x))
+            return dia_kernel.gs_update_multi(level.a, x, b, level.gs_w[g])
         return dia_kernel.gs_update(level.a, x, b, level.gs_w[g])
 
     ax = spmv(level.a, x)

@@ -352,3 +352,104 @@ def test_solve_batched_permuted_level0_and_x0():
     # column views with negative strides upload like copies
     xr, _ = solver.solve_batched(B[:, ::-1], x0s=X0[:, ::-1])
     np.testing.assert_allclose(xr, x[:, ::-1], rtol=1e-12, atol=1e-14)
+
+
+def _pallas_epilogue(jd, epilogue, xb, bb, w):
+    """amg_tpu's single-vector Pallas epilogue (interpret mode), column by
+    column."""
+    if epilogue == "resid":
+        return np.stack([np.asarray(pallas_dia.resid(
+            jd, jnp.asarray(x), jnp.asarray(b), interpret=True))
+            for x, b in zip(xb, bb)])
+    return np.stack([np.asarray(pallas_dia.gs_update(
+        jd, jnp.asarray(x), jnp.asarray(b), jnp.asarray(w), interpret=True))
+        for x, b in zip(xb, bb)])
+
+
+def _multi_epilogue(td, epilogue, xb, bb, w):
+    X, B, W = (torch.from_numpy(v) for v in (xb, bb, w))
+    if epilogue == "resid":
+        return dia_kernel.resid_multi(td, X, B)
+    return dia_kernel.gs_update_multi(td, X, B, W)
+
+
+@pytest.mark.parametrize("epilogue", ["resid", "update"])
+@pytest.mark.parametrize("k", [1, 4])
+@pytest.mark.parametrize("kind,vdtype,tol", MULTI_CASES,
+                         ids=[f"{o}-{v}" for o, v, _ in MULTI_CASES])
+def test_multi_epilogues_plain_match_pallas(kind, vdtype, tol, k, epilogue):
+    """B4's resid and update epilogues (plain version) against amg_tpu's
+    B1 epilogues in interpret mode, one column at a time."""
+    jd, td = _both(_operator(kind), jnp.dtype(vdtype), getattr(torch, vdtype))
+    xb, bb = _batch(k, np.float32, seed=21), _batch(k, np.float32, seed=22)
+    w = _batch(1, np.float32, seed=23)[0]
+    want = _pallas_epilogue(jd, epilogue, xb, bb, w)
+    counts = dict(dia_kernel.launches)
+    got = _multi_epilogue(td, epilogue, xb, bb, w)
+    assert dia_kernel.launches == counts   # CPU tensors: no launch counted
+    assert got.dtype == torch.float32 and got.shape == (k, PAD)
+    scale = np.abs(np.stack([np.asarray(pallas_dia.spmv(
+        jd, jnp.asarray(x), interpret=True)) for x in xb])).max()
+    np.testing.assert_allclose(got.numpy() / scale, want / scale, rtol=0,
+                               atol=tol)
+
+
+@pytest.mark.parametrize("epilogue", ["resid", "update"])
+@pytest.mark.parametrize("k", [1, 4])
+@pytest.mark.parametrize("kind", ["p3d16", "band40"])
+def test_multi_epilogues_plain_f64_matches_xla(kind, k, epilogue):
+    jd, td = _both(_operator(kind), jnp.float64, torch.float64)
+    xb, bb = _batch(k, np.float64, seed=24), _batch(k, np.float64, seed=25)
+    w = _batch(1, np.float64, seed=26)[0]
+    ax = np.stack([np.asarray(jax_spmv_dia(jd, jnp.asarray(x))) for x in xb])
+    want = bb - ax if epilogue == "resid" else xb + w * (bb - ax)
+    got = _multi_epilogue(td, epilogue, xb, bb, w).numpy()
+    assert got.dtype == np.float64
+    np.testing.assert_allclose(got, want, rtol=1e-13,
+                               atol=1e-13 * np.abs(ax).max())
+
+
+@pytest.mark.parametrize("path", ["gs_update", "residual"])
+def test_batched_epilogues_equal_the_unfused_expressions(packed, path):
+    """On the CPU the batched GS group update and the batched fused
+    residual give exactly what the unfused torch expressions gave
+    (``X + w_g * (B - A X)`` and ``B - A X`` from one multi-rhs product)."""
+    mg, _ = packed["p2d24"]
+    lv = mg.levels[0]
+    assert isinstance(lv.a, TDia) and lv.gs_w is not None
+    X, B = (torch.from_numpy(_batch(3, np.float64, seed=27 + s, pad=lv.pad))
+            for s in range(2))
+    if path == "residual":
+        got = tspmv.residual_fused(lv.a, X, B)
+        assert torch.equal(got, B - dia_kernel.spmv_multi(lv.a, X))
+        return
+    for g in range(len(lv.group_cf)):
+        got = ts._masked_group_update(lv, X, B, g)
+        want = X + lv.gs_w[g] * (B - dia_kernel.spmv_multi(lv.a, X))
+        assert torch.equal(got, want)
+
+
+def test_multi_epilogues_reject_what_the_kernel_does_not_take():
+    _, td = _both(_operator("p3d16"), jnp.float32, torch.float32)
+    X, B, w = torch.zeros(2, PAD), torch.zeros(2, PAD), torch.zeros(PAD)
+    for fn, args in ((dia_kernel.resid_multi, (X,)),
+                     (dia_kernel.gs_update_multi, (X, w))):
+        bad_b = (torch.zeros(PAD), torch.zeros(3, PAD), torch.zeros(2, PAD + 8))
+        for b in bad_b:                                  # B not (k, pad)
+            with pytest.raises(ValueError):
+                fn(td, X, b, *args[1:])
+        with pytest.raises(TypeError):                   # B's dtype
+            fn(td, X, B.double(), *args[1:])
+        with pytest.raises(ValueError):                  # B's device
+            fn(td, X, torch.zeros(2, PAD, device="meta"), *args[1:])
+    for bad_w in (torch.zeros(2, PAD), torch.zeros(PAD + 8)):   # w not (pad,)
+        with pytest.raises(ValueError):
+            dia_kernel.gs_update_multi(td, X, B, bad_w)
+    with pytest.raises(TypeError):
+        dia_kernel.gs_update_multi(td, X, B, w.double())
+    with pytest.raises(ValueError):
+        dia_kernel.gs_update_multi(td, X, B, torch.zeros(PAD, device="meta"))
+    no_main = TDia(td.vals[[k for k, o in enumerate(td.offsets) if o != 0]],
+                   tuple(o for o in td.offsets if o != 0), td.shape, td.nnz)
+    with pytest.raises(ValueError, match="main diagonal"):
+        dia_kernel.gs_update_multi(no_main, X, B, w)

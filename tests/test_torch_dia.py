@@ -187,3 +187,62 @@ def test_containers_round_trip():
         for cls in (TDia, TEll, TDense):
             m = cls.from_csr(ta, dtype=torch.float64).to_csr()
             np.testing.assert_array_equal(m.to_dense(), a.to_dense())
+
+
+def _band40_offsets():
+    """chip_smoke.py's 40-diagonal band: 39 random offsets in +-20000 and
+    the main diagonal, here drawn with numpy."""
+    rng = np.random.default_rng(0)
+    offs = {0}
+    while len(offs) < 40:
+        offs.add(int(rng.integers(-20000, 20001)))
+    return tuple(sorted(offs))
+
+
+PLAN_CASES = {
+    # poisson3d(100) level 0 and the shape of its level-1 offsets
+    "p3d100-L0": (-10000, -100, -1, 0, 1, 100, 10000),
+    "p3d100-L1": (-10000, -5050, -5000, -4950, -101, -100, -99, -1, 0, 1,
+                  99, 100, 101, 4950, 5000, 5050, 10000),
+    "band40": _band40_offsets(),
+    "run-wider-than-window": tuple(range(-300, 301, 3)),
+    "offsets-beyond-pad": (-9000, -8999, 0, 8999, 9000),
+    "unsorted": (5, -3, 0, 400, 401, -700),
+    "many-runs": tuple(o for r in range(60) for o in (1000 * r, 1000 * r + 1)),
+    "empty": (),
+}
+
+
+@pytest.mark.parametrize("name", list(PLAN_CASES))
+def test_plan_covers_offsets_in_order(name):
+    """The kernels' read plan: segments cover every diagonal once, in
+    offsets order; a windowed segment is a run of >= 2 diagonals whose span
+    fits WINDOW_SPAN, a single diagonal reads x directly, and no plan has
+    more than MAX_SEGMENTS segments."""
+    offs = PLAN_CASES[name]
+    segs = dia_kernel.plan(offs)
+    assert len(segs) <= dia_kernel.MAX_SEGMENTS
+    end = 0
+    for s, (first, stop, lo, span) in enumerate(segs):
+        assert first == end and stop > first
+        end = stop
+        run = offs[first:stop]
+        if span >= 0:
+            assert len(run) >= 2 and lo == min(run)
+            assert span == max(run) - min(run) <= dia_kernel.WINDOW_SPAN
+        else:
+            assert (lo, span) == (0, -1)
+            assert s == 0 or segs[s - 1][3] >= 0   # direct runs merge
+    assert end == len(offs)
+    if name == "p3d100-L0":
+        # x crosses from L2 3 times per row instead of 7
+        assert segs == ((0, 1, 0, -1), (1, 6, -100, 200), (6, 7, 0, -1))
+    if name == "p3d100-L1":
+        assert [s[3] for s in segs] == [-1, 100, 202, 100, -1]
+    if name == "band40":
+        # scattered offsets: pairs closer than the window, the rest direct
+        assert all(s[1] - s[0] == 2 for s in segs if s[3] >= 0)
+        assert sum(s[1] - s[0] for s in segs if s[3] < 0) >= 10
+    if name == "many-runs":
+        assert sum(s[3] >= 0 for s in segs) == \
+            (dia_kernel.MAX_SEGMENTS - 1) // 2

@@ -25,7 +25,7 @@ pytestmark = pytest.mark.gpu
 
 DATA = os.path.join(os.path.dirname(os.path.abspath(__file__)), "data")
 TOL = {torch.float32: 2e-6, torch.bfloat16: 1e-5, torch.float64: 1e-13}
-EPILOGUES = dia_kernel.EPILOGUES   # B1's counters (B4 counts as "multi")
+EPILOGUES = dia_kernel.EPILOGUES   # B1's counters (B4's: dia_kernel.MULTI)
 
 
 def _needs_card():
@@ -80,9 +80,10 @@ def test_dia_kernel_matches_plain(kind, vdtype):
 @pytest.mark.parametrize("vdtype", ["float32", "bfloat16", "float64"])
 @pytest.mark.parametrize("kind", ["band40", "p3d16"])
 def test_dia_multi_kernel_matches_plain(kind, vdtype, k):
-    """Kernel B4 against its plain version on the card, every dtype pair
-    (band40 bf16: the nd >= 32 product rule) and every column block: k = 1
-    and 3 (blocks of 1), 6 (of 2), 4, 8 and 16 (the batched solve's)."""
+    """Kernel B4 against its plain version on the card, every epilogue
+    (spmv, resid, update over the batch), every dtype pair (band40 bf16:
+    the nd >= 32 product rule) and every column block: k = 1 and 3 (blocks
+    of 1), 6 (of 2), 4, 8 and 16 (the batched solve's)."""
     _needs_card()
     a, pad = ((_band_csr(8192, 40, seed=0), 8192) if kind == "band40"
               else (amg.poisson3d(16), 4096))
@@ -90,19 +91,96 @@ def test_dia_multi_kernel_matches_plain(kind, vdtype, k):
     xdt = torch.float64 if vdt == torch.float64 else torch.float32
     cpu = Dia.from_csr(a, dtype=vdt, pad_rows_to=pad)
     gpu = Dia(cpu.vals.cuda(), cpu.offsets, cpu.shape, cpu.nnz)
-    xb = torch.randn(k, pad, generator=torch.Generator().manual_seed(6),
-                     dtype=xdt)
-    key = ("multi", vdt, xdt, len(cpu.offsets), pad, k)
-    before = dia_kernel.launches["multi"]
-    before_shape = dia_kernel.launches_by_shape.get(key, 0)
-    got = dia_kernel.spmv_multi(gpu, xb.cuda())
-    torch.cuda.synchronize()
-    assert dia_kernel.launches["multi"] == before + 1
-    assert dia_kernel.launches_by_shape[key] == before_shape + 1
-    assert got.is_cuda and got.dtype == xdt and got.shape == (k, pad)
-    want = dia_kernel.spmv_multi_plain(cpu, xb)
-    err = (got.cpu() - want).abs().max().item() / want.abs().max().item()
-    assert err <= TOL[vdt], (kind, vdtype, k, err)
+    g = torch.Generator().manual_seed(6)
+    xb, bb = (torch.randn(k, pad, generator=g, dtype=xdt) for _ in range(2))
+    w = torch.randn(pad, generator=g, dtype=xdt)
+    scale = dia_kernel.spmv_multi_plain(cpu, xb).abs().max().item()
+    for ep, fn, args in (("multi", dia_kernel.spmv_multi, (xb,)),
+                         ("multi_resid", dia_kernel.resid_multi, (xb, bb)),
+                         ("multi_update", dia_kernel.gs_update_multi,
+                          (xb, bb, w))):
+        key = (ep, vdt, xdt, len(cpu.offsets), pad, k)
+        before = dia_kernel.launches[ep]
+        before_shape = dia_kernel.launches_by_shape.get(key, 0)
+        got = fn(gpu, *(t.cuda() for t in args))
+        torch.cuda.synchronize()
+        assert dia_kernel.launches[ep] == before + 1
+        assert dia_kernel.launches_by_shape[key] == before_shape + 1
+        assert got.is_cuda and got.dtype == xdt and got.shape == (k, pad)
+        err = (got.cpu() - fn(cpu, *args)).abs().max().item() / scale
+        assert err <= TOL[vdt], (kind, vdtype, k, ep, err)
+
+
+def _flat_view(t, shift):
+    """A contiguous copy of ``t`` whose data pointer lies ``shift`` elements
+    past a 16-byte boundary."""
+    buf = torch.zeros(t.numel() + shift, dtype=t.dtype, device=t.device)
+    v = buf[shift:].view(t.shape)
+    v.copy_(t)
+    return v
+
+
+EDGE_CASES = {
+    # (offsets, pad, shift of the data pointers in elements)
+    "pad-not-multiple-of-8": ((-64, -8, -1, 0, 1, 8, 64), 4099, 0),
+    "misaligned-pointers": ((-64, -8, -1, 0, 1, 8, 64), 4096, 1),
+    "run-wider-than-window": (tuple(range(-300, 301, 3)), 5000, 0),
+    "offsets-beyond-pad": ((-1500, -1499, -3, 0, 3, 1499, 1500), 1000, 0),
+    "pad-under-one-block": ((-7, -1, 0, 1, 7), 100, 0),
+}
+
+
+@pytest.mark.parametrize("vdtype", ["float32", "bfloat16", "float64"])
+@pytest.mark.parametrize("case", list(EDGE_CASES))
+def test_dia_kernels_at_the_design_edges(case, vdtype):
+    """B1 (every epilogue) and B4 (every epilogue, k = 1, 3, 16) against
+    their plain versions where the design takes its other paths: per-entry
+    loads for a pad that is not a multiple of the rows per thread or for
+    misaligned pointers, runs split for the window budget, windows and
+    direct reads past both ends of x, a single partial block.  bf16 runs
+    once more with offsets added up to nd >= 32 (bf16 products).  B4
+    at k = 1 agrees with B1 to the dtype's tolerance (the same sums in
+    offsets order; the two kernels' instructions differ)."""
+    _needs_card()
+    offs, pad, shift = EDGE_CASES[case]
+    vdt = getattr(torch, vdtype)
+    xdt = torch.float64 if vdt == torch.float64 else torch.float32
+    variants = [offs]
+    if vdt == torch.bfloat16 and len(offs) < 32:
+        variants.append(tuple(sorted(set(offs) | set(range(-90, 91, 6)))))
+        assert len(variants[-1]) >= 32
+    g = torch.Generator().manual_seed(8)
+    for offsets in variants:
+        vals = torch.randn(len(offsets), pad, generator=g,
+                           dtype=torch.float64).to(vdt)
+        cpu = Dia(vals, offsets, (pad, pad), vals.numel())
+        gpu = Dia(_flat_view(vals.cuda(), shift), offsets, (pad, pad),
+                  vals.numel())
+        x, b, w = (torch.randn(pad, generator=g, dtype=xdt) for _ in range(3))
+        scale = dia_kernel.spmv_plain(cpu, x).abs().max().item()
+        for fn, args in ((dia_kernel.spmv, (x,)), (dia_kernel.resid, (x, b)),
+                         (dia_kernel.gs_update, (x, b, w))):
+            got = fn(gpu, *(_flat_view(t.cuda(), shift) for t in args))
+            err = (got.cpu() - fn(cpu, *args)).abs().max().item() / scale
+            assert err <= TOL[vdt], (case, vdtype, fn.__name__, err)
+        for k in (1, 3, 16):
+            xb, bb = (torch.randn(k, pad, generator=g, dtype=xdt)
+                      for _ in range(2))
+            scale = dia_kernel.spmv_multi_plain(cpu, xb).abs().max().item()
+            for fn, one, args in (
+                    (dia_kernel.spmv_multi, dia_kernel.spmv, (xb,)),
+                    (dia_kernel.resid_multi, dia_kernel.resid, (xb, bb)),
+                    (dia_kernel.gs_update_multi, dia_kernel.gs_update,
+                     (xb, bb, w))):
+                dev = [_flat_view(t.cuda(), shift) for t in args]
+                got = fn(gpu, *dev)
+                err = (got.cpu() - fn(cpu, *args)).abs().max().item() / scale
+                assert err <= TOL[vdt], (case, vdtype, fn.__name__, k, err)
+                if k == 1:   # B1's arithmetic: the same sums and epilogue
+                    single = one(gpu, *(t[0] if t.dim() == 2 else t
+                                        for t in dev))
+                    gap = (got[0] - single).abs().max().item() / scale
+                    assert gap <= TOL[vdt], (case, fn.__name__, gap)
 
 
 def test_cuda_tensor_never_falls_back():
@@ -115,6 +193,20 @@ def test_cuda_tensor_never_falls_back():
                                        device="cuda"))
     with pytest.raises(ValueError):
         dia_kernel.spmv(d, torch.zeros(d.padded_rows))   # CPU x
+    X = torch.zeros(2, d.padded_rows, device="cuda")
+    w = torch.zeros(d.padded_rows, device="cuda")
+    with pytest.raises(ValueError):
+        dia_kernel.resid_multi(d, X, X.cpu())            # CPU B
+    with pytest.raises(ValueError):
+        dia_kernel.resid_multi(d, X, w)                  # B not (k, pad)
+    with pytest.raises(TypeError):
+        dia_kernel.gs_update_multi(d, X, X, w.double())
+    with pytest.raises(ValueError):
+        dia_kernel.gs_update_multi(d, X, X, w.cpu())     # CPU w
+    with pytest.raises(ValueError):
+        dia_kernel.gs_update_multi(d, X, X[:, 1:].contiguous(), w)
+    with pytest.raises(ValueError, match="contiguous"):
+        dia_kernel.gs_update_multi(d, X.T.contiguous().T, X, w)
 
 
 @pytest.mark.parametrize("name", ["p2d32", "p3d16"])
@@ -156,7 +248,7 @@ def test_slice_on_card():
 
 def test_batched_slice_on_card():
     """solve_batched on the card at test size: every column below the
-    tolerance (host-verified), B4 launched, B1 not."""
+    tolerance (host-verified), every B4 epilogue launched, B1 not."""
     _needs_card()
     a = amg.poisson3d(20)
     pars = amg.AMGParams(
@@ -169,7 +261,7 @@ def test_batched_slice_on_card():
     B = np.random.default_rng(7).standard_normal((a.n_rows, 5))
     before = dict(dia_kernel.launches)
     x, info = solver.solve_batched(B, tol=1e-6)
-    assert dia_kernel.launches["multi"] > before["multi"]
+    assert all(dia_kernel.launches[e] > before[e] for e in dia_kernel.MULTI)
     assert all(dia_kernel.launches[e] == before[e] for e in EPILOGUES)
     for c in range(B.shape[1]):
         r = B[:, c] - a.matvec(x[:, c].astype(np.float64))
