@@ -28,7 +28,7 @@ from .params import (
     StopType,
     CoarsestSolver,
 )
-from .sparse import CSR, Ell, Dia, Dense, WEll
+from .sparse import CSR, Ell, Dia, Dense, WEll, BandedBlocks
 from .io.matrix_market import read_mtx, write_mtx
 from .io.generators import poisson2d, poisson3d, random_spd, fem2d
 from .io.checkpoint import save_hierarchy, load_hierarchy
@@ -50,6 +50,7 @@ __all__ = [
     "Dia",
     "Dense",
     "WEll",
+    "BandedBlocks",
     "read_mtx",
     "write_mtx",
     "poisson2d",

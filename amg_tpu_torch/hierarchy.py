@@ -10,14 +10,15 @@ packed once into plain dataclasses of torch tensors (:class:`Level` /
 ``amg_tpu`` so vectors compare entry for entry.
 
 Formats: ``Dia`` for banded levels, ``Dense`` for small ones, ``WEll``
-for large unstructured levels when ``use_well="on"`` (level 0 then
-RCM-ordered, coarse WEll levels in barycentric order, P/R packed as WEll
-too), ``Ell`` otherwise.  ``amg_tpu``'s BandedBlocks format and its
-fine-grid embedding are not ported yet: ``use_banded`` on ``"auto"``
-resolves to ``"off"`` and ``embed_levels=-1`` to 0; asking for them raises
-``NotImplementedError``.  ``use_well="auto"`` resolves to ``"off"`` too:
-on one device ``amg_tpu``'s auto turns WEll and BandedBlocks on together,
-a hierarchy the port cannot build until BandedBlocks is ported.
+for large unstructured levels (level 0 then RCM-ordered, coarse WEll
+levels in barycentric order, P/R packed as WEll too), ``BandedBlocks``
+for coarse levels whose RCM band fits the byte budget, ``Ell`` otherwise.
+``use_well`` and ``use_banded`` on ``"auto"`` follow ``amg_tpu``'s rule for
+one device, which is what the port solves on: both are on
+(:func:`format_on`).  Fine-grid embedding (:func:`embedding_plan`) keeps
+coarse levels ``1..E`` at their level-0 positions as Dia operators over
+level 0's pad; ``embed_levels=-1`` resolves to 0 (no embedding), as in
+``amg_tpu`` off a TPU.
 """
 
 from __future__ import annotations
@@ -31,8 +32,8 @@ import torch
 
 from .params import AMGParams, CoarsenType, InterpType, MIN_CDOF, SMALLFLOAT
 from .params import SmootherType
-from .sparse import (CSR, Ell, Dia, Dense, WEll, _round_up, _to_device,
-                     torch_dtype)
+from .sparse import (CSR, Ell, Dia, Dense, BandedBlocks, WEll, _round_up,
+                     _to_device, torch_dtype)
 from .setup_phase.strength import strength_matrix
 from .setup_phase.cf_split import rs_split, pmis_split, clean_ff_couplings
 from .setup_phase.interp import build_interpolation
@@ -53,12 +54,14 @@ class Level:
     inverse for it.  The level operator ``a`` is :class:`Dia` when banded
     (gather-free SpMV and fused masked-colour GS through the DIA kernel),
     :class:`Dense` when small, :class:`WEll` when large and unstructured
-    (masked-colour GS through the WEll kernel) and :class:`Ell` otherwise.
+    (masked-colour GS through the WEll kernel), :class:`BandedBlocks` when
+    its RCM band fits, and :class:`Ell` otherwise.  A fine-grid-embedded
+    level is Dia with Dia P/R, all at level 0's pad.
     """
 
-    a: object                   # Dia | Dense | WEll | Ell
-    p: Optional[object]         # prolongation from level l+1 to l (Ell|WEll)
-    r: Optional[object]         # restriction  from level l to l+1 (Ell|WEll)
+    a: object                   # Dia | Dense | WEll | BandedBlocks | Ell
+    p: Optional[object]         # prolongation from level l+1 to l
+    r: Optional[object]         # restriction  from level l to l+1
     diag: torch.Tensor          # (pad,) a_ii
     inv_diag: torch.Tensor      # (pad,) 1/a_ii, 0 where |a_ii| tiny
     l1_inv: torch.Tensor        # (pad,) 1/sum_j |a_ij|
@@ -77,6 +80,14 @@ class Level:
     # where gid == g (and inv_diag != 0), else 0 — the weight operand of
     # the DIA kernel's fused GS update (one operator pass per colour)
     gs_w: Optional[torch.Tensor] = None
+    # the embedded -> compact boundary, set on the deepest embedded level E
+    # (int64 row positions in the embedded index space, only the valid
+    # prefix: amg_tpu pads these with the out-of-range value pad0, which
+    # JAX clamps or drops and torch would reject).  compact_idx: where the
+    # next level's rows sit (embedded P_E/R_E); member_idx: where this
+    # level's own rows sit (compact Ell P_E/R_E on short vectors)
+    compact_idx: Optional[torch.Tensor] = None
+    member_idx: Optional[torch.Tensor] = None
 
     @property
     def n(self) -> int:
@@ -119,8 +130,8 @@ class HostHierarchy:
     # per level: the new->old row permutation applied by reorder_for_gs
     # (None where untouched)
     perms: Optional[list] = None
-    # per level: block half-bandwidth of amg_tpu's BandedBlocks format; kept
-    # so checkpoints round-trip (the port packs such levels as Ell/Dense)
+    # per level: block half-bandwidth when the level was RCM-ordered for
+    # the BandedBlocks format (None -> not banded)
     banded_nb: Optional[list] = None
 
     @property
@@ -152,23 +163,23 @@ def complexity_print(hh: HostHierarchy) -> str:
 
 
 def check_supported(pars: AMGParams) -> None:
-    """Raise ``NotImplementedError`` for format and layout options of
-    ``amg_tpu`` that the port does not implement yet.  ``"auto"`` and
-    ``-1`` are accepted and resolve to the compact single-device layout
-    (``use_well = use_banded = "off"``, ``embed_levels = 0``);
-    ``use_well="on"`` is taken."""
-    if pars.use_banded == "on":
-        raise NotImplementedError("use_banded='on': the BandedBlocks format "
-                                  "is not ported yet")
-    if pars.embed_levels > 0:
-        raise NotImplementedError("embed_levels > 0: fine-grid embedding is "
-                                  "not ported yet")
+    """Raise ``NotImplementedError`` for options of ``amg_tpu`` that the
+    port does not implement yet: multi-device layouts and cycles in a
+    dtype other than float32 and float64."""
     if pars.dist_devices > 1:
         raise NotImplementedError("dist_devices > 1: multi-device layouts "
                                   "are not ported yet")
     if pars.dtype not in ("float32", "float64"):
         raise NotImplementedError(f"dtype={pars.dtype!r}: the port cycles in "
                                   "float32 or float64")
+
+
+def format_on(flag: str) -> bool:
+    """``use_well`` / ``use_banded`` resolved for one device: ``amg_tpu``
+    turns ``"auto"`` on when ``jax.device_count() == 1 or dist_devices > 1``
+    (``amg_tpu/hierarchy.py:305-308, 965-968``), and the port solves on
+    one device."""
+    return flag in ("on", "auto")
 
 
 # ---------------------------------------------------------------------------
@@ -278,48 +289,110 @@ def setup_host(a: CSR, pars: AMGParams, log=print) -> HostHierarchy:
     return hh
 
 
-def reorder_for_gs(hh: HostHierarchy, pars: AMGParams) -> HostHierarchy:
+def _coarse_itemsize(pars: AMGParams) -> int:
+    """Bytes per value of the coarse-level operators (through torch:
+    without JAX's ml_dtypes numpy knows no bfloat16)."""
+    return torch_dtype(pars.dtype if pars.coarse_op_dtype == "same"
+                       else pars.coarse_op_dtype).itemsize
+
+
+def reorder_for_gs(hh: HostHierarchy, pars: AMGParams,
+                   skip_levels: int = 0) -> HostHierarchy:
     """Reorder levels for the device formats (in place).
 
     Level 0 is RCM-ordered when it is headed for the WEll format
-    (:func:`reorder_l0_for_well`).  Each coarse level ``l >= 1`` not
-    destined for the Dia format is then permuted:
+    (:func:`reorder_l0_for_well`), unless ``skip_levels > 0``: levels
+    ``1..skip_levels`` are fine-grid embedded (:func:`embedding_plan`) and
+    keep the ordering the plan was made on, level 0 included.  Each coarse
+    level ``l > skip_levels`` not destined for the Dia format is then
+    permuted:
 
-    * a WEll level into barycentric order (:func:`_barycentric_order`),
-      which keeps its slot windows local; its GS runs masked;
-    * any other level, when a GS-family smoother runs on it, by
-      ``(color, C/F)`` so every multicolor-GS class is a contiguous row
-      range: a GS sweep then costs one SpMV's worth of slices instead of
-      ``n_groups`` gathers.
+    * with ``use_banded`` on, an Ell, Dense or WEll level other than the
+      coarsest is RCM-ordered for the BandedBlocks format when its band
+      fits ``banded_level_bytes`` (and, against WEll, costs at most 40 B
+      per nonzero; against Dense, at most half the square); an Ell level
+      whose band overshoots is clipped to the widest band that fits
+      (:func:`clip_to_band`) when at most ``banded_clip_frac`` of its
+      entries fall outside;
+    * otherwise a WEll level into barycentric order
+      (:func:`_barycentric_order`), which keeps its slot windows local;
+      its GS runs masked;
+    * otherwise, when a GS-family smoother runs on it, by ``(color,
+      C/F)`` so every multicolor-GS class is a contiguous row range.
 
     Each permutation is a similarity transform (``P A P^T`` plus matching
-    P/R/cfmark updates), so the hierarchy's numerics are unchanged.
-    (``amg_tpu``'s RCM branch for BandedBlocks is not ported: that format
-    is off in the port.)
+    P/R/cfmark updates), so the hierarchy's numerics are unchanged; only
+    the clipping changes the operator (row sums preserved).
     """
     from .params import CGPT
     from .setup_phase.coloring import color_graph
+
+    banded_on = format_on(pars.use_banded)
+    op_itemsize = _coarse_itemsize(pars)
 
     nl = hh.num_levels
     hh.gs_key = [None] * nl
     hh.perms = [None] * nl
     hh.banded_nb = [None] * nl
-    reorder_l0_for_well(hh, pars)
-    for l in range(1, nl):
+    if skip_levels == 0:
+        reorder_l0_for_well(hh, pars)
+    for l in range(max(1, skip_levels + 1), nl):
         al = hh.a[l]
         fmt_l = _pick_format(al, pars)
         if fmt_l == "dia":
             continue
         n = al.n_rows
-        if fmt_l == "well":
+
+        perm = None
+        clip_nb = None
+        if banded_on and fmt_l in ("ell", "dense", "well") and l < nl - 1:
+            import scipy.sparse as sp
+            from scipy.sparse.csgraph import reverse_cuthill_mckee
+
+            m = sp.csr_matrix((al.data, al.indices, al.indptr),
+                              shape=al.shape)
+            rcm = np.asarray(
+                reverse_cuthill_mckee(m, symmetric_mode=True),
+                dtype=np.int64,
+            )
+            al_rcm = al.permute(rcm)
+            nb = BandedBlocks.block_bandwidth(al_rcm)
+            nbr = _round_up(max(n, 1), 128) // 128
+            band_bytes = nbr * (2 * nb + 1) * 128 * 128 * op_itemsize
+            dense_bytes = (nbr * 128) ** 2 * op_itemsize
+            fits = band_bytes <= pars.banded_level_bytes and (
+                fmt_l == "ell"
+                or (fmt_l == "well" and band_bytes <= 40 * al.nnz)
+                or (fmt_l == "dense" and 2 * band_bytes <= dense_bytes)
+            )
+            if fits:
+                perm = rcm
+                hh.banded_nb[l] = nb
+            elif pars.banded_clip_frac > 0 and fmt_l == "ell":
+                # the band overshoots the budget: clip at the largest nb
+                # that fits and lump the out-of-band tail into the
+                # diagonal, if that tail is a small fraction of nnz
+                per_w = nbr * 128 * 128 * op_itemsize
+                nb_fit = int((pars.banded_level_bytes / per_w - 1) // 2)
+                if nb_fit >= 1:
+                    bd = np.abs((al_rcm.indices.astype(np.int64) >> 7)
+                                - (al_rcm.row_indices >> 7))
+                    frac = float(np.count_nonzero(bd > nb_fit)) \
+                        / max(al_rcm.nnz, 1)
+                    if frac <= pars.banded_clip_frac:
+                        perm = rcm
+                        hh.banded_nb[l] = nb_fit
+                        clip_nb = nb_fit
+
+        if perm is None and fmt_l == "well":
             # order rows for slot-window locality (not by color): each
             # unknown at its interpolation barycenter in the parent level
             perm = _barycentric_order(hh.p[l - 1])
-        elif not _needs_groups(pars, True):
-            # no GS-family smoother on this level: the color-contiguous
-            # permutation (and the coloring itself) buys nothing
-            continue
-        else:
+        elif perm is None:
+            if not _needs_groups(pars, True):
+                # no GS-family smoother on this level: the color-contiguous
+                # permutation (and the coloring itself) buys nothing
+                continue
             colors = color_graph(al)
             cf = hh.cfmark[l] if l < len(hh.cfmark) else None
             is_c = (
@@ -342,6 +415,8 @@ def reorder_for_gs(hh: HostHierarchy, pars: AMGParams) -> HostHierarchy:
                 hh.r[l] = hh.r[l].permute_cols(inv)
             if l < len(hh.cfmark) and hh.cfmark[l] is not None:
                 hh.cfmark[l] = np.asarray(hh.cfmark[l])[perm]
+        if clip_nb is not None:
+            hh.a[l] = clip_to_band(hh.a[l], clip_nb)
     return hh
 
 
@@ -393,6 +468,26 @@ def _barycentric_order(p: CSR) -> np.ndarray:
     wpos = np.bincount(cols, weights=w * rows, minlength=nc)
     pos = np.where(wsum > 0, wpos / np.maximum(wsum, 1e-300), 0.0)
     return np.argsort(pos, kind="stable").astype(np.int64)
+
+
+def clip_to_band(a: CSR, nb: int) -> CSR:
+    """Drop entries outside the block band ``|block(j) - block(i)| <= nb``
+    and lump them into the diagonal (row sums preserved), for an RCM band
+    that slightly overshoots the BandedBlocks byte budget."""
+    n = a.n_rows
+    rows = a.row_indices
+    cols = a.indices.astype(np.int64)
+    keep = np.abs((cols >> 7) - (rows >> 7)) <= nb
+    lump = np.bincount(rows[~keep], weights=a.data[~keep], minlength=n)
+    indptr = np.zeros(n + 1, dtype=np.int64)
+    indptr[1:] = np.bincount(rows[keep], minlength=n)
+    np.cumsum(indptr, out=indptr)
+    data = a.data[keep].copy()
+    new_cols = cols[keep].astype(np.int32)
+    kept_rows = rows[keep]
+    is_diag = new_cols == kept_rows
+    data[is_diag] += lump[kept_rows[is_diag]]
+    return CSR(indptr, new_cols, data, a.shape)
 
 
 def _gs_w_stack(gid_np, inv_diag_np, n_groups, dtype, device):
@@ -506,8 +601,9 @@ def _pick_format(al: CSR, pars: AMGParams) -> str:
 
     DIA when banded; Dense when the dense footprint fits the budget — deep
     levels are small but nearly dense; WEll for large unstructured levels
-    when ``use_well="on"`` (``"auto"`` resolves to off in the port);
-    padded-ELL gathers otherwise.
+    when ``use_well`` is on (:func:`format_on`); padded-ELL gathers
+    otherwise.  (``reorder_for_gs`` may then turn an Ell, Dense or WEll
+    level into BandedBlocks.)
     """
     if _use_dia(al, pars):
         return "dia"
@@ -516,9 +612,295 @@ def _pick_format(al: CSR, pars: AMGParams) -> str:
         al.n_rows * al.n_cols * itemsize <= pars.dense_level_bytes
     ):
         return "dense"
-    if pars.use_well == "on" and al.n_rows >= pars.well_min_rows:
+    if format_on(pars.use_well) and al.n_rows >= pars.well_min_rows:
         return "well"
     return "ell"
+
+
+# ---------------------------------------------------------------------------
+# Fine-grid embedding of coarse levels
+#
+# Coarse unknowns keep their level-0 grid positions: every coarse operator
+# of levels 1..E becomes a diagonal-offset stencil (Dia) over level 0's pad,
+# so those levels' products and transfers run through the DIA kernel with
+# no gathers.  Coarse vectors are fine-grid length with zeros at non-member
+# positions (zero inverse diagonals keep the smoothers exact there).
+# Embedding stops when a stencil outgrows `embed_max_diags` or the byte
+# budget; deeper levels use compact formats, with one gather/scatter pair
+# at the boundary.  The same plan as amg_tpu's (hierarchy.py:490-803).
+# ---------------------------------------------------------------------------
+
+
+# good_pad's tiles: amg_tpu's DIA kernel tile (amg_tpu/ops/pallas_dia.py:
+# 37-41) and the candidate tiles, largest first, that the shared embedded
+# pad is rounded to
+TILE = 4096
+TILES = (81920, 40960, 20480, 8192, TILE)
+
+
+def good_pad(n: int, max_overhead: float = 0.025) -> int:
+    """``amg_tpu.ops.pallas_dia.good_pad``: the padding of ``n`` rows to
+    the largest of :data:`TILES` within a relative overhead of
+    ``max_overhead``, else to a multiple of :data:`TILE`.  The shared
+    embedded pad takes it, so that the port's level pads equal
+    ``amg_tpu``'s."""
+    best = ((n + TILE - 1) // TILE) * TILE
+    for t in TILES:
+        p = ((n + t - 1) // t) * t
+        if n > 0 and (p - n) / n <= max_overhead:
+            return p
+    return best
+
+
+def _embed_csr(m: CSR, row_emb: np.ndarray, col_emb: np.ndarray,
+               n0: int) -> CSR:
+    """Re-index a compact operator into the fine (level-0) index space."""
+    deg = m.row_degrees
+    cols = col_emb[m.indices.astype(np.int64)]
+    if m.n_rows == 0 or np.all(np.diff(row_emb) > 0):
+        # row map strictly increasing (embedding positions are sorted
+        # C-point lists): rows stay in CSR order, so build the row pointer
+        # directly instead of sorting the entries
+        indptr = np.zeros(n0 + 1, dtype=np.int64)
+        indptr[row_emb.astype(np.int64) + 1] = deg
+        np.cumsum(indptr, out=indptr)
+        return CSR(indptr, cols.astype(np.int32), m.data.copy(), (n0, n0))
+    return CSR.from_coo(row_emb[m.row_indices], cols, m.data, (n0, n0))
+
+
+def _embedded_offset_hist(m: CSR, row_emb, col_emb, cache=None):
+    """(off_lo, uniq) histogram of embedded (col - row) offsets, memoized
+    in ``cache`` (keyed by object identity, stable within one setup): the
+    plan counts them for every candidate operator and the pack needs the
+    same histogram again."""
+    key = (id(m), id(row_emb), id(col_emb))
+    if cache is not None and key in cache:
+        return cache[key]
+    rows = m.row_indices
+    off = col_emb[m.indices] - row_emb[rows]
+    if len(off) == 0:
+        hist = (0, np.zeros(0, dtype=np.int64))
+    else:
+        lo = int(off.min())
+        uniq = np.flatnonzero(np.bincount(off - lo)) + lo
+        hist = (lo, uniq)
+    if cache is not None:
+        cache[key] = hist
+    return hist
+
+
+def _num_offsets_embedded(m: CSR, row_emb, col_emb, cache=None) -> int:
+    return len(_embedded_offset_hist(m, row_emb, col_emb, cache)[1])
+
+
+def _embed_csr_cached(m: CSR, row_emb, col_emb, n0: int, cache) -> CSR:
+    """:func:`_embed_csr`, with the result's (col - row) histogram seeded
+    from the plan's cache so that ``Dia.from_csr`` skips its recount."""
+    out = _embed_csr(m, row_emb, col_emb, n0)
+    out._off_hist_cache = (
+        out.nnz, _embedded_offset_hist(m, row_emb, col_emb, cache))
+    return out
+
+
+def resolved_embed_levels(pars: AMGParams) -> int:
+    """``pars.embed_levels`` with -1 (auto) resolved to 0.  ``amg_tpu``
+    embeds under auto on a TPU only (``amg_tpu/hierarchy.py:564-578``);
+    whether embedding pays on the card is measured before auto turns it
+    on (``PERF.md``), so explicit ``embed_levels > 0`` are taken as
+    given."""
+    return pars.embed_levels if pars.embed_levels >= 0 else 0
+
+
+def embedding_plan(hh: HostHierarchy, pars: AMGParams):
+    """Decide how deep the fine-grid embedding goes.
+
+    Returns ``(E, emb, boundary)`` where ``emb[l]`` maps level-l rows to
+    level-0 positions, levels ``1..E`` (plus level 0's P/R) are embedded,
+    and ``boundary`` is how level E hands off to the compact levels:
+    ``"embedded"`` (fine-grid P_E/R_E) or ``"compact"`` (compact the
+    residual first, then small Ell P/R; only A_E needs the embedded
+    array).  ``E = 0`` means no embedding.
+    """
+    from .params import CGPT
+    from .setup_phase.coloring import color_graph
+
+    nl = hh.num_levels
+    n0 = hh.a[0].n_rows
+    hist_cache = hh.__dict__.setdefault("_emb_hist", {})
+    emb = [np.arange(n0, dtype=np.int64)]
+    for cf in hh.cfmark:
+        if cf is None:
+            # aggregation levels: coarse unknowns are aggregates, not
+            # fine-grid points
+            return 0, emb, None
+        cpos = np.flatnonzero(np.asarray(cf) == CGPT)
+        emb.append(emb[len(emb) - 1][cpos])
+
+    embed_levels = resolved_embed_levels(pars)
+    if embed_levels <= 0 or nl < 2:
+        return 0, emb, None
+    # level 0 must itself be a banded (Dia) operator for stencil embedding
+    if _pick_format(hh.a[0], pars) != "dia":
+        return 0, emb, None
+
+    itemsize = _coarse_itemsize(pars)
+    budget = pars.embed_max_bytes
+    # with a Gauss-Seidel-family smoother a masked sweep on an embedded
+    # level costs n_colors full operator passes: cap n_groups * n_diags
+    coarse_sm = pars.coarse_smoother or pars.smoother
+    gs_like = coarse_sm in (
+        SmootherType.GS, SmootherType.SGS, SmootherType.SOR,
+        SmootherType.SSOR, SmootherType.GSOR, SmootherType.SGSOR,
+    )
+    gs_cap = 1500
+
+    E = 0
+    spent = 0.0
+    # level l is embeddable if A_l, P_{l-1}, R_{l-1} all stay within the
+    # stencil cap; the coarsest level always stays compact (dense inverse)
+    for l in range(1, min(embed_levels + 1, nl - 1)):
+        if l >= len(emb):
+            break
+        nd_a = _num_offsets_embedded(hh.a[l], emb[l], emb[l], hist_cache)
+        nd_p = _num_offsets_embedded(hh.p[l - 1], emb[l - 1], emb[l],
+                                     hist_cache)
+        nd_r = _num_offsets_embedded(hh.r[l - 1], emb[l], emb[l - 1],
+                                     hist_cache)
+        if max(nd_a, nd_p, nd_r) > pars.embed_max_diags:
+            break
+        if gs_like:
+            colors = color_graph(hh.a[l])
+            ngroups = (int(colors.max()) + 1 if len(colors) else 1) * 2
+            if ngroups * nd_a > gs_cap:
+                break
+        cost = (nd_a + nd_p + nd_r) * n0 * itemsize
+        if spent + cost > budget:
+            break
+        spent += cost
+        E = l
+    boundary = None
+    if E >= 1:
+        # the boundary level needs either embedded P_E/R_E ((nd_p + nd_r)
+        # * n0 bytes) or the compact handoff (small gather + compact Ell
+        # P/R, no extra embedded arrays)
+        nd_p = _num_offsets_embedded(hh.p[E], emb[E], emb[E + 1], hist_cache)
+        nd_r = _num_offsets_embedded(hh.r[E], emb[E + 1], emb[E], hist_cache)
+        cost = (nd_p + nd_r) * n0 * itemsize
+        emb_fits = (max(nd_p, nd_r) <= pars.embed_max_diags
+                    and spent + cost <= budget)
+        if pars.embed_boundary == "compact":
+            boundary = "compact"
+        elif emb_fits:
+            boundary = "embedded"
+        elif pars.embed_boundary == "auto":
+            boundary = "compact"
+        else:  # forced "embedded" but it doesn't fit: shrink the embedding
+            E -= 1
+            boundary = "embedded" if E >= 1 else None
+    return E, emb, boundary
+
+
+def _embedded_level(hh: HostHierarchy, l: int, E: int, emb: list,
+                    pad0: int, pad_next: Optional[int], dtype: torch.dtype,
+                    pars: AMGParams, device,
+                    boundary: str = "embedded") -> Level:
+    """Build a fine-grid-embedded device level (A, P and R all Dia over
+    ``pad0``; at the compact boundary Ell P/R and ``member_idx``)."""
+    al = hh.a[l]
+    n0 = hh.a[0].n_rows
+    nl = hh.num_levels
+    rl = emb[l]
+    np_dt = np.dtype(pars.dtype)
+    coarse_dt = dtype if pars.coarse_op_dtype == "same" \
+        else torch_dtype(pars.coarse_op_dtype)
+    hist_cache = hh.__dict__.setdefault("_emb_hist", {})
+
+    if l == 0:
+        if _pick_format(al, pars) != "dia":
+            raise ValueError("embedded hierarchy requires a banded A_0")
+        a_dev = Dia.from_csr(al, dtype=dtype, pad_rows_to=pad0,
+                             device=device)
+    else:
+        a_emb = _embed_csr_cached(al, rl, rl, n0, hist_cache)
+        a_dev = Dia.from_csr(a_emb, dtype=coarse_dt, pad_rows_to=pad0,
+                             device=device)
+
+    p_dev = r_dev = None
+    compact_idx = None
+    member_idx = None
+    if l == E and l < nl - 1 and boundary == "compact":
+        # compact handoff: the cycle gathers the residual at this level's
+        # member positions, applies compact Ell R/P on short vectors and
+        # scatter-adds the prolonged correction back
+        pad_self = _round_up(max(al.n_rows, 1), 8)
+        p_dev = Ell.from_csr(hh.p[l], dtype=dtype, pad_rows_to=pad_self,
+                             device=device)
+        r_dev = Ell.from_csr(hh.r[l], dtype=dtype, pad_rows_to=pad_next,
+                             device=device)
+        member_idx = _to_device(rl, torch.int64, device)
+    elif l < nl - 1:
+        cl = emb[l + 1]
+        p_emb = _embed_csr_cached(hh.p[l], rl, cl, n0, hist_cache)
+        r_emb = _embed_csr_cached(hh.r[l], cl, rl, n0, hist_cache)
+        p_dev = Dia.from_csr(p_emb, dtype=coarse_dt, pad_rows_to=pad0,
+                             device=device)
+        r_dev = Dia.from_csr(r_emb, dtype=coarse_dt, pad_rows_to=pad0,
+                             device=device)
+        if l == E:
+            # the next (compact) level's rows at their embedded positions
+            compact_idx = _to_device(cl, torch.int64, device)
+
+    n = al.n_rows
+    diag_c = al.diagonal_fast()
+    diag = np.zeros(pad0)
+    diag[rl] = diag_c
+    inv_diag = np.zeros(pad0)
+    nz = np.abs(diag_c) > SMALLFLOAT
+    inv_diag[rl[nz]] = 1.0 / diag_c[nz]
+
+    l1_c = _row_abs_sums(al)
+    l1_inv = np.zeros(pad0)
+    nz1 = l1_c > SMALLFLOAT
+    l1_inv[rl[nz1]] = 1.0 / l1_c[nz1]
+
+    cfmark = hh.cfmark[l] if l < len(hh.cfmark) else None
+    gs_w = None
+    gid_dev = None
+    group_cf = ()
+    if _needs_groups(pars, l >= 1):
+        _, group_cf, gid_c = build_groups(al, cfmark, pad_to=pad0)
+        gid = np.full(pad0, -1, dtype=np.int32)
+        gid[rl] = gid_c[:n]
+        gid_dev = _to_device(gid, torch.int32, device)
+        if l == 0:
+            # fused-GS weights on level 0 only: every embedded level
+            # shares pad0, so deeper stacks would each cost n_groups *
+            # pad0 values of device memory
+            gs_w = _gs_w_stack(gid, inv_diag.astype(np_dt), len(group_cf),
+                               dtype, device)
+
+    lvl_smoother = pars.smoother if (l == 0 or pars.coarse_smoother is None) \
+        else pars.coarse_smoother
+    rho = 1.0
+    if lvl_smoother in (SmootherType.POLY, SmootherType.CHEBYSHEV):
+        rho = _rho_dinv_a_host(al)
+    return Level(
+        a=a_dev,
+        p=p_dev,
+        r=r_dev,
+        diag=_to_device(diag.astype(np_dt), dtype, device),
+        inv_diag=_to_device(inv_diag.astype(np_dt), dtype, device),
+        l1_inv=_to_device(l1_inv.astype(np_dt), dtype, device),
+        diag_mask=None,
+        groups=None,
+        gid=gid_dev,
+        rho_dinv_a=float(np.asarray(rho, dtype=np_dt)),
+        group_cf=tuple(int(t) for t in group_cf),
+        ranges=None,
+        gs_w=gs_w,
+        compact_idx=compact_idx,
+        member_idx=member_idx,
+    )
 
 
 def _level_from_csr(
@@ -533,8 +915,11 @@ def _level_from_csr(
     device,
     gs_key: Optional[np.ndarray] = None,
     is_coarse: bool = False,
+    banded_nb: Optional[int] = None,
 ) -> Level:
     fmt = _pick_format(al, pars)
+    if banded_nb is not None and fmt in ("ell", "dense", "well"):
+        fmt = "banded"
     op_dtype = dtype if (not is_coarse or pars.coarse_op_dtype == "same") \
         else torch_dtype(pars.coarse_op_dtype)
     # per-row vectors are rounded to the solve dtype on the host, as in
@@ -544,6 +929,9 @@ def _level_from_csr(
     if fmt == "dia":
         a_dev = Dia.from_csr(al, dtype=op_dtype, pad_rows_to=pad,
                              device=device)
+    elif fmt == "banded":
+        a_dev = BandedBlocks.from_csr(al, dtype=op_dtype, nb=banded_nb,
+                                      pad_rows_to=pad, device=device)
     elif fmt == "dense":
         a_dev = Dense.from_csr(al, dtype=op_dtype, pad_rows_to=pad,
                                pad_cols_to=pad, device=device)
@@ -611,7 +999,7 @@ def _level_from_csr(
             (int(s), int(e - s)) for s, e in zip(starts, ends)
         )
         group_cf = [int(gs_key[s] % 2) for s in starts]
-    elif fmt in ("dia", "dense", "well"):
+    elif fmt in ("dia", "dense", "banded", "well"):
         # gather-free masked GS path (full-operator product + class mask;
         # on WEll one class-update launch over the class's rows)
         groups, group_cf, gid = build_groups(al, cfmark, pad_to=pad)
@@ -675,21 +1063,37 @@ def resolve_device(device) -> torch.device:
     return device
 
 
-def to_device(hh: HostHierarchy, pars: AMGParams,
-              device="cuda") -> Hierarchy:
+def to_device(hh: HostHierarchy, pars: AMGParams, device="cuda",
+              plan=None) -> Hierarchy:
     """Pack the host hierarchy into device tensors on ``device`` (the
-    card unless the caller asks for the CPU)."""
+    card unless the caller asks for the CPU), following ``plan`` (from
+    :func:`embedding_plan`, computed here when not given)."""
     check_supported(pars)
     device = resolve_device(device)
     dtype = torch_dtype(pars.dtype)
     nl = hh.num_levels
-    # dense levels pad to the 128 boundary (amg_tpu's lane-aligned pad),
-    # WEll levels to the 1024-row group, others to 8 — the same pads as
-    # amg_tpu so vectors compare entry for entry
-    fmts = [_pick_format(m, pars) for m in hh.a]
+    if plan is None:
+        plan = embedding_plan(hh, pars)
+    E, emb, boundary = plan
+    # the first compact level may have been permuted after the plan was
+    # made: carry its permutation into its fine-position map, so that the
+    # boundary operators (P_E/R_E, compact_idx) index it correctly
+    if E >= 1 and hh.perms is not None and E + 1 < nl \
+            and hh.perms[E + 1] is not None:
+        emb = list(emb)
+        emb[E + 1] = emb[E + 1][hh.perms[E + 1]]
+    # dense and banded levels pad to the 128 boundary, WEll levels to the
+    # 1024-row group, others to 8, embedded levels share level 0's pad —
+    # the same pads as amg_tpu so vectors compare entry for entry
+    fmts = [
+        "banded" if (hh.banded_nb is not None
+                     and hh.banded_nb[l] is not None)
+        else _pick_format(m, pars)
+        for l, m in enumerate(hh.a)
+    ]
     pads = [
         _round_up(max(m.n_rows, 1),
-                  {"well": 1024, "dense": 128}.get(fmts[l], 8))
+                  {"well": 1024, "dense": 128, "banded": 128}.get(fmts[l], 8))
         for l, m in enumerate(hh.a)
     ]
     # a WEll level's R output is the child's vector: 1024-align the child
@@ -697,8 +1101,21 @@ def to_device(hh: HostHierarchy, pars: AMGParams,
     for l in range(1, nl):
         if fmts[l - 1] == "well" and fmts[l] != "dia":
             pads[l] = _round_up(pads[l], 1024)
+    pad0 = pads[0]
+    if E >= 1 and hh.a[0].n_rows >= 65536:
+        # amg_tpu rounds the shared embedded pad to its kernel's tiles
+        pad0 = good_pad(pad0)
+        pads[0] = pad0
+    for l in range(1, E + 1):
+        pads[l] = pad0
     levels = []
     for l in range(nl):
+        if E >= 1 and l <= E:
+            pad_next = pads[l + 1] if l < nl - 1 else None
+            levels.append(_embedded_level(hh, l, E, emb, pad0, pad_next,
+                                          dtype, pars, device,
+                                          boundary=boundary))
+            continue
         p = hh.p[l] if l < nl - 1 else None
         r = hh.r[l] if l < nl - 1 else None
         cf = hh.cfmark[l] if l < len(hh.cfmark) else None
@@ -706,7 +1123,10 @@ def to_device(hh: HostHierarchy, pars: AMGParams,
         gs_key = hh.gs_key[l] if hh.gs_key is not None else None
         levels.append(
             _level_from_csr(hh.a[l], p, r, cf, pads[l], pad_coarse, dtype,
-                            pars, device, gs_key=gs_key, is_coarse=l >= 1)
+                            pars, device, gs_key=gs_key, is_coarse=l >= 1,
+                            banded_nb=(hh.banded_nb[l]
+                                       if hh.banded_nb is not None
+                                       else None))
         )
 
     # dense inverse of the coarsest operator, by host LAPACK in the solve
@@ -740,16 +1160,20 @@ def setup(a: CSR, pars: AMGParams, log=print,
     device = resolve_device(device)
     if hh is None:
         hh = setup_host(a, pars, log=log)
+    # amg_tpu's order: the embedding plan on the unpermuted hierarchy, the
+    # reordering of the levels below the embedded ones, then the pack
+    plan = embedding_plan(hh, pars)
     # hh.perms set => reorder_for_gs already ran on this hierarchy (e.g. a
     # checkpoint-restored one, saved post-reorder)
     if pars.reorder_gs and hh.perms is None:
-        reorder_for_gs(hh, pars)
-    elif pars.reorder_gs and hh.perms[0] is None:
+        reorder_for_gs(hh, pars, skip_levels=plan[0])
+    elif pars.reorder_gs and hh.perms is not None and hh.perms[0] is None \
+            and plan[0] == 0:
         # a restored hierarchy written before level-0 reordering existed:
         # the coarse permutations are baked in, but a WEll level 0 still
         # needs its RCM pass
         reorder_l0_for_well(hh, pars)
-    mg = to_device(hh, pars, device=device)
+    mg = to_device(hh, pars, device=device, plan=plan)
     if pars.verbose:
         log(complexity_print(hh))
         log(f"AMG setup time: {hh.setup_seconds:g} s")

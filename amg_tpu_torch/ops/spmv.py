@@ -7,8 +7,9 @@ thread-per-row CUDA kernel (``spmv_kernel``, amg/Solve/SSS_cuda.cu:77-96).
 Here each device format has its product: :class:`Dia` goes through the
 hand-written DIA kernel (``ops/dia_kernel.py``) and :class:`WEll` through
 the hand-written WEll kernels (``ops/well_kernel.py``) for every dtype
-they support; :class:`Ell` (gather + row sum) and :class:`Dense` (one
-matmul) are plain torch, as they are XLA in ``amg_tpu``.
+they support; :class:`Ell` (gather + row sum), :class:`Dense` (one
+matmul) and :class:`BandedBlocks` (one batched block matmul) are plain
+torch and cuBLAS, as they are XLA in ``amg_tpu``.
 
 Every product takes one vector ``(pad,)`` or a batch ``(k, pad)`` of k
 right-hand sides, rows on the last axis (the batched solve): a batch on a
@@ -21,8 +22,9 @@ through one WEll kernel launch per column, as ``amg_tpu`` runs it under
 from __future__ import annotations
 
 import torch
+import torch.nn.functional as F
 
-from ..sparse import Ell, Dia, Dense, WEll
+from ..sparse import Ell, Dia, Dense, BandedBlocks, WEll
 from . import dia_kernel, well_kernel
 
 
@@ -61,8 +63,38 @@ def spmv_well(a: WEll, x: torch.Tensor) -> torch.Tensor:
     return well_kernel.spmv(a, x)
 
 
-def spmv_banded(a, x):
-    raise NotImplementedError("the BandedBlocks format is not ported yet")
+def spmv_banded(a: BandedBlocks, x: torch.Tensor) -> torch.Tensor:
+    """Block-banded SpMV (``amg_tpu.ops.spmv.spmv_banded``): block row
+    ``i`` of y is ``sum_d vals[i, d] @ x_block(i + d - nb)``, x zero
+    outside ``[0, pad)``.
+
+    The numerics of ``amg_tpu``: x is rounded to the values' dtype, the
+    products are accumulated, and y returned, in x's dtype.  ``vals`` is
+    read as ``(nbr * w, 128, 128)`` matrices without a copy; x's shifted
+    blocks are laid out as ``(nbr * w, 128, k)`` (``w`` times the size of
+    x) for one batched matmul, whose ``w`` partial products per block row
+    are then summed.  On the card bf16 values against f32 vectors take
+    cuBLAS's bf16 product with f32 output (``out_dtype``), so the values
+    are never widened; on the CPU, where that call does not exist, both
+    operands are widened to x's dtype first, which is exact for bf16."""
+    nbr, w = a.vals.shape[:2]
+    nb = a.nb
+    pad = nbr * 128
+    xp = F.pad(x[..., :pad].reshape(-1, pad),
+               (nb * 128, nb * 128)).to(a.vals.dtype)
+    k = xp.shape[0]
+    # window d of block row i is block i + d of the zero-padded x
+    xw = (xp.reshape(k, nbr + 2 * nb, 128).unfold(1, w, 1)   # (k, nbr, 128, w)
+          .permute(1, 3, 2, 0).reshape(nbr * w, 128, k))
+    v = a.vals.reshape(nbr * w, 128, 128)
+    if v.dtype == x.dtype:
+        part = torch.bmm(v, xw)
+    elif v.is_cuda and v.dtype == torch.bfloat16 and x.dtype == torch.float32:
+        part = torch.bmm(v, xw, out_dtype=torch.float32)
+    else:
+        part = torch.bmm(v.to(x.dtype), xw.to(x.dtype))
+    y = part.reshape(nbr, w, 128, k).sum(1).reshape(pad, k).T.contiguous()
+    return y if x.dim() == 2 else y[0]
 
 
 def spmv(a, x: torch.Tensor) -> torch.Tensor:
@@ -72,6 +104,8 @@ def spmv(a, x: torch.Tensor) -> torch.Tensor:
         return spmv_dia(a, x)
     if isinstance(a, Dense):
         return spmv_dense(a, x)
+    if isinstance(a, BandedBlocks):
+        return spmv_banded(a, x)
     if isinstance(a, WEll):
         return spmv_well(a, x)
     if isinstance(a, Ell):

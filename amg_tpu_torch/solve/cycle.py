@@ -2,7 +2,11 @@
 
 Replicates the reference's non-recursive counter/goto cycle
 (``SSS_amg_cycle``, amg/Solve/SSS_cycle.cu:848-967) as a plain Python
-recursion over the levels.  Per reference semantics, level 0 runs its
+recursion over the levels.  At the boundary of a fine-grid-embedded
+hierarchy (``Level.compact_idx`` / ``member_idx``) one gather and one
+scatter move the vectors between the embedded and the compact index
+spaces; the index tensors hold only valid positions, so every index is in
+range.  Per reference semantics, level 0 runs its
 block once per cycle call and deeper levels repeat their block
 ``cycle_type`` times per parent visit (V=1, W=2).
 
@@ -57,10 +61,38 @@ def _cycle_level(mg: Hierarchy, l: int, x, b, pars: AMGParams, ctol):
         x = smooth(level, x, b, pars_l, pars.pre_iter, pre=True)
         # restrict residual
         r = residual_fused(level.a, x, b)
-        bc = spmv(level.r, r)
+        if level.member_idx is not None:
+            # compact boundary: gather the residual at this level's member
+            # positions (into a vector of the compact P's padded length),
+            # then the compact Ell restriction
+            rc = r.new_zeros((*r.shape[:-1], level.p.padded_rows))
+            rc[..., : level.member_idx.shape[0]] = r[..., level.member_idx]
+            bc = spmv(level.r, rc)
+        else:
+            bc = spmv(level.r, r)
+            if level.compact_idx is not None:
+                # fine-grid-embedded -> compact boundary: the next level's
+                # rows from their embedded positions
+                coarse = bc.new_zeros((*bc.shape[:-1],
+                                       mg.levels[l + 1].pad))
+                coarse[..., : level.compact_idx.shape[0]] = \
+                    bc[..., level.compact_idx]
+                bc = coarse
         # coarse correction
         xc = _cycle_level(mg, l + 1, torch.zeros_like(bc), bc, pars, ctol)
-        x = x + spmv(level.p, xc)
+        if level.member_idx is not None:
+            # compact prolongation on the short vector, then added back
+            # into the embedded index space
+            xe = spmv(level.p, xc)[..., : level.member_idx.shape[0]]
+            x = x.index_add(-1, level.member_idx, xe.to(x.dtype))
+        elif level.compact_idx is not None:
+            # compact -> embedded: one scatter, then the embedded P
+            xe = torch.zeros_like(x)
+            xe[..., level.compact_idx] = \
+                xc[..., : level.compact_idx.shape[0]]
+            x = x + spmv(level.p, xe)
+        else:
+            x = x + spmv(level.p, xc)
         # post-smoothing
         x = smooth(level, x, b, pars_l, pars.post_iter, pre=False)
     return x

@@ -34,7 +34,7 @@ from __future__ import annotations
 import torch
 
 from ..params import SmootherType
-from ..sparse import Dia, Dense, WEll
+from ..sparse import Dia, Dense, BandedBlocks, WEll
 from ..ops import dia_kernel, well_kernel
 from ..ops.spmv import spmv
 from ..ops.blas import dot
@@ -50,7 +50,8 @@ def _well_classes(level, x) -> bool:
 
 def _masked_group_update(level, x, b, g: int, relax=None,
                          inplace: bool = False):
-    """Gauss-Seidel update of group ``g`` on a Dia, Dense or WEll level.
+    """Gauss-Seidel update of group ``g`` on a Dia, Dense, BandedBlocks or
+    WEll level.
 
     Gather-free: one full SpMV, then a masked update of the group's rows.
     ``t_i = (b_i - (Ax)_i + a_ii x_i) / a_ii`` is the exact GS update
@@ -170,7 +171,7 @@ def gs_sweep(level, x, b, order, relax=None):
         for g in order:
             start, size = level.ranges[g]
             upd(level, x, b, start, size, relax=relax)
-    elif isinstance(level.a, (Dia, Dense, WEll)):
+    elif isinstance(level.a, (Dia, Dense, BandedBlocks, WEll)):
         inplace = _well_classes(level, x)
         if inplace:
             x = x.clone()   # one private copy per sweep, updated in place

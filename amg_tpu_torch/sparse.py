@@ -13,8 +13,10 @@ Two worlds:
   ``ops/dia_kernel.py``), :class:`WEll` (windowed-gather ELL for large
   unstructured levels, applied by the hand-written WEll kernels in
   ``ops/well_kernel.py`` through its derived :class:`RowSlices` layout),
-  :class:`Ell` (padded ELLPACK, gather SpMV) and
-  :class:`Dense` (small deep levels, one matmul).  Each is built from a
+  :class:`Ell` (padded ELLPACK, gather SpMV),
+  :class:`Dense` (small deep levels, one matmul) and
+  :class:`BandedBlocks` (RCM-ordered coarse levels as dense 128x128
+  blocks along a block band, one batched matmul).  Each is built from a
   host CSR with the same padding as ``amg_tpu.sparse`` so vectors compare
   entry for entry, and has a ``to_csr`` for round-trip tests.
 
@@ -972,3 +974,87 @@ class WEll:
         keep = rows < self.n_rows
         return CSR.from_coo(rows[keep], cols[keep], vals[g, k, s, l][keep],
                             self.shape)
+
+
+# ---------------------------------------------------------------------------
+# Device BandedBlocks format (RCM-ordered coarse levels)
+# ---------------------------------------------------------------------------
+
+
+@dataclasses.dataclass
+class BandedBlocks:
+    """Block-banded dense storage for bandwidth-reduced coarse levels.
+
+    ``vals[i, d, r, c] = A[128 i + r, 128 (i + d - nb) + c]``: block row
+    ``i`` holds its ``2 nb + 1`` dense 128x128 blocks along the block
+    band, the layout and contents of ``amg_tpu.sparse.BandedBlocks``.  The
+    product is one batched 128x128 block matvec against shifted 128-row
+    blocks of x (``ops/spmv.py``), with no gathers.  The level must be
+    bandwidth-reduced first (reverse Cuthill-McKee in
+    ``hierarchy.reorder_for_gs``); the fill is ``(2 nb + 1) * 128 * pad /
+    nnz``, bounded there by ``AMGParams.banded_level_bytes``.
+    """
+
+    vals: torch.Tensor           # (nbr, 2*nb+1, 128, 128) dtype
+    nb: int                      # block half-bandwidth
+    shape: Tuple[int, int]
+    nnz: int
+
+    @property
+    def n_rows(self) -> int:
+        return self.shape[0]
+
+    @property
+    def n_cols(self) -> int:
+        return self.shape[1]
+
+    @property
+    def padded_rows(self) -> int:
+        return self.vals.shape[0] * 128
+
+    @staticmethod
+    def block_bandwidth(a: CSR) -> int:
+        """Max |block(col) - block(row)| over the pattern."""
+        if a.nnz == 0:
+            return 0
+        return int(np.max(np.abs((a.indices.astype(np.int64) >> 7)
+                                 - (a.row_indices >> 7))))
+
+    @staticmethod
+    def from_csr(a: CSR, dtype=torch.float64, nb: int | None = None,
+                 pad_rows_to: int | None = None,
+                 device="cpu") -> "BandedBlocks":
+        """Pack a host CSR: the entries' flat positions are computed on the
+        host and scattered into a zero tensor on ``device`` (only indices
+        and values cross to the card).  Values round from f64 to ``dtype``
+        through f32 for bf16, as :func:`_to_device` rounds them."""
+        n = a.n_rows
+        pad = _round_up(max(n, 1), 128)
+        if pad_rows_to is not None:
+            pad = max(pad, _round_up(pad_rows_to, 128))
+        nbr = pad // 128
+        if nb is None:
+            nb = BandedBlocks.block_bandwidth(a)
+        w = 2 * nb + 1
+        rows = a.row_indices
+        cols = a.indices.astype(np.int64)
+        bi, r = rows >> 7, rows & 127
+        d = (cols >> 7) - bi + nb
+        if len(d) and (d.min() < 0 or d.max() >= w):
+            raise ValueError("entries outside the declared block band")
+        lin = ((bi * w + d) * 128 + r) * 128 + (cols & 127)
+        dt = torch_dtype(dtype)
+        flat = torch.zeros(nbr * w * 128 * 128, dtype=dt, device=device)
+        flat[_to_device(lin, torch.int64, device)] = _to_device(
+            a.data, dt, device)
+        return BandedBlocks(flat.reshape(nbr, w, 128, 128), int(nb),
+                            a.shape, a.nnz)
+
+    def to_csr(self) -> CSR:
+        vals = self.vals.cpu().double().numpy()
+        bi, d, r, c = np.nonzero(vals)
+        rows = bi * 128 + r
+        cols = (bi + d - self.nb) * 128 + c
+        keep = (rows < self.n_rows) & (cols >= 0) & (cols < self.n_cols)
+        return CSR.from_coo(rows[keep], cols[keep],
+                            vals[bi, d, r, c][keep], self.shape)

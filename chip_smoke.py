@@ -59,7 +59,29 @@ Phases (any failure raises and the script exits nonzero):
    epilogues): iterations within 1, residual histories within rtol 1e-3
    plus 2e-8 * ||b||; B4 at k = 1 sums in B1's order and fuses B1's
    update, so the gap left comes from the Ell and Dense levels, which sum
-   a batch in another order than one vector.
+   a batch in another order than one vector;
+13. structured "auto": phase 5's parameters with ``use_well`` and
+   ``use_banded`` on "auto", amg_tpu's one-device layout (Dia, Dia, WEll,
+   BandedBlocks with nb 17, Dense, Dense), solved to 1e-8 (host-verified)
+   through B1 and B2; level 2's product (WEll) and level 3's
+   (BandedBlocks, a cuBLAS batched product) timed beside phase 5's Ell and
+   Dense products on the same levels; device memory and warm solve beside
+   phase 5's; kernel against plain on every DIA and WEll launch shape of
+   its solve;
+14. structured embedded: phase 13's parameters with ``embed_levels=8``
+   (levels 0-2 as Dia over one pad of 1,024,000 rows, bf16 embedded
+   operators of 19 and 199 diagonals, P/R of 7, 19 and 156, then
+   BandedBlocks, Dense, Dense) solved to 1e-8, B1 against plain on every
+   embedded operator and epilogue the solve launched (timed beside the
+   torch sparse CSR call); ``solve_batched`` of 16 seeded columns to 1e-6
+   through B4 alone, B4 against plain at its launch shapes (the torch
+   CSR yardstick holds the embedded operators' nonzero entries); one solve with
+   ``embed_boundary="compact"`` (the member_idx gather and scatter);
+15. unstructured "auto": phase 8's parameters with both flags on "auto"
+   (WEll levels 0-3, BandedBlocks levels 4-7 with nb 9, 7, 5, 3, Dense),
+   FCG to 1e-8; each BandedBlocks level's product timed beside phase 8's
+   Ell or Dense product on the same level; kernel against plain on every
+   WEll launch shape of its solve.
 
 Each kernel result carries its bound: the larger of the bytes it must
 move (each input read once, each output written once) over the H100's
@@ -67,8 +89,9 @@ move (each input read once, each output written once) over the H100's
 f32, 34 TFLOP/s f64, NVIDIA's H100 SXM data sheet).  The last three lines
 of standard output are the card's name and power limit as nvidia-smi
 gives them, one JSON object describing the kernels (one entry per
-epilogue and operator of phases 6 and 9, and per launch shape of phase
-11, with its main-path launch count) and one with the device.  Imports
+epilogue and operator of phases 6 and 9, per launch shape of phase 11,
+and per launch shape and operator of phases 13-15, each with its
+main-path launch count) and one with the device.  Imports
 torch, numpy, scipy and amg_tpu_torch only.
 """
 
@@ -119,6 +142,16 @@ class SmokeFailure(RuntimeError):
 def check(cond, msg):
     if not cond:
         raise SmokeFailure(msg)
+
+
+def _reset_counts():
+    """Set every kernel launch count to 0 (just before a main path runs)."""
+    from amg_tpu_torch.ops import dia_kernel as D, well_kernel as W
+
+    for K in (D, W):
+        for e in K.launches:
+            K.launches[e] = 0
+        K.launches_by_shape.clear()
 
 
 # ---------------------------------------------------------------------------
@@ -226,13 +259,14 @@ def _band40(pad):
     return offs, torch.randn(len(offs), pad, generator=g, dtype=torch.float64)
 
 
-def _compare(tag, gpu, ep, g, flush, csr=None):
+def _compare(tag, gpu, ep, g, flush, make_lib=None):
     """Run epilogue ``ep`` of the kernel wrapper and of its plain version on
     the same random vectors on the card, hold them to TOL and time both;
-    with the operator's host ``csr``, also time the torch sparse CSR call
-    that computes the same function (spmv: ``A @ x``; resid:
-    ``addmv(b, A, x, alpha=-1)``; update: none).  Returns one result row
-    (the launches made here are not the main path's)."""
+    with ``make_lib`` (the operator as a torch sparse CSR tensor on the card
+    in a given dtype), also time the torch sparse CSR call that computes
+    the same function (spmv: ``A @ x``; resid: ``addmv(b, A, x,
+    alpha=-1)``; update: none).  Returns one result row (the launches made
+    here are not the main path's)."""
     from amg_tpu_torch.ops import dia_kernel as K
 
     fn, nargs = {"spmv": (K.spmv, 1), "resid": (K.resid, 2),
@@ -252,9 +286,9 @@ def _compare(tag, gpu, ep, g, flush, csr=None):
     ms = _time_ms(lambda: fn(gpu, *args), flush)
     plain_ms = _time_ms(lambda: plain(gpu, *args), flush)
     lib_ms = None
-    if csr is not None and ep != "update":
-        lib = _csr_on_card(csr, xdt)
-        n, m = csr.shape
+    if make_lib is not None and ep != "update":
+        lib = make_lib(xdt)
+        n, m = lib.shape
         if ep == "spmv":
             lib_ms = _time_ms(lambda: lib @ args[0][:m], flush)
         else:
@@ -274,7 +308,7 @@ def _compare(tag, gpu, ep, g, flush, csr=None):
                bound_ms=bound_ms, bound_by=bound_by,
                gbps=nbytes / ms / 1e6, plain_gbps=nbytes / plain_ms / 1e6)
     lib_txt = f"  torch CSR {lib_ms:.4f} ms" if lib_ms is not None else ""
-    log(f"[kernel] {tag:8s} nd={nd:2d} pad={pad:7d} {row['vals']:8s}/"
+    log(f"[kernel] {tag:8s} nd={nd:3d} pad={pad:7d} {row['vals']:8s}/"
         f"{row['x']:7s} {ep:6s} err {err:.3e} "
         f"(rel {err / scale:.2e} <= {TOL[vdt]:g}: {ok})  "
         f"kernel {ms:.4f} ms {row['gbps']:.1f} GB/s  "
@@ -346,8 +380,9 @@ def phase_goldens():
 
 
 def structured_pars(amg):
-    """bench.py's defaults (bench.py:44, :106-184) at 1M rows with the
-    formats not ported yet switched off: the structured main path."""
+    """bench.py's defaults (bench.py:44, :106-184) at 1M rows with WEll,
+    BandedBlocks and embedding off, as phases 5-12 have run them since the
+    first port (phases 13-14 turn them on)."""
     return amg.AMGParams(
         dtype="float32", refine=True, accel="none",
         smoother=amg.SmootherType.GS,
@@ -366,13 +401,13 @@ def phase_main_path():
     b = np.ones(a.n_rows)
     log(f"[main] poisson3d({N_SIDE}): {a.n_rows} rows, {a.nnz} nnz")
 
-    for e in K.launches:
-        K.launches[e] = 0
-    K.launches_by_shape.clear()
+    _reset_counts()
+    mem0 = torch.cuda.memory_allocated()
     t0 = time.perf_counter()
     solver = amg.AMGSolver(a, pars, device="cuda", log=lambda *_: None)
     torch.cuda.synchronize()
     setup_s = time.perf_counter() - t0
+    mem = torch.cuda.memory_allocated() - mem0
     x, info = solver.solve(b)
     torch.cuda.synchronize()
     launches = dict(K.launches)
@@ -385,7 +420,8 @@ def phase_main_path():
     true_rel = float(np.linalg.norm(b - a.matvec(x.astype(np.float64)))
                      / np.linalg.norm(b))
     log(f"[main] setup {setup_s:.2f} s (host hierarchy "
-        f"{solver.host_hierarchy.setup_seconds:.2f} s), solve "
+        f"{solver.host_hierarchy.setup_seconds:.2f} s), device memory held "
+        f"after setup {mem / 2**20:.1f} MiB, solve "
         f"{info.solve_seconds:.4f} s, nits {info.nits}, rres {info.rres:.3e}, "
         f"true rres (host f64) {true_rel:.3e}")
     log(f"[main] DIA kernel launches in the main path: {launches}")
@@ -407,35 +443,76 @@ def phase_main_path():
     log(f"[main] warm solve {info2.solve_seconds:.4f} s, nits {info2.nits}")
     return solver, by_shape, dict(setup_s=setup_s, solve_s=info.solve_seconds,
                                   warm_solve_s=info2.solve_seconds,
-                                  nits=info.nits, true_rres=true_rel)
+                                  nits=info.nits, true_rres=true_rel,
+                                  mib=mem / 2**20)
 
 
-def phase_main_shapes(solver, by_shape):
-    """Kernel against plain on the main path's own operators: every DIA
-    operator the solve used (each DIA level, and the f64 level-0 operator
-    of defect correction), at its own dtype and pad, for every epilogue the
-    solve launched on it.  Returns one row per (epilogue, launch shape),
-    with the main path's launch count."""
+def _one_row(rows, launches):
+    """One result row per launch shape: the counts are kept per shape, and
+    operators of one dtype, nd and pad (an embedded level's A, P and R
+    often match) share them.  Every operator was compared; the row names
+    them all, takes the worst error and the slowest operator's times, and
+    carries the shape's main-path launch count."""
+    row = dict(max(rows, key=lambda r: r["ms"]),
+               op="+".join(r["op"] for r in rows), launches=launches)
+    row.update(max_abs_err=max(r["max_abs_err"] for r in rows),
+               rel_err=max(r["rel_err"] for r in rows),
+               ok=all(r["ok"] for r in rows))
+    return row
+
+
+def _dia_ops(solver):
+    """(tag, Dia operator, maker of its torch sparse CSR twin on the card)
+    of every DIA operator of a solver: each level's A, P and R (P and R
+    are Dia on fine-grid-embedded levels) and the f64 level-0 operator of
+    defect correction.  A compact level's twin comes from its host CSR,
+    an embedded operator's from its nonzero diagonal entries.  Tags start
+    with "level" for a level's A, the one operator the residual and
+    update epilogues run on."""
     from amg_tpu_torch.sparse import Dia
 
     hh = solver.host_hierarchy
-    ops = [(f"level{l}", lv.a, hh.a[l]) for l, lv in
-           enumerate(solver.mg.levels) if isinstance(lv.a, Dia)]
+    ops = []
+    for l, lv in enumerate(solver.mg.levels):
+        for name in ("a", "p", "r"):
+            op = getattr(lv, name)
+            if not isinstance(op, Dia):
+                continue
+            embedded = l > 0 and lv.pad == solver.pad
+            if name == "a" and not embedded:
+                make = (lambda xdt, m=hh.a[l]: _csr_on_card(m, xdt))
+            else:
+                make = (lambda xdt, op=op: _dia_csr_on_card(op, xdt))
+            ops.append((f"level{l}" if name == "a" else f"{name.upper()}{l}",
+                        op, make))
     if isinstance(solver.a0_hi, Dia):
-        ops.append(("a0_hi", solver.a0_hi, hh.a[0]))
+        ops.append(("a0_hi", solver.a0_hi,
+                    lambda xdt: _csr_on_card(hh.a[0], xdt)))
+    return ops
+
+
+def phase_main_shapes(solver, by_shape, prefix=""):
+    """Kernel against plain on the main path's own operators: every DIA
+    operator the solve used (each DIA level's A, and P/R where they are
+    Dia, and the f64 level-0 operator of defect correction), at its own
+    dtype and pad, for every epilogue the solve launched on it.  Returns
+    one row per (epilogue, launch shape) with its main-path launch count
+    (:func:`_one_row`); ``prefix`` starts every operator's tag."""
+    ops = _dia_ops(solver)
     g = torch.Generator().manual_seed(2)
     flush = torch.empty(FLUSH_BYTES, dtype=torch.uint8, device="cuda")
     rows = []
     for (ep, vdt, xdt, nd, pad), n in sorted(by_shape.items(), key=str):
-        match = [(tag, op, csr) for tag, op, csr in ops
+        match = [(tag, op, make) for tag, op, make in ops
                  if (op.vals.dtype, op.n_diags, op.padded_rows) == (vdt, nd, pad)
                  and (torch.float64 if vdt == torch.float64
-                      else torch.float32) == xdt]
+                      else torch.float32) == xdt
+                 and (ep == "spmv" or tag.startswith("level"))]
         check(match, f"no DIA operator of the solve has the launch shape "
                      f"{(ep, vdt, xdt, nd, pad)}")
-        for tag, op, csr in match:
-            rows.append(dict(_compare(tag, op, ep, g, flush, csr=csr),
-                             launches=n))
+        rows.append(_one_row([_compare(prefix + tag, op, ep, g, flush,
+                                       make_lib=make)
+                              for tag, op, make in match], n))
     del flush
     bad = [r for r in rows if not r["ok"]]
     check(not bad, f"kernel disagrees with plain version on the main "
@@ -449,7 +526,9 @@ def phase_main_shapes(solver, by_shape):
 
 
 def unstructured_pars(amg):
-    """bench.py's matrix-class defaults (bench.py:115-184) with WEll on."""
+    """bench.py's matrix-class defaults (bench.py:115-184) with WEll on and
+    BandedBlocks off, as phases 7-9 have run them (phase 15 turns both to
+    "auto")."""
     return amg.AMGParams(
         dtype="float32", refine=True, accel="cg",
         smoother=amg.SmootherType.GS,
@@ -630,10 +709,7 @@ def phase_unstructured(a):
     b = np.ones(a.n_rows)
     log(f"[fem] fem2d({FEM_ROWS}): {a.n_rows} rows, {a.nnz} nnz")
 
-    for K in (D, W):
-        for e in K.launches:
-            K.launches[e] = 0
-        K.launches_by_shape.clear()
+    _reset_counts()
     mem0 = torch.cuda.memory_allocated()
     t0 = time.perf_counter()
     solver = amg.AMGSolver(a, pars, device="cuda", log=lambda *_: None)
@@ -725,17 +801,18 @@ def phase_unstructured(a):
     torch.cuda.synchronize()
     log(f"[fem] warm solve {info2.solve_seconds:.4f} s, FCG its "
         f"{info2.nits}")
-    return solver, by_shape
+    return solver, by_shape, dict(mib=mem / 2**20,
+                                  warm_solve_s=info2.solve_seconds)
 
 
-def phase_unstructured_shapes(solver, by_shape):
+def phase_unstructured_shapes(solver, by_shape, prefix=""):
     """9. Kernel against plain on every WEll operator of the solve the
     kernels were launched on, with x of the length the cycle gives it
     (``spmv``, ``df64``), and the ``gs`` entry on every class of each
     class-grouped level it was launched on.  Returns one row per (launch
     shape, operator) and per class, with the main path's launch count
     (per class: the level's gs launches over its classes, as every sweep
-    visits every class once)."""
+    visits every class once); ``prefix`` starts every operator's tag."""
     import amg_tpu_torch as amg
 
     mg, hh = solver.mg, solver.host_hierarchy
@@ -761,6 +838,7 @@ def phase_unstructured_shapes(solver, by_shape):
         check(match, f"no WEll operator of the solve has the launch shape "
                      f"{(entry, vdt, n_rows, nnz)}")
         for tag, op, entry_, n_x, csr, lv in match:
+            tag = prefix + tag
             if entry_ == "gs":
                 n_cls = len(op.rows.segments) - 1
                 check(n % n_cls == 0, f"{tag}: {n} gs launches over "
@@ -774,7 +852,6 @@ def phase_unstructured_shapes(solver, by_shape):
     bad = [r for r in rows if not r["ok"]]
     check(not bad, f"WEll kernel disagrees with plain version on the "
                    f"unstructured path's operators: {bad}")
-    check(any(r["entry"] == "gs" for r in rows), "no gs entry compared")
     return rows
 
 
@@ -785,11 +862,13 @@ def phase_unstructured_shapes(solver, by_shape):
 
 def _dia_csr_on_card(d, dtype):
     """A Dia operator on the card as a torch sparse CSR tensor of its
-    in-range entries (the library yardstick for an operator with no host
-    CSR; the port never calls it)."""
+    nonzero in-range entries (the library yardstick for an operator with no
+    host CSR; the port never calls it).  An embedded operator stores zeros
+    at every row outside its level (A2 at poisson3d(100): 88,174 of
+    1,024,000 rows): the CSR holds the operator's real entries only."""
     nd, pad = d.vals.shape
     cols = torch.arange(pad, device="cuda")[:, None] + d.offs.long()[None]
-    keep = (cols >= 0) & (cols < pad)
+    keep = (cols >= 0) & (cols < pad) & (d.vals.T != 0)
     crow = torch.zeros(pad + 1, dtype=torch.int64, device="cuda")
     crow[1:] = torch.cumsum(keep.sum(1), 0)
     return torch.sparse_csr_tensor(crow, cols[keep],
@@ -844,8 +923,12 @@ def _compare_multi(tag, op, k, g, flush, libs, ep="multi"):
     plain_ms = _time_ms(lambda: plain(op, *args), flush)
     lib_variants = {}
     if ep != "multi_update":
-        layouts = (("col-major", x.T, args[-1].T),
-                   ("row-major", x.T.contiguous(), args[-1].T.contiguous()))
+        # the library operator may be the compact (n, m) one of a level
+        # whose vectors are padded further
+        n, m = next(iter(libs.values())).shape
+        xs, bs = x[:, :m], args[-1][:, :n]
+        layouts = (("col-major", xs.T, bs.T),
+                   ("row-major", xs.T.contiguous(), bs.T.contiguous()))
         for idx, lib in libs.items():
             for lay, xv, bv in layouts:
                 call = ((lambda lib=lib, xv=xv: lib @ xv) if ep == "multi"
@@ -879,7 +962,8 @@ def _compare_multi(tag, op, k, g, flush, libs, ep="multi"):
 def phase_multi_kernels(solver):
     """10. B4 against plain on the structured solve's DIA levels and on
     the 40-diagonal band (bf16 and f64): the product at k = 1, 4, 16, the
-    resid and update epilogues at k = 1 and 16."""
+    resid and update epilogues at k = 1 and 16 (the batched solves' own
+    launch shapes are compared by :func:`_multi_shapes`)."""
     from amg_tpu_torch.sparse import Dia
 
     hh = solver.host_hierarchy
@@ -907,6 +991,38 @@ def phase_multi_kernels(solver):
     del flush, ops
     bad = [r for r in rows if not r["ok"]]
     check(not bad, f"B4 disagrees with its plain version: {bad}")
+
+
+def _multi_shapes(solver, by_shape, prefix=""):
+    """B4 against plain on a batched solve's own operators: for every
+    launch shape in ``by_shape`` (epilogue, dtypes, nd, pad, k), every DIA
+    operator of the solver with that shape (:func:`_dia_ops`; the resid
+    and update epilogues run on a level's A only), timed beside the
+    fastest torch CSR SpMM.  Returns one row per launch shape with its
+    main-path launch count (:func:`_one_row`); ``prefix`` starts every
+    operator's tag."""
+    ops = _dia_ops(solver)
+    g = torch.Generator().manual_seed(10)
+    flush = torch.empty(FLUSH_BYTES, dtype=torch.uint8, device="cuda")
+    rows = []
+    for (ep, vdt, _, nd, pad, k), n in sorted(by_shape.items(), key=str):
+        match = [(tag, op, make) for tag, op, make in ops
+                 if (op.vals.dtype, op.n_diags, op.padded_rows)
+                 == (vdt, nd, pad)
+                 and (ep == "multi" or tag.startswith("level"))]
+        check(match, f"no DIA operator has the B4 shape {(ep, vdt, nd, pad)}")
+        shape_rows = []
+        for tag, op, make in match:
+            lib = make(torch.float64 if vdt == torch.float64
+                       else torch.float32)
+            libs = {"int64": lib, "int32": _int32_csr(lib)}
+            shape_rows.append(_compare_multi(prefix + tag, op, k, g, flush,
+                                             libs, ep))
+            del lib, libs
+        rows.append(_one_row(shape_rows, n))
+    del flush
+    bad = [r for r in rows if not r["ok"]]
+    check(not bad, f"B4 disagrees with its plain version: {bad}")
     return rows
 
 
@@ -918,10 +1034,7 @@ def phase_batched(solver, B):
     from amg_tpu_torch.ops import dia_kernel as D, well_kernel as W
 
     a = solver.a
-    for K in (D, W):
-        for e in K.launches:
-            K.launches[e] = 0
-        K.launches_by_shape.clear()
+    _reset_counts()
     t0 = time.perf_counter()
     x, info = solver.solve_batched(B, tol=BATCH_TOL)
     torch.cuda.synchronize()
@@ -1024,10 +1137,262 @@ def phase_batched_one_column(solver, b):
         f"its {i2.nits}")
 
 
+# ---------------------------------------------------------------------------
+# 13-15. amg_tpu's one-device layouts: "auto" (WEll and BandedBlocks) and
+# fine-grid embedding
+# ---------------------------------------------------------------------------
+
+
+# what amg_tpu's own host code packs on one device (its setup_host,
+# embedding_plan and reorder_for_gs run on the same matrices and flags)
+STRUCTURED_AUTO = ["Dia", "Dia", "WEll", "BandedBlocks", "Dense", "Dense"]
+STRUCTURED_AUTO_NB = 17            # level 3's block half-bandwidth
+EMBEDDED = ["Dia", "Dia", "Dia", "BandedBlocks", "Dense", "Dense"]
+EMBEDDED_PAD = 1_024_000           # good_pad(1,000,000), shared by levels 0-2
+# diagonals of the embedded operators: (level, operator) -> nd
+EMBEDDED_NDS = {(1, "a"): 19, (2, "a"): 199, (0, "p"): 7, (0, "r"): 7,
+                (1, "p"): 19, (1, "r"): 19, (2, "p"): 156, (2, "r"): 156}
+FEM_AUTO = ["WEll"] * 4 + ["BandedBlocks"] * 4 + ["Dense"]
+FEM_AUTO_NB = [9, 7, 5, 3]         # levels 4-7
+
+
+def _formats(solver):
+    return [type(lv.a).__name__ for lv in solver.mg.levels]
+
+
+def _auto_solver(a, pars, tag, b):
+    """Set up ``pars`` on ``a`` (counts reset just before), solve ``b``
+    cold and warm, verify the cold solution on the host in f64.  Returns
+    the solver, the cold run's DIA and WEll launches by shape, and a
+    summary."""
+    from amg_tpu_torch.ops import dia_kernel as D, well_kernel as W
+    import amg_tpu_torch as amg
+
+    _reset_counts()
+    mem0 = torch.cuda.memory_allocated()
+    t0 = time.perf_counter()
+    solver = amg.AMGSolver(a, pars, device="cuda", log=lambda *_: None)
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+    mib = (torch.cuda.memory_allocated() - mem0) / 2**20
+    x, info = solver.solve(b)
+    torch.cuda.synchronize()
+    dia, well = dict(D.launches_by_shape), dict(W.launches_by_shape)
+    launches = (dict(D.launches), dict(W.launches))
+    true_rel = float(np.linalg.norm(b - a.matvec(x.astype(np.float64)))
+                     / np.linalg.norm(b))
+    for l, lv in enumerate(solver.mg.levels):
+        desc = [f"{type(lv.a).__name__} {str(lv.a.vals.dtype)[6:]}"]
+        if isinstance(lv.a, amg.Dia):
+            desc.append(f"nd={lv.a.n_diags}")
+        if isinstance(lv.a, amg.BandedBlocks):
+            desc.append(f"nb={lv.a.nb} ({lv.a.vals.numel() * lv.a.vals.element_size() / 1e6:.1f} MB)")
+        for name in ("p", "r"):
+            op = getattr(lv, name)
+            if op is not None:
+                nd = f" nd={op.n_diags}" if isinstance(op, amg.Dia) else ""
+                desc.append(f"{name.upper()} {type(op).__name__} "
+                            f"{str(op.vals.dtype)[6:]}{nd}")
+        for name in ("compact_idx", "member_idx"):
+            if getattr(lv, name) is not None:
+                desc.append(f"{name} ({getattr(lv, name).numel()})")
+        log(f"[{tag}] level {l}: {lv.n} rows, pad {lv.pad}, "
+            f"{', '.join(desc)}")
+    _, info2 = solver.solve(b)
+    torch.cuda.synchronize()
+    log(f"[{tag}] setup {setup_s:.2f} s, device memory held after setup "
+        f"{mib:.1f} MiB, cold solve {info.solve_seconds:.4f} s, warm "
+        f"{info2.solve_seconds:.4f} s, its {info.nits}, rres "
+        f"{info.rres:.3e}, true rres (host f64) {true_rel:.3e}")
+    log(f"[{tag}] launches: DIA {launches[0]}, WEll {launches[1]}")
+    check(np.all(np.isfinite(x)) and x.shape == (a.n_rows,),
+          f"{tag}: solution not finite or wrong shape")
+    check(true_rel < 1e-8 and info.nits <= pars.max_it,
+          f"{tag}: did not reach 1e-8 (true rres {true_rel:.3e})")
+    return solver, dia, well, dict(mib=mib, warm_solve_s=info2.solve_seconds,
+                                   nits=info.nits, true_rres=true_rel)
+
+
+def _product_ms(op, n_x, g, flush):
+    """Device ms of one ``spmv`` of ``op`` on a random f32 x of length
+    ``n_x`` (median of REPS from a flushed L2)."""
+    from amg_tpu_torch.ops.spmv import spmv
+
+    x = torch.randn(n_x, generator=g, dtype=torch.float32).cuda()
+    return _time_ms(lambda: spmv(op, x), flush)
+
+
+def _compare_products(tag, levels, new, old):
+    """Each of ``levels``' product in the ``new`` solver's format beside the
+    ``old`` solver's on the same level (the same host operator, in another
+    ordering and format).  BandedBlocks is a cuBLAS batched product, not a
+    kernel of the port: its bound (bytes of the values, x and y over the
+    card's rate) is logged beside it."""
+    from amg_tpu_torch.sparse import BandedBlocks
+
+    g = torch.Generator().manual_seed(8)
+    flush = torch.empty(FLUSH_BYTES, dtype=torch.uint8, device="cuda")
+    out = []
+    for l in levels:
+        ln, lo = new.mg.levels[l], old.mg.levels[l]
+        ms_new = _product_ms(ln.a, ln.pad, g, flush)
+        ms_old = _product_ms(lo.a, lo.pad, g, flush)
+        txt = ""
+        if isinstance(ln.a, BandedBlocks):
+            v = ln.a.vals
+            nbytes = v.numel() * v.element_size() + 2 * ln.pad * 4
+            txt = (f" ({nbytes / 1e6:.1f} MB, bound {nbytes / HBM_BYTES_PER_S * 1e3:.4f} ms, "
+                   f"{nbytes / ms_new / 1e6:.1f} GB/s)")
+        log(f"[{tag}] level {l} product: {type(ln.a).__name__} "
+            f"{str(ln.a.vals.dtype)[6:]} {ms_new:.4f} ms{txt}; "
+            f"{type(lo.a).__name__} {str(lo.a.vals.dtype)[6:]} "
+            f"{ms_old:.4f} ms")
+        out.append(dict(level=l, new=type(ln.a).__name__, ms=ms_new,
+                        old=type(lo.a).__name__, old_ms=ms_old))
+    del flush
+    return out
+
+
+def phase_structured_auto(old, old_summary):
+    """13. poisson3d(100) with phase 5's parameters and ``use_well`` and
+    ``use_banded`` on "auto": amg_tpu's one-device layout, solved to 1e-8
+    through B1 and B2; products per level beside phase 5's (``old``).
+    Returns the kernel rows of every DIA and WEll launch shape of its
+    solve (tags "a-")."""
+    import amg_tpu_torch as amg
+
+    pars = structured_pars(amg).replace(use_well="auto", use_banded="auto")
+    b = np.ones(old.a.n_rows)
+    solver, dia, well, summary = _auto_solver(old.a, pars, "auto", b)
+    fmts = _formats(solver)
+    check(fmts == STRUCTURED_AUTO, f"auto formats {fmts}")
+    nbs = [lv.a.nb for lv in solver.mg.levels
+           if isinstance(lv.a, amg.BandedBlocks)]
+    check(nbs == [STRUCTURED_AUTO_NB], f"BandedBlocks nb {nbs}")
+    wells = [lv.a for lv in solver.mg.levels if isinstance(lv.a, amg.WEll)]
+    check(sum(dia.values()) > 0 and wells and all(
+        well.get(("spmv", op.vals.dtype, op.n_rows, op.nnz), 0) > 0
+        for op in wells), "B1 or B2 (on the WEll level's A) was not launched")
+    log(f"[auto] device memory {summary['mib']:.1f} MiB (phase 5: "
+        f"{old_summary['mib']:.1f}), warm solve {summary['warm_solve_s']:.4f} "
+        f"s (phase 5: {old_summary['warm_solve_s']:.4f})")
+    _compare_products("auto", [l for l, f in enumerate(fmts)
+                               if f in ("WEll", "BandedBlocks")], solver, old)
+    rows = (phase_main_shapes(solver, dia, prefix="a-"),
+            phase_unstructured_shapes(solver, well, prefix="a-"))
+    return solver, rows
+
+
+def _embedded_depth(solver):
+    """(E, boundary) read off a packed hierarchy: levels 1..E share level
+    0's pad; level E carries compact_idx (embedded boundary) or member_idx
+    (compact boundary)."""
+    lv = solver.mg.levels
+    E = max(l for l in range(len(lv) - 1) if lv[l].pad == solver.pad)
+    boundary = ("embedded" if lv[E].compact_idx is not None else
+                "compact" if lv[E].member_idx is not None else None)
+    return E, boundary
+
+
+def phase_embedded(a):
+    """14. poisson3d(100) with phase 13's parameters and ``embed_levels=8``:
+    levels 0-2 as Dia over one pad (bf16 embedded operators), B1 checked
+    against plain on every embedded operator and epilogue the solve
+    launched; ``solve_batched`` on 16 columns through B4 (checked against
+    plain at those shapes); one solve with ``embed_boundary="compact"``
+    (the member_idx path).  Returns the B1 and B4 rows."""
+    import amg_tpu_torch as amg
+    from amg_tpu_torch.ops import dia_kernel as D, well_kernel as W
+
+    pars = structured_pars(amg).replace(use_well="auto", use_banded="auto",
+                                        embed_levels=8)
+    b = np.ones(a.n_rows)
+    solver, dia, well, _ = _auto_solver(a, pars, "embed", b)
+    fmts = _formats(solver)
+    E, boundary = _embedded_depth(solver)
+    check((E, boundary) == (2, "embedded"), f"embedding {(E, boundary)}")
+    check(solver.pad == EMBEDDED_PAD, f"pad0 {solver.pad}")
+    check(fmts == EMBEDDED, f"embedded formats {fmts}")
+    emb_ops = {(l, n): getattr(solver.mg.levels[l], n)
+               for l in range(E + 1) for n in ("a", "p", "r") if l or n != "a"}
+    nds = {k: getattr(op, "n_diags", None) for k, op in emb_ops.items()}
+    check(nds == EMBEDDED_NDS, f"embedded diagonals {nds}")
+    check(all(op.vals.dtype == torch.bfloat16 for op in emb_ops.values()),
+          "embedded operators not bf16")
+    check(sum(well.values()) == 0, "WEll kernel launched")
+    dia_rows = phase_main_shapes(solver, dia, prefix="e-")
+    embedded = {(op.vals.dtype, op.n_diags) for op in emb_ops.values()}
+    check(embedded <= {(k[1], k[3]) for k in dia},
+          "B1 was not launched on every embedded operator")
+
+    # batched: B4 on the embedded operators, no B1
+    B = np.random.default_rng(9).standard_normal((a.n_rows, N_RHS))
+    _reset_counts()
+    t0 = time.perf_counter()
+    X, info = solver.solve_batched(B, tol=BATCH_TOL)
+    torch.cuda.synchronize()
+    cold_s = time.perf_counter() - t0
+    multi = dict(D.launches_by_shape)
+    launches = dict(D.launches)
+    nb = np.linalg.norm(B, axis=0)
+    true_rel = np.array([np.linalg.norm(B[:, c] - a.matvec(
+        X[:, c].astype(np.float64))) / nb[c] for c in range(N_RHS)])
+    t0 = time.perf_counter()
+    solver.solve_batched(B, tol=BATCH_TOL)
+    torch.cuda.synchronize()
+    warm_s = time.perf_counter() - t0
+    log(f"[embed] batched k={N_RHS}: cold {cold_s:.4f} s, warm {warm_s:.4f} "
+        f"s, its {info.nits}, true rres worst {true_rel.max():.3e}; DIA "
+        f"launches {launches}")
+    check(np.all(np.isfinite(X)) and np.all(true_rel < BATCH_TOL),
+          f"embedded batched solve: true rres {true_rel}")
+    check(all(launches[e] == 0 for e in D.EPILOGUES),
+          f"B1 launched during the batched solve: {launches}")
+    check(embedded <= {(k[1], k[3]) for k in multi},
+          "B4 was not launched on every embedded operator")
+    multi_rows = _multi_shapes(solver, multi, prefix="e-")
+
+    # the compact boundary: member_idx on the card
+    del solver
+    cmp, _, _, _ = _auto_solver(a, pars.replace(embed_boundary="compact"),
+                                "embed-compact", b)
+    E, boundary = _embedded_depth(cmp)
+    check(boundary == "compact" and E >= 1, f"compact boundary {(E, boundary)}")
+    del cmp
+    return dia_rows, multi_rows
+
+
+def phase_fem_auto(a, old, old_summary):
+    """15. fem2d(1,000,000) with phase 8's parameters and ``use_well`` and
+    ``use_banded`` on "auto": WEll levels 0-3, BandedBlocks levels 4-7, FCG
+    to 1e-8; each BandedBlocks level's product beside phase 8's (``old``)
+    Ell or Dense on the same level.  Returns the kernel rows of every WEll
+    launch shape of its solve (tags "fa-": level 4's RCM ordering rewrites
+    P3 and R3, so their layouts are not phase 9's)."""
+    import amg_tpu_torch as amg
+
+    pars = unstructured_pars(amg).replace(use_well="auto", use_banded="auto")
+    b = np.ones(a.n_rows)
+    solver, _, well, summary = _auto_solver(a, pars, "fem-auto", b)
+    fmts = _formats(solver)
+    check(fmts == FEM_AUTO, f"fem2d auto formats {fmts}")
+    banded = [l for l, f in enumerate(fmts) if f == "BandedBlocks"]
+    nbs = [solver.mg.levels[l].a.nb for l in banded]
+    check(nbs == FEM_AUTO_NB, f"fem2d BandedBlocks nb {nbs}")
+    log(f"[fem-auto] device memory {summary['mib']:.1f} MiB (phase 8: "
+        f"{old_summary['mib']:.1f}), warm solve {summary['warm_solve_s']:.4f} "
+        f"s (phase 8: {old_summary['warm_solve_s']:.4f})")
+    _compare_products("fem-auto", banded, solver, old)
+    rows = phase_unstructured_shapes(solver, well, prefix="fa-")
+    del solver
+    return rows
+
+
 def _kernel_entries(dia_rows, well_rows, multi_rows=()):
-    """The ``kernels`` JSON entries: one per (epilogue, operator) of
-    phase 6, per (entry, operator) of phase 9 (per GS class for the
-    ``gs`` entry), and per launch shape of phase 11."""
+    """The ``kernels`` JSON entries: one per (epilogue, launch shape) of
+    phases 6, 13 and 14, per (entry, operator) of phases 9, 13 and 15 (per
+    GS class for the ``gs`` entry), and per launch shape of phases 11 and
+    14."""
     out = [{
         "name": f"dia_spmv.{r['epilogue']}[{r['op']} {r['vals']}/{r['x']} "
                 f"nd={r['nd']} pad={r['pad']}]",
@@ -1059,21 +1424,6 @@ def _kernel_entries(dia_rows, well_rows, multi_rows=()):
     return out
 
 
-def _multi_main_rows(multi_rows, by_shape):
-    """Phase 10's rows for the launch shapes of phase 11 (each B4 epilogue
-    on the batched solve's DIA levels at k = N_RHS), each with its launch
-    count."""
-    out = []
-    for (ep, vdt, _, nd, pad, k), n in sorted(by_shape.items(), key=str):
-        match = [r for r in multi_rows if r["op"].startswith("level")
-                 and (r["epilogue"], r["vals"], r["nd"], r["pad"], r["k"])
-                 == (ep, str(vdt)[6:], nd, pad, k)]
-        check(match, f"phase 10 did not measure B4 at the batched solve's "
-                     f"launch shape {(ep, vdt, nd, pad, k)}")
-        out += [dict(r, launches=n) for r in match]
-    return out
-
-
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda is not available; this smoke run needs "
@@ -1092,18 +1442,17 @@ def main() -> int:
     stamp("dia kernels")
     phase_goldens()
     stamp("goldens")
-    solver, by_shape, _ = phase_main_path()
+    solver, by_shape, summary = phase_main_path()
     stamp("structured path")
     dia_rows = phase_main_shapes(solver, by_shape)
     stamp("structured shapes")
-    multi_rows = phase_multi_kernels(solver)
+    phase_multi_kernels(solver)
     stamp("multi-rhs kernel")
     B = np.random.default_rng(6).standard_normal((solver.a.n_rows, N_RHS))
     multi_by_shape, _ = phase_batched(solver, B)
-    multi_rows = _multi_main_rows(multi_rows, multi_by_shape)
+    multi_rows = _multi_shapes(solver, multi_by_shape)
     stamp("batched path")
     phase_batched_one_column(solver, B[:, 0])
-    del solver
     stamp("one column")
     import amg_tpu_torch as amg
 
@@ -1111,11 +1460,24 @@ def main() -> int:
     stamp("fem2d matrix")
     phase_well_kernels(a)
     stamp("well kernels")
-    solver, well_by_shape = phase_unstructured(a)
+    fem, well_by_shape, fem_summary = phase_unstructured(a)
     stamp("unstructured path")
-    well_rows = phase_unstructured_shapes(solver, well_by_shape)
-    del solver
+    well_rows = phase_unstructured_shapes(fem, well_by_shape)
     stamp("unstructured shapes")
+
+    auto, (auto_dia, auto_well) = phase_structured_auto(solver, summary)
+    dia_rows += auto_dia
+    well_rows += auto_well
+    p3d = solver.a
+    del solver, auto
+    stamp("structured auto")
+    emb_dia, emb_multi = phase_embedded(p3d)
+    dia_rows += emb_dia
+    multi_rows += emb_multi
+    stamp("structured embedded")
+    well_rows += phase_fem_auto(a, fem, fem_summary)
+    del fem
+    stamp("unstructured auto")
 
     prev = t_start
     for label, t in stamps:

@@ -4,6 +4,12 @@
     python3 profile_torch.py --structured     # poisson3d(100), structured
     python3 profile_torch.py --batched 16     # poisson3d(100), solve_batched
     python3 profile_torch.py --package DIR    # the port of another checkout
+    python3 profile_torch.py --structured --layout embedded   # phase 14's
+
+``--layout`` picks the format flags: ``compact`` (default; chip_smoke.py
+phases 5 and 8), ``auto`` (``use_well`` and ``use_banded`` on "auto",
+phases 13 and 15) or ``embedded`` (auto plus ``embed_levels=8``, phase
+14; poisson3d only).
 
 Builds the main-path configuration of ``chip_smoke.py`` (phase 8, or
 phase 5 with ``--structured``; with ``--batched K`` phase 5's solver runs
@@ -43,8 +49,9 @@ GROUPS = (
     ("well_kernel", "B2 WEll (well_spmv.cu)"),
     ("dia_multi_kernel", "B4 DIA multi-rhs (dia_spmv.cu)"),
     ("dia_kernel", "B1 DIA (dia_spmv.cu)"),
-    ("gemv", "dense matvec (cuBLAS)"),
-    ("gemm", "dense matvec (cuBLAS)"),
+    ("gemv", "dense matvec, BandedBlocks (cuBLAS)"),
+    ("gemm", "dense matvec, BandedBlocks (cuBLAS)"),
+    ("nvjet", "dense matvec, BandedBlocks (cuBLAS)"),
     ("reduce", "reductions (dot, norm)"),
     ("index", "gathers / index (Ell, GS groups)"),
     ("gather", "gathers / index (Ell, GS groups)"),
@@ -72,6 +79,8 @@ def main() -> int:
                          "right-hand sides")
     ap.add_argument("--package", metavar="DIR",
                     help="import amg_tpu_torch from the checkout at DIR")
+    ap.add_argument("--layout", choices=("compact", "auto", "embedded"),
+                    default="compact", help="format flags (see above)")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("profile_torch: needs a CUDA card", file=sys.stderr)
@@ -94,6 +103,15 @@ def main() -> int:
     else:
         a, pars, what = amg.fem2d(FEM_ROWS, seed=0), \
             unstructured_pars(amg), f"fem2d({FEM_ROWS})"
+    if args.layout != "compact":
+        pars = pars.replace(use_well="auto", use_banded="auto")
+    if args.layout == "embedded":
+        if not (args.structured or args.batched):
+            ap.error("--layout embedded needs --structured or --batched")
+        pars = pars.replace(embed_levels=8)
+        what += ", embedded"
+    elif args.layout == "auto":
+        what += ", auto formats"
     mem0 = torch.cuda.memory_allocated()
     t0 = time.perf_counter()
     solver = amg.AMGSolver(a, pars, log=lambda *_: None)

@@ -45,6 +45,8 @@ from amg_tpu_torch.solve import smoothers as ts
 from amg_tpu_torch.sparse import (Dense as TDense, Dia as TDia, Ell as TEll,
                                   WEll as TWEll)
 
+from _torch_threads import one_torch_thread  # noqa: F401  (autouse)
+
 FLAGS = dict(use_well="off", use_banded="off", embed_levels=0, verbose=0)
 QUIET = dict(log=lambda *a, **k: None)
 CPU = dict(device="cpu")

@@ -36,6 +36,8 @@ import amg_tpu_torch as tamg
 from amg_tpu_torch.ops import dia_kernel
 from amg_tpu_torch.sparse import Dia as TDia, Dense as TDense, Ell as TEll
 
+from _torch_threads import one_torch_thread  # noqa: F401  (autouse)
+
 EPILOGUES = ("spmv", "resid", "update")
 
 

@@ -422,3 +422,112 @@ def test_unstructured_slice_on_card():
     assert solver.mg.levels[0].a.rows.classes
     for e in ("spmv", "df64", "gs"):
         assert well_kernel.launches[e] > before[e], e
+
+
+def _embedded_bench(n_side=20, **kw):
+    """poisson3d(n_side) with the structured main path's parameters on
+    amg_tpu's one-device layout and fine-grid embedding (bf16 embedded
+    operators)."""
+    a = amg.poisson3d(n_side)
+    pars = amg.AMGParams(
+        dtype="float32", refine=True, smoother=amg.SmootherType.GS,
+        coarse_smoother=amg.SmootherType.CHEBYSHEV,
+        coarse_op_dtype="bfloat16", coarse_sparsify=0.005,
+        sparsify_from_level=2, coarse_stop_rows=100, tol=1e-8, max_it=60,
+        verbose=0, embed_levels=8, **kw)
+    return a, pars
+
+
+@pytest.mark.parametrize("k", [1, 16])
+def test_dia_kernels_at_an_embedded_wide_shape(k):
+    """B1 (k = 1, every epilogue) and B4 (every epilogue) against their
+    plain versions on the widest embedded level operator of
+    poisson3d(20)'s embedded hierarchy: bf16 values with bf16 products
+    (nd >= 32)."""
+    _needs_card()
+    a, pars = _embedded_bench()
+    mg, _ = amg.setup(a, pars, log=lambda *_: None, device="cpu")
+    cpu = max((lv.a for lv in mg.levels[1:] if isinstance(lv.a, Dia)
+               and lv.pad == mg.levels[0].pad), key=lambda op: op.n_diags)
+    assert cpu.vals.dtype == torch.bfloat16 and 0 in cpu.offsets
+    assert dia_kernel.bf16_products(cpu.n_diags, cpu.vals.dtype,
+                                    torch.float32)
+    gpu = Dia(cpu.vals.cuda(), cpu.offsets, cpu.shape, cpu.nnz)
+    pad = cpu.padded_rows
+    g = torch.Generator().manual_seed(31)
+    shape = (k, pad) if k > 1 else (pad,)
+    x, b = (torch.randn(shape, generator=g) for _ in range(2))
+    w = torch.randn(pad, generator=g)
+    cases = ((dia_kernel.spmv_multi, (x,)), (dia_kernel.resid_multi, (x, b)),
+             (dia_kernel.gs_update_multi, (x, b, w))) if k > 1 else (
+        (dia_kernel.spmv, (x,)), (dia_kernel.resid, (x, b)),
+        (dia_kernel.gs_update, (x, b, w)))
+    scale = dia_kernel.spmv_multi_plain(cpu, x.reshape(-1, pad)) \
+        .abs().max().item()
+    for fn, args in cases:
+        want = getattr(dia_kernel, fn.__name__ + "_plain")(cpu, *args)
+        before = dict(dia_kernel.launches)
+        got = fn(gpu, *(t.cuda() for t in args))
+        torch.cuda.synchronize()
+        assert dia_kernel.launches != before
+        err = (got.cpu() - want).abs().max().item()
+        assert err <= TOL[torch.bfloat16] * scale, (fn.__name__, err)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16", "float64"])
+def test_spmv_banded_on_card(dtype):
+    """The BandedBlocks product on the card (cuBLAS; bf16 values with f32
+    output through ``out_dtype``) against the CPU path, one vector and a
+    batch, f32 ``2e-6``, bf16 ``1e-5``, f64 ``1e-13`` of max|Ax|."""
+    _needs_card()
+    from amg_tpu_torch.ops.spmv import spmv
+    from amg_tpu_torch.sparse import BandedBlocks
+
+    a = _band_csr(3000, 40, 5)
+    vdt = getattr(torch, dtype)
+    cpu = BandedBlocks.from_csr(a, dtype=vdt, device="cpu")
+    gpu = BandedBlocks.from_csr(a, dtype=vdt, device="cuda")
+    assert torch.equal(gpu.vals.cpu(), cpu.vals) and cpu.nb >= 2
+    xdt = torch.float64 if dtype == "float64" else torch.float32
+    x = torch.randn(4, cpu.padded_rows, generator=torch.Generator()
+                    .manual_seed(2), dtype=xdt)
+    for xc in (x[0], x):
+        want = spmv(cpu, xc)
+        got = spmv(gpu, xc.cuda())
+        torch.cuda.synchronize()
+        assert got.dtype == xdt and got.shape == want.shape
+        scale = want.abs().max().item()
+        assert (got.cpu() - want).abs().max().item() <= TOL[vdt] * scale
+
+
+@pytest.mark.parametrize("boundary", ["embedded", "compact"])
+def test_embedded_solve_on_card(boundary):
+    """A small embedded solve on the card with "auto" formats, for one
+    vector and a batch: every index of the embedded/compact boundary is in
+    range (a device-side assert would fail the synchronise and poison the
+    context), and the solves reach their tolerances (host-verified)
+    through B1 and, for the batch, B4 alone."""
+    _needs_card()
+    a, pars = _embedded_bench(embed_boundary=boundary)
+    solver = amg.AMGSolver(a, pars, log=lambda *_: None)
+    lv = solver.mg.levels
+    assert lv[1].pad == lv[0].pad
+    idx = [t for l in lv for t in (l.compact_idx, l.member_idx)
+           if t is not None]
+    assert len(idx) == 1 and idx[0].is_cuda
+    assert int(idx[0].min()) >= 0 and int(idx[0].max()) < solver.pad
+    before = dict(dia_kernel.launches)
+    x, _ = solver.solve(np.ones(a.n_rows))
+    torch.cuda.synchronize()
+    assert all(dia_kernel.launches[e] > before[e] for e in EPILOGUES)
+    assert np.linalg.norm(1.0 - a.matvec(x.astype(np.float64))) \
+        / np.sqrt(a.n_rows) < 1e-8
+    B = np.random.default_rng(3).standard_normal((a.n_rows, 4))
+    before = dict(dia_kernel.launches)
+    X, _ = solver.solve_batched(B, tol=1e-6)
+    torch.cuda.synchronize()
+    assert all(dia_kernel.launches[e] == before[e] for e in EPILOGUES)
+    assert all(dia_kernel.launches[e] > before[e] for e in dia_kernel.MULTI)
+    for c in range(B.shape[1]):
+        r = B[:, c] - a.matvec(X[:, c].astype(np.float64))
+        assert np.linalg.norm(r) / np.linalg.norm(B[:, c]) < 1e-6

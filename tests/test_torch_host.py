@@ -6,7 +6,8 @@ into its own library.  Same code, same library: the host hierarchies must
 be identical, bit for bit, and so must the device packs built from them.
 Both packages get the same explicit format flags (use_well="off",
 use_banded="off", embed_levels=0): amg_tpu resolves "auto" from JAX's
-device count, the port always to "off".
+device count (off under the tests' 8 virtual devices), the port as on one
+device (on).
 """
 
 import os
@@ -25,6 +26,8 @@ import amg_tpu_torch as tamg
 from amg_tpu_torch import hierarchy as th
 from amg_tpu_torch import native as tnative
 from amg_tpu_torch.io import checkpoint as tck
+
+from _torch_threads import one_torch_thread  # noqa: F401  (autouse)
 
 DATA = os.path.join(os.path.dirname(__file__), "data")
 FLAGS = dict(use_well="off", use_banded="off", embed_levels=0, verbose=0)
@@ -281,8 +284,12 @@ def test_restored_hierarchy_gets_level0_rcm():
 
 
 def test_unported_options_raise():
+    """Multi-device layouts and a bf16 cycle are not ported and raise;
+    BandedBlocks and fine-grid embedding are ported and set up."""
     a = tamg.poisson3d(6)
-    for kw in (dict(use_banded="on"), dict(embed_levels=2),
-               dict(dtype="bfloat16")):
+    for kw in (dict(dist_devices=2), dict(dtype="bfloat16")):
         with pytest.raises(NotImplementedError):
             tamg.setup(a, tamg.AMGParams(verbose=0, **kw), device="cpu")
+    for kw in (dict(use_banded="on"), dict(embed_levels=2)):
+        tamg.setup(a, tamg.AMGParams(verbose=0, **kw), device="cpu",
+                   log=lambda *_: None)

@@ -28,6 +28,8 @@ from amg_tpu.io import checkpoint as jck
 
 import amg_tpu_torch as tamg
 
+from _torch_threads import one_torch_thread  # noqa: F401  (autouse)
+
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 DATA = os.path.join(REPO, "tests", "data")
 GOLD = os.path.join(DATA, "golden")
@@ -270,8 +272,10 @@ def test_level0_permutation_round_trip():
 
 
 def _cli_lines(module, *flags):
+    # one (virtual) device: amg_tpu then resolves use_well / use_banded on
+    # "auto" as the port does
     env = dict(os.environ, JAX_PLATFORMS="cpu",
-               XLA_FLAGS="--xla_force_host_platform_device_count=8")
+               XLA_FLAGS="--xla_force_host_platform_device_count=1")
     out = subprocess.run(
         [sys.executable, "-m", module, os.path.join(DATA, "1138_bus.mtx"),
          *flags],
@@ -284,7 +288,8 @@ def _cli_lines(module, *flags):
 
 
 def test_cli_matches_amg_tpu():
-    """Same parameter echo, complexity table and residual table.  Only the
+    """Same parameter echo, complexity table and residual table, both
+    packages on their default flags ("auto").  Only the
     numbers of the residual rows and of the final residual lines may
     differ, in their last digits: both packages run the dense 1138_bus
     levels through a matmul, and XLA:CPU and torch sum in different orders

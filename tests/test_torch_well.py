@@ -35,6 +35,8 @@ import amg_tpu_torch as tamg
 from amg_tpu_torch.ops import spmv as tspmv, well_kernel
 from amg_tpu_torch.sparse import WEll as TWEll
 
+from _torch_threads import one_torch_thread  # noqa: F401  (autouse)
+
 MATRICES = {"fem2d-2500": (2500, 2), "fem2d-5000": (5000, 9)}
 KINDS = ("float32", "bfloat16", "df64")
 

@@ -40,6 +40,8 @@ from amg_tpu_torch.ops import well_kernel
 from amg_tpu_torch.solve import smoothers as ts
 from amg_tpu_torch.sparse import RowSlices, WEll as TWEll
 
+from _torch_threads import one_torch_thread  # noqa: F401  (autouse)
+
 KINDS = ("float32", "bfloat16", "float64", "df64")
 TOL = {"float32": 2e-6, "bfloat16": 1e-5, "float64": 1e-13, "df64": 1e-13}
 
