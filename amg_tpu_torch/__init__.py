@@ -34,6 +34,7 @@ from .io.generators import poisson2d, poisson3d, random_spd, fem2d
 from .io.checkpoint import save_hierarchy, load_hierarchy
 from .hierarchy import setup, setup_host, Hierarchy, HostHierarchy, Level
 from .solve.driver import AMGSolver, solver_amg
+from .solve.krylov import cg, gmres
 
 __version__ = "0.1.0"
 
@@ -66,4 +67,6 @@ __all__ = [
     "Level",
     "AMGSolver",
     "solver_amg",
+    "cg",
+    "gmres",
 ]

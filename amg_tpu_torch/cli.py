@@ -8,16 +8,19 @@ byte-identical to ``python -m amg_tpu``'s.
 
 ``--device cuda|cpu`` picks the device (default the CUDA card; there is
 no fall to the CPU when none is present).  ``--accel cg`` runs flexible CG
-preconditioned by one cycle and ``--use-well on`` packs large unstructured
-levels as WEll, e.g. ``python -m amg_tpu_torch fem2d:1000000 --use-well on
---accel cg --refine --dtype float32``.  ``amg_tpu``'s multi-device flags
-(``--devices``, ``--dist``), ``--profile`` and ``--transfer-dtype`` are not
-ported yet; ``--accel gmres`` raises ``NotImplementedError``.
+and ``--accel gmres`` GMRES, each preconditioned by one cycle;
+``--coarsest KRYLOV`` solves the coarsest level with the reference's CG
+and GMRES fallback; ``--use-well on`` packs large unstructured levels as
+WEll, e.g. ``python -m amg_tpu_torch fem2d:1000000 --use-well on --accel
+cg --refine --dtype float32``.  ``--profile DIR`` writes a
+``torch.profiler`` trace of the solve to ``DIR/trace.json``.  ``amg_tpu``'s
+multi-device flags (``--devices``, ``--dist``) come with distribution.
 """
 
 from __future__ import annotations
 
 import argparse
+import os
 import sys
 
 import numpy as np
@@ -114,6 +117,14 @@ def build_argparser() -> argparse.ArgumentParser:
                     choices=["auto", "on", "off"],
                     help="windowed-gather WEll format for large "
                          "unstructured levels")
+    ap.add_argument("--transfer-dtype", type=str,
+                    default=d.transfer_op_dtype,
+                    choices=["same", "bfloat16"],
+                    help="P/R value-plane storage on WEll levels "
+                         "(bfloat16 halves them)")
+    ap.add_argument("--profile", type=str, default=None, metavar="DIR",
+                    help="write a torch.profiler trace of the solve to "
+                         "DIR/trace.json")
     ap.add_argument("--quiet", action="store_true")
     return ap
 
@@ -143,6 +154,7 @@ def params_from_args(args) -> AMGParams:
         refine_inner_cycles=args.refine_inner,
         accel=args.accel,
         use_well=args.use_well,
+        transfer_op_dtype=args.transfer_dtype,
         verbose=0 if args.quiet else 1,
     )
 
@@ -167,6 +179,17 @@ def load_matrix(spec: str):
         eps = float(parts[2]) if len(parts) > 2 else 1e-3
         return poisson2d(int(parts[1]), epsilon=eps)
     return read_mtx(spec)
+
+
+def _profiler(device: str):
+    """A ``torch.profiler`` context over the host and, on the card, the
+    device (``amg_tpu`` traces the solve with ``jax.profiler``)."""
+    import torch
+
+    acts = [torch.profiler.ProfilerActivity.CPU]
+    if device == "cuda":
+        acts.append(torch.profiler.ProfilerActivity.CUDA)
+    return torch.profiler.profile(activities=acts)
 
 
 def main(argv=None) -> int:
@@ -195,7 +218,13 @@ def main(argv=None) -> int:
 
     from .solve.driver import solver_amg
 
-    x, info = solver_amg(a, x0, b, pars, device=args.device)
+    if args.profile:
+        with _profiler(args.device) as prof:
+            x, info = solver_amg(a, x0, b, pars, device=args.device)
+        os.makedirs(args.profile, exist_ok=True)
+        prof.export_chrome_trace(os.path.join(args.profile, "trace.json"))
+    else:
+        x, info = solver_amg(a, x0, b, pars, device=args.device)
 
     print(f"AMG residual: {info.ares:g}")
     print(f"AMG relative residual: {info.rres:g}")

@@ -27,7 +27,10 @@ def norm2(x):
 
 
 def norminf(x):
-    """||x||_inf (reference SSS_blas_array_norminf, amg/SSS_utils.c:225)."""
+    """||x||_inf (reference SSS_blas_array_norminf, amg/SSS_utils.c:225);
+    per column, ``(k, 1)``, for a batch ``(k, n)``."""
+    if x.dim() == 2:
+        return torch.amax(torch.abs(x), dim=-1, keepdim=True)
     if x.numel() == 0:
         return torch.zeros((), dtype=x.dtype, device=x.device)
     return torch.max(torch.abs(x))

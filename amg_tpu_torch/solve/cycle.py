@@ -10,30 +10,54 @@ range.  Per reference semantics, level 0 runs its
 block once per cycle call and deeper levels repeat their block
 ``cycle_type`` times per parent visit (V=1, W=2).
 
-The coarsest solve is a dense inverse apply (one matvec).  The
-reference-style CG -> GMRES coarsest solver (``CoarsestSolver.KRYLOV``)
-needs the Krylov module, which is not ported yet.
+The coarsest solve is either a dense inverse apply (one matvec) or the
+reference's CG with a GMRES fallback (``CoarsestSolver.KRYLOV``,
+``SSS_amg_coarest_solve``, amg/Solve/SSS_cycle.cu:819-846).
 """
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 from ..params import AMGParams, CoarsestSolver
 from ..hierarchy import Hierarchy
 from ..ops.spmv import spmv, residual_fused
 from .smoothers import smooth
+from .krylov import BLOCK, _cg_run, gmres
 
 
 def coarsest_solve(mg: Hierarchy, b: torch.Tensor, pars: AMGParams, ctol):
     """Solve the coarsest system (``b`` one vector or a ``(k, pad)``
-    batch)."""
+    batch).
+
+    KRYLOV: CG to ``ctol``, and GMRES (restart 30) from zero only where CG
+    did not converge (amg/Solve/SSS_cycle.cu:837-841).  ``amg_tpu`` takes
+    that branch with ``lax.cond``, and per column under ``vmap``; here the
+    host takes it on the status that CG's last host read brought, so a
+    batch runs one CG over all columns and GMRES on each failed column as
+    one vector, as the one-vector call would."""
     if pars.coarsest_solver == CoarsestSolver.DENSE:
         if b.dim() == 2:
             return b @ mg.coarse_inv.T
         return mg.coarse_inv @ b
-    raise NotImplementedError("CoarsestSolver.KRYLOV (CG -> GMRES) is not "
-                              "ported yet")
+    level = mg.levels[-1]
+    n = level.n
+    # maxit = max(250, min(n*n, 1000)) (amg/Solve/SSS_cycle.cu:822)
+    maxit = max(250, min(n * n, 1000))
+    x0 = torch.zeros_like(b)
+    x, _, _, status, _ = _cg_run(level.a, b, x0, ctol, maxit)
+    failed = np.flatnonzero(status.reshape(-1) != 1)
+    if failed.size == 0:
+        return x
+    if b.dim() == 1:
+        return gmres(level.a, b, x0, tol=ctol, maxit=maxit, restart=30,
+                     check_every=BLOCK)[0]
+    x = x.clone()
+    for c in failed.tolist():
+        x[c] = gmres(level.a, b[c], x0[c], tol=ctol, maxit=maxit, restart=30,
+                     check_every=BLOCK)[0]
+    return x
 
 
 def cycle(mg: Hierarchy, x: torch.Tensor, b: torch.Tensor, pars: AMGParams):

@@ -13,7 +13,9 @@ PyTorch runs eagerly, so the cycle is plain Python over device tensors on
 the solver's ``device`` (the card unless the caller asks for the CPU).
 :meth:`AMGSolver.solve` is the host loop of the reference; with
 ``pars.accel == "cg"`` it runs :meth:`AMGSolver.solve_pcg` (flexible CG
-preconditioned by one cycle, in f64 with ``pars.refine``), and with
+preconditioned by one cycle, in f64 with ``pars.refine``), with
+``pars.accel == "gmres"`` :meth:`AMGSolver.solve_pgmres` (GMRES right-
+preconditioned by one cycle, likewise), and with
 ``pars.refine`` and a float32 cycle otherwise
 :meth:`AMGSolver.solve_refined` (f32 cycles, f64 outer residual).
 Residual norms are fetched to the host in batches when the live table is
@@ -29,13 +31,13 @@ import time
 import numpy as np
 import torch
 
-from ..params import AMGParams, SolveInfo, StopType
+from ..params import AMGParams, SolveInfo, StopType, MAX_RESTART
 from ..sparse import CSR, Dia, Dense, Ell, WEll, torch_dtype
 from ..hierarchy import setup, _pick_format, resolve_device
 from ..ops.spmv import spmv
 from ..ops.blas import norm2
 from .cycle import cycle
-from .krylov import fcg_init, fcg_step, fcg_refresh
+from .krylov import fcg_init, fcg_step, fcg_refresh, gmres
 
 
 def print_itinfo(stop_type, it, relres, absres, factor, log=print):
@@ -143,9 +145,9 @@ class AMGSolver:
             raise ValueError("AMG requires a square matrix")
         if a.nnz <= 0:
             raise ValueError("matrix has no nonzeros")
-        if pars.accel not in ("none", "cg"):
-            raise NotImplementedError(f"accel={pars.accel!r}: only 'none' "
-                                      "and 'cg' (flexible CG) are ported")
+        if pars.accel not in ("none", "cg", "gmres"):
+            raise ValueError(f"accel={pars.accel!r}: 'none', 'cg' (flexible "
+                             "CG) or 'gmres'")
         self.device = resolve_device(device)
         if self.device.type == "cuda":
             # the dense levels and the coarse-inverse apply are matmuls;
@@ -276,6 +278,8 @@ class AMGSolver:
         """Host-loop solve with live residual table (reference parity)."""
         if self.pars.accel == "cg":
             return self.solve_pcg(b, x0)
+        if self.pars.accel == "gmres":
+            return self.solve_pgmres(b, x0)
         if self.a0_hi is not None:
             return self.solve_refined(b, x0)
         pars = self.pars
@@ -447,6 +451,48 @@ class AMGSolver:
         info.solve_seconds = time.perf_counter() - t0
         info.setup_seconds = self.host_hierarchy.setup_seconds
         if pars.verbose:
+            self.log(f"AMG solve time: {info.solve_seconds:g} s")
+        return self._unpad_vec(xd), info
+
+    def solve_pgmres(self, b, x0=None) -> tuple[np.ndarray, SolveInfo]:
+        """AMG-right-preconditioned restarted GMRES (``pars.accel ==
+        "gmres"``), the Krylov wrap for nonsymmetric operators where CG's
+        short recurrence does not apply (``amg_tpu``'s ``solve_pgmres``).
+
+        One AMG cycle (in ``pars.dtype``) preconditions each Arnoldi step
+        of GMRES(``min(MAX_RESTART, max_it)``), which runs in f64 when
+        ``pars.refine`` is set, else in ``pars.dtype``; the host reads each
+        step's Hessenberg column, so the restart stops at the step where
+        the residual estimate passes ``tol``.  ``info.nits`` counts the
+        Arnoldi steps (= cycles); ``info.ares``/``rres`` are the true
+        residual ``b - A x`` of the returned solution.  As in ``amg_tpu``
+        the stop is taken on the Givens estimate, so an f32 cycle can stop
+        short of ``tol`` in the true residual.
+        """
+        pars = self.pars
+        n = self.a.n_rows
+        adt = self._accel_dtype
+
+        bd = self._pad_vec(b, dtype=adt)
+        xd = self._pad_vec(x0 if x0 is not None else np.zeros(n), dtype=adt)
+
+        info = SolveInfo()
+        sumb = float(norm2(bd))
+        t0 = time.perf_counter()
+        if sumb == 0.0:
+            return np.zeros(n), info
+        xd, _, nits = gmres(self._amul, bd, xd, tol=pars.tol,
+                            maxit=pars.max_it,
+                            restart=min(MAX_RESTART, pars.max_it),
+                            M=self._prec, return_iters=True)
+        absres = float(norm2(bd - self._amul(xd)))
+        info.ares = absres
+        info.rres = absres / sumb
+        info.nits = nits
+        info.solve_seconds = time.perf_counter() - t0
+        info.setup_seconds = self.host_hierarchy.setup_seconds
+        if pars.verbose:
+            self.log(f"AMG-GMRES: {info.nits} its, relres {info.rres:g}")
             self.log(f"AMG solve time: {info.solve_seconds:g} s")
         return self._unpad_vec(xd), info
 

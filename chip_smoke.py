@@ -81,7 +81,25 @@ Phases (any failure raises and the script exits nonzero):
    (WEll levels 0-3, BandedBlocks levels 4-7 with nb 9, 7, 5, 3, Dense),
    FCG to 1e-8; each BandedBlocks level's product timed beside phase 8's
    Ell or Dense product on the same level; kernel against plain on every
-   WEll launch shape of its solve.
+   WEll launch shape of its solve;
+16. nonsymmetric GMRES: the 2-D upwind convection-diffusion operator of
+   tests/test_solve.py:618-636 (vel 20) on a 1000 x 1000 grid (1,000,000
+   rows, 4,996,000 nnz), ``AMGParams(accel="gmres", tol=1e-8)`` with the
+   defaults otherwise (f64 cycles, "auto" formats), solved to a
+   host-checked true residual below 1e-8 in at most 40 GMRES iterations,
+   with B1's three epilogues launched in f64; kernel against plain on
+   every launch shape of the solve; logs the Arnoldi steps, the host reads
+   per solve and the MiB of the GMRES basis;
+17. the reference's coarsest solver: phase 13's parameters and host
+   hierarchy with ``coarsest_solver=KRYLOV`` (CG to ctol = 1e-9, out of
+   f32's reach, then GMRES), solved to 1e-8 (host-checked) through B1 and
+   B2; per coarsest solve its CG iterations and status, GMRES's
+   iterations, ms and host reads (at most the iterations over
+   ``krylov.BLOCK`` plus 2); then ``solve_batched`` of 16 seeded columns
+   to 1e-6 through B4 (one batched CG per coarsest solve, GMRES per failed
+   column), every column checked on the host, per-column coarsest
+   statuses logged; kernel against plain at every launch shape of both
+   solves.
 
 Each kernel result carries its bound: the larger of the bytes it must
 move (each input read once, each output written once) over the H100's
@@ -90,13 +108,14 @@ f32, 34 TFLOP/s f64, NVIDIA's H100 SXM data sheet).  The last three lines
 of standard output are the card's name and power limit as nvidia-smi
 gives them, one JSON object describing the kernels (one entry per
 epilogue and operator of phases 6 and 9, per launch shape of phase 11,
-and per launch shape and operator of phases 13-15, each with its
+and per launch shape and operator of phases 13-17, each with its
 main-path launch count) and one with the device.  Imports
 torch, numpy, scipy and amg_tpu_torch only.
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import json
 import os
@@ -145,13 +164,17 @@ def check(cond, msg):
 
 
 def _reset_counts():
-    """Set every kernel launch count to 0 (just before a main path runs)."""
+    """Set every kernel launch count, and the Krylov solvers' counts of
+    host reads and iterations, to 0 (just before a main path runs)."""
     from amg_tpu_torch.ops import dia_kernel as D, well_kernel as W
+    from amg_tpu_torch.solve import krylov
 
     for K in (D, W):
         for e in K.launches:
             K.launches[e] = 0
         K.launches_by_shape.clear()
+    for e in krylov.counts:
+        krylov.counts[e] = 0
 
 
 # ---------------------------------------------------------------------------
@@ -1166,6 +1189,7 @@ def _auto_solver(a, pars, tag, b):
     the solver, the cold run's DIA and WEll launches by shape, and a
     summary."""
     from amg_tpu_torch.ops import dia_kernel as D, well_kernel as W
+    from amg_tpu_torch.solve import krylov
     import amg_tpu_torch as amg
 
     _reset_counts()
@@ -1179,6 +1203,7 @@ def _auto_solver(a, pars, tag, b):
     torch.cuda.synchronize()
     dia, well = dict(D.launches_by_shape), dict(W.launches_by_shape)
     launches = (dict(D.launches), dict(W.launches))
+    krylov_counts = dict(krylov.counts)
     true_rel = float(np.linalg.norm(b - a.matvec(x.astype(np.float64)))
                      / np.linalg.norm(b))
     for l, lv in enumerate(solver.mg.levels):
@@ -1210,7 +1235,10 @@ def _auto_solver(a, pars, tag, b):
     check(true_rel < 1e-8 and info.nits <= pars.max_it,
           f"{tag}: did not reach 1e-8 (true rres {true_rel:.3e})")
     return solver, dia, well, dict(mib=mib, warm_solve_s=info2.solve_seconds,
-                                   nits=info.nits, true_rres=true_rel)
+                                   nits=info.nits, true_rres=true_rel,
+                                   setup_s=setup_s,
+                                   solve_s=info.solve_seconds,
+                                   krylov=krylov_counts)
 
 
 def _product_ms(op, n_x, g, flush):
@@ -1280,7 +1308,7 @@ def phase_structured_auto(old, old_summary):
                                if f in ("WEll", "BandedBlocks")], solver, old)
     rows = (phase_main_shapes(solver, dia, prefix="a-"),
             phase_unstructured_shapes(solver, well, prefix="a-"))
-    return solver, rows
+    return solver, rows, summary
 
 
 def _embedded_depth(solver):
@@ -1388,11 +1416,244 @@ def phase_fem_auto(a, old, old_summary):
     return rows
 
 
+# ---------------------------------------------------------------------------
+# 16-17. the Krylov layer: GMRES acceleration and the KRYLOV coarsest solver
+# ---------------------------------------------------------------------------
+
+
+CD_SIDE = 1000             # convection-diffusion grid: 1,000,000 rows
+CD_VEL = 20.0              # its upwind convection strength
+GMRES_MAX_ITS = 40         # tests/test_solve.py:638's bound
+
+
+def convection_diffusion(n_side, vel=CD_VEL):
+    """The 2-D upwind convection-diffusion operator of
+    tests/test_solve.py:618-636 on an n_side x n_side grid (nonsymmetric:
+    first-order upwind convection along the slow index), built with
+    scipy."""
+    import scipy.sparse as sp
+    import amg_tpu_torch as amg
+
+    n = n_side * n_side
+    h = 1.0 / (n_side + 1)
+    i, j = np.divmod(np.arange(n), n_side)
+    rows, cols = [np.arange(n)], [np.arange(n)]
+    vals = [np.full(n, 4.0 / h ** 2 + vel / h)]
+    for di, dj, c in ((-1, 0, -1.0 / h ** 2 - vel / h), (1, 0, -1.0 / h ** 2),
+                      (0, -1, -1.0 / h ** 2), (0, 1, -1.0 / h ** 2)):
+        k = np.flatnonzero((i + di >= 0) & (i + di < n_side)
+                           & (j + dj >= 0) & (j + dj < n_side))
+        rows.append(k)
+        cols.append(k + di * n_side + dj)
+        vals.append(np.full(k.size, c))
+    m = sp.coo_matrix((np.concatenate(vals), (np.concatenate(rows),
+                                              np.concatenate(cols))),
+                      shape=(n, n))
+    return amg.CSR.from_scipy(m.tocsr())
+
+
+def phase_gmres():
+    """16. AMG-preconditioned GMRES on the 1M-row convection-diffusion
+    operator, f64 cycles on the "auto" layout: true residual below 1e-8 in
+    at most 40 iterations through B1's f64 epilogues.  Returns the kernel
+    rows of every DIA and WEll launch shape of its solve (tags "g-")."""
+    import amg_tpu_torch as amg
+    from amg_tpu_torch.params import MAX_RESTART
+
+    a = convection_diffusion(CD_SIDE)
+    log(f"[gmres] convection-diffusion {CD_SIDE} x {CD_SIDE} (vel "
+        f"{CD_VEL:g}): {a.n_rows} rows, {a.nnz} nnz")
+    check(a.n_rows == 1_000_000 and a.nnz == 4_996_000,
+          f"convection-diffusion size {a.n_rows} rows, {a.nnz} nnz")
+    pars = amg.AMGParams(accel="gmres", tol=1e-8, verbose=0)
+    b = np.random.default_rng(16).standard_normal(a.n_rows)
+    solver, dia, well, summary = _auto_solver(a, pars, "gmres", b)
+    kc = summary["krylov"]
+    m = min(MAX_RESTART, pars.max_it)
+    basis_mib = (m + 1) * solver.pad * 8 / 2 ** 20
+    log(f"[gmres] formats {_formats(solver)}; GMRES its {summary['nits']} "
+        f"(Arnoldi steps {kc['gmres_iters']}, restart {m}); host reads "
+        f"per solve: {kc['syncs']} by GMRES + 2 by the driver; setup "
+        f"{summary['setup_s']:.2f} s, cold solve {summary['solve_s']:.4f} "
+        f"s, warm {summary['warm_solve_s']:.4f} s; device memory held "
+        f"after setup {summary['mib']:.1f} MiB, GMRES basis V "
+        f"({m + 1} x {solver.pad} f64) {basis_mib:.1f} MiB")
+    check(summary["nits"] <= GMRES_MAX_ITS,
+          f"GMRES took {summary['nits']} > {GMRES_MAX_ITS} iterations")
+    check(kc["gmres_solves"] == 1 and kc["gmres_iters"] == summary["nits"],
+          f"GMRES counts {kc}")
+    f64 = {k[0] for k in dia if k[1] == k[2] == torch.float64}
+    check(f64 >= {"spmv", "resid", "update"},
+          f"B1 did not run its three epilogues in f64: {sorted(dia, key=str)}")
+    rows = phase_main_shapes(solver, dia, prefix="g-")
+    well_rows = (phase_unstructured_shapes(solver, well, prefix="g-")
+                 if well else [])
+    del solver
+    return rows, well_rows, summary
+
+
+@contextlib.contextmanager
+def _trace_coarsest():
+    """Record every coarsest solve of the cycles run inside: its ms
+    (synchronised on both sides), the Krylov solvers' host reads, CG's
+    per-column statuses and iterations, and GMRES's iterations on each
+    failed column.  The synchronisations added here are not counted."""
+    from amg_tpu_torch.solve import cycle as C, krylov as K
+
+    calls = []
+    orig = (C.coarsest_solve, C._cg_run, C.gmres)
+
+    def cg_run(*args, **kw):
+        out = orig[1](*args, **kw)
+        calls[-1]["status"] = out[3].reshape(-1).tolist()
+        calls[-1]["cg_its"] = out[4].reshape(-1).tolist()
+        return out
+
+    def gmres(*args, **kw):
+        x, conv, its = orig[2](*args, return_iters=True, **kw)
+        calls[-1]["gmres_its"].append(its)
+        return x, conv
+
+    def coarsest(*args, **kw):
+        torch.cuda.synchronize()
+        calls.append(dict(gmres_its=[], syncs=K.counts["syncs"]))
+        t0 = time.perf_counter()
+        out = orig[0](*args, **kw)
+        torch.cuda.synchronize()
+        calls[-1]["ms"] = (time.perf_counter() - t0) * 1e3
+        calls[-1]["syncs"] = K.counts["syncs"] - calls[-1]["syncs"]
+        return out
+
+    C.coarsest_solve, C._cg_run, C.gmres = coarsest, cg_run, gmres
+    try:
+        yield calls
+    finally:
+        C.coarsest_solve, C._cg_run, C.gmres = orig
+
+
+def _log_coarsest(tag, calls):
+    """One line per coarsest solve, and its host reads held to the bound:
+    each of its solves (one CG over the columns, then GMRES on each failed
+    column) at most its iterations over ``krylov.BLOCK`` plus 1; for one
+    vector, (CG + GMRES iterations) / BLOCK + 2."""
+    from amg_tpu_torch.solve.krylov import BLOCK
+
+    for i, c in enumerate(calls):
+        its = max(c["cg_its"]) + sum(c["gmres_its"])
+        bound = its / BLOCK + 1 + max(len(c["gmres_its"]), 1)
+        stat = {s: c["status"].count(s) for s in sorted(set(c["status"]))}
+        cg_its = c["cg_its"] if len(c["cg_its"]) > 1 else c["cg_its"][0]
+        log(f"[{tag}] coarsest solve {i}: CG its {cg_its}, status {stat}; "
+            f"GMRES on {len(c['gmres_its'])} column(s), its "
+            f"{c['gmres_its']}; {c['ms']:.2f} ms; host reads {c['syncs']} "
+            f"(bound {bound:.1f})")
+        check(c["syncs"] <= bound,
+              f"{tag}: coarsest solve {i} read the device {c['syncs']} "
+              f"times for {its} iterations")
+
+
+def phase_krylov_coarsest(a, hh, auto_summary):
+    """17. Phase 13's parameters and host hierarchy ``hh`` with the KRYLOV
+    coarsest solver: the solve to 1e-8 through B1 and B2, per coarsest
+    solve logged, then ``solve_batched`` of 16 columns through B4.
+    Returns the DIA, WEll and B4 kernel rows of both solves (tags "k-",
+    "kb-")."""
+    import amg_tpu_torch as amg
+    from amg_tpu_torch.ops import dia_kernel as D, well_kernel as W
+    from amg_tpu_torch.solve import krylov as K
+
+    pars = structured_pars(amg).replace(
+        use_well="auto", use_banded="auto",
+        coarsest_solver=amg.CoarsestSolver.KRYLOV)
+    b = np.ones(a.n_rows)
+    _reset_counts()
+    t0 = time.perf_counter()
+    solver = amg.AMGSolver(a, pars, host_hierarchy=hh, device="cuda",
+                           log=lambda *_: None)
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+    check(_formats(solver) == STRUCTURED_AUTO,
+          f"KRYLOV formats {_formats(solver)}")
+    coarse = solver.mg.levels[-1]
+    x, info = solver.solve(b)
+    torch.cuda.synchronize()
+    dia, well = dict(D.launches_by_shape), dict(W.launches_by_shape)
+    kc = dict(K.counts)
+    true_rel = float(np.linalg.norm(b - a.matvec(x.astype(np.float64)))
+                     / np.linalg.norm(b))
+    n_cs = max(kc["cg_solves"], 1)
+    log(f"[krylov] coarsest level: {coarse.n} rows, "
+        f"{type(coarse.a).__name__} {str(coarse.a.vals.dtype)[6:]}; ctol "
+        f"{min(pars.ctol, pars.tol * 0.1):g}, CG block {K.BLOCK}")
+    log(f"[krylov] setup {setup_s:.2f} s (host hierarchy of phase 13), cold "
+        f"solve {info.solve_seconds:.4f} s, cycles {info.nits} (phase 13, "
+        f"dense coarsest inverse: {auto_summary['nits']}), rres "
+        f"{info.rres:.3e}, true rres (host f64) {true_rel:.3e}")
+    log(f"[krylov] per coarsest solve ({kc['cg_solves']} solves): CG its "
+        f"{kc['cg_iters'] / n_cs:.1f}, not converged {kc['cg_failed']}; GMRES "
+        f"runs {kc['gmres_solves']}, its {kc['gmres_iters'] / n_cs:.1f}; "
+        f"host reads {kc['syncs'] / n_cs:.1f}")
+    check(np.all(np.isfinite(x)) and true_rel < 1e-8,
+          f"KRYLOV solve did not reach 1e-8 (true rres {true_rel:.3e})")
+    check(kc["cg_solves"] > 0, "the KRYLOV coarsest solver did not run")
+    wells = [lv.a for lv in solver.mg.levels if isinstance(lv.a, amg.WEll)]
+    check(sum(dia.values()) > 0 and all(
+        well.get(("spmv", op.vals.dtype, op.n_rows, op.nnz), 0) > 0
+        for op in wells), "B1 or B2 (on the WEll level's A) was not launched")
+    with _trace_coarsest() as calls:
+        solver.solve(b)
+    _log_coarsest("krylov", calls)
+    t0 = time.perf_counter()
+    _, info2 = solver.solve(b)
+    torch.cuda.synchronize()
+    log(f"[krylov] warm solve {time.perf_counter() - t0:.4f} s, cycles "
+        f"{info2.nits}; coarsest solves {sum(c['ms'] for c in calls):.1f} "
+        f"ms of the traced solve")
+    dia_rows = phase_main_shapes(solver, dia, prefix="k-")
+    well_rows = phase_unstructured_shapes(solver, well, prefix="k-")
+
+    # batched: one CG over the columns per coarsest solve, GMRES per
+    # failed column
+    B = np.random.default_rng(17).standard_normal((a.n_rows, N_RHS))
+    _reset_counts()
+    t0 = time.perf_counter()
+    with _trace_coarsest() as calls:
+        X, binfo = solver.solve_batched(B, tol=BATCH_TOL)
+    torch.cuda.synchronize()
+    cold_s = time.perf_counter() - t0
+    multi, wellb = dict(D.launches_by_shape), dict(W.launches_by_shape)
+    launches = dict(D.launches)
+    nb = np.linalg.norm(B, axis=0)
+    true_b = np.array([np.linalg.norm(B[:, c] - a.matvec(
+        X[:, c].astype(np.float64))) / nb[c] for c in range(N_RHS)])
+    _log_coarsest("krylov-batch", calls)
+    per_col = [{s: sum(c["status"][col] == s for c in calls)
+                for s in sorted({c["status"][col] for c in calls})}
+               for col in range(N_RHS)]
+    log(f"[krylov-batch] k={N_RHS}: cold (traced) {cold_s:.4f} s, its "
+        f"{binfo.nits}, true rres worst {true_b.max():.3e} best "
+        f"{true_b.min():.3e}; coarsest CG statuses per column over "
+        f"{len(calls)} solves: {per_col}; DIA launches {launches}")
+    check(np.all(np.isfinite(X)) and np.all(true_b < BATCH_TOL),
+          f"KRYLOV batched solve: true rres {true_b}")
+    check(all(launches[e] == 0 for e in D.EPILOGUES) and
+          launches["multi_update"] > 0,
+          f"the batched solve did not run through B4 alone: {launches}")
+    t0 = time.perf_counter()
+    solver.solve_batched(B, tol=BATCH_TOL)
+    torch.cuda.synchronize()
+    log(f"[krylov-batch] warm {time.perf_counter() - t0:.4f} s")
+    multi_rows = _multi_shapes(solver, multi, prefix="kb-")
+    well_rows += phase_unstructured_shapes(solver, wellb, prefix="kb-")
+    del solver
+    return dia_rows, well_rows, multi_rows
+
+
 def _kernel_entries(dia_rows, well_rows, multi_rows=()):
     """The ``kernels`` JSON entries: one per (epilogue, launch shape) of
-    phases 6, 13 and 14, per (entry, operator) of phases 9, 13 and 15 (per
-    GS class for the ``gs`` entry), and per launch shape of phases 11 and
-    14."""
+    phases 6, 13, 14, 16 and 17, per (entry, operator) of phases 9, 13, 15
+    and 17 (per GS class for the ``gs`` entry), and per launch shape of
+    phases 11, 14 and 17."""
     out = [{
         "name": f"dia_spmv.{r['epilogue']}[{r['op']} {r['vals']}/{r['x']} "
                 f"nd={r['nd']} pad={r['pad']}]",
@@ -1465,10 +1726,12 @@ def main() -> int:
     well_rows = phase_unstructured_shapes(fem, well_by_shape)
     stamp("unstructured shapes")
 
-    auto, (auto_dia, auto_well) = phase_structured_auto(solver, summary)
+    auto, (auto_dia, auto_well), auto_summary = phase_structured_auto(
+        solver, summary)
     dia_rows += auto_dia
     well_rows += auto_well
     p3d = solver.a
+    auto_hh = auto.host_hierarchy
     del solver, auto
     stamp("structured auto")
     emb_dia, emb_multi = phase_embedded(p3d)
@@ -1476,8 +1739,18 @@ def main() -> int:
     multi_rows += emb_multi
     stamp("structured embedded")
     well_rows += phase_fem_auto(a, fem, fem_summary)
-    del fem
+    del fem, a
     stamp("unstructured auto")
+    g_dia, g_well, _ = phase_gmres()
+    dia_rows += g_dia
+    well_rows += g_well
+    stamp("gmres")
+    k_dia, k_well, k_multi = phase_krylov_coarsest(p3d, auto_hh,
+                                                   auto_summary)
+    dia_rows += k_dia
+    well_rows += k_well
+    multi_rows += k_multi
+    stamp("krylov coarsest")
 
     prev = t_start
     for label, t in stamps:

@@ -5,11 +5,16 @@
     python3 profile_torch.py --batched 16     # poisson3d(100), solve_batched
     python3 profile_torch.py --package DIR    # the port of another checkout
     python3 profile_torch.py --structured --layout embedded   # phase 14's
+    python3 profile_torch.py --gmres          # phase 16: GMRES acceleration
+    python3 profile_torch.py --structured --layout auto --coarsest KRYLOV
 
 ``--layout`` picks the format flags: ``compact`` (default; chip_smoke.py
 phases 5 and 8), ``auto`` (``use_well`` and ``use_banded`` on "auto",
 phases 13 and 15) or ``embedded`` (auto plus ``embed_levels=8``, phase
-14; poisson3d only).
+14; poisson3d only).  ``--gmres`` solves phase 16's 1000 x 1000
+convection-diffusion operator with ``accel="gmres"`` (f64 cycles, "auto"
+formats); ``--coarsest KRYLOV`` takes the reference's CG -> GMRES
+coarsest solver (phase 17 with ``--structured --layout auto``).
 
 Builds the main-path configuration of ``chip_smoke.py`` (phase 8, or
 phase 5 with ``--structured``; with ``--batched K`` phase 5's solver runs
@@ -81,11 +86,17 @@ def main() -> int:
                     help="import amg_tpu_torch from the checkout at DIR")
     ap.add_argument("--layout", choices=("compact", "auto", "embedded"),
                     default="compact", help="format flags (see above)")
+    ap.add_argument("--gmres", action="store_true",
+                    help="phase 16's convection-diffusion solve with "
+                         "GMRES acceleration")
+    ap.add_argument("--coarsest", choices=("DENSE", "KRYLOV"),
+                    default="DENSE", help="coarsest-level solver")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("profile_torch: needs a CUDA card", file=sys.stderr)
         return 1
-    from chip_smoke import (BATCH_TOL, FEM_ROWS, structured_pars,
+    from chip_smoke import (BATCH_TOL, CD_SIDE, FEM_ROWS,
+                            convection_diffusion, structured_pars,
                             unstructured_pars)
     if args.package:
         sys.path.insert(0, os.path.abspath(args.package))
@@ -97,7 +108,11 @@ def main() -> int:
                          text=True, timeout=60, check=True).stdout.strip()
     print(f"card: {smi}; torch {torch.__version__}, CUDA {torch.version.cuda}")
     print(f"amg_tpu_torch from {os.path.dirname(amg.__file__)}")
-    if args.structured or args.batched:
+    if args.gmres:
+        a, pars, what = convection_diffusion(CD_SIDE), amg.AMGParams(
+            accel="gmres", tol=1e-8, verbose=0), \
+            f"convection-diffusion {CD_SIDE}^2, GMRES"
+    elif args.structured or args.batched:
         a, pars, what = amg.poisson3d(100), structured_pars(amg), \
             "poisson3d(100)"
     else:
@@ -112,6 +127,9 @@ def main() -> int:
         what += ", embedded"
     elif args.layout == "auto":
         what += ", auto formats"
+    if args.coarsest == "KRYLOV":
+        pars = pars.replace(coarsest_solver=amg.CoarsestSolver.KRYLOV)
+        what += ", KRYLOV coarsest solver"
     mem0 = torch.cuda.memory_allocated()
     t0 = time.perf_counter()
     solver = amg.AMGSolver(a, pars, log=lambda *_: None)
@@ -126,7 +144,8 @@ def main() -> int:
         def run():
             return solver.solve_batched(B, tol=BATCH_TOL)
     else:
-        b = np.ones(a.n_rows)
+        b = (np.random.default_rng(16).standard_normal(a.n_rows)
+             if args.gmres else np.ones(a.n_rows))
 
         def run():
             return solver.solve(b)

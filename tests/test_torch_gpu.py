@@ -246,6 +246,42 @@ def test_slice_on_card():
     assert all(dia_kernel.launches[e] > before[e] for e in EPILOGUES)
 
 
+@pytest.mark.parametrize("kw", [
+    dict(coarsest_solver=amg.CoarsestSolver.KRYLOV),
+    dict(coarsest_solver=amg.CoarsestSolver.KRYLOV, dtype="float32",
+         refine=True),
+    dict(accel="gmres")], ids=["krylov", "krylov-f32", "gmres"])
+def test_krylov_on_card(kw):
+    """The Krylov layer on the card against the CPU, poisson2d(32) to
+    1e-8: the KRYLOV coarsest solver (f64 cycles, and f32 cycles with f64
+    defect correction, where CG cannot reach ctol 1e-9 and GMRES runs on
+    every coarsest solve) and GMRES acceleration.  Equal iterations, final
+    residuals at the goldens' rtol 1e-3 (the f32 cycles with atol 1e-6 *
+    ||b||, tests/test_torch_solve.py's bar); B1 launched on the card."""
+    _needs_card()
+    from amg_tpu_torch.solve import krylov
+
+    a = amg.poisson2d(32)
+    b = np.ones(a.n_rows)
+    pars = amg.AMGParams(verbose=0, tol=1e-8, **kw)
+    _, ic = amg.AMGSolver(a, pars, device="cpu",
+                          log=lambda *_: None).solve(b)
+    before = sum(dia_kernel.launches[e] for e in EPILOGUES)
+    runs = krylov.counts["cg_solves" if "coarsest_solver" in kw
+                         else "gmres_solves"]
+    x, ig = amg.AMGSolver(a, pars, device="cuda",
+                          log=lambda *_: None).solve(b)
+    assert sum(dia_kernel.launches[e] for e in EPILOGUES) > before
+    assert krylov.counts["cg_solves" if "coarsest_solver" in kw
+                         else "gmres_solves"] > runs
+    assert ig.nits == ic.nits
+    atol = 1e-6 * np.sqrt(a.n_rows) if "dtype" in kw else 0.0
+    np.testing.assert_allclose(ig.ares, ic.ares, rtol=1e-3, atol=atol)
+    true_rel = np.linalg.norm(b - a.matvec(x.astype(np.float64))) \
+        / np.linalg.norm(b)
+    assert true_rel < 1e-8 and ig.rres < 1e-8
+
+
 def test_batched_slice_on_card():
     """solve_batched on the card at test size: every column below the
     tolerance (host-verified), every B4 epilogue launched, B1 not."""

@@ -287,6 +287,26 @@ def _cli_lines(module, *flags):
                                   "AMG totally time"))]
 
 
+def _assert_cli_match(got, want, numeric=("AMG residual:",
+                                           "AMG relative residual:")):
+    """The port's CLI lines against amg_tpu's: equal, but for the numbers
+    of the residual rows and of the lines starting with ``numeric``, held
+    to the goldens' rtol 1e-3."""
+    assert len(got) == len(want)
+    row = re.compile(r"^\s*\d+ \|")
+    for g, w in zip(got, want):
+        if g == w:
+            continue
+        assert row.match(w) or w.startswith(numeric), (g, w)
+        gf, wf = g.replace("|", " ").split(), w.replace("|", " ").split()
+        assert len(gf) == len(wf), (g, w)
+        for a_, b_ in zip(gf, wf):
+            try:
+                np.testing.assert_allclose(float(a_), float(b_), rtol=1e-3)
+            except ValueError:
+                assert a_ == b_, (g, w)
+
+
 def test_cli_matches_amg_tpu():
     """Same parameter echo, complexity table and residual table, both
     packages on their default flags ("auto").  Only the
@@ -297,28 +317,30 @@ def test_cli_matches_amg_tpu():
     written on).  Those numbers are held to the goldens' rtol 1e-3."""
     want = _cli_lines("amg_tpu")
     got = _cli_lines("amg_tpu_torch", "--device", "cpu")
-    assert len(got) == len(want)
-    row = re.compile(r"^\s*\d+ \|")
-    for g, w in zip(got, want):
-        if g == w:
-            continue
-        assert row.match(w) or w.startswith(
-            ("AMG residual:", "AMG relative residual:")), (g, w)
-        gf, wf = g.replace("|", " ").split(), w.replace("|", " ").split()
-        assert len(gf) == len(wf), (g, w)
-        for a_, b_ in zip(gf, wf):
-            try:
-                np.testing.assert_allclose(float(a_), float(b_), rtol=1e-3)
-            except ValueError:
-                assert a_ == b_, (g, w)
+    _assert_cli_match(got, want)
     assert got[-1] == "AMG iterations: 12"
+
+
+@pytest.mark.parametrize("flags", [("--accel", "gmres"),
+                                   ("--coarsest", "KRYLOV")])
+def test_cli_krylov_matches_amg_tpu(flags):
+    """``--accel gmres`` (GMRES preconditioned by one cycle; its summary
+    line ``AMG-GMRES: N its, relres R``) and ``--coarsest KRYLOV`` (the
+    reference's CG -> GMRES coarsest solver) on 1138_bus print amg_tpu's
+    lines, to the bar of :func:`test_cli_matches_amg_tpu`."""
+    want = _cli_lines("amg_tpu", *flags)
+    got = _cli_lines("amg_tpu_torch", *flags, "--device", "cpu")
+    _assert_cli_match(got, want, numeric=("AMG residual:",
+                                          "AMG relative residual:",
+                                          "AMG-GMRES:"))
+    assert got[-1] == want[-1]
 
 
 def test_cli_unstructured(monkeypatch, capsys):
     """README's unstructured example at the least size whose level 0 is
     WEll (``well_min_rows`` 65,536): ``--use-well on --accel cg`` packs
-    level 0 as WEll and FCG reaches the tolerance; ``--accel gmres`` still
-    raises."""
+    level 0 as WEll and FCG reaches the tolerance; ``--accel gmres`` runs
+    GMRES around the same f32 cycles."""
     from amg_tpu_torch import cli
     from amg_tpu_torch.solve import driver
 
@@ -339,8 +361,10 @@ def test_cli_unstructured(monkeypatch, capsys):
     (solver,) = made
     assert solver.pars.accel == "cg"
     assert isinstance(solver.mg.levels[0].a, tamg.WEll)
-    with pytest.raises(NotImplementedError):
-        cli.main(["poisson2d:16", "--accel", "gmres", *flags])
+    assert cli.main(["poisson2d:16", "--accel", "gmres", *flags]) == 0
+    out = capsys.readouterr().out
+    assert made[-1].pars.accel == "gmres"
+    assert re.search(r"AMG iterations: [1-9]", out)
 
 
 def test_port_never_imports_jax():
@@ -360,7 +384,8 @@ def test_port_never_imports_jax():
 
 def test_device_selection():
     """Every entry point runs on the card unless the caller asks for the
-    CPU; without a card the default raises instead of falling back."""
+    CPU; without a card the default raises instead of falling back.  On
+    the CPU, GMRES acceleration and the KRYLOV coarsest solver run."""
     from amg_tpu_torch import cli
     from amg_tpu_torch import hierarchy as th
 
@@ -383,9 +408,8 @@ def test_device_selection():
     solver = tamg.AMGSolver(a, pars, device="cpu")
     assert solver.device == torch.device("cpu")
     assert all(l.a.vals.device.type == "cpu" for l in solver.mg.levels)
-    with pytest.raises(NotImplementedError):
-        tamg.AMGSolver(a, pars.replace(accel="gmres"), device="cpu")
-    with pytest.raises(NotImplementedError):
-        tamg.AMGSolver(a, pars.replace(
-            coarsest_solver=tamg.CoarsestSolver.KRYLOV),
-            device="cpu").solve(b)
+    for kw in (dict(accel="gmres"),
+               dict(coarsest_solver=tamg.CoarsestSolver.KRYLOV)):
+        _, info = tamg.AMGSolver(a, pars.replace(**kw), device="cpu",
+                                 **QUIET).solve(b)
+        assert info.rres < 1e-6, kw
