@@ -13,8 +13,15 @@ and ``--accel gmres`` GMRES, each preconditioned by one cycle;
 and GMRES fallback; ``--use-well on`` packs large unstructured levels as
 WEll, e.g. ``python -m amg_tpu_torch fem2d:1000000 --use-well on --accel
 cg --refine --dtype float32``.  ``--profile DIR`` writes a
-``torch.profiler`` trace of the solve to ``DIR/trace.json``.  ``amg_tpu``'s
-multi-device flags (``--devices``, ``--dist``) come with distribution.
+``torch.profiler`` trace of the solve to ``DIR/trace.json``.
+
+``--devices N`` solves on a ring of N row shards with the SPMD solver
+(``amg_tpu_torch.parallel.SpmdAMGSolver``): all N on the one device of a
+single process, or split over the processes of a ``torchrun`` launch (gloo
+with ``--device cpu``, NCCL between cards; only rank 0 prints).  ``--dist
+gspmd``, and ``auto`` where the SPMD solver cannot run (a hierarchy
+without fine-grid embedding), exit with the reason: ``amg_tpu`` falls back
+to its ``DistAMGSolver`` there, which is not ported yet.
 """
 
 from __future__ import annotations
@@ -109,6 +116,14 @@ def build_argparser() -> argparse.ArgumentParser:
                     help="Krylov acceleration: cg = AMG-preconditioned "
                          "flexible CG (one cycle per iteration); gmres = "
                          "AMG-right-preconditioned GMRES (nonsymmetric)")
+    ap.add_argument("--devices", type=int, default=0,
+                    help="solve on a ring of N row shards (0 = one device)")
+    ap.add_argument("--dist", type=str, default="auto",
+                    choices=["auto", "spmd", "gspmd"],
+                    help="multi-device path: spmd = the SPMD ring solver "
+                         "(needs an embedded hierarchy); gspmd = the "
+                         "sharding-annotated solver (not ported yet); auto "
+                         "= spmd")
     ap.add_argument("--device", type=str, default="cuda",
                     choices=["cuda", "cpu"],
                     help="torch device for the solve (cuda, the default, "
@@ -192,11 +207,55 @@ def _profiler(device: str):
     return torch.profiler.profile(activities=acts)
 
 
+_NO_GSPMD = ("the GSPMD solver (amg_tpu's DistAMGSolver) is not ported yet; "
+             "the port does not fall back to another solver")
+
+
+def _spmd_solver(a, pars, args, out):
+    """The SPMD solver on ``--devices`` shards, or None with the reason on
+    stderr where ``--dist`` asks for, or needs, the unported GSPMD path."""
+    from .parallel import make_mesh
+    from .parallel.spmd_cycle import SpmdAMGSolver
+
+    if args.dist == "gspmd":
+        print(f"amg_tpu_torch: --dist gspmd: {_NO_GSPMD}", file=sys.stderr)
+        return None
+    try:
+        return SpmdAMGSolver(a, pars, mesh=make_mesh(args.devices,
+                                                     device=args.device),
+                             log=out)
+    except (ValueError, NotImplementedError) as exc:
+        if args.dist == "spmd":
+            raise
+        print(f"amg_tpu_torch: spmd path unavailable ({exc}); {_NO_GSPMD}",
+              file=sys.stderr)
+        return None
+
+
 def main(argv=None) -> int:
     args = build_argparser().parse_args(argv)
+    if args.devices > 1:
+        import torch.distributed as dist
+        from .parallel import initialize
+
+        # under torchrun (or AMG_COORDINATOR) every process joins and runs
+        # the same loop (the same pars: its host decisions must agree);
+        # only rank 0 prints
+        joined = not dist.is_initialized() and initialize(device=args.device)
+        try:
+            return _main(args, print if not dist.is_initialized()
+                         or dist.get_rank() == 0
+                         else (lambda *a, **k: None))
+        finally:
+            if joined:
+                dist.destroy_process_group()
+    return _main(args, print)
+
+
+def _main(args, out) -> int:
     pars = params_from_args(args)
 
-    print(f"filename: {args.matrix}")
+    out(f"filename: {args.matrix}")
     try:
         a = load_matrix(args.matrix)
     except FileNotFoundError:
@@ -207,10 +266,10 @@ def main(argv=None) -> int:
     except ValueError as exc:
         print(f"amg_tpu_torch: bad matrix input: {exc}", file=sys.stderr)
         return int(-ErrorCode.ERROR_WRONG_FILE)
-    print(f"A: m = {a.n_rows}, n = {a.n_cols}, nnz = {a.nnz}")
+    out(f"A: m = {a.n_rows}, n = {a.n_cols}, nnz = {a.nnz}")
 
     if pars.verbose:
-        pars_print(pars)
+        pars_print(pars, log=out)
 
     # b = x0 = ones, like the reference CLI (amg/SSS_main.c:141-145)
     b = np.ones(a.n_rows)
@@ -218,17 +277,26 @@ def main(argv=None) -> int:
 
     from .solve.driver import solver_amg
 
+    def run():
+        if args.devices > 1:
+            solver = _spmd_solver(a, pars, args, out)
+            return None if solver is None else solver.solve(b, x0=x0)
+        return solver_amg(a, x0, b, pars, device=args.device)
+
     if args.profile:
         with _profiler(args.device) as prof:
-            x, info = solver_amg(a, x0, b, pars, device=args.device)
+            result = run()
         os.makedirs(args.profile, exist_ok=True)
         prof.export_chrome_trace(os.path.join(args.profile, "trace.json"))
     else:
-        x, info = solver_amg(a, x0, b, pars, device=args.device)
+        result = run()
+    if result is None:
+        return 2
+    x, info = result
 
-    print(f"AMG residual: {info.ares:g}")
-    print(f"AMG relative residual: {info.rres:g}")
-    print(f"AMG iterations: {info.nits}")
+    out(f"AMG residual: {info.ares:g}")
+    out(f"AMG relative residual: {info.rres:g}")
+    out(f"AMG iterations: {info.nits}")
     return 0
 
 

@@ -46,7 +46,7 @@
 //    in offsets order, into runs of consecutive offsets whose span fits
 //    kMaxSpan.  A run of two or more diagonals is served from a
 //    shared-memory window of x, the block's rows plus the run's span,
-//    filled with cp.async (zero-filled outside [0, pad)), so x crosses
+//    filled with cp.async (zero-filled outside x's bounds), so x crosses
 //    from L2 once per run instead of once per diagonal: 3 times per row on
 //    poisson3d(100)'s level 0 instead of 7, 5 on level 1 instead of 23.  A
 //    run of one diagonal reads x straight through the read-only path (a
@@ -78,6 +78,18 @@
 // the batched solve's k = 16 they ran 10-85% slower than this loop
 // (PERF.md), so B4 does not use them.
 //
+// B1's window entry (dia_window_*) replaces pallas_dia.py::spmv_window
+// (:495-503), the local product of a row-sharded ring (amg_tpu/parallel/
+// halo.py): the same kernel, run for S shards of m rows at once (the
+// shards are the grid's y dimension), each reading its values at column
+// s * m of the (nd, S * m) values through their row stride, and x from
+// its own haloed window [lo left halo | m rows | hi right halo], which
+// reads 0 outside [-lo, m + hi) of the shard's rows instead of outside
+// [0, pad).  The single-vector entries are the case S = 1, the window
+// [0, pad) and the row stride pad.  Windows may overlap in memory (their
+// shard stride is free), so a ring's windows are views of one haloed
+// vector.  Only the spmv epilogue has a window entry.
+//
 // Bound with ctypes: plain extern "C" entries that launch on the given
 // stream and return cudaGetLastError() (or the error of the attribute
 // call), so a refused launch raises in the wrapper.
@@ -96,7 +108,9 @@ constexpr int kWindowBudget = 100 * 1024;  // shared memory for B1's windows
 
 // One launch of B1.  The plan holds n_segs int4 segments (first diagonal,
 // one past the last, the run's lowest offset, its span; span -1: x read
-// directly).
+// directly).  Shard s (blockIdx.y) reads values from vals + s * pad with
+// row stride vstride, x from x + s * xs (valid on [x_lo, x_hi) of its
+// rows), and writes b, w and y at s * pad.
 struct Args {
   const void* vals;
   const int* offs;
@@ -105,7 +119,11 @@ struct Args {
   int nw;    // windows filled together
   int slot;  // entries of shared memory per window
   int wq;    // row stride of the window (entries)
-  int64_t pad;
+  int64_t pad;      // rows per shard
+  int64_t vstride;  // values: entries from one diagonal to the next
+  int64_t xs;       // x: entries from one shard's window to the next
+  int64_t x_lo;     // x reads 0 outside [x_lo, x_hi) of the shard's rows
+  int64_t x_hi;
   const void* x;
   const void* b;
   const void* w;
@@ -161,15 +179,16 @@ struct alignas(16) Row {
   T v[N];
 };
 
-// r = p[i .. i + N), 0 past pad: vector loads when vec (then pad is a
-// multiple of N and p 16-byte aligned), else one load per entry.
+// r = p[i .. i + N), 0 outside [lo, hi): vector loads when vec (then i is
+// a multiple of N and p 16-byte aligned) and the whole row lies inside,
+// else one load per entry.
 template <bool kStream, typename T, int N>
 __device__ __forceinline__ void load_row(Row<T, N>& r,
                                          const T* __restrict__ p, int64_t i,
-                                         int64_t pad, bool vec) {
+                                         int64_t lo, int64_t hi, bool vec) {
   constexpr int kBytes = N * (int)sizeof(T);
   static_assert(kBytes % 16 == 0, "rows of 16-byte vectors");
-  if (vec && i >= 0 && i < pad) {
+  if (vec && i >= lo && i + N <= hi) {
     const uint4* s = reinterpret_cast<const uint4*>(p + i);
     uint4* d = reinterpret_cast<uint4*>(r.v);
 #pragma unroll
@@ -179,7 +198,7 @@ __device__ __forceinline__ void load_row(Row<T, N>& r,
   } else {
 #pragma unroll
     for (int j = 0; j < N; ++j) {
-      r.v[j] = (i + j >= 0 && i + j < pad) ? p[i + j] : zero<T>();
+      r.v[j] = (i + j >= lo && i + j < hi) ? p[i + j] : zero<T>();
     }
   }
 }
@@ -212,23 +231,23 @@ __device__ __forceinline__ void pick(Row<T, N>& out, const Row<T, N>& lo,
   }
 }
 
-// out = p[g .. g + N), 0 outside [0, pad), for g = i + off with i a
+// out = p[g .. g + N), 0 outside [x_lo, x_hi), for g = i + off with i a
 // multiple of N: two aligned vectors and a pick by off mod N when vec.
 template <typename T, int N>
 __device__ __forceinline__ void load_shifted(Row<T, N>& out,
                                              const T* __restrict__ p,
-                                             int64_t i, int off, int64_t pad,
-                                             bool vec) {
+                                             int64_t i, int off, int64_t x_lo,
+                                             int64_t x_hi, bool vec) {
   const int a = off & (N - 1);  // the same for every thread
   const int64_t base = i + off - a;
-  if (vec && base >= 0 && base + (a ? 2 * N : N) <= pad) {
+  if (vec && base >= x_lo && base + (a ? 2 * N : N) <= x_hi) {
     Row<T, N> lo, hi;
-    load_row<false>(lo, p, base, pad, true);
+    load_row<false>(lo, p, base, x_lo, x_hi, true);
     if (a == 0) {
       out = lo;
       return;
     }
-    load_row<false>(hi, p, base + N, pad, true);
+    load_row<false>(hi, p, base + N, x_lo, x_hi, true);
     switch (a) {
 #define DIA_PICK(A)                              \
   case A:                                        \
@@ -246,7 +265,7 @@ __device__ __forceinline__ void load_shifted(Row<T, N>& out,
         break;
     }
   } else {
-    load_row<false>(out, p, i + off, pad, false);
+    load_row<false>(out, p, i + off, x_lo, x_hi, false);
   }
 }
 
@@ -313,11 +332,16 @@ __global__ void __launch_bounds__(B1Cfg<V>::T) dia_kernel(Args a) {
   constexpr int R = B1Cfg<V>::R, T = B1Cfg<V>::T, BR = B1Cfg<V>::BR;
   extern __shared__ __align__(16) unsigned char smem[];
   X* win = reinterpret_cast<X*>(smem);
-  const V* __restrict__ vals = static_cast<const V*>(a.vals);
-  const X* __restrict__ x = static_cast<const X*>(a.x);
-  const X* __restrict__ b = static_cast<const X*>(a.b);
-  const X* __restrict__ w = static_cast<const X*>(a.w);
   const int64_t pad = a.pad;
+  const int64_t shard = blockIdx.y;
+  const V* __restrict__ vals = static_cast<const V*>(a.vals) + shard * pad;
+  const X* __restrict__ x = static_cast<const X*>(a.x) + shard * a.xs;
+  // b and w exist for the resid and update epilogues only
+  const X* __restrict__ b =
+      kEpi > 0 ? static_cast<const X*>(a.b) + shard * pad : nullptr;
+  const X* __restrict__ w =
+      kEpi > 1 ? static_cast<const X*>(a.w) + shard * pad : nullptr;
+  const int64_t x_lo = a.x_lo, x_hi = a.x_hi;
   const int wq = a.wq;
   const bool vec = a.vec != 0;
   const int t = threadIdx.x;
@@ -334,7 +358,7 @@ __global__ void __launch_bounds__(B1Cfg<V>::T) dia_kernel(Args a) {
     const int64_t g0 = row0 + sg.z;
     for (int e = t; e < BR + sg.w; e += T) {
       const int64_t g = g0 + e;
-      const bool in = g >= 0 && g < pad;
+      const bool in = g >= x_lo && g < x_hi;
       cp_async<sizeof(X)>(ws + (e % R) * wq + e / R, in ? x + g : x, in);
     }
     asm volatile("cp.async.commit_group;\n" ::: "memory");
@@ -349,7 +373,8 @@ __global__ void __launch_bounds__(B1Cfg<V>::T) dia_kernel(Args a) {
       for (int u = 0; u < kBatch; ++u) {
         if (u < n) {
           off[u] = __ldg(a.offs + d + u);
-          load_row<true>(v[u], vals + (int64_t)(d + u) * pad, i0, pad, vec);
+          load_row<true>(v[u], vals + (int64_t)(d + u) * a.vstride, i0, 0,
+                         pad, vec);
         }
       }
 #pragma unroll
@@ -357,7 +382,7 @@ __global__ void __launch_bounds__(B1Cfg<V>::T) dia_kernel(Args a) {
         if (u >= n) continue;
         if (slot < 0) {
           Row<X, R> xs;
-          load_shifted(xs, x, i0, off[u], pad, vec);
+          load_shifted(xs, x, i0, off[u], x_lo, x_hi, vec);
 #pragma unroll
           for (int j = 0; j < R; ++j) {
             acc[j] += product<V, X, kBf16Mul>(v[u].v[j], xs.v[j]);
@@ -382,21 +407,21 @@ __global__ void __launch_bounds__(B1Cfg<V>::T) dia_kernel(Args a) {
     for (int j = 0; j < R; ++j) out.v[j] = acc[j];
   } else {
     Row<X, R> bv;
-    load_row<true>(bv, b, i0, pad, vec);
+    load_row<true>(bv, b, i0, 0, pad, vec);
     if constexpr (kEpi == 1) {
 #pragma unroll
       for (int j = 0; j < R; ++j) out.v[j] = bv.v[j] - acc[j];
     } else {
       Row<X, R> xv, wv;
-      load_row<false>(xv, x, i0, pad, vec);
-      load_row<true>(wv, w, i0, pad, vec);
+      load_row<false>(xv, x, i0, 0, pad, vec);
+      load_row<true>(wv, w, i0, 0, pad, vec);
 #pragma unroll
       for (int j = 0; j < R; ++j) {
         out.v[j] = xv.v[j] + wv.v[j] * (bv.v[j] - acc[j]);
       }
     }
   }
-  store_row(static_cast<X*>(a.y), i0, pad, vec, out);
+  store_row(static_cast<X*>(a.y) + shard * pad, i0, pad, vec, out);
 }
 
 // ---------------------------------------------------------------------------
@@ -467,11 +492,16 @@ int windows_together(int n_win, size_t slot_bytes) {
 }
 
 template <typename V, typename X, bool kBf16Mul, int kEpi>
-int launch_b1(Args a, int n_win, int max_span, cudaStream_t stream) {
+int launch_b1(Args a, int n_shards, int n_win, int max_span,
+              cudaStream_t stream) {
   using C = B1Cfg<V>;
   void (*kern)(Args) = dia_kernel<V, X, kBf16Mul, kEpi>;
-  a.vec = a.pad % C::R == 0 && aligned16(a.vals) && aligned16(a.x) &&
-          aligned16(a.b) && aligned16(a.w) && aligned16(a.y);
+  // 16-byte rows of every shard: R rows per thread start on a multiple of
+  // R, so rows, row strides and shard strides must keep 16-byte alignment
+  a.vec = a.pad % C::R == 0 && a.vstride % C::R == 0 &&
+          (a.xs * (int64_t)sizeof(X)) % 16 == 0 && aligned16(a.vals) &&
+          aligned16(a.x) && aligned16(a.b) && aligned16(a.w) &&
+          aligned16(a.y);
   // ceil((BR + span) / R) entries per residue row, padded to 32 / R words
   // modulo 32 (banks of 4 bytes)
   const int words = 128 / (int)sizeof(X);
@@ -484,8 +514,10 @@ int launch_b1(Args a, int n_win, int max_span, cudaStream_t stream) {
   const int err = set_smem(kern, smem);
   if (err) return err;
   const int64_t blocks = (a.pad + C::BR - 1) / C::BR;
-  if (blocks > 0x7fffffff) return (int)cudaErrorInvalidValue;
-  kern<<<(unsigned)blocks, C::T, smem, stream>>>(a);
+  if (blocks > 0x7fffffff || n_shards < 1 || n_shards > 65535) {
+    return (int)cudaErrorInvalidValue;
+  }
+  kern<<<dim3((unsigned)blocks, (unsigned)n_shards), C::T, smem, stream>>>(a);
   return (int)cudaGetLastError();
 }
 
@@ -554,12 +586,17 @@ int launch_multi(const void* vals, const void* offs, int nd, int64_t pad,
   }
 }
 
+// B1 over n_shards shards of pad rows (one vector: n_shards 1, the window
+// [0, pad), vstride pad).
 template <typename V, typename X, bool kBf16Mul>
 int launch(const void* vals, const void* offs, const void* plan, int n_segs,
-           int n_win, int max_span, int64_t pad, const void* x, const void* b,
-           const void* w, void* y, int epilogue, void* stream) {
-  if (pad <= 0) return 0;
-  if (max_span > kMaxSpan || n_segs < 0 || n_win < 0 || n_win > n_segs) {
+           int n_win, int max_span, int64_t pad, int n_shards,
+           int64_t vstride, const void* x, int64_t xs, int64_t x_lo,
+           int64_t x_hi, const void* b, const void* w, void* y,
+           int epilogue, void* stream) {
+  if (pad <= 0 || n_shards == 0) return 0;
+  if (max_span > kMaxSpan || n_segs < 0 || n_win < 0 || n_win > n_segs ||
+      vstride < pad || x_lo > 0 || x_hi < pad) {
     return (int)cudaErrorInvalidValue;
   }
   Args a{};
@@ -568,6 +605,10 @@ int launch(const void* vals, const void* offs, const void* plan, int n_segs,
   a.plan = static_cast<const int4*>(plan);
   a.n_segs = n_segs;
   a.pad = pad;
+  a.vstride = vstride;
+  a.xs = xs;
+  a.x_lo = x_lo;
+  a.x_hi = x_hi;
   a.x = x;
   a.b = b;
   a.w = w;
@@ -575,11 +616,11 @@ int launch(const void* vals, const void* offs, const void* plan, int n_segs,
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (epilogue) {
     case 0:
-      return launch_b1<V, X, kBf16Mul, 0>(a, n_win, max_span, s);
+      return launch_b1<V, X, kBf16Mul, 0>(a, n_shards, n_win, max_span, s);
     case 1:
-      return launch_b1<V, X, kBf16Mul, 1>(a, n_win, max_span, s);
+      return launch_b1<V, X, kBf16Mul, 1>(a, n_shards, n_win, max_span, s);
     case 2:
-      return launch_b1<V, X, kBf16Mul, 2>(a, n_win, max_span, s);
+      return launch_b1<V, X, kBf16Mul, 2>(a, n_shards, n_win, max_span, s);
     default:
       return (int)cudaErrorInvalidValue;
   }
@@ -597,8 +638,8 @@ int dia_f32_f32(const void* vals, const void* offs, const void* plan,
                 const void* x, const void* b, const void* w, void* y,
                 int epilogue, void* stream) {
   return launch<float, float, false>(vals, offs, plan, n_segs, n_win,
-                                     max_span, pad, x, b, w, y, epilogue,
-                                     stream);
+                                     max_span, pad, 1, pad, x, 0, 0, pad, b,
+                                     w, y, epilogue, stream);
 }
 
 int dia_bf16_f32(const void* vals, const void* offs, const void* plan,
@@ -607,12 +648,13 @@ int dia_bf16_f32(const void* vals, const void* offs, const void* plan,
                  int epilogue, int bf16_mul, void* stream) {
   if (bf16_mul) {
     return launch<__nv_bfloat16, float, true>(vals, offs, plan, n_segs,
-                                              n_win, max_span, pad, x, b, w,
-                                              y, epilogue, stream);
+                                              n_win, max_span, pad, 1, pad, x,
+                                              0, 0, pad, b, w, y, epilogue,
+                                              stream);
   }
   return launch<__nv_bfloat16, float, false>(vals, offs, plan, n_segs, n_win,
-                                             max_span, pad, x, b, w, y,
-                                             epilogue, stream);
+                                             max_span, pad, 1, pad, x, 0, 0,
+                                             pad, b, w, y, epilogue, stream);
 }
 
 int dia_f64_f64(const void* vals, const void* offs, const void* plan,
@@ -620,7 +662,48 @@ int dia_f64_f64(const void* vals, const void* offs, const void* plan,
                 const void* x, const void* b, const void* w, void* y,
                 int epilogue, void* stream) {
   return launch<double, double, false>(vals, offs, plan, n_segs, n_win,
-                                       max_span, pad, x, b, w, y, epilogue,
+                                       max_span, pad, 1, pad, x, 0, 0, pad, b,
+                                       w, y, epilogue, stream);
+}
+
+// B1's window entry: n_shards shards of m rows; values (nd, >= n_shards *
+// m) with row stride vstride, shard s's at column s * m; x points at row 0
+// of shard 0's window (its left halo before it), shard s's window starts
+// xs entries further and reads 0 outside [-lo, m + hi); y (n_shards, m).
+int dia_window_f32_f32(const void* vals, const void* offs, const void* plan,
+                       int n_segs, int n_win, int max_span, int64_t m,
+                       int n_shards, int64_t vstride, const void* x,
+                       int64_t xs, int64_t lo, int64_t hi, void* y,
+                       void* stream) {
+  return launch<float, float, false>(vals, offs, plan, n_segs, n_win,
+                                     max_span, m, n_shards, vstride, x, xs,
+                                     -lo, m + hi, nullptr, nullptr, y, 0,
+                                     stream);
+}
+
+int dia_window_bf16_f32(const void* vals, const void* offs, const void* plan,
+                        int n_segs, int n_win, int max_span, int64_t m,
+                        int n_shards, int64_t vstride, const void* x,
+                        int64_t xs, int64_t lo, int64_t hi, void* y,
+                        int bf16_mul, void* stream) {
+  if (bf16_mul) {
+    return launch<__nv_bfloat16, float, true>(
+        vals, offs, plan, n_segs, n_win, max_span, m, n_shards, vstride, x,
+        xs, -lo, m + hi, nullptr, nullptr, y, 0, stream);
+  }
+  return launch<__nv_bfloat16, float, false>(
+      vals, offs, plan, n_segs, n_win, max_span, m, n_shards, vstride, x, xs,
+      -lo, m + hi, nullptr, nullptr, y, 0, stream);
+}
+
+int dia_window_f64_f64(const void* vals, const void* offs, const void* plan,
+                       int n_segs, int n_win, int max_span, int64_t m,
+                       int n_shards, int64_t vstride, const void* x,
+                       int64_t xs, int64_t lo, int64_t hi, void* y,
+                       void* stream) {
+  return launch<double, double, false>(vals, offs, plan, n_segs, n_win,
+                                       max_span, m, n_shards, vstride, x, xs,
+                                       -lo, m + hi, nullptr, nullptr, y, 0,
                                        stream);
 }
 

@@ -164,21 +164,18 @@ def complexity_print(hh: HostHierarchy) -> str:
 
 def check_supported(pars: AMGParams) -> None:
     """Raise ``NotImplementedError`` for options of ``amg_tpu`` that the
-    port does not implement yet: multi-device layouts and cycles in a
-    dtype other than float32 and float64."""
-    if pars.dist_devices > 1:
-        raise NotImplementedError("dist_devices > 1: multi-device layouts "
-                                  "are not ported yet")
+    port does not implement yet: cycles in a dtype other than float32 and
+    float64."""
     if pars.dtype not in ("float32", "float64"):
         raise NotImplementedError(f"dtype={pars.dtype!r}: the port cycles in "
                                   "float32 or float64")
 
 
 def format_on(flag: str) -> bool:
-    """``use_well`` / ``use_banded`` resolved for one device: ``amg_tpu``
-    turns ``"auto"`` on when ``jax.device_count() == 1 or dist_devices > 1``
+    """``use_well`` / ``use_banded`` resolved: ``amg_tpu`` turns ``"auto"``
+    on when ``jax.device_count() == 1 or dist_devices > 1``
     (``amg_tpu/hierarchy.py:305-308, 965-968``), and the port solves on
-    one device."""
+    one device or on a ring of ``dist_devices`` shards."""
     return flag in ("on", "auto")
 
 
@@ -952,7 +949,8 @@ def _level_from_csr(
         else torch_dtype(pars.transfer_op_dtype)
     if p is not None and fmt == "well" and pad % 1024 == 0:
         p_ell = WEll.from_csr(p, dtype=tr_dtype, pad_rows_to=pad,
-                              pad_cols_to=pad_coarse, device=device)
+                              pad_cols_to=pad_coarse, device=device,
+                              ring_devices=pars.dist_devices)
     elif p is not None:
         p_ell = Ell.from_csr(p, dtype=dtype, pad_rows_to=pad, device=device)
     else:
@@ -960,7 +958,8 @@ def _level_from_csr(
     if r is not None and fmt == "well" and pad_coarse is not None \
             and pad_coarse % 1024 == 0:
         r_ell = WEll.from_csr(r, dtype=tr_dtype, pad_rows_to=pad_coarse,
-                              pad_cols_to=pad, device=device)
+                              pad_cols_to=pad, device=device,
+                              ring_devices=pars.dist_devices)
     elif r is not None:
         r_ell = Ell.from_csr(r, dtype=dtype, pad_rows_to=pad_coarse,
                              device=device)
@@ -1021,7 +1020,8 @@ def _level_from_csr(
         # takes the masked path (gid), else keeps them in row order
         a_dev = WEll.from_csr(al, dtype=op_dtype, pad_rows_to=pad,
                               pad_cols_to=pad, device=device,
-                              classes=gid_dev)
+                              classes=gid_dev,
+                              ring_devices=pars.dist_devices)
 
     # spectral radius of D^{-1} A (host power iteration; only the
     # Chebyshev/poly smoothers consume it).  The coarse-smoother override
@@ -1084,23 +1084,26 @@ def to_device(hh: HostHierarchy, pars: AMGParams, device="cuda",
         emb[E + 1] = emb[E + 1][hh.perms[E + 1]]
     # dense and banded levels pad to the 128 boundary, WEll levels to the
     # 1024-row group, others to 8, embedded levels share level 0's pad —
-    # the same pads as amg_tpu so vectors compare entry for entry
+    # the same pads as amg_tpu so vectors compare entry for entry.  For a
+    # ring of D = dist_devices > 1 shards every pad splits into D equal
+    # shards of whole granules (amg_tpu/hierarchy.py:1319-1347)
     fmts = [
         "banded" if (hh.banded_nb is not None
                      and hh.banded_nb[l] is not None)
         else _pick_format(m, pars)
         for l, m in enumerate(hh.a)
     ]
+    D = max(pars.dist_devices, 1)
     pads = [
-        _round_up(max(m.n_rows, 1),
-                  {"well": 1024, "dense": 128, "banded": 128}.get(fmts[l], 8))
+        _round_up(max(m.n_rows, 1), D * {"well": 1024, "dense": 128,
+                                         "banded": 128}.get(fmts[l], 8))
         for l, m in enumerate(hh.a)
     ]
     # a WEll level's R output is the child's vector: 1024-align the child
     # pad too so R can pack as WEll (the extra rows are padding)
     for l in range(1, nl):
         if fmts[l - 1] == "well" and fmts[l] != "dia":
-            pads[l] = _round_up(pads[l], 1024)
+            pads[l] = _round_up(pads[l], D * 1024)
     pad0 = pads[0]
     if E >= 1 and hh.a[0].n_rows >= 65536:
         # amg_tpu rounds the shared embedded pad to its kernel's tiles

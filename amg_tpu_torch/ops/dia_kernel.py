@@ -14,9 +14,17 @@ values ``(nd, pad)``, vectors of length ``pad`` and batches ``X``, ``B`` of
     spmv_multi(a, X)            Y[c] = A X[c]           (values read once for all c)
     resid_multi(a, X, B)        Y[c] = B[c] - A X[c]
     gs_update_multi(a, X, B, w) Y[c] = X[c] + w * (B[c] - A X[c])   (w (pad,))
+    spmv_window(a, XW, lo)      Y[s, i] = sum_d vals[d, s*m + i] * XW[s, lo + i + off_d]
 
 where ``(A x)[i] = sum_d vals[d, i] * x[i + off_d]`` and ``x`` reads 0
-outside ``[0, pad)``.  Supported (values, vectors) dtypes: (f32, f32),
+outside ``[0, pad)``.  ``spmv_window`` is B1's window entry (the port of
+``pallas_dia.py::spmv_window``, ``:495-503``), the local product of a
+row-sharded ring (``amg_tpu_torch.parallel.halo``): ``a`` holds the
+values of ``S`` shards of ``m`` rows as ``(nd, S*m)`` (a view with any row
+stride), ``XW`` is ``(S, lo + m + hi)``, shard ``s``'s haloed window of x
+``[lo left halo | its m rows | hi right halo]`` (windows may overlap in
+memory: any shard stride), and each window reads 0 outside its bounds.
+One launch covers the S shards.  Supported (values, vectors) dtypes: (f32, f32),
 (bf16, f32) and (f64, f64).  With bf16 values, f32 vectors and nd >= 32
 each product takes bf16 operands (x is rounded to bf16) and is accumulated
 in f32, the rule of ``pallas_dia.py:140-141``; the product of two bf16
@@ -46,10 +54,12 @@ from .cuda_build import CudaLibrary
 
 EPILOGUES = ("spmv", "resid", "update")            # B1
 MULTI = ("multi", "multi_resid", "multi_update")   # B4, the same epilogues
+WINDOW = "window"                                  # B1's window entry
 # kernel launches per epilogue (plain-version calls are not counted), and
 # per launch shape: (epilogue, values dtype, vector dtype, nd, pad) for B1,
-# (epilogue, values dtype, vector dtype, nd, pad, k) for B4
-launches = {e: 0 for e in EPILOGUES + MULTI}
+# (epilogue, values dtype, vector dtype, nd, pad, k) for B4 and
+# ("window", values dtype, vector dtype, nd, m, S) for the window entry
+launches = {e: 0 for e in EPILOGUES + MULTI + (WINDOW,)}
 launches_by_shape: dict = {}
 
 # (values dtype, vector dtype) pairs the kernels are instantiated for; the
@@ -132,10 +142,14 @@ def _plan_on(offsets: tuple, device: torch.device):
 def _bind(dll):
     p, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
     # B1: vals, offs, plan, n_segs, n_win, max_span, pad, x, b, w, y,
-    # epilogue; B4: vals, offs, nd, pad, k, x, b, w, y, epilogue
+    # epilogue; B4: vals, offs, nd, pad, k, x, b, w, y, epilogue; the
+    # window entry: vals, offs, plan, n_segs, n_win, max_span, m, S,
+    # vstride, x, xs, lo, hi, y
     single = [p, p, p, i32, i32, i32, i64, p, p, p, p, i32]
     multi = [p, p, i32, i64, i32, p, p, p, p, i32]
-    for prefix, common in (("dia", single), ("dia_multi", multi)):
+    window = [p, p, p, i32, i32, i32, i64, i32, i64, p, i64, i64, i64, p]
+    for prefix, common in (("dia", single), ("dia_multi", multi),
+                           ("dia_window", window)):
         for suffix in ("_f32_f32", "_f64_f64"):
             fn = getattr(dll, prefix + suffix)
             fn.argtypes = common + [p]
@@ -240,6 +254,56 @@ def gs_update_plain(a, x: torch.Tensor, b: torch.Tensor,
     return x + w * (b - _acc_plain(a, x))
 
 
+def _check_window(a, xw, lo: int) -> tuple:
+    """(S, m, hi) of a window launch; raises on what the entry does not
+    take."""
+    vals = a.vals
+    if vals.dim() != 2 or vals.shape[0] != len(a.offsets):
+        raise ValueError(f"Dia values must be (nd, S*m); got "
+                         f"{tuple(vals.shape)} for {len(a.offsets)} offsets")
+    if (vals.dtype, xw.dtype) not in _PAIRS:
+        raise TypeError(f"unsupported (values, vector) dtypes "
+                        f"({vals.dtype}, {xw.dtype})")
+    if xw.dim() != 2 or xw.shape[0] < 1 or vals.shape[1] % xw.shape[0]:
+        raise ValueError(f"windows must be (S, lo + m + hi) with S dividing "
+                         f"the {vals.shape[1]} value columns; got "
+                         f"{tuple(xw.shape)}")
+    n_shards = xw.shape[0]
+    m = vals.shape[1] // n_shards
+    hi = xw.shape[1] - lo - m
+    if lo < 0 or hi < 0:
+        raise ValueError(f"window of {xw.shape[1]} entries cannot hold lo "
+                         f"{lo} + m {m}")
+    if xw.device != vals.device or a.offs.device != vals.device:
+        raise ValueError("values, offsets and windows on different devices")
+    return n_shards, m, hi
+
+
+def spmv_window_plain(a, xw: torch.Tensor, lo: int) -> torch.Tensor:
+    """The window entry's plain version: per shard, the sum in offsets
+    order of :func:`_acc_plain`, over the shard's window (0 outside it)."""
+    n_shards, m, hi = _check_window(a, xw, lo)
+    offs = a.offsets
+    nd = len(offs)
+    # zeros where a diagonal reaches past the window
+    zl = max(-(lo + min(offs)), 0) if offs else 0
+    zh = max(max(offs) - hi, 0) if offs else 0
+    xp = F.pad(xw, (zl, zh))
+    bf16 = bf16_products(nd, a.vals.dtype, xw.dtype)
+    if bf16:
+        xp = xp.to(torch.bfloat16)
+    v = a.vals.reshape(nd, n_shards, m)
+    acc = torch.zeros((n_shards, m), dtype=xw.dtype, device=xw.device)
+    for k, off in enumerate(offs):
+        s0 = zl + lo + off
+        xs = xp[:, s0: s0 + m]
+        if bf16:
+            acc = acc + v[k].to(xw.dtype) * xs.to(xw.dtype)
+        else:
+            acc = acc + v[k].to(xw.dtype) * xs
+    return acc
+
+
 def spmv_multi_plain(a, x: torch.Tensor) -> torch.Tensor:
     """Y = A X for a batch ``X`` of shape ``(k, pad)``: per column, the
     same arithmetic as :func:`spmv_plain`."""
@@ -305,6 +369,41 @@ def _launch(a, x, b, w, epilogue: str) -> torch.Tensor:
     return y
 
 
+def _launch_window(a, xw, lo: int) -> torch.Tensor:
+    """Launch B1's window entry on the current stream; count the launch."""
+    n_shards, m, hi = _check_window(a, xw, lo)
+    vals = a.vals
+    nd = len(a.offsets)
+    if nd > _MAX_DIAGS:
+        raise ValueError(f"{nd} diagonals exceed the kernel's {_MAX_DIAGS}")
+    if vals.stride(1) != 1 or xw.stride(1) != 1:
+        raise ValueError("values and windows must be contiguous along rows")
+    if not a.offs.is_contiguous() or a.offs.dtype != torch.int32 \
+            or a.offs.numel() != nd:
+        raise ValueError("offsets tensor must be contiguous int32 of "
+                         "length nd")
+    lib = _LIB.load()
+    y = torch.empty((n_shards, m), dtype=xw.dtype, device=xw.device)
+    stream = torch.cuda.current_stream(xw.device).cuda_stream
+    segs, n_segs, n_win, max_span = _plan_on(a.offsets, vals.device)
+    name = "dia_window" + _PAIRS[(vals.dtype, xw.dtype)][3:]
+    # x points at row 0 of shard 0's window, past its left halo
+    args = [vals.data_ptr(), a.offs.data_ptr(), segs.data_ptr(), n_segs,
+            n_win, max_span, m, n_shards, vals.stride(0),
+            xw.data_ptr() + lo * xw.element_size(), xw.stride(0), lo, hi,
+            y.data_ptr()]
+    if vals.dtype == torch.bfloat16:
+        args.append(int(bf16_products(nd, vals.dtype, xw.dtype)))
+    err = getattr(lib, name)(*args, stream)
+    if err != 0:
+        raise RuntimeError(f"DIA window kernel launch failed: CUDA error "
+                           f"{err}")
+    key = (WINDOW, vals.dtype, xw.dtype, nd, m, n_shards)
+    launches[WINDOW] += 1
+    launches_by_shape[key] = launches_by_shape.get(key, 0) + 1
+    return y
+
+
 def _is_cuda(a, x) -> bool:
     return x.is_cuda or a.vals.is_cuda
 
@@ -363,3 +462,13 @@ def gs_update_multi(a, x: torch.Tensor, b: torch.Tensor,
         return gs_update_multi_plain(a, x, b, w)
     _check(a, x, b, w, epilogue="multi_update")
     return _launch(a, x, b, w, "multi_update")
+
+
+def spmv_window(a, xw: torch.Tensor, lo: int) -> torch.Tensor:
+    """``Y[s, i] = sum_d vals[d, s*m + i] * xw[s, lo + i + off_d]`` for the
+    ``S = xw.shape[0]`` shards of a ring, each window reading 0 outside
+    itself: one launch of B1's window entry on CUDA tensors, the plain
+    version on CPU tensors.  Returns ``(S, m)``."""
+    if not _is_cuda(a, xw):
+        return spmv_window_plain(a, xw, lo)
+    return _launch_window(a, xw, lo)

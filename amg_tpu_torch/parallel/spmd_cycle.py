@@ -1,0 +1,423 @@
+"""The SPMD V-cycle on a ring of row shards, and its solver.
+
+Port of the embedded mode of ``amg_tpu/parallel/spmd_cycle.py``: for a
+fine-grid-embedded hierarchy, where every hot operator is a Dia stencil
+over level 0's index space,
+
+* levels ``0..E`` are row-sharded (:mod:`.dist`); every operator
+  application is the ring product of :mod:`.halo` (B1's window entry);
+* the embedded -> compact boundary gathers the residual's entries at
+  their global positions (each from the one shard that holds it) and
+  ``psum`` s them, so the compact vector is exact and the same on every
+  process; the correction scatters back the same way;
+* compact levels ``> E`` are replicated: each process runs the
+  single-device cycle (``solve/cycle.py``) on them;
+* dots and norms ``psum`` over the mesh.
+
+``amg_tpu``'s general mode (unstructured hierarchies without embedding,
+WEll and BandedBlocks rings with B2 and B3 per shard) is not ported yet:
+:class:`SpmdAMGSolver` raises where it would run.
+"""
+
+from __future__ import annotations
+
+import time
+
+import numpy as np
+import torch
+
+from ..hierarchy import Hierarchy, setup
+from ..params import AMGParams, SmootherType, SolveInfo
+from ..sparse import Dia, torch_dtype
+from ..ops.blas import norm2
+from ..ops.spmv import spmv
+from ..solve.cycle import _cycle_level
+from ..solve.driver import fcg_host_loop, print_itinfo
+from ..solve.krylov import fcg_init, fcg_step, fcg_refresh
+from ..solve.smoothers import _order, _cg_smooth
+from .dist import Mesh, make_mesh, shard_dia, shard_hierarchy, shard_vector
+from .halo import dia_spmv_ring_local
+from .multihost import fetch
+
+_GENERAL = ("general sharded cycle: not ported yet (amg_tpu runs its "
+            "general SPMD mode here: WEll and BandedBlocks rings; ROADMAP "
+            "queue A item 2)")
+
+
+def num_embedded(mg: Hierarchy) -> int:
+    """Deepest fine-grid-embedded level: the one carrying the boundary
+    (``compact_idx`` / ``member_idx``); 0 when the hierarchy is compact."""
+    for l, lvl in enumerate(mg.levels):
+        if lvl.compact_idx is not None or lvl.member_idx is not None:
+            return l
+    return 0
+
+
+# ---------------------------------------------------------------------------
+# Per-shard building blocks: (S, m) blocks of row-sharded vectors
+# ---------------------------------------------------------------------------
+
+
+def _ring_spmv(a, x, mesh: Mesh):
+    """The ring product of a row-sharded operator.  Dia only: the WEll and
+    BandedBlocks rings belong to the general mode."""
+    if isinstance(a, Dia):
+        return dia_spmv_ring_local(a, x, mesh)
+    raise NotImplementedError(f"ring product of {type(a).__name__}: "
+                              + _GENERAL)
+
+
+def _chebyshev_local(level, x, b, degree, mesh):
+    """Chebyshev smoothing with ring products (the math of
+    ``solve/smoothers.py::_chebyshev``)."""
+    rho = level.rho_dinv_a
+    theta = 0.5 * (rho + rho / 4.0)
+    delta = 0.5 * (rho - rho / 4.0)
+    sigma = theta / delta
+    rho_old = 1.0 / sigma
+
+    r = level.inv_diag * (b - _ring_spmv(level.a, x, mesh))
+    d = r / theta
+    x = x + d
+    for _ in range(max(degree - 1, 0)):
+        rho_new = 1.0 / (2.0 * sigma - rho_old)
+        r = level.inv_diag * (b - _ring_spmv(level.a, x, mesh))
+        d = rho_new * rho_old * d + 2.0 * rho_new / delta * r
+        x = x + d
+        rho_old = rho_new
+    return x
+
+
+def _gs_sweep_local(level, x, b, order, mesh, relax=None):
+    """One masked GS sweep over colour groups with ring products
+    (``spmd_cycle.py:167-177``): per group a ring product, then the group's
+    rows take the exact GS value."""
+    for g in order:
+        ax = _ring_spmv(level.a, x, mesh)
+        t = (b - ax + level.diag * x) * level.inv_diag
+        if relax is not None:
+            t = (1.0 - relax) * x + relax * t
+        upd = (level.gid == g) & (level.inv_diag != 0)
+        x = torch.where(upd, t, x)
+    return x
+
+
+def _smooth_local(level, x, b, pars, nsweeps, pre, mesh):
+    """The whole ``SmootherType`` surface of ``solve/smoothers.py::smooth``
+    on a row-sharded level: every operator application a ring product,
+    every dot a ``psum``."""
+    sm = pars.smoother
+    if sm in (SmootherType.POLY, SmootherType.CHEBYSHEV):
+        return _chebyshev_local(level, x, b, pars.poly_deg, mesh)
+    if sm == SmootherType.CG:
+        return _cg_smooth(level, x, b, nsweeps, psum=mesh.psum,
+                          spmv_fn=lambda v: _ring_spmv(level.a, v, mesh))
+    if sm in (SmootherType.JACOBI, SmootherType.WJACOBI):
+        w = 1.0 if sm == SmootherType.JACOBI else pars.relax
+        for _ in range(nsweeps):
+            x = x + w * level.inv_diag * (b - _ring_spmv(level.a, x, mesh))
+        return x
+    if sm == SmootherType.L1DIAG:
+        for _ in range(nsweeps):
+            x = x + level.l1_inv * (b - _ring_spmv(level.a, x, mesh))
+        return x
+
+    relax = pars.relax
+
+    def sweep(x, order, rlx=None):
+        return _gs_sweep_local(level, x, b, order, mesh, relax=rlx)
+
+    fwd = _order(level, True, 0, True)
+    bwd = _order(level, False, 0, False)
+    own = _order(level, pre, pars.cf_order, pre)
+    for _ in range(nsweeps):
+        if sm == SmootherType.GS:
+            x = sweep(x, own)
+        elif sm == SmootherType.SOR:
+            x = sweep(x, own, relax)
+        elif sm == SmootherType.SGS:
+            x = sweep(sweep(x, fwd), bwd)
+        elif sm == SmootherType.SSOR:
+            x = sweep(sweep(x, fwd, relax), bwd, relax)
+        elif sm == SmootherType.GSOR:
+            x = sweep(sweep(x, own), own, relax)
+        elif sm == SmootherType.SGSOR:
+            x = sweep(sweep(x, fwd), bwd)
+            x = sweep(sweep(x, fwd, relax), bwd, relax)
+        else:
+            raise ValueError(f"unsupported smoother {sm}")
+    return x
+
+
+def _owned(idx, x, mesh):
+    """(positions in this process's flattened block, mask) of the global
+    positions ``idx``: the mask marks those this process holds; the
+    others are clamped into range and masked out."""
+    n_local = x.shape[0] * x.shape[1]
+    loc = idx - mesh.first * x.shape[1]
+    inr = (loc >= 0) & (loc < n_local)
+    return loc.clamp(0, n_local - 1), inr
+
+
+def _gather_global(v, idx, mesh):
+    """``v[idx]`` of a row-sharded ``v`` at global positions ``idx``, on
+    every process: each entry from the shard that holds it, zeros from the
+    others, summed over the mesh (one owner each, so exact)."""
+    loc, inr = _owned(idx, v, mesh)
+    part = torch.where(inr, v.reshape(-1)[loc], torch.zeros((), dtype=v.dtype,
+                                                           device=v.device))
+    return mesh.psum(part[None])
+
+
+def _scatter_add_global(x, idx, src, mesh):
+    """``x`` with ``src`` added at the global positions ``idx`` it holds."""
+    loc, inr = _owned(idx, x, mesh)
+    add = torch.where(inr, src.to(x.dtype), torch.zeros((), dtype=x.dtype,
+                                                        device=x.device))
+    return x.reshape(-1).index_add(0, loc, add).reshape(x.shape)
+
+
+def _cycle_local(mg, l, x, b, pars, ctol, E, mesh):
+    """One V/W-cycle on the sharded embedded levels, the replicated
+    compact recursion below the boundary (``spmd_cycle.py:234-310``, in the
+    order of the single-device ``solve/cycle.py``)."""
+    level = mg.levels[l]
+    repeats = 1 if l == 0 else max(pars.cycle_type, 1)
+    pars_l = pars if (l == 0 or pars.coarse_smoother is None) \
+        else pars.replace(smoother=pars.coarse_smoother)
+    if pars.poly_deg_schedule is not None:
+        sched = pars.poly_deg_schedule
+        pars_l = pars_l.replace(poly_deg=sched[min(l, len(sched) - 1)])
+
+    for _ in range(repeats):
+        x = _smooth_local(level, x, b, pars_l, pars.pre_iter, True, mesh)
+        r = b - _ring_spmv(level.a, x, mesh)
+        if l < E:
+            bc = _ring_spmv(level.r, r, mesh)
+            xc = _cycle_local(mg, l + 1, torch.zeros_like(bc), bc, pars,
+                              ctol, E, mesh)
+            x = x + _ring_spmv(level.p, xc, mesh)
+        elif level.member_idx is not None:
+            # compact boundary: this level's rows gathered from their
+            # embedded positions, the compact Ell R, the replicated
+            # correction, the compact P, added back at the same positions
+            midx = level.member_idx
+            rc = r.new_zeros(level.p.padded_rows)
+            rc[: midx.shape[0]] = _gather_global(r, midx, mesh)
+            bc = spmv(level.r, rc)
+            xc = _cycle_level(mg, l + 1, torch.zeros_like(bc), bc, pars,
+                              ctol)
+            xe = spmv(level.p, xc)[: midx.shape[0]]
+            x = _scatter_add_global(x, midx, xe, mesh)
+        else:
+            # embedded boundary: the embedded R, the next level's rows
+            # gathered from their embedded positions, the replicated
+            # correction scattered back, the embedded P
+            cidx = level.compact_idx
+            rr = _ring_spmv(level.r, r, mesh)
+            bc = rr.new_zeros(mg.levels[l + 1].pad)
+            bc[: cidx.shape[0]] = _gather_global(rr, cidx, mesh)
+            xc = _cycle_level(mg, l + 1, torch.zeros_like(bc), bc, pars,
+                              ctol)
+            xe = _scatter_add_global(torch.zeros_like(x), cidx,
+                                     xc[: cidx.shape[0]], mesh)
+            x = x + _ring_spmv(level.p, xe, mesh)
+        x = _smooth_local(level, x, b, pars_l, pars.post_iter, False, mesh)
+    return x
+
+
+def cycle_spmd(mg, x, b, pars, E, mesh):
+    """One cycle on the sharded level-0 block ``(S, m)``."""
+    if E < 1:
+        raise ValueError("the SPMD cycle needs an embedded hierarchy "
+                         "(E >= 1)")
+    ctol = min(pars.ctol, pars.tol * 0.1) if pars.ctol > pars.tol \
+        else pars.ctol
+    return _cycle_local(mg, 0, x, b, pars, ctol, E, mesh)
+
+
+# ---------------------------------------------------------------------------
+# Driver
+# ---------------------------------------------------------------------------
+
+
+class SpmdAMGSolver:
+    """AMG on a ring of row shards (``amg_tpu``'s ``SpmdAMGSolver``,
+    embedded mode).
+
+    Setup runs on the host as for :class:`~amg_tpu_torch.AMGSolver`, with
+    ``dist_devices`` set to the mesh's shard count (pads that split into
+    the shards) and ``embed_levels`` 8 where it is "auto" (-1); levels
+    ``0..E`` are row-sharded over the mesh, the rest replicated.  The
+    mesh defaults to one shard per process on the card; pass
+    ``mesh=make_mesh(D, device="cpu")`` for the CPU.
+    """
+
+    def __init__(self, a, pars: AMGParams = AMGParams(),
+                 mesh: Mesh | None = None, log=print):
+        self.mesh = mesh if mesh is not None else make_mesh()
+        self.ndev = self.mesh.n_shards
+        self.a = a
+        self.log = log
+        if pars.embed_levels < 0:
+            # this solver is the embedded hierarchy's distribution path
+            pars = pars.replace(embed_levels=8)
+        if pars.dist_devices != self.ndev:
+            pars = pars.replace(dist_devices=self.ndev)
+        self.pars = pars
+        if self.mesh.device.type == "cuda":
+            torch.backends.cuda.matmul.allow_tf32 = False
+        mg, hh = setup(a, pars, log=log, device=self.mesh.device)
+        self.host_hierarchy = hh
+        # level-0 permutation (a WEll level 0): b/x0 map in, x maps back
+        hp = hh.perms
+        self._perm0 = hp[0] if hp is not None else None
+        self._iperm0 = None
+        if self._perm0 is not None:
+            self._iperm0 = np.empty_like(self._perm0)
+            self._iperm0[self._perm0] = np.arange(len(self._perm0))
+        self.E = num_embedded(mg)
+        if self.E == 0:
+            raise NotImplementedError(_GENERAL)
+        self.pad = mg.levels[0].pad
+        if self.pad % self.ndev != 0:
+            raise ValueError(f"padded rows {self.pad} not divisible by mesh "
+                             f"size {self.ndev}")
+        self.m_local = self.pad // self.ndev
+        self.mg = shard_hierarchy(mg, self.mesh, pars,
+                                  replicate_from_level=self.E + 1)
+        self.dtype = torch_dtype(pars.dtype)
+        if pars.verbose:
+            log(f"{self.mesh.describe()}; levels 0..{self.E} row-sharded, "
+                f"{self.m_local} rows per shard")
+        # FCG (accel "cg"): f64 outer iteration against the exact
+        # row-sharded level-0 operator when refining
+        self.a0_hi = None
+        self._accel_dtype = self.dtype
+        if pars.accel == "cg" and pars.refine \
+                and self.dtype != torch.float64:
+            self.a0_hi = shard_dia(Dia.from_csr(
+                hh.a[0], dtype=torch.float64, pad_rows_to=self.pad,
+                device=self.mesh.device), self.mesh)
+            self._accel_dtype = torch.float64
+
+    # -- device pieces ---------------------------------------------------
+
+    def _step(self, x, b):
+        """One cycle and the norm of the new residual."""
+        x = cycle_spmd(self.mg, x, b, self.pars, self.E, self.mesh)
+        r = b - _ring_spmv(self.mg.levels[0].a, x, self.mesh)
+        return x, norm2(r, self.mesh.psum)
+
+    def _amul(self, v):
+        a_op = self.a0_hi if self.a0_hi is not None else self.mg.levels[0].a
+        return _ring_spmv(a_op, v, self.mesh)
+
+    def _prec(self, r):
+        """One cycle in the solve dtype on the scaled residual."""
+        rn = norm2(r, self.mesh.psum)
+        scale = torch.where(rn > 0, rn, torch.ones_like(rn))
+        r_lo = (r / scale).to(self.dtype)
+        e = cycle_spmd(self.mg, torch.zeros_like(r_lo), r_lo, self.pars,
+                       self.E, self.mesh)
+        return e.to(self._accel_dtype) * scale
+
+    def _shard(self, v, dtype):
+        """A host vector in the caller's ordering -> this process's padded
+        ``(S, m)`` block."""
+        n = self.a.n_rows
+        v = np.asarray(v, dtype=np.float64)[:n]
+        if self._perm0 is not None:
+            v = v[self._perm0]
+        return shard_vector(v, self.mesh, pad_to=self.pad, dtype=dtype)
+
+    def _unshard(self, xd):
+        x = fetch(xd, self.mesh)[: self.a.n_rows]
+        return x[self._iperm0] if self._iperm0 is not None else x
+
+    # -- solves ------------------------------------------------------------
+
+    def solve(self, b, x0=None):
+        """Host loop over SPMD cycles (``AMGSolver.solve``'s stopping
+        rules); runs :meth:`solve_pcg` when ``pars.accel == "cg"``."""
+        pars = self.pars
+        if pars.accel == "cg":
+            return self.solve_pcg(b, x0)
+        if pars.accel != "none":
+            raise NotImplementedError(f"accel={pars.accel!r} on the SPMD "
+                                      "solver (amg_tpu has none either)")
+        n = self.a.n_rows
+        bd = self._shard(b, self.dtype)
+        xd = self._shard(x0 if x0 is not None else np.zeros(n), self.dtype)
+        info = SolveInfo()
+        sumb = float(norm2(bd, self.mesh.psum))
+        t0 = time.perf_counter()
+        if pars.verbose:
+            print_itinfo(pars.stop_type, 0, 1.0, sumb, 0.0, log=self.log)
+        if sumb == 0.0:
+            return np.zeros(n), info
+        absres0 = sumb
+        # quiet mode reads the residuals in batches of 4
+        check_every = 1 if pars.verbose else 4
+        pending: list = []
+        stop = False
+        for it in range(1, pars.max_it + 1):
+            xd, absres_d = self._step(xd, bd)
+            pending.append((it, xd, absres_d))
+            if len(pending) < check_every and it != pars.max_it:
+                continue
+            vals = torch.stack([r for _, _, r in pending]).cpu().numpy()
+            for (it_i, x_i, _), absres in zip(pending, vals):
+                absres = float(absres)
+                relres = absres / sumb
+                factor = absres / absres0 if absres0 > 0 else 0.0
+                absres0 = absres
+                if pars.verbose:
+                    print_itinfo(pars.stop_type, it_i, relres, absres,
+                                 factor, log=self.log)
+                if not np.isfinite(absres):
+                    stop = True
+                    break
+                info.ares, info.rres, info.nits = absres, relres, it_i
+                info.residuals.append(absres)
+                xd = x_i
+                if relres < pars.tol:
+                    stop = True
+                    break
+            pending = []
+            if stop:
+                break
+        info.solve_seconds = time.perf_counter() - t0
+        info.setup_seconds = self.host_hierarchy.setup_seconds
+        return self._unshard(xd), info
+
+    def solve_pcg(self, b, x0=None):
+        """Flexible CG preconditioned by one SPMD cycle: ``psum`` dots, and
+        in f64 against the row-sharded f64 level-0 operator when
+        ``pars.refine`` (``amg_tpu``'s robust multi-chip mode)."""
+        pars = self.pars
+        n = self.a.n_rows
+        adt = self._accel_dtype
+        bd = self._shard(b, adt)
+        xd = self._shard(x0 if x0 is not None else np.zeros(n), adt)
+        psum = self.mesh.psum
+        info = SolveInfo()
+        sumb = float(norm2(bd, psum))
+        t0 = time.perf_counter()
+        if pars.verbose:
+            print_itinfo(pars.stop_type, 0, 1.0, sumb, 0.0, log=self.log)
+        if sumb == 0.0:
+            return np.zeros(n), info
+        st = fcg_init(self._amul, self._prec, bd, xd, psum)
+        absres0 = float(norm2(st[1], psum))
+        info.residuals.append(absres0)
+        xd = fcg_host_loop(
+            pars, sumb, st, absres0,
+            step=lambda s: fcg_step(self._amul, self._prec, s, psum),
+            refresh=lambda s: fcg_refresh(self._amul, self._prec, bd, s,
+                                          psum),
+            truenorm=lambda x: norm2(bd - self._amul(x), psum),
+            info=info, log=self.log)
+        info.solve_seconds = time.perf_counter() - t0
+        info.setup_seconds = self.host_hierarchy.setup_seconds
+        return self._unshard(xd), info

@@ -34,8 +34,8 @@ only between blocks of iterations:
 
 ``counts`` adds up, over every call, the host reads (``syncs``), the
 solves and iterations of ``cg`` and ``gmres``, and the ``cg`` solves that
-did not converge.  Single-device: the cross-device reductions of
-``amg_tpu`` (``axis_name``) come with distribution.
+did not converge.  The FCG steps take ``psum`` for row-sharded vectors
+(``amg_tpu``'s ``axis_name``); ``cg`` and ``gmres`` run on one device.
 """
 
 from __future__ import annotations
@@ -251,15 +251,17 @@ def cg(a, b, x0, tol=1e-7, maxit=250, M=None, stop_type=None,
     return x, converged
 
 
-def fcg_init(amul, prec, b, x0):
-    """Initial state for flexible CG: ``(x, r, z, p, rho)``."""
+def fcg_init(amul, prec, b, x0, psum=None):
+    """Initial state for flexible CG: ``(x, r, z, p, rho)``.  ``psum``
+    (row-sharded vectors): the mesh's sum of per-shard partials, for every
+    dot and norm, as ``amg_tpu``'s ``axis_name``."""
     r0 = b - amul(x0)
     z0 = prec(r0)
-    rho0 = dot(z0, r0)
+    rho0 = dot(z0, r0, psum)
     return (x0, r0, z0, z0, rho0)
 
 
-def fcg_step(amul, prec, state):
+def fcg_step(amul, prec, state, psum=None):
     """One flexible-CG iteration.
 
     Flexible CG tolerates a variable preconditioner (one low-precision AMG
@@ -269,19 +271,19 @@ def fcg_step(amul, prec, state):
     """
     x, r, z, p, rho = state
     q = amul(p)
-    alpha = _safe_div(dot(p, r), dot(p, q))
+    alpha = _safe_div(dot(p, r, psum), dot(p, q, psum))
     x = x + alpha * p
     r_new = r - alpha * q
     z_new = prec(r_new)
-    rho_new = dot(z_new, r_new)
+    rho_new = dot(z_new, r_new, psum)
     # <z_new, r_new - r_old>
-    rho_pr = rho_new - dot(z_new, r)
+    rho_pr = rho_new - dot(z_new, r, psum)
     beta = _safe_div(rho_pr, rho)
     p = z_new + beta * p
-    return (x, r_new, z_new, p, rho_new), norm2(r_new)
+    return (x, r_new, z_new, p, rho_new), norm2(r_new, psum)
 
 
-def fcg_refresh(amul, prec, b, state):
+def fcg_refresh(amul, prec, b, state, psum=None):
     """Residual replacement: recompute ``r = b - A x`` from scratch.
 
     The recurrence's residual drifts from the true one by accumulated
@@ -293,8 +295,8 @@ def fcg_refresh(amul, prec, b, state):
     x, r, z, p, rho = state
     r = b - amul(x)
     z = prec(r)
-    rho = dot(z, r)
-    return (x, r, z, p, rho), norm2(r)
+    rho = dot(z, r, psum)
+    return (x, r, z, p, rho), norm2(r, psum)
 
 
 def fcg(a, b, x0, tol=1e-7, maxit=100, M=None):

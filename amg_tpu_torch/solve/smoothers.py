@@ -232,27 +232,30 @@ def _chebyshev(level, x, b, degree):
     return x
 
 
-def _cg_smooth(level, x, b, nsweeps):
+def _cg_smooth(level, x, b, nsweeps, psum=None, spmv_fn=None):
     """Krylov smoothing: ``nsweeps`` steps of Jacobi-preconditioned CG on
     A x = b from the incoming iterate (``SSS_SM_CG``, reference enum
     amg/SSS_main.h:133-145 — declared there, dead in its dispatch).
 
     Fixed iteration count, no convergence test.  CG smoothing is a
     *nonlinear* operation, so an outer Krylov wrap (if any) should be
-    flexible (FCG / FGMRES).
+    flexible (FCG / FGMRES).  The sharded cycle passes its ring product as
+    ``spmv_fn`` and the mesh's ``psum`` for the dots (``amg_tpu``'s
+    ``spmv_fn`` and ``axis_name``).
     """
     eps = 1e-30
-    r = b - spmv(level.a, x)
+    amul = spmv_fn if spmv_fn is not None else (lambda v: spmv(level.a, v))
+    r = b - amul(x)
     z = level.inv_diag * r
     p = z
-    rz = dot(r, z)
+    rz = dot(r, z, psum)
     for _ in range(nsweeps):
-        ap = spmv(level.a, p)
-        alpha = rz / (dot(p, ap) + eps)
+        ap = amul(p)
+        alpha = rz / (dot(p, ap, psum) + eps)
         x = x + alpha * p
         r = r - alpha * ap
         z = level.inv_diag * r
-        rz_new = dot(r, z)
+        rz_new = dot(r, z, psum)
         p = z + (rz_new / (rz + eps)) * p
         rz = rz_new
     return x

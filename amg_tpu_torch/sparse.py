@@ -777,6 +777,10 @@ class WEll:
     pad_cols: int         # x padding the windows were clamped against
     vals_lo: Optional[torch.Tensor] = None
     rows: Optional[RowSlices] = None
+    # ring-halo widths (lo128, hi128), in 128-column units, for a
+    # row-group-sharded apply on a D-shard ring: set at pack time when the
+    # pack is headed for one (``ring_devices``), as amg_tpu sets it
+    ring_plan: Optional[Tuple[int, int]] = None
     classes: dataclasses.InitVar[Optional[torch.Tensor]] = None
     device: dataclasses.InitVar[Optional[object]] = None
 
@@ -806,6 +810,45 @@ class WEll:
     @property
     def n_slots(self) -> int:
         return self.vals.shape[1]
+
+    @staticmethod
+    def ring_plan_host(base: np.ndarray, active: np.ndarray, n_shards: int,
+                       in_m128: int) -> Tuple[int, int]:
+        """Halo widths ``(lo128, hi128)`` for a row-group-sharded apply
+        (``amg_tpu/sparse.py::WEll.ring_plan_host``): shard ``s`` owns row
+        groups ``[s*gps, (s+1)*gps)`` and the input block of ``in_m128``
+        128-column units, and every slot holding an entry (``active``,
+        ``(ngroups, S)``) must read inside ``[s*in_m128 - lo, (s+1)*in_m128
+        + hi)``.  Empty slots keep base 0 and are ignored."""
+        ngroups = base.shape[0]
+        if ngroups % n_shards != 0:
+            raise ValueError(
+                f"ngroups {ngroups} not divisible by {n_shards}")
+        gps = ngroups // n_shards
+        lo = hi = 0
+        for s in range(n_shards):
+            act = active[s * gps:(s + 1) * gps]
+            if not act.any():
+                continue
+            bs = base[s * gps:(s + 1) * gps][act]
+            lo = max(lo, s * in_m128 - int(bs.min()))
+            hi = max(hi, int(bs.max()) + 8 - (s + 1) * in_m128)
+        return max(lo, 0), max(hi, 0)
+
+    @staticmethod
+    def _plan(base: np.ndarray, vals: torch.Tensor, pc: int,
+              ring_devices) -> Optional[Tuple[int, int]]:
+        """``ring_plan`` of a pack headed for a ``ring_devices``-shard ring
+        (None for fewer than 2 shards, or shapes that do not divide);
+        ``vals`` in the stored dtype, as amg_tpu tests its own."""
+        if not ring_devices or ring_devices < 2:
+            return None
+        if base.shape[0] % ring_devices or pc % (128 * ring_devices):
+            return None
+        active = vals.reshape(base.shape[0], base.shape[1], -1).ne(0) \
+            .any(dim=2).numpy()
+        return WEll.ring_plan_host(base, active, ring_devices,
+                                   pc // 128 // ring_devices)
 
     @staticmethod
     def _pack_greedy_py(a: CSR, pad_cols: int):
@@ -908,22 +951,27 @@ class WEll:
     @staticmethod
     def from_csr(a: CSR, dtype=torch.float32, pad_rows_to: int | None = None,
                  pad_cols_to: int | None = None, device="cpu",
-                 classes: Optional[torch.Tensor] = None) -> "WEll":
+                 classes: Optional[torch.Tensor] = None,
+                 ring_devices: int | None = None) -> "WEll":
         """Pack a host CSR (values rounded from f64 to ``dtype``);
-        ``classes`` groups the derived layout's rows by GS class."""
+        ``classes`` groups the derived layout's rows by GS class;
+        ``ring_devices`` (D > 1) sets ``ring_plan`` for a D-shard ring."""
         vals, loc, base = WEll.pack_host(a, dtype=np.float64,
                                          pad_rows_to=pad_rows_to,
                                          pad_cols_to=pad_cols_to)
         _, pc = WEll._pads(a, pad_rows_to, pad_cols_to)
-        return WEll(_to_device(vals, dtype, "cpu"), torch.from_numpy(loc),
-                    torch.from_numpy(base), a.shape, a.nnz, pc,
+        vt = _to_device(vals, dtype, "cpu")
+        return WEll(vt, torch.from_numpy(loc), torch.from_numpy(base),
+                    a.shape, a.nnz, pc,
+                    ring_plan=WEll._plan(base, vt, pc, ring_devices),
                     classes=classes, device=device)
 
     @staticmethod
     def from_csr_df64(a: CSR, pad_rows_to: int | None = None,
                       pad_cols_to: int | None = None,
                       device="cpu",
-                      classes: Optional[torch.Tensor] = None) -> "WEll":
+                      classes: Optional[torch.Tensor] = None,
+                      ring_devices: int | None = None) -> "WEll":
         """Pack with the operator split into non-overlapping f32 planes
         (``vals = f32(v)``, ``vals_lo = f32(v - vals)``)."""
         vals64, loc, base = WEll.pack_host(a, dtype=np.float64,
@@ -934,8 +982,10 @@ class WEll:
         _, pc = WEll._pads(a, pad_rows_to, pad_cols_to)
         return WEll(torch.from_numpy(hi), torch.from_numpy(loc),
                     torch.from_numpy(base), a.shape, a.nnz, pc,
-                    vals_lo=torch.from_numpy(lo), classes=classes,
-                    device=device)
+                    vals_lo=torch.from_numpy(lo),
+                    ring_plan=WEll._plan(base, torch.from_numpy(vals64), pc,
+                                         ring_devices),
+                    classes=classes, device=device)
 
     @staticmethod
     def from_numpy(vals, loc, base, shape, nnz: int, pad_cols: int,

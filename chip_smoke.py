@@ -99,7 +99,20 @@ Phases (any failure raises and the script exits nonzero):
    to 1e-6 through B4 (one batched CG per coarsest solve, GMRES per failed
    column), every column checked on the host, per-column coarsest
    statuses logged; kernel against plain at every launch shape of both
-   solves.
+   solves;
+18. the SPMD solve on a ring of row shards: poisson3d(100) in
+   bench_dist.py's spmd-cg mode (f32 cycles, FCG in f64, Chebyshev below
+   level 0, bf16 coarse operators; ``embed_levels`` 8) with
+   ``SpmdAMGSolver`` on ``make_mesh(4)``: 4 shards of 256,000 rows on the
+   one card, solved to a host-checked 1e-8 in FCG iterations within 1 of
+   the single-device ``solve_pcg`` of the same parameters; B1's window
+   entry launched on every sharded operator (A, P and R of the embedded
+   levels, the f64 level-0 operator) and no single-device B1 launch on a
+   sharded level; the window entry against its plain version at every
+   launch shape, timed beside the whole ring product, the single-device
+   B1 product of the same operator, the torch sparse CSR product and its
+   bound; then the same solve inside a one-rank NCCL process group
+   (``multihost.initialize``): the same iterations and x bit for bit.
 
 Each kernel result carries its bound: the larger of the bytes it must
 move (each input read once, each output written once) over the H100's
@@ -108,7 +121,7 @@ f32, 34 TFLOP/s f64, NVIDIA's H100 SXM data sheet).  The last three lines
 of standard output are the card's name and power limit as nvidia-smi
 gives them, one JSON object describing the kernels (one entry per
 epilogue and operator of phases 6 and 9, per launch shape of phase 11,
-and per launch shape and operator of phases 13-17, each with its
+and per launch shape and operator of phases 13-18, each with its
 main-path launch count) and one with the device.  Imports
 torch, numpy, scipy and amg_tpu_torch only.
 """
@@ -1328,14 +1341,16 @@ def phase_embedded(a):
     against plain on every embedded operator and epilogue the solve
     launched; ``solve_batched`` on 16 columns through B4 (checked against
     plain at those shapes); one solve with ``embed_boundary="compact"``
-    (the member_idx path).  Returns the B1 and B4 rows."""
+    (the member_idx path).  Returns the B1 and B4 rows and the solve's B1
+    launches and cycles."""
     import amg_tpu_torch as amg
     from amg_tpu_torch.ops import dia_kernel as D, well_kernel as W
 
     pars = structured_pars(amg).replace(use_well="auto", use_banded="auto",
                                         embed_levels=8)
     b = np.ones(a.n_rows)
-    solver, dia, well, _ = _auto_solver(a, pars, "embed", b)
+    solver, dia, well, summary = _auto_solver(a, pars, "embed", b)
+    emb_summary = dict(b1=sum(dia.values()), cycles=summary["nits"])
     fmts = _formats(solver)
     E, boundary = _embedded_depth(solver)
     check((E, boundary) == (2, "embedded"), f"embedding {(E, boundary)}")
@@ -1387,7 +1402,7 @@ def phase_embedded(a):
     E, boundary = _embedded_depth(cmp)
     check(boundary == "compact" and E >= 1, f"compact boundary {(E, boundary)}")
     del cmp
-    return dia_rows, multi_rows
+    return dia_rows, multi_rows, emb_summary
 
 
 def phase_fem_auto(a, old, old_summary):
@@ -1649,11 +1664,253 @@ def phase_krylov_coarsest(a, hh, auto_summary):
     return dia_rows, well_rows, multi_rows
 
 
-def _kernel_entries(dia_rows, well_rows, multi_rows=()):
+# ---------------------------------------------------------------------------
+# 18. the SPMD solve on a ring of row shards
+# ---------------------------------------------------------------------------
+
+
+SPMD_SHARDS = 4            # row shards on the one card
+
+
+def spmd_pars(amg):
+    """bench_dist.py's production mode ``spmd-cg`` for poisson3d
+    (bench_dist.py:136-145): f32 cycles, FCG in f64 against the exact
+    row-sharded level-0 operator, Chebyshev below level 0, bf16 coarse
+    operators, WEll on "auto" from 65,536 rows."""
+    return amg.AMGParams(
+        tol=1e-8, dtype="float32", refine=True, verbose=0,
+        coarse_smoother=amg.SmootherType.CHEBYSHEV,
+        coarse_op_dtype="bfloat16", use_well="auto", well_min_rows=65536,
+        accel="cg")
+
+
+def _sharded_ops(solver):
+    """(tag, sharded Dia operator) of every operator of the ring: A, P and
+    R of the sharded levels 0..E and the f64 level-0 operator of FCG."""
+    ops = []
+    for l in range(solver.E + 1):
+        for name in ("a", "p", "r"):
+            op = getattr(solver.mg.levels[l], name)
+            if op is not None:
+                ops.append((f"{name.upper()}{l}", op))
+    if solver.a0_hi is not None:
+        ops.append(("a0_hi", solver.a0_hi))
+    return ops
+
+
+def _compare_window(tag, op, mesh, g, flush):
+    """B1's window entry against its plain version on one sharded operator,
+    on random x shards haloed by the ring (``halo.ring_windows``), held to
+    TOL of max|Ax|; timed beside the whole ring product (windows and
+    launch), the single-device B1 ``spmv`` of the same operator and the
+    fastest torch sparse CSR product of its nonzero entries over the
+    shards' rows (int64 or int32 indices).  Returns one result row."""
+    from amg_tpu_torch.ops import dia_kernel as K
+    from amg_tpu_torch.parallel import halo
+
+    nd, cols = op.vals.shape
+    S = mesh.local
+    m = cols // S
+    vdt = op.vals.dtype
+    xdt = torch.float64 if vdt == torch.float64 else torch.float32
+    x = torch.randn(S, m, generator=g, dtype=xdt).cuda()
+    lo, hi = halo.dia_halo_widths(op.offsets)
+    xw, lo_w = halo.ring_windows(x, lo, hi, mesh)
+    want = K.spmv_window_plain(op, xw, lo_w)
+    got = K.spmv_window(op, xw, lo_w)
+    torch.cuda.synchronize()
+    check(got.dtype == xdt and got.shape == (S, m),
+          f"{tag}: window output {got.dtype} {tuple(got.shape)}")
+    scale = want.abs().max().item()
+    err = (got - want).abs().max().item()
+    ok = err <= TOL[vdt] * scale
+    ms = _time_ms(lambda: K.spmv_window(op, xw, lo_w), flush)
+    plain_ms = _time_ms(lambda: K.spmv_window_plain(op, xw, lo_w), flush)
+    ring_ms = _time_ms(lambda: halo.dia_spmv_ring_local(op, x, mesh), flush)
+    xg = x.reshape(-1)
+    single_ms = _time_ms(lambda: K.spmv(op, xg), flush)
+    lib = _dia_csr_on_card(op, xdt)
+    lib_ms = min(_time_ms(lambda v=v: v @ xg, flush)
+                 for v in (lib, _int32_csr(lib)))
+    del lib
+    # values once, the haloed x once, y written once
+    nbytes = nd * cols * op.vals.element_size() \
+        + (lo + cols + hi + cols) * x.element_size()
+    bound_ms, bound_by = _bound(nbytes, 2 * nd * cols, xdt)
+    row = dict(op=tag, nd=nd, m=m, S=S, lo=lo, hi=hi, vals=str(vdt)[6:],
+               x=str(xdt)[6:], max_abs_err=err, rel_err=err / scale,
+               tol=TOL[vdt], ok=ok, ms=ms, plain_ms=plain_ms,
+               ring_ms=ring_ms, single_ms=single_ms, lib_ms=lib_ms,
+               bound_ms=bound_ms, bound_by=bound_by, bytes=nbytes,
+               gbps=nbytes / ms / 1e6)
+    log(f"[spmd] {tag:6s} nd={nd:3d} m={m} S={S} lo={lo} hi={hi} "
+        f"{row['vals']:8s}/{row['x']:7s} err {err:.3e} (rel "
+        f"{err / scale:.2e} <= {TOL[vdt]:g}: {ok})  window {ms:.4f} ms "
+        f"{row['gbps']:.1f} GB/s, ring product {ring_ms:.4f} ms; "
+        f"single-device B1 {single_ms:.4f} ms; torch CSR {lib_ms:.4f} ms; "
+        f"bound {bound_ms:.4f} ms ({bound_by}); plain {plain_ms:.4f} ms")
+    return row
+
+
+def _spmd_solver(a, pars, mesh, b):
+    """An SpmdAMGSolver on ``mesh`` (counts reset just before), solved
+    cold and warm.  Returns the solver, the cold solution and info, the
+    window launches by shape, the ring and collective counts, and the
+    setup seconds, device MiB and warm solve seconds."""
+    from amg_tpu_torch.ops import dia_kernel as D
+    from amg_tpu_torch.parallel import SpmdAMGSolver, dist as pdist, halo
+
+    _reset_counts()
+    for c in (halo.counts, pdist.counts):
+        for k in c:
+            c[k] = 0
+    mem0 = torch.cuda.memory_allocated()
+    t0 = time.perf_counter()
+    solver = SpmdAMGSolver(a, pars, mesh=mesh, log=lambda *_: None)
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+    mib = (torch.cuda.memory_allocated() - mem0) / 2**20
+    x, info = solver.solve(b)
+    torch.cuda.synchronize()
+    by_shape = dict(D.launches_by_shape)
+    counts = dict(halo.counts, **pdist.counts)
+    _, info2 = solver.solve(b)
+    torch.cuda.synchronize()
+    return solver, x, info, by_shape, counts, dict(
+        setup_s=setup_s, mib=mib, warm_s=info2.solve_seconds)
+
+
+def phase_spmd(a, emb_summary):
+    """18. poisson3d(100) in bench_dist.py's spmd-cg mode on a ring of 4
+    row shards on the card, then inside a one-rank NCCL process group.
+    Returns the window entry's rows."""
+    import socket
+    import torch.distributed as tdist
+    import amg_tpu_torch as amg
+    from amg_tpu_torch.ops import dia_kernel as D
+    from amg_tpu_torch.parallel import halo, make_mesh, multihost
+
+    pars = spmd_pars(amg)
+    b = np.ones(a.n_rows)
+    # the single-device reference: solve_pcg, same parameters, embedded
+    _reset_counts()
+    t0 = time.perf_counter()
+    single = amg.AMGSolver(a, pars.replace(embed_levels=8), device="cuda",
+                           log=lambda *_: None)
+    torch.cuda.synchronize()
+    single_setup_s = time.perf_counter() - t0
+    x1, i1 = single.solve(b)
+    torch.cuda.synchronize()
+    single_b1 = sum(n for k, n in D.launches_by_shape.items()
+                    if k[0] in D.EPILOGUES)
+    log(f"[spmd] single-device solve_pcg (embed_levels=8): setup "
+        f"{single_setup_s:.2f} s, {i1.nits} FCG its, rres {i1.rres:.3e}, "
+        f"solve {i1.solve_seconds:.4f} s, B1 launches {single_b1} "
+        f"({single_b1 / max(i1.nits, 1):.1f} per FCG iteration; phase 14's "
+        f"solve_refined: {emb_summary['b1']} in {emb_summary['cycles']} "
+        f"cycles)")
+    del single
+
+    mesh = make_mesh(SPMD_SHARDS, device="cuda")
+    check(mesh.device.type == "cuda" and mesh.world == 1
+          and mesh.local == SPMD_SHARDS, f"mesh {mesh}")
+    solver, x, info, by_shape, counts, summ = _spmd_solver(a, pars, mesh, b)
+    log(f"[spmd] {mesh.describe()}; pad {solver.pad} = {SPMD_SHARDS} x "
+        f"{solver.m_local} rows; E = {solver.E}")
+    for l, lv in enumerate(solver.mg.levels):
+        desc = [f"{type(lv.a).__name__} {str(lv.a.vals.dtype)[6:]}"]
+        if l <= solver.E:
+            desc.append("row-sharded")
+        log(f"[spmd] level {l}: {lv.n} rows, {', '.join(desc)}")
+    m = solver.m_local
+    for tag, op in _sharded_ops(solver):
+        lo, hi = halo.dia_halo_widths(op.offsets)
+        log(f"[spmd] {tag}: nd={op.n_diags} {str(op.vals.dtype)[6:]}, halo "
+            f"lo {lo} hi {hi} ({-(-lo // m)} / {-(-hi // m)} hop(s))")
+    true_rel = float(np.linalg.norm(b - a.matvec(x.astype(np.float64)))
+                     / np.linalg.norm(b))
+    gap = float(np.linalg.norm(x - x1) / np.linalg.norm(x1))
+    its = max(info.nits, 1)
+    windows = sum(n for k, n in by_shape.items() if k[0] == D.WINDOW)
+    log(f"[spmd] setup {summ['setup_s']:.2f} s (single-device "
+        f"{single_setup_s:.2f}), device memory held after setup "
+        f"{summ['mib']:.1f} MiB, cold solve {info.solve_seconds:.4f} s, warm "
+        f"{summ['warm_s']:.4f} s (single-device {i1.solve_seconds:.4f}), "
+        f"{info.nits} FCG its (single-device {i1.nits}), rres "
+        f"{info.rres:.3e}, true rres (host f64) {true_rel:.3e}, "
+        f"||x_spmd - x_single|| / ||x_single|| {gap:.3e}")
+    log(f"[spmd] per FCG iteration: {windows / its:.1f} window launches, "
+        f"{counts['products'] / its:.1f} ring products, "
+        f"{counts['halo_bytes'] / its / 2**20:.2f} MiB of halo, "
+        f"{counts['p2p'] / its:.1f} exchanges between processes, "
+        f"{counts['psum'] / its:.1f} psums; single-device B1 launches "
+        f"{single_b1 / max(i1.nits, 1):.1f}")
+    for k, n in sorted(by_shape.items(), key=str):
+        log(f"[spmd]   {k[0]} {str(k[1])[6:]}/{str(k[2])[6:]} "
+            f"{', '.join(map(str, k[3:]))}: {n}")
+    check(np.all(np.isfinite(x)) and x.shape == (a.n_rows,),
+          "spmd: solution not finite or wrong shape")
+    check(true_rel < 1e-8, f"spmd: true rres {true_rel:.3e}")
+    check(abs(info.nits - i1.nits) <= 1,
+          f"spmd: {info.nits} FCG its against {i1.nits} single-device")
+    for tag, op in _sharded_ops(solver):
+        xdt = torch.float64 if op.vals.dtype == torch.float64 \
+            else torch.float32
+        key = (D.WINDOW, op.vals.dtype, xdt, op.n_diags, m, SPMD_SHARDS)
+        check(by_shape.get(key, 0) > 0,
+              f"spmd: window entry not launched on {tag} {key}")
+    single_on_ring = [k for k in by_shape
+                      if k[0] in D.EPILOGUES and k[4] == solver.pad]
+    check(not single_on_ring,
+          f"spmd: single-device B1 launched on a sharded level: "
+          f"{single_on_ring}")
+
+    # the window entry against plain at every launch shape of the solve
+    g = torch.Generator().manual_seed(18)
+    flush = torch.empty(FLUSH_BYTES, dtype=torch.uint8, device="cuda")
+    rows = []
+    for key, n in sorted(by_shape.items(), key=str):
+        if key[0] != D.WINDOW:
+            continue
+        match = [(tag, op) for tag, op in _sharded_ops(solver)
+                 if (D.WINDOW, op.vals.dtype, key[2], op.n_diags, m,
+                     SPMD_SHARDS) == key]
+        check(match, f"no sharded operator has the window shape {key}")
+        rows.append(_one_row([_compare_window("s-" + tag, op, mesh, g, flush)
+                              for tag, op in match], n))
+    del flush
+    bad = [r for r in rows if not r["ok"]]
+    check(not bad, f"window entry disagrees with its plain version: {bad}")
+
+    # the same solve inside a one-rank NCCL process group
+    del solver
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        port = sock.getsockname()[1]
+    check(multihost.initialize(f"localhost:{port}", 1, 0, device="cuda"),
+          "NCCL process group not initialized")
+    try:
+        check(tdist.get_backend() == "nccl", f"backend {tdist.get_backend()}")
+        gmesh = make_mesh(SPMD_SHARDS, device="cuda")
+        check(gmesh.group is not None, "mesh without its process group")
+        _, x2, info2, _, counts2, summ2 = _spmd_solver(a, pars, gmesh, b)
+        log(f"[spmd-nccl] one rank, {gmesh.describe()}: {info2.nits} FCG its, "
+            f"cold {info2.solve_seconds:.4f} s, warm {summ2['warm_s']:.4f} s, "
+            f"{counts2['psum']} psums through NCCL all_reduce; x equal bit "
+            f"for bit: {np.array_equal(x2, x)}")
+        check(info2.nits == info.nits and np.array_equal(x2, x),
+              "spmd: the one-rank NCCL run differs from the in-process run")
+    finally:
+        tdist.destroy_process_group()
+    return rows
+
+
+def _kernel_entries(dia_rows, well_rows, multi_rows=(), window_rows=()):
     """The ``kernels`` JSON entries: one per (epilogue, launch shape) of
     phases 6, 13, 14, 16 and 17, per (entry, operator) of phases 9, 13, 15
-    and 17 (per GS class for the ``gs`` entry), and per launch shape of
-    phases 11, 14 and 17."""
+    and 17 (per GS class for the ``gs`` entry), per launch shape of phases
+    11, 14 and 17, and per launch shape of B1's window entry in phase
+    18."""
     out = [{
         "name": f"dia_spmv.{r['epilogue']}[{r['op']} {r['vals']}/{r['x']} "
                 f"nd={r['nd']} pad={r['pad']}]",
@@ -1682,6 +1939,15 @@ def _kernel_entries(dia_rows, well_rows, multi_rows=()):
         "ms": r["ms"], "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
         "bound_by": r["bound_by"], "library_ms": r["lib_ms"],
         "lib_ms": r["lib_ms"]} for r in multi_rows]
+    out += [{
+        "name": f"dia_spmv.window[{r['op']} {r['vals']}/{r['x']} "
+                f"nd={r['nd']} m={r['m']} S={r['S']}]",
+        "route": "cuda", "source": "amg_tpu_torch/csrc/dia_spmv.cu",
+        "replaces": "amg_tpu/ops/pallas_dia.py:495",
+        "launches": r["launches"], "max_abs_err": r["max_abs_err"],
+        "ms": r["ms"], "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
+        "bound_by": r["bound_by"], "library_ms": r["lib_ms"],
+        "lib_ms": r["lib_ms"]} for r in window_rows]
     return out
 
 
@@ -1734,7 +2000,7 @@ def main() -> int:
     auto_hh = auto.host_hierarchy
     del solver, auto
     stamp("structured auto")
-    emb_dia, emb_multi = phase_embedded(p3d)
+    emb_dia, emb_multi, emb_summary = phase_embedded(p3d)
     dia_rows += emb_dia
     multi_rows += emb_multi
     stamp("structured embedded")
@@ -1751,6 +2017,8 @@ def main() -> int:
     well_rows += k_well
     multi_rows += k_multi
     stamp("krylov coarsest")
+    window_rows = phase_spmd(p3d, emb_summary)
+    stamp("spmd ring")
 
     prev = t_start
     for label, t in stamps:
@@ -1760,7 +2028,7 @@ def main() -> int:
         f"card: {smi}")
     log(smi)
     log(json.dumps({"kernels": _kernel_entries(dia_rows, well_rows,
-                                               multi_rows)}))
+                                               multi_rows, window_rows)}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,
         "count": torch.cuda.device_count()}}))

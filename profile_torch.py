@@ -7,6 +7,7 @@
     python3 profile_torch.py --structured --layout embedded   # phase 14's
     python3 profile_torch.py --gmres          # phase 16: GMRES acceleration
     python3 profile_torch.py --structured --layout auto --coarsest KRYLOV
+    python3 profile_torch.py --spmd 4         # phase 18: 4 row shards
 
 ``--layout`` picks the format flags: ``compact`` (default; chip_smoke.py
 phases 5 and 8), ``auto`` (``use_well`` and ``use_banded`` on "auto",
@@ -15,6 +16,9 @@ phases 13 and 15) or ``embedded`` (auto plus ``embed_levels=8``, phase
 convection-diffusion operator with ``accel="gmres"`` (f64 cycles, "auto"
 formats); ``--coarsest KRYLOV`` takes the reference's CG -> GMRES
 coarsest solver (phase 17 with ``--structured --layout auto``).
+``--spmd N`` solves poisson3d(100) in phase 18's mode (bench_dist.py's
+spmd-cg parameters) with ``SpmdAMGSolver`` on a ring of N row shards on
+the card.
 
 Builds the main-path configuration of ``chip_smoke.py`` (phase 8, or
 phase 5 with ``--structured``; with ``--batched K`` phase 5's solver runs
@@ -53,7 +57,9 @@ GROUPS = (
     ("rows_spmv_kernel", "B2 WEll (well_spmv.cu)"),
     ("well_kernel", "B2 WEll (well_spmv.cu)"),
     ("dia_multi_kernel", "B4 DIA multi-rhs (dia_spmv.cu)"),
-    ("dia_kernel", "B1 DIA (dia_spmv.cu)"),
+    ("dia_kernel", "B1 DIA, and its window entry (dia_spmv.cu)"),
+    ("CatArrayBatchedCopy", "concatenation (ring windows, gathers)"),
+    ("nccl", "NCCL collectives"),
     ("gemv", "dense matvec, BandedBlocks (cuBLAS)"),
     ("gemm", "dense matvec, BandedBlocks (cuBLAS)"),
     ("nvjet", "dense matvec, BandedBlocks (cuBLAS)"),
@@ -91,12 +97,14 @@ def main() -> int:
                          "GMRES acceleration")
     ap.add_argument("--coarsest", choices=("DENSE", "KRYLOV"),
                     default="DENSE", help="coarsest-level solver")
+    ap.add_argument("--spmd", type=int, default=0, metavar="N",
+                    help="phase 18's SPMD solve on N row shards")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("profile_torch: needs a CUDA card", file=sys.stderr)
         return 1
     from chip_smoke import (BATCH_TOL, CD_SIDE, FEM_ROWS,
-                            convection_diffusion, structured_pars,
+                            convection_diffusion, spmd_pars, structured_pars,
                             unstructured_pars)
     if args.package:
         sys.path.insert(0, os.path.abspath(args.package))
@@ -112,6 +120,9 @@ def main() -> int:
         a, pars, what = convection_diffusion(CD_SIDE), amg.AMGParams(
             accel="gmres", tol=1e-8, verbose=0), \
             f"convection-diffusion {CD_SIDE}^2, GMRES"
+    elif args.spmd:
+        a, pars, what = amg.poisson3d(100), spmd_pars(amg), \
+            f"poisson3d(100), spmd-cg on {args.spmd} row shards"
     elif args.structured or args.batched:
         a, pars, what = amg.poisson3d(100), structured_pars(amg), \
             "poisson3d(100)"
@@ -132,7 +143,14 @@ def main() -> int:
         what += ", KRYLOV coarsest solver"
     mem0 = torch.cuda.memory_allocated()
     t0 = time.perf_counter()
-    solver = amg.AMGSolver(a, pars, log=lambda *_: None)
+    if args.spmd:
+        from amg_tpu_torch.parallel import SpmdAMGSolver, make_mesh
+
+        solver = SpmdAMGSolver(a, pars, mesh=make_mesh(args.spmd),
+                               log=lambda *_: None)
+        what += f" ({solver.mesh.describe()}, E = {solver.E})"
+    else:
+        solver = amg.AMGSolver(a, pars, log=lambda *_: None)
     torch.cuda.synchronize()
     print(f"{what}: setup {time.perf_counter() - t0:.2f} s, device memory "
           f"held after setup "

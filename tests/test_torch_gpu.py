@@ -567,3 +567,118 @@ def test_embedded_solve_on_card(boundary):
     for c in range(B.shape[1]):
         r = B[:, c] - a.matvec(X[:, c].astype(np.float64))
         assert np.linalg.norm(r) / np.linalg.norm(B[:, c]) < 1e-6
+
+
+def _window_dia(nd, n_cols, vdt, seed, span=300):
+    """A Dia of nd random diagonals (offsets within +/-span, 0 among them)
+    over n_cols value columns, on the card."""
+    rng = np.random.default_rng(seed)
+    offs = {0}
+    while len(offs) < nd:
+        offs.add(int(rng.integers(-span, span + 1)))
+    offs = tuple(sorted(offs))
+    vals = torch.from_numpy(rng.standard_normal((nd, n_cols))).to(vdt)
+    return Dia(vals.cuda(), offs, (n_cols, n_cols), nd * n_cols)
+
+
+WINDOW_CASES = {
+    # (S, m): one shard; four shards of 4096 rows (the halo of +/-300 is
+    # one hop); four shards of 256 rows (two hops); rows not a multiple of
+    # a thread's run (the entry-by-entry path)
+    "S1": (1, 8192), "S4": (4, 4096), "S4-multihop": (4, 256),
+    "S4-odd": (4, 1001)}
+
+
+@pytest.mark.parametrize("nd", [7, 19, 199])
+@pytest.mark.parametrize("vdtype", ["float32", "bfloat16", "float64"])
+@pytest.mark.parametrize("case", list(WINDOW_CASES))
+def test_dia_window_kernel_matches_plain(case, vdtype, nd):
+    """B1's window entry against its plain version on the card, on the
+    ring's overlapping windows (``halo.ring_windows``: zeros at the mesh
+    edges), one launch for every shard, the values read in place through
+    their row stride and, as a column slice of a wider tensor, through a
+    stride other than S * m."""
+    _needs_card()
+    from amg_tpu_torch.parallel import halo, make_mesh
+
+    S, m = WINDOW_CASES[case]
+    vdt = getattr(torch, vdtype)
+    xdt = torch.float64 if vdt == torch.float64 else torch.float32
+    d = _window_dia(nd, 2 * S * m, vdt, seed=nd)
+    x = torch.randn(S, m, generator=torch.Generator().manual_seed(6),
+                    dtype=xdt).cuda()
+    lo, hi = halo.dia_halo_widths(d.offsets)
+    xw, lo_w = halo.ring_windows(x, lo, hi, make_mesh(S))
+    assert xw.stride(0) == m
+    for vals in (d.vals[:, : S * m].contiguous(), d.vals[:, : S * m]):
+        op = Dia(vals, d.offsets, d.shape, d.nnz)
+        key = ("window", vdt, xdt, nd, m, S)
+        before = dia_kernel.launches_by_shape.get(key, 0)
+        got = dia_kernel.spmv_window(op, xw, lo_w)
+        torch.cuda.synchronize()
+        assert dia_kernel.launches_by_shape[key] == before + 1
+        want = dia_kernel.spmv_window_plain(op, xw, lo_w)
+        assert got.shape == (S, m) and got.dtype == xdt
+        scale = want.abs().max().item()
+        err = (got - want).abs().max().item() / scale
+        assert err <= TOL[vdt], (case, vdtype, nd, err)
+    assert vals.stride(0) == 2 * S * m
+
+
+def test_spmd_solve_on_card():
+    """``SpmdAMGSolver`` on 4 shards of poisson3d(20) on the card against
+    the port's single-device solve of the same parameters: iterations
+    within 1 (the psum dots sum in another order), every sharded product
+    through B1's window entry, and no single-device B1 launch on a level
+    of level 0's pad."""
+    _needs_card()
+    from amg_tpu_torch.parallel import SpmdAMGSolver, make_mesh
+
+    a = amg.poisson3d(20)
+    pars = amg.AMGParams(verbose=0, tol=1e-8, dtype="float32", refine=True,
+                         accel="cg", coarse_smoother=amg.SmootherType.CHEBYSHEV,
+                         coarse_op_dtype="bfloat16", embed_levels=8)
+    b = np.ones(a.n_rows)
+    single = amg.AMGSolver(a, pars, log=lambda *_: None)
+    _, i1 = single.solve(b)
+    s = SpmdAMGSolver(a, pars, mesh=make_mesh(4), log=lambda *_: None)
+    assert s.E >= 1 and s.mesh.device.type == "cuda"
+    dia_kernel.launches_by_shape.clear()
+    x, i2 = s.solve(b)
+    torch.cuda.synchronize()
+    assert abs(i1.nits - i2.nits) <= 1
+    r = b - a.matvec(x.astype(np.float64))
+    assert np.linalg.norm(r) / np.linalg.norm(b) < 1e-8
+    keys = dia_kernel.launches_by_shape
+    assert any(k[0] == "window" and k[2] == torch.float64 for k in keys)
+    assert not [k for k in keys if k[0] in EPILOGUES and k[4] == s.pad]
+
+
+def test_spmd_one_rank_nccl_on_card():
+    """The SPMD solve inside a one-rank NCCL process group
+    (``multihost.initialize``) equals the in-process run bit for bit: a
+    one-rank all_reduce is the identity.  The group is destroyed after."""
+    _needs_card()
+    import socket
+    import torch.distributed as tdist
+    from amg_tpu_torch.parallel import SpmdAMGSolver, make_mesh, multihost
+
+    a = amg.poisson3d(20)
+    pars = amg.AMGParams(verbose=0, tol=1e-8, dtype="float32", refine=True,
+                         accel="cg", embed_levels=8)
+    b = np.ones(a.n_rows)
+    x, info = SpmdAMGSolver(a, pars, mesh=make_mesh(4),
+                            log=lambda *_: None).solve(b)
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        port = sock.getsockname()[1]
+    assert multihost.initialize(f"localhost:{port}", 1, 0)
+    try:
+        assert tdist.get_backend() == "nccl"
+        mesh = make_mesh(4)
+        assert mesh.group is not None and mesh.device.type == "cuda"
+        x2, info2 = SpmdAMGSolver(a, pars, mesh=mesh,
+                                  log=lambda *_: None).solve(b)
+    finally:
+        tdist.destroy_process_group()
+    assert info2.nits == info.nits and np.array_equal(x2, x)

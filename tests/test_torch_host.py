@@ -284,12 +284,16 @@ def test_restored_hierarchy_gets_level0_rcm():
 
 
 def test_unported_options_raise():
-    """Multi-device layouts and a bf16 cycle are not ported and raise;
-    BandedBlocks and fine-grid embedding are ported and set up."""
+    """A bf16 cycle is not ported and raises; BandedBlocks, fine-grid
+    embedding and the multi-device layouts (pads that split into
+    ``dist_devices`` shards) are ported and set up."""
     a = tamg.poisson3d(6)
-    for kw in (dict(dist_devices=2), dict(dtype="bfloat16")):
-        with pytest.raises(NotImplementedError):
-            tamg.setup(a, tamg.AMGParams(verbose=0, **kw), device="cpu")
-    for kw in (dict(use_banded="on"), dict(embed_levels=2)):
-        tamg.setup(a, tamg.AMGParams(verbose=0, **kw), device="cpu",
-                   log=lambda *_: None)
+    with pytest.raises(NotImplementedError):
+        tamg.setup(a, tamg.AMGParams(verbose=0, dtype="bfloat16"),
+                   device="cpu")
+    for kw in (dict(use_banded="on"), dict(embed_levels=2),
+               dict(dist_devices=2)):
+        mg, _ = tamg.setup(a, tamg.AMGParams(verbose=0, **kw), device="cpu",
+                           log=lambda *_: None)
+        if "dist_devices" in kw:
+            assert all(lv.pad % 2 == 0 for lv in mg.levels)

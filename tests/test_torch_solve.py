@@ -368,12 +368,19 @@ def test_cli_unstructured(monkeypatch, capsys):
 
 
 def test_port_never_imports_jax():
+    """A solve, and a 2-shard SPMD solve through ``amg_tpu_torch.parallel``,
+    on the CPU with no ``jax`` or ``amg_tpu`` module loaded."""
     code = ("import sys, numpy as np, amg_tpu_torch as amg\n"
             "a = amg.poisson2d(24)\n"
             "x, info = amg.solver_amg(a, None, np.ones(a.n_rows),\n"
             "    amg.AMGParams(verbose=0), log=lambda *a: None,\n"
             "    device='cpu')\n"
             "assert info.rres < 1e-6, info.rres\n"
+            "from amg_tpu_torch.parallel import SpmdAMGSolver, make_mesh\n"
+            "s = SpmdAMGSolver(a, amg.AMGParams(verbose=0),\n"
+            "    mesh=make_mesh(2, device='cpu'), log=lambda *a: None)\n"
+            "x, info = s.solve(np.ones(a.n_rows))\n"
+            "assert info.rres < 1e-6 and s.E >= 1, info.rres\n"
             "assert 'jax' not in sys.modules\n"
             "assert not any(m.startswith('amg_tpu.') or m == 'amg_tpu'\n"
             "               for m in sys.modules)\n")
@@ -389,6 +396,8 @@ def test_device_selection():
     from amg_tpu_torch import cli
     from amg_tpu_torch import hierarchy as th
 
+    from amg_tpu_torch import parallel
+
     a = tamg.poisson2d(16)
     pars = tamg.AMGParams(verbose=0)
     b = np.ones(a.n_rows)
@@ -398,9 +407,17 @@ def test_device_selection():
         "setup": lambda: tamg.setup(a, pars),
         "to_device": lambda: th.to_device(tamg.setup_host(a, pars), pars),
         "cli": lambda: cli.main(["poisson2d:16", "--quiet"]),
+        "SpmdAMGSolver": lambda: parallel.SpmdAMGSolver(a, pars),
+        "make_mesh": lambda: parallel.make_mesh(2),
+        "spmv_dia_ring": lambda: parallel.spmv_dia_ring(
+            tamg.Dia.from_csr(a), np.ones(a.n_rows), parallel.make_mesh(2)),
+        "initialize": lambda: parallel.initialize("localhost:1", 1, 0),
+        "cli --devices": lambda: cli.main(["poisson2d:16", "--quiet",
+                                           "--devices", "2"]),
     }
     if torch.cuda.is_available():
         assert tamg.AMGSolver(a, pars).device.type == "cuda"
+        assert parallel.make_mesh(2).device.type == "cuda"
     else:
         for name, call in default.items():
             with pytest.raises(RuntimeError, match="cuda"):
