@@ -224,7 +224,7 @@ def _spmd_solver(a, pars, args, out):
         return SpmdAMGSolver(a, pars, mesh=make_mesh(args.devices,
                                                      device=args.device),
                              log=out)
-    except (ValueError, NotImplementedError) as exc:
+    except ValueError as exc:
         if args.dist == "spmd":
             raise
         print(f"amg_tpu_torch: spmd path unavailable ({exc}); {_NO_GSPMD}",

@@ -37,10 +37,20 @@
 // Entries (all extern "C", launched on the caller's stream, returning
 // cudaGetLastError()):
 //
-//   rows_spmv_<v>_<x>  B2: y[row] = sum_j v_j x[c_j] over all slices
+//   rows_spmv_<v>_<x>  B2: y[row] = sum_j v_j x[c_j - col0] over all slices
 //   rows_df64          B3: the same with v_j = double(hi_j) + double(lo_j)
 //                      (exact: each f32 plane widens to f64 without
 //                      rounding, and hi, lo do not overlap)
+//
+// col0 is the column that x[0] holds: 0 for a whole vector; for the
+// window entry of a ring of row shards (amg_tpu_torch/parallel/halo.py)
+// x is one process's haloed block of the input vector, [left halo | its
+// shards | right halo], and col0 the global column of its first entry.
+// A column whose c - col0 falls outside [0, n_x) reads 0, which is both
+// the zero past the end of a short x and the zero the ring puts beyond the
+// mesh edges.  The single-vector entries pass col0 = 0: one kernel, one
+// summation order, so the window entry's results equal the single-device
+// ones bit for bit on the same x values.
 //   rows_gs_<v>_<x>    B2's Gauss-Seidel class update, over the slices of
 //                      one class only, IN PLACE on x:
 //                        t = (b - ax + diag * x) * inv_diag
@@ -109,36 +119,36 @@ __device__ __forceinline__ double fma_(double a, double b, double c) {
 // x read through the read-only path where nothing writes x during the
 // launch (the products); by a plain load where the launch updates x (gs)
 template <bool kReadOnly, typename X>
-__device__ __forceinline__ X ld_x(const X* x, int c) {
+__device__ __forceinline__ X ld_x(const X* x, int64_t c) {
   if constexpr (kReadOnly) return __ldg(x + c);
   return x[c];
 }
 
 constexpr int kBatch = 4;   // entries whose loads a thread issues together
 
-// sum_j v_j x[c_j] over the row_len entries of the slot row whose first
-// entry is at place p, in order of j.  Entries go in batches of kBatch:
-// all columns and values of a batch are loaded, then all its x entries,
-// so that a thread has kBatch independent loads in flight instead of one
-// chain of column -> x -> FMA per entry.
+// sum_j v_j x[c_j - col0] over the row_len entries of the slot row whose
+// first entry is at place p, in order of j.  Entries go in batches of
+// kBatch: all columns and values of a batch are loaded, then all its x
+// entries, so that a thread has kBatch independent loads in flight
+// instead of one chain of column -> x -> FMA per entry.
 template <bool kReadOnly, typename X, typename Vals>
 __device__ __forceinline__ X row_sum(const Vals& vals,
                                      const int32_t* __restrict__ cols,
                                      int64_t p, int len, const X* x,
-                                     int64_t n_x) {
+                                     int64_t col0, int64_t n_x) {
   X acc = X(0);
   for (int j = 0; j < len; j += kBatch, p += kBatch * kSlice) {
-    int c[kBatch];
+    int64_t k[kBatch];   // place in x, -1 past the row's end
     X v[kBatch], xv[kBatch];
 #pragma unroll
     for (int u = 0; u < kBatch; ++u) {
       const bool in = j + u < len;
-      c[u] = in ? __ldcs(cols + p + u * kSlice) : -1;
+      k[u] = in ? (int64_t)__ldcs(cols + p + u * kSlice) - col0 : -1;
       v[u] = in ? vals(p + u * kSlice) : X(0);
     }
 #pragma unroll
     for (int u = 0; u < kBatch; ++u)
-      xv[u] = (c[u] >= 0 && c[u] < n_x) ? ld_x<kReadOnly>(x, c[u]) : X(0);
+      xv[u] = (k[u] >= 0 && k[u] < n_x) ? ld_x<kReadOnly>(x, k[u]) : X(0);
 #pragma unroll
     for (int u = 0; u < kBatch; ++u)
       if (j + u < len) acc = fma_(v[u], xv[u], acc);
@@ -175,13 +185,14 @@ rows_spmv_kernel(Vals vals, const int32_t* __restrict__ cols,
                  const int64_t* __restrict__ slice_ptr,
                  const int32_t* __restrict__ row_len,
                  const int32_t* __restrict__ row_idx, int64_t n_slot_rows,
-                 const X* __restrict__ x, int64_t n_x, X* __restrict__ y) {
+                 const X* __restrict__ x, int64_t col0, int64_t n_x,
+                 X* __restrict__ y) {
   const int64_t t = (int64_t)blockIdx.x * kBlock + threadIdx.x;
   if (t >= n_slot_rows) return;
   const int row = row_idx[t];
   if (row < 0) return;
   const int64_t p = slice_ptr[t / kSlice] + (t % kSlice);
-  y[row] = row_sum<true>(vals, cols, p, row_len[t], x, n_x);
+  y[row] = row_sum<true>(vals, cols, p, row_len[t], x, col0, n_x);
 }
 
 template <typename X, typename V>
@@ -200,7 +211,7 @@ rows_gs_kernel(OnePlane<V, X> vals, const int32_t* __restrict__ cols,
   const int row = row_idx[t];
   if (row < 0) return;
   const int64_t p = slice_ptr[t / kSlice] + (t % kSlice);
-  const X ax = row_sum<false>(vals, cols, p, row_len[t], x, n_x);
+  const X ax = row_sum<false>(vals, cols, p, row_len[t], x, 0, n_x);
   const X xi = x[row];
   const X w = inv_diag[row];
   X v = mul_rn(add_rn(sub_rn(b[row], ax), mul_rn(diag[row], xi)), w);
@@ -219,8 +230,8 @@ bool bad_size(int64_t n_threads) {
 template <typename V, typename X>
 int launch_rows(const void* vals, const void* cols, const void* slice_ptr,
                 const void* row_len, const void* row_idx,
-                int64_t n_slot_rows, const void* x, int64_t n_x, void* y,
-                void* stream) {
+                int64_t n_slot_rows, const void* x, int64_t n_x,
+                int64_t col0, void* y, void* stream) {
   if (bad_size(n_slot_rows)) return (int)cudaErrorInvalidValue;
   if (n_slot_rows == 0) return 0;
   rows_spmv_kernel<X, OnePlane<V, X>>
@@ -231,7 +242,7 @@ int launch_rows(const void* vals, const void* cols, const void* slice_ptr,
           static_cast<const int64_t*>(slice_ptr),
           static_cast<const int32_t*>(row_len),
           static_cast<const int32_t*>(row_idx), n_slot_rows,
-          static_cast<const X*>(x), n_x, static_cast<X*>(y));
+          static_cast<const X*>(x), col0, n_x, static_cast<X*>(y));
   return (int)cudaGetLastError();
 }
 
@@ -267,9 +278,10 @@ extern "C" {
   int rows_spmv_##SUFFIX(const void* vals, const void* cols,                 \
                          const void* slice_ptr, const void* row_len,         \
                          const void* row_idx, int64_t n_slot_rows,           \
-                         const void* x, int64_t n_x, void* y, void* stream) { \
+                         const void* x, int64_t n_x, int64_t col0, void* y,  \
+                         void* stream) {                                     \
     return launch_rows<V, X>(vals, cols, slice_ptr, row_len, row_idx,        \
-                             n_slot_rows, x, n_x, y, stream);                \
+                             n_slot_rows, x, n_x, col0, y, stream);          \
   }                                                                          \
   int rows_gs_##SUFFIX(const void* vals, const void* cols,                   \
                        const void* slice_ptr, const void* row_len,           \
@@ -292,7 +304,7 @@ ROWS_ENTRIES(f64_f64, double, double)
 int rows_df64(const void* hi, const void* lo, const void* cols,
               const void* slice_ptr, const void* row_len,
               const void* row_idx, int64_t n_slot_rows, const void* x,
-              int64_t n_x, void* y, void* stream) {
+              int64_t n_x, int64_t col0, void* y, void* stream) {
   if (bad_size(n_slot_rows)) return (int)cudaErrorInvalidValue;
   if (n_slot_rows == 0) return 0;
   rows_spmv_kernel<double, TwoPlanes>
@@ -304,7 +316,8 @@ int rows_df64(const void* hi, const void* lo, const void* cols,
           static_cast<const int64_t*>(slice_ptr),
           static_cast<const int32_t*>(row_len),
           static_cast<const int32_t*>(row_idx), n_slot_rows,
-          static_cast<const double*>(x), n_x, static_cast<double*>(y));
+          static_cast<const double*>(x), col0, n_x,
+          static_cast<double*>(y));
   return (int)cudaGetLastError();
 }
 

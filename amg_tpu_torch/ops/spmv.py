@@ -77,24 +77,33 @@ def spmv_banded(a: BandedBlocks, x: torch.Tensor) -> torch.Tensor:
     cuBLAS's bf16 product with f32 output (``out_dtype``), so the values
     are never widened; on the CPU, where that call does not exist, both
     operands are widened to x's dtype first, which is exact for bf16."""
+    pad = a.vals.shape[0] * 128
+    halo = a.nb * 128
+    y = banded_window_product(a, F.pad(x[..., :pad].reshape(-1, pad),
+                                       (halo, halo)), x.dtype)
+    return y if x.dim() == 2 else y[0]
+
+
+def banded_window_product(a: BandedBlocks, xp: torch.Tensor,
+                          dtype) -> torch.Tensor:
+    """The product of :func:`spmv_banded` on x given as ``(k, nb*128 +
+    pad + nb*128)`` windows, x's rows with ``nb`` blocks on either side
+    (zeros, or a ring's halos): ``(k, pad)`` results in ``dtype``."""
     nbr, w = a.vals.shape[:2]
-    nb = a.nb
     pad = nbr * 128
-    xp = F.pad(x[..., :pad].reshape(-1, pad),
-               (nb * 128, nb * 128)).to(a.vals.dtype)
+    xp = xp.to(a.vals.dtype)
     k = xp.shape[0]
     # window d of block row i is block i + d of the zero-padded x
-    xw = (xp.reshape(k, nbr + 2 * nb, 128).unfold(1, w, 1)   # (k, nbr, 128, w)
+    xw = (xp.reshape(k, nbr + w - 1, 128).unfold(1, w, 1)  # (k, nbr, 128, w)
           .permute(1, 3, 2, 0).reshape(nbr * w, 128, k))
     v = a.vals.reshape(nbr * w, 128, 128)
-    if v.dtype == x.dtype:
+    if v.dtype == dtype:
         part = torch.bmm(v, xw)
-    elif v.is_cuda and v.dtype == torch.bfloat16 and x.dtype == torch.float32:
+    elif v.is_cuda and v.dtype == torch.bfloat16 and dtype == torch.float32:
         part = torch.bmm(v, xw, out_dtype=torch.float32)
     else:
-        part = torch.bmm(v.to(x.dtype), xw.to(x.dtype))
-    y = part.reshape(nbr, w, 128, k).sum(1).reshape(pad, k).T.contiguous()
-    return y if x.dim() == 2 else y[0]
+        part = torch.bmm(v.to(dtype), xw.to(dtype))
+    return part.reshape(nbr, w, 128, k).sum(1).reshape(pad, k).T.contiguous()
 
 
 def spmv(a, x: torch.Tensor) -> torch.Tensor:

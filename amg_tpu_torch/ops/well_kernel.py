@@ -9,16 +9,30 @@ the operator is made: no padding slots, one thread per row)::
     spmv(a, x)        y = A x             (vals f32 or bf16 with x f32;
                                            vals f64 with x f64)
     spmv_df64(a, x)   y = (A_hi + A_lo) x  (two f32 planes; x f64)
+    spmv_window(a, xw, col0)       y = A x  with x[c] read at xw[c - col0]
+    spmv_df64_window(a, xw, col0)  the same in f64 through B3
     gs_update_(a, x, b, g, diag, inv_diag, relax=None)
                       the Gauss-Seidel update of GS class g, IN PLACE on x:
                       x_i <- (b_i - (Ax)_i + d_i x_i) / d_i for the rows i
                       of class g with inv_diag_i != 0 (relaxed with
                       ``relax``), one launch over that class's slices
 
-``spmv``/``spmv_df64`` return ``a.padded_rows`` entries (padding rows are
-0).  ``x`` may be shorter than ``a.pad_cols``: columns at or past its
-length read 0, which is what the TPU entries' zero-padded copy of x
-gives; a longer ``x`` is read up to ``pad_cols`` only.  Values are widened
+The window entries are the local products of a ring of row shards
+(``amg_tpu_torch.parallel.halo``, the port of ``amg_tpu``'s
+``pallas_well._build`` / ``_build_df64`` run per shard on a rebased x
+window, ``halo.py:263-346, 450-516``): ``a`` holds the row groups of one
+process's shards (:meth:`~amg_tpu_torch.sparse.WEll.block`), ``xw`` that
+process's haloed block of x, whose first entry is global column ``col0``,
+and a column ``c`` reads ``xw[c - col0]`` where that lies in ``xw`` and 0
+elsewhere (beyond the mesh edges).  They are B2 and B3 with the column
+base a parameter; the single-vector entries pass ``col0 = 0``, so a window
+product equals the single-device one bit for bit on the same x values.
+
+``spmv``/``spmv_df64`` and the window entries return ``a.padded_rows``
+entries (padding rows are 0).  ``x`` may be shorter than ``a.pad_cols``:
+columns at or past its length read 0, which is what the TPU entries'
+zero-padded copy of x gives; a longer ``x`` is read up to ``pad_cols``
+only (the window entries read all of ``xw``).  Values are widened
 exactly to the vector type and the products accumulated in it (no bf16
 product rule, unlike the DIA kernel).
 
@@ -26,8 +40,10 @@ Dispatch is by the tensors' device: CUDA tensors launch the kernels in
 ``amg_tpu_torch/csrc/well_spmv.cu`` (built with ``nvcc`` on first use,
 bound with ctypes) or raise; CPU tensors take the plain versions
 (``*_plain``), which the tests and ``chip_smoke.py`` also use as the
-reference.  ``launches`` counts kernel launches per entry,
-``launches_by_shape`` per (entry, values dtype, rows, nnz).
+reference.  ``launches`` counts kernel launches per entry (the window
+entries as ``"window"`` and ``"df64_window"``), ``launches_by_shape`` per
+(entry, values dtype, rows, nnz); a block operator keeps its whole
+operator's rows and nnz.
 """
 
 from __future__ import annotations
@@ -35,11 +51,10 @@ from __future__ import annotations
 import ctypes
 
 import torch
-import torch.nn.functional as F
 
 from .cuda_build import CudaLibrary
 
-ENTRIES = ("spmv", "df64", "gs")
+ENTRIES = ("spmv", "df64", "gs", "window", "df64_window")
 # kernel launches per entry (plain-version calls are not counted), and per
 # (entry, values dtype, rows, nnz) launch shape
 launches = {e: 0 for e in ENTRIES}
@@ -59,8 +74,9 @@ def _bind(dll):
     for pair in _PAIRS.values():
         for name, args in (
                 # vals, cols, slice_ptr, row_len, row_idx, n_slot_rows,
-                # x, n_x, y, stream
-                (f"rows_spmv_{pair}", [p, p, p, p, p, i64, p, i64, p, p]),
+                # x, n_x, col0, y, stream
+                (f"rows_spmv_{pair}", [p, p, p, p, p, i64, p, i64, i64, p,
+                                       p]),
                 # vals, cols, slice_ptr, row_len, row_idx, first slot row,
                 # n_slot_rows, x, n_x, b, diag, inv_diag, 1 - relax, relax,
                 # has_relax, stream
@@ -69,7 +85,7 @@ def _bind(dll):
             fn = getattr(dll, name)
             fn.argtypes = args
             fn.restype = i32
-    dll.rows_df64.argtypes = [p, p, p, p, p, p, i64, p, i64, p, p]
+    dll.rows_df64.argtypes = [p, p, p, p, p, p, i64, p, i64, i64, p, p]
     dll.rows_df64.restype = i32
 
 
@@ -144,28 +160,37 @@ def _check_gs(a, x, b, g, diag, inv_diag):
 # ---------------------------------------------------------------------------
 
 
-def _padded_x(a, x):
-    pc = a.pad_cols
-    return F.pad(x, (0, pc - x.shape[0])) if x.shape[0] < pc else x[:pc]
+def _x_at(a, x, cols, col0):
+    """x at the columns ``cols`` (int64): ``x[c - col0]`` where that lies
+    in x (and, for a whole vector, below ``pad_cols``), else 0."""
+    n_x = x.shape[0] if col0 is not None else min(x.shape[0], a.pad_cols)
+    k = cols - (col0 or 0)
+    inside = (k >= 0) & (k < n_x)
+    if n_x == 0:
+        return torch.zeros(k.shape, dtype=x.dtype, device=x.device)
+    return torch.where(inside, x[k.clamp(0, n_x - 1)],
+                       torch.zeros((), dtype=x.dtype, device=x.device))
 
 
-def _slot_sums(a, x, first: int, n: int, df64: bool) -> torch.Tensor:
+def _slot_sums(a, x, first: int, n: int, df64: bool,
+               col0=None) -> torch.Tensor:
     """``(A x)`` of the ``32 n`` slot rows of slices ``[first, first +
-    n)``: a gather of x at the entries' columns and a row sum."""
+    n)``: a gather of x at the entries' columns and a row sum.  ``col0``
+    (window entries): the column of ``x[0]``."""
     s = a.rows
     place, slot = s.entries(first, n)
     v = s.vals[place].to(x.dtype)
     if df64:
         v = v + s.vals_lo[place].to(x.dtype)
-    prod = v * _padded_x(a, x)[s.cols[place].long()]
+    prod = v * _x_at(a, x, s.cols[place].long(), col0)
     out = torch.zeros(n * 32, dtype=x.dtype, device=x.device)
     return out.index_add_(0, slot - first * 32, prod)
 
 
-def _product_plain(a, x, df64: bool) -> torch.Tensor:
+def _product_plain(a, x, df64: bool, col0=None) -> torch.Tensor:
     _check(a, x, df64)
     s = a.rows
-    y_slot = _slot_sums(a, x, 0, s.n_slices, df64)
+    y_slot = _slot_sums(a, x, 0, s.n_slices, df64, col0)
     used = s.row_idx >= 0
     # NaN marks a row no segment covers (the kernel would leave it unset)
     y = torch.full((a.padded_rows,), float("nan"), dtype=x.dtype,
@@ -180,6 +205,14 @@ def spmv_plain(a, x: torch.Tensor) -> torch.Tensor:
 
 def spmv_df64_plain(a, x: torch.Tensor) -> torch.Tensor:
     return _product_plain(a, x, df64=True)
+
+
+def spmv_window_plain(a, xw: torch.Tensor, col0: int) -> torch.Tensor:
+    return _product_plain(a, xw, df64=False, col0=int(col0))
+
+
+def spmv_df64_window_plain(a, xw: torch.Tensor, col0: int) -> torch.Tensor:
+    return _product_plain(a, xw, df64=True, col0=int(col0))
 
 
 def _gs_epilogue(ax, xr, br, dr, wr, relax):
@@ -233,23 +266,26 @@ def _layout_ptrs(s):
             s.row_len.data_ptr(), s.row_idx.data_ptr())
 
 
-def _launch(a, x, df64: bool) -> torch.Tensor:
+def _launch(a, x, df64: bool, col0=None) -> torch.Tensor:
+    """Launch B3 (``df64``) or B2 over every slice; ``col0`` set: the
+    window entry, x read at ``c - col0``."""
     s = a.rows
     _contiguous((("cols", s.cols), ("vals", s.vals), ("x", x),
                  ("vals_lo", s.vals_lo if df64 else None)))
     lib = _LIB.load()
     y = torch.empty(a.padded_rows, dtype=x.dtype, device=x.device)
-    n_x = min(x.shape[0], a.pad_cols)
-    rest = (s.n_slices * 32, x.data_ptr(), n_x, y.data_ptr(), _stream(x))
+    n_x = x.shape[0] if col0 is not None else min(x.shape[0], a.pad_cols)
+    rest = (s.n_slices * 32, x.data_ptr(), n_x, int(col0 or 0),
+            y.data_ptr(), _stream(x))
     if df64:
-        entry = "df64"
         err = lib.rows_df64(s.vals.data_ptr(), s.vals_lo.data_ptr(),
                             *_layout_ptrs(s)[1:], *rest)
     else:
-        entry = "spmv"
         fn = getattr(lib, f"rows_spmv_{_PAIRS[(s.vals.dtype, x.dtype)]}")
         err = fn(*_layout_ptrs(s), *rest)
-    _count(entry, a, err)
+    entry = "df64" if df64 else "spmv"
+    _count(entry if col0 is None else
+           ("window" if entry == "spmv" else "df64_window"), a, err)
     return y
 
 
@@ -287,6 +323,24 @@ def spmv_df64(a, x: torch.Tensor) -> torch.Tensor:
         return spmv_df64_plain(a, x)
     _check(a, x, df64=True)
     return _launch(a, x, df64=True)
+
+
+def spmv_window(a, xw: torch.Tensor, col0: int) -> torch.Tensor:
+    """y = A x for a block operator with x given as the window ``xw``
+    whose first entry is column ``col0``: B2's window entry on CUDA
+    tensors, its plain version on CPU tensors."""
+    if not _is_cuda(a, xw):
+        return spmv_window_plain(a, xw, col0)
+    _check(a, xw, df64=False)
+    return _launch(a, xw, df64=False, col0=col0)
+
+
+def spmv_df64_window(a, xw: torch.Tensor, col0: int) -> torch.Tensor:
+    """The f64 product of :func:`spmv_window`: B3's window entry."""
+    if not _is_cuda(a, xw):
+        return spmv_df64_window_plain(a, xw, col0)
+    _check(a, xw, df64=True)
+    return _launch(a, xw, df64=True, col0=col0)
 
 
 def gs_update_(a, x, b, g: int, diag, inv_diag, relax=None):

@@ -1,18 +1,22 @@
 """Multi-device solve on a ring of row shards (``torch.distributed``).
 
-Port of ``amg_tpu.parallel``'s embedded SPMD mode: :class:`SpmdAMGSolver`
-on a :func:`make_mesh` ring, the ring Dia product :func:`spmv_dia_ring`
-(B1's window entry), the sharded placement (:func:`shard_hierarchy`,
-:func:`shard_vector`) and multi-process wiring (:func:`initialize`,
-:func:`is_multiprocess`, :func:`fetch`).  Imported on demand, as
-``amg_tpu`` imports its own.  Not ported yet: the general SPMD mode,
-``DistAMGSolver`` and ``make_host_mesh``.
+Port of ``amg_tpu.parallel``'s SPMD solver, both modes:
+:class:`SpmdAMGSolver` on a :func:`make_mesh` ring, embedded (Dia levels,
+B1's window entry) or general (unstructured WEll, Dia and BandedBlocks
+levels: B2's and B3's window entries, the BandedBlocks ring and the
+ring-R or all-gather coarse boundary); the ring products
+:func:`spmv_dia_ring`, :func:`spmv_well_ring`, :func:`spmv_banded_ring`;
+the sharded placement (:func:`shard_hierarchy`, :func:`shard_vector`) and
+multi-process wiring (:func:`initialize`, :func:`is_multiprocess`,
+:func:`fetch`).  Imported on demand, as ``amg_tpu`` imports its own.  Not
+ported yet: ``DistAMGSolver`` and ``make_host_mesh``.
 """
 
 from .dist import make_mesh, shard_hierarchy, shard_vector
-from .halo import spmv_dia_ring
+from .halo import spmv_banded_ring, spmv_dia_ring, spmv_well_ring
 from .spmd_cycle import SpmdAMGSolver
 from .multihost import initialize, is_multiprocess, fetch
 
 __all__ = ["make_mesh", "shard_hierarchy", "shard_vector", "spmv_dia_ring",
-           "SpmdAMGSolver", "initialize", "is_multiprocess", "fetch"]
+           "spmv_well_ring", "spmv_banded_ring", "SpmdAMGSolver",
+           "initialize", "is_multiprocess", "fetch"]

@@ -13,10 +13,13 @@ per process (``amg_tpu``'s ``vmap`` over shards written out as a batch
 dimension): elementwise code runs on every local shard at once.  A sharded
 Dia operator keeps the values of its process's shards as one ``(nd, S*m)``
 tensor, the whole ``(nd, pad)`` when one process holds every shard (no
-copy), and a shard's values are a column slice of it.  Replicated levels
-and vectors exist once per process, and the compact tail runs once per
-process: its results are the same on every shard by construction, as on
-every device under ``amg_tpu``'s shard_map.
+copy), and a shard's values are a column slice of it.  A sharded WEll
+operator is the block of its process's row groups (:meth:`~amg_tpu_torch.
+sparse.WEll.block`: the pack a host view, the layout on the card in row
+order), a sharded BandedBlocks one its process's block rows.  Replicated
+levels and vectors exist once per process, and the compact tail runs once
+per process: its results are the same on every shard by construction, as
+on every device under ``amg_tpu``'s shard_map.
 
 The collectives treat the local shards in the process and the remote ones
 through ``torch.distributed``: :meth:`Mesh.psum` sums per-shard partials
@@ -35,7 +38,7 @@ import torch.distributed as dist
 
 from ..hierarchy import Hierarchy, Level, resolve_device
 from ..params import AMGParams
-from ..sparse import Dia
+from ..sparse import BandedBlocks, Dia, WEll
 
 # collectives over every call: psum calls, all_gather calls
 counts = {"psum": 0, "all_gather": 0}
@@ -162,20 +165,64 @@ def shard_dia(d: Dia, mesh: Mesh) -> Dia:
     return Dia(vals, d.offsets, d.shape, d.nnz)
 
 
-def _shard_level(level: Level, mesh: Mesh, l: int) -> Level:
-    """A row-sharded level: Dia operators and per-row vectors as this
-    process's shards; the boundary index tensors stay whole (they hold
-    global positions), and so do the compact P and R of a compact boundary
-    (``member_idx``: they act on the short replicated vectors).  ``gs_w``
-    (the single-device fused GS weights) is dropped: the sharded GS is a
-    ring product and a masked select."""
+def shard_well(w: WEll, mesh: Mesh) -> WEll:
+    """A WEll operator's row groups of this process's shards, ``[first *
+    gps, (first + S) * gps)`` with ``gps = ngroups / D``
+    (:meth:`~amg_tpu_torch.sparse.WEll.block`, on the mesh's device).  When
+    one process holds every shard and the layout is already in row order
+    the operator is its own block (no copy)."""
+    ngroups = w.vals.shape[0]
+    if ngroups % mesh.n_shards:
+        raise ValueError(f"ngroups {ngroups} not divisible by "
+                         f"{mesh.n_shards}")
+    if mesh.world == 1 and not w.rows.classes \
+            and w.rows.vals.device == mesh.device:
+        return w
+    gps = ngroups // mesh.n_shards
+    return w.block(mesh.first * gps, (mesh.first + mesh.local) * gps,
+                   device=mesh.device)
+
+
+def shard_banded(a: BandedBlocks, mesh: Mesh) -> BandedBlocks:
+    """A BandedBlocks operator's block rows of this process's shards (a
+    view when one process holds every shard), or the whole operator,
+    replicated, when its block rows do not split into the shards
+    (``amg_tpu/parallel/dist.py:168-177``)."""
+    nbr = a.vals.shape[0]
+    if nbr % mesh.n_shards:
+        return a
+    bps = nbr // mesh.n_shards
+    vals = a.vals.to(mesh.device)
+    if mesh.world > 1:
+        vals = vals[mesh.first * bps:(mesh.first + mesh.local) * bps] \
+            .contiguous()
+    return BandedBlocks(vals, a.nb, a.shape, a.nnz)
+
+
+def shard_matrix(m, mesh: Mesh):
+    """This process's share of a level operator: Dia, WEll and BandedBlocks
+    row-sharded (:func:`shard_dia`, :func:`shard_well`,
+    :func:`shard_banded`); Ell and Dense stay whole (replicated: the
+    all-gather boundary of the general mode applies them to the gathered
+    vector)."""
+    if isinstance(m, Dia):
+        return shard_dia(m, mesh)
+    if isinstance(m, WEll):
+        return shard_well(m, mesh)
+    if isinstance(m, BandedBlocks):
+        return shard_banded(m, mesh)
+    return m
+
+
+def _shard_level(level: Level, mesh: Mesh) -> Level:
+    """A row-sharded level: its operators (:func:`shard_matrix`) and
+    per-row vectors as this process's shards; the boundary index tensors
+    stay whole (they hold global positions), and so do the compact P and R
+    of a compact boundary (``member_idx``: they act on the short
+    replicated vectors).  ``gs_w`` (the single-device fused GS weights) is
+    dropped: the sharded GS is a ring product and a masked select."""
     def mat(m):
-        if m is None or isinstance(m, Dia):
-            return None if m is None else shard_dia(m, mesh)
-        raise NotImplementedError(
-            f"level {l}: a row-sharded {type(m).__name__} operator needs the "
-            "general sharded mode (WEll, BandedBlocks rings), not ported yet "
-            "(ROADMAP queue A item 2)")
+        return None if m is None else shard_matrix(m, mesh)
 
     def rows(v):
         if v is None:
@@ -208,5 +255,5 @@ def shard_hierarchy(mg: Hierarchy, mesh: Mesh, pars: AMGParams | None = None,
             replicate = l >= replicate_from_level
         else:
             replicate = lvl.a.nnz <= thresh or lvl.pad < 8 * D
-        levels.append(lvl if replicate else _shard_level(lvl, mesh, l))
+        levels.append(lvl if replicate else _shard_level(lvl, mesh))
     return Hierarchy(levels=tuple(levels), coarse_inv=mg.coarse_inv)

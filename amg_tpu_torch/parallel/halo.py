@@ -1,11 +1,23 @@
-"""Ring halo exchange and the row-sharded Dia product.
+"""Ring halo exchange and the row-sharded products.
 
-Port of the Dia half of ``amg_tpu/parallel/halo.py`` (``:38-236``): each
-shard owns a contiguous block of ``m`` rows; a band of half-widths
-``lo``/``hi`` needs the ``lo`` entries of x before the block and the
-``hi`` after it, and the local product then runs on the haloed window
-through B1's window entry (:func:`amg_tpu_torch.ops.dia_kernel.
-spmv_window`, its plain version on the CPU).
+Port of ``amg_tpu/parallel/halo.py``: each shard owns a contiguous block
+of ``m`` rows; an operator whose rows read x from ``lo`` entries before
+their block to ``hi`` after it needs those entries of the neighbouring
+shards, and the local product then runs on the haloed window:
+
+* Dia (``:38-236``): halos from the band's offsets, B1's window entry
+  (:func:`amg_tpu_torch.ops.dia_kernel.spmv_window`);
+* WEll (``:239-359``): halos ``lo128·128``, ``hi128·128`` from the
+  operator's ``ring_plan``, one launch of B2's window entry
+  (:func:`amg_tpu_torch.ops.well_kernel.spmv_window`) over the process's
+  row groups with columns rebased to its window; B3's window entry for
+  the df64 operator of FCG (``:450-516``); the boundary prolongation
+  against a replicated coarse vector (``well_spmv_local_full``);
+* BandedBlocks (``:362-424``): halos of ``nb`` 128-blocks, the batched
+  cuBLAS product of ``ops/spmv.py`` over the window (an XLA einsum in
+  ``amg_tpu``, not a Pallas kernel).
+
+Each runs its plain version on CPU tensors.
 
 Halo rule (``halo.py:78-140``): a halo wider than one block takes several
 hops, and positions outside the mesh read 0 (edge shards get zeros, never
@@ -21,10 +33,10 @@ boundary the halo slabs come from the neighbouring processes by
 the split changes no number and is left out here (ROADMAP: overlap of ring
 transfers).
 
-``counts`` adds up, over every call: ring products (``products``), the x
-bytes that shard windows take from other shards (``halo_bytes``, 0 at the
-mesh edges) and the messages and bytes sent between processes
-(``p2p``, ``p2p_bytes``).
+``counts`` adds up, over every call: ring products (``products``, of
+them ``well_products`` and ``banded_products``), the x bytes that shard
+windows take from other shards (``halo_bytes``, 0 at the mesh edges) and
+the messages and bytes sent between processes (``p2p``, ``p2p_bytes``).
 """
 
 from __future__ import annotations
@@ -32,11 +44,13 @@ from __future__ import annotations
 import torch
 import torch.distributed as dist
 
-from ..ops import dia_kernel
-from ..sparse import Dia
-from .dist import Mesh, shard_dia, shard_vector
+from ..ops import dia_kernel, well_kernel
+from ..ops.spmv import banded_window_product
+from ..sparse import BandedBlocks, Dia, WEll
+from .dist import Mesh, shard_banded, shard_dia, shard_vector, shard_well
 
-counts = {"products": 0, "halo_bytes": 0, "p2p": 0, "p2p_bytes": 0}
+counts = {"products": 0, "well_products": 0, "banded_products": 0,
+          "halo_bytes": 0, "p2p": 0, "p2p_bytes": 0}
 
 
 def dia_halo_widths(offsets) -> tuple[int, int]:
@@ -83,12 +97,12 @@ def _remote_halos(flat: torch.Tensor, lo: int, hi: int, mesh: Mesh):
     return left, right
 
 
-def ring_windows(x: torch.Tensor, lo: int, hi: int, mesh: Mesh):
-    """``(windows, lo)``: the ``(S, lo + m + hi)`` haloed windows of this
-    process's shards of ``x`` ``(S, m)``, as overlapping views of one
-    haloed copy of the block.  The halos are rounded up to 16 bytes so
-    that every window stays aligned for the kernel's vector loads (the
-    extra entries are never read)."""
+def haloed_block(x: torch.Tensor, lo: int, hi: int, mesh: Mesh):
+    """``(ext, lo)``: this process's block of ``x`` ``(S, m)`` as one
+    vector ``[lo left halo | S*m entries | hi right halo]`` (multi-hop
+    halos from the other processes, zeros beyond the mesh).  The halos
+    are rounded up to 16 bytes so that windows in it stay aligned for the
+    DIA kernel's vector loads (the extra entries are never read)."""
     S, m = x.shape
     # in-mesh halo entries of every local shard (edges excluded)
     first, D = mesh.first, mesh.n_shards
@@ -103,8 +117,16 @@ def ring_windows(x: torch.Tensor, lo: int, hi: int, mesh: Mesh):
         left, right = _remote_halos(flat, lo, hi, mesh)
     else:
         left, right = flat.new_zeros(lo), flat.new_zeros(hi)
-    ext = torch.cat([left, flat, right])
-    return ext.as_strided((S, lo + m + hi), (m, 1)), lo
+    return torch.cat([left, flat, right]), lo
+
+
+def ring_windows(x: torch.Tensor, lo: int, hi: int, mesh: Mesh):
+    """``(windows, lo)``: the ``(S, lo + m + hi)`` haloed windows of this
+    process's shards of ``x`` ``(S, m)``, as overlapping views of one
+    :func:`haloed_block` (halos rounded up to 16 bytes)."""
+    S, m = x.shape
+    ext, lo = haloed_block(x, lo, hi, mesh)
+    return ext.as_strided((S, ext.shape[0] - (S - 1) * m), (m, 1)), lo
 
 
 def dia_spmv_ring_local(a: Dia, x: torch.Tensor, mesh: Mesh) -> torch.Tensor:
@@ -130,3 +152,109 @@ def spmv_dia_ring(d: Dia, x, mesh: Mesh) -> torch.Tensor:
                          f"{mesh.n_shards}")
     xs = shard_vector(x, mesh, pad_to=d.padded_rows)
     return dia_spmv_ring_local(shard_dia(d, mesh), xs, mesh)
+
+
+# ---------------------------------------------------------------------------
+# WEll and BandedBlocks rings (the general SPMD mode)
+# ---------------------------------------------------------------------------
+
+
+def well_shard_plan(w: WEll, n_shards: int,
+                    in_m128: int | None = None) -> tuple[int, int]:
+    """``(lo128, hi128)``: the halo widths, in 128-column units, of a
+    groups-sharded WEll operator on an ``n_shards`` ring: its
+    ``ring_plan``, else computed from its pack (``amg_tpu``'s
+    ``halo.py:242-260``; ``in_m128``: the input block per shard, default
+    the square operator's)."""
+    if w.ring_plan is not None:
+        return w.ring_plan
+    base = w.base.numpy()
+    if in_m128 is None:
+        in_m128 = base.shape[0] // n_shards * 8
+    active = w.vals.reshape(base.shape[0], base.shape[1], -1).ne(0) \
+        .any(dim=2).numpy()
+    return WEll.ring_plan_host(base, active, n_shards, in_m128)
+
+
+def well_ring_window(a: WEll, x: torch.Tensor, mesh: Mesh):
+    """``(ext, col0)``: this process's haloed block of the input vector
+    ``x`` ``(S, m_in)`` for the groups-sharded ``a``, and the global
+    column of its first entry."""
+    if a.ring_plan is None:
+        raise ValueError("WEll operator packed without a ring plan (set "
+                         "pars.dist_devices at setup)")
+    S, m_in = x.shape
+    if m_in * mesh.n_shards != a.pad_cols:
+        # P and R read the other level's vector: a block of the wrong
+        # level would rebase every column wrongly
+        raise ValueError(f"x has {m_in} rows per shard; the operator's "
+                         f"{a.pad_cols} columns split into "
+                         f"{a.pad_cols // mesh.n_shards}")
+    lo128, hi128 = a.ring_plan
+    ext, lo = haloed_block(x, lo128 * 128, hi128 * 128, mesh)
+    return ext, mesh.first * m_in - lo
+
+
+def well_spmv_ring_local(a: WEll, x: torch.Tensor, mesh: Mesh) -> torch.Tensor:
+    """This process's ``y = (A x)_local`` ``(S, m_out)`` for a
+    groups-sharded WEll operator (:func:`~.dist.shard_well`; ``amg_tpu``'s
+    ``well_spmv_ring_local``, ``halo.py:263-297``): the input block with
+    its ``ring_plan`` halos, then one launch of B2's window entry over the
+    process's rows, columns rebased to the window.  A df64 operator with
+    an f64 ``x`` takes B3's window entry (``well_spmv_ring_local_df64``,
+    ``:450-516``: the f64 vector crosses the ring, the same bytes as
+    ``amg_tpu``'s two f32 planes)."""
+    counts["products"] += 1
+    counts["well_products"] += 1
+    ext, col0 = well_ring_window(a, x, mesh)
+    if a.vals_lo is not None and x.dtype == torch.float64:
+        y = well_kernel.spmv_df64_window(a, ext, col0)
+    else:
+        y = well_kernel.spmv_window(a, ext, col0)
+    return y.view(x.shape[0], -1)
+
+
+def well_spmv_local_full(a: WEll, x_full: torch.Tensor) -> torch.Tensor:
+    """The rows of a groups-sharded WEll operator against the whole
+    (replicated) input vector (``halo.py:348-359``): the boundary
+    prolongation of the general cycle, where the coarse correction is the
+    same on every process, so no exchange is needed.  B2's window entry
+    with ``col0 = 0``; returns the process's ``a.padded_rows`` rows."""
+    return well_kernel.spmv_window(a, x_full[: a.pad_cols], 0)
+
+
+def banded_spmv_ring_local(a: BandedBlocks, x: torch.Tensor,
+                           mesh: Mesh) -> torch.Tensor:
+    """This process's ``y = (A x)_local`` ``(S, m)`` for a block-row-sharded
+    BandedBlocks operator (``halo.py:398-424``): halos of ``nb``
+    128-blocks each way (zeros beyond the mesh, as the global operator's
+    zero padding), then the batched product of :func:`~amg_tpu_torch.ops.
+    spmv.spmv_banded` over the process's block rows."""
+    counts["products"] += 1
+    counts["banded_products"] += 1
+    halo = a.nb * 128
+    ext, lo = haloed_block(x, halo, halo, mesh)
+    if lo != halo:
+        raise ValueError(f"halo of {halo} entries rounded to {lo}")
+    return banded_window_product(a, ext[None], x.dtype).view(x.shape)
+
+
+def spmv_well_ring(w: WEll, x, mesh: Mesh) -> torch.Tensor:
+    """``y = A @ x`` with a global WEll operator groups-sharded over the
+    mesh (``amg_tpu``'s ``spmv_well_ring``): shards the operator (which
+    needs its ``ring_plan``) and ``x`` (zero-padded to ``pad_cols``) and
+    returns this process's ``(S, m)`` block of y."""
+    xs = shard_vector(x[: w.pad_cols], mesh, pad_to=w.pad_cols)
+    return well_spmv_ring_local(shard_well(w, mesh), xs, mesh)
+
+
+def spmv_banded_ring(a: BandedBlocks, x, mesh: Mesh) -> torch.Tensor:
+    """``y = A @ x`` with a BandedBlocks operator block-row-sharded over the
+    mesh (``amg_tpu``'s ``spmv_banded_ring``; its block rows must split
+    into the shards)."""
+    nbr = a.vals.shape[0]
+    if nbr % mesh.n_shards:
+        raise ValueError(f"block rows {nbr} not divisible by "
+                         f"{mesh.n_shards}")
+    xs = shard_vector(x[: nbr * 128], mesh, pad_to=nbr * 128)
+    return banded_spmv_ring_local(shard_banded(a, mesh), xs, mesh)

@@ -1,8 +1,8 @@
 """The SPMD V-cycle on a ring of row shards, and its solver.
 
-Port of the embedded mode of ``amg_tpu/parallel/spmd_cycle.py``: for a
-fine-grid-embedded hierarchy, where every hot operator is a Dia stencil
-over level 0's index space,
+Port of ``amg_tpu/parallel/spmd_cycle.py``, both of its modes.  The
+embedded mode, for a fine-grid-embedded hierarchy, where every hot
+operator is a Dia stencil over level 0's index space:
 
 * levels ``0..E`` are row-sharded (:mod:`.dist`); every operator
   application is the ring product of :mod:`.halo` (B1's window entry);
@@ -14,13 +14,29 @@ over level 0's index space,
   single-device cycle (``solve/cycle.py``) on them;
 * dots and norms ``psum`` over the mesh.
 
-``amg_tpu``'s general mode (unstructured hierarchies without embedding,
-WEll and BandedBlocks rings with B2 and B3 per shard) is not ported yet:
-:class:`SpmdAMGSolver` raises where it would run.
+The general mode (``:328-445``), for a hierarchy without embedding (an
+unstructured one): levels ``0..Es`` (:func:`general_shard_depth`) are
+row-sharded WEll, Dia or BandedBlocks levels whose products, P and R
+included, are ring products (B2's window entry on WEll, the batched
+cuBLAS product on BandedBlocks); below ``Es`` the tail is replicated.  At
+level ``Es`` the coarse vector becomes replicated through one of two
+boundaries, decided once at setup from the operators
+(:func:`ring_boundary`):
+
+* **ring R** (R a WEll operator with a ring plan, P a WEll operator): R's
+  ring product, one ``all_gather`` of the small coarse vector, and P's
+  rows against the whole coarse correction (``well_spmv_local_full``);
+* **all-gather**: the fine residual is all-gathered, the replicated R and
+  P (Ell, Dense or WEll) run on whole vectors, and each process keeps its
+  rows of the correction.
+
+FCG runs in f64 against the groups-sharded df64 WEll operator (B3's
+window entry).
 """
 
 from __future__ import annotations
 
+import dataclasses
 import time
 
 import numpy as np
@@ -28,20 +44,18 @@ import torch
 
 from ..hierarchy import Hierarchy, setup
 from ..params import AMGParams, SmootherType, SolveInfo
-from ..sparse import Dia, torch_dtype
+from ..sparse import BandedBlocks, Dia, WEll, torch_dtype
 from ..ops.blas import norm2
 from ..ops.spmv import spmv
 from ..solve.cycle import _cycle_level
 from ..solve.driver import fcg_host_loop, print_itinfo
 from ..solve.krylov import fcg_init, fcg_step, fcg_refresh
 from ..solve.smoothers import _order, _cg_smooth
-from .dist import Mesh, make_mesh, shard_dia, shard_hierarchy, shard_vector
-from .halo import dia_spmv_ring_local
+from .dist import (Mesh, local_rows, make_mesh, shard_dia, shard_hierarchy,
+                   shard_vector)
+from .halo import (banded_spmv_ring_local, dia_spmv_ring_local,
+                   well_spmv_local_full, well_spmv_ring_local)
 from .multihost import fetch
-
-_GENERAL = ("general sharded cycle: not ported yet (amg_tpu runs its "
-            "general SPMD mode here: WEll and BandedBlocks rings; ROADMAP "
-            "queue A item 2)")
 
 
 def num_embedded(mg: Hierarchy) -> int:
@@ -59,12 +73,16 @@ def num_embedded(mg: Hierarchy) -> int:
 
 
 def _ring_spmv(a, x, mesh: Mesh):
-    """The ring product of a row-sharded operator.  Dia only: the WEll and
-    BandedBlocks rings belong to the general mode."""
+    """The ring product of a row-sharded operator, by format
+    (``spmd_cycle.py:125-142``); a df64 WEll operator with an f64 ``x``
+    takes B3's window entry."""
     if isinstance(a, Dia):
         return dia_spmv_ring_local(a, x, mesh)
-    raise NotImplementedError(f"ring product of {type(a).__name__}: "
-                              + _GENERAL)
+    if isinstance(a, WEll):
+        return well_spmv_ring_local(a, x, mesh)
+    if isinstance(a, BandedBlocks):
+        return banded_spmv_ring_local(a, x, mesh)
+    raise TypeError(f"no ring product for {type(a).__name__}")
 
 
 def _chebyshev_local(level, x, b, degree, mesh):
@@ -237,20 +255,121 @@ def cycle_spmd(mg, x, b, pars, E, mesh):
 
 
 # ---------------------------------------------------------------------------
+# General mode: unstructured hierarchies without embedding
+# ---------------------------------------------------------------------------
+
+
+def _ring_capable(m, ndev: int) -> bool:
+    """Can this operator be row-sharded for the ring product?
+    (``spmd_cycle.py:408-418``)"""
+    if isinstance(m, Dia):
+        return m.vals.shape[1] % ndev == 0
+    if isinstance(m, WEll):
+        return m.ring_plan is not None
+    if isinstance(m, BandedBlocks):
+        return m.vals.shape[0] % ndev == 0
+    return False
+
+
+def general_shard_depth(mg: Hierarchy, ndev: int) -> int:
+    """Longest sharded prefix ``0..Es`` of the general cycle, or -1 when
+    level 0 cannot shard (``spmd_cycle.py:421-439``): interior levels need
+    WEll P and R with ring plans and a ring-capable next A; the boundary
+    level needs a ring-capable A (its transfers may take the all-gather
+    boundary)."""
+    nl = mg.num_levels
+    if nl < 2 or not _ring_capable(mg.levels[0].a, ndev):
+        return -1
+    Es = 0
+    while Es < nl - 2:
+        lvl = mg.levels[Es]
+        if (isinstance(lvl.p, WEll) and lvl.p.ring_plan is not None
+                and isinstance(lvl.r, WEll) and lvl.r.ring_plan is not None
+                and _ring_capable(mg.levels[Es + 1].a, ndev)):
+            Es += 1
+        else:
+            break
+    return Es
+
+
+def ring_boundary(level) -> bool:
+    """The boundary of the general cycle at ``level`` (level ``Es``): True
+    for the ring-R boundary (R a WEll operator with a ring plan, P a WEll
+    operator), False for the all-gather one (``spmd_cycle.py:656-658``).
+    ``amg_tpu`` infers it inside shard_map from local shapes
+    (``_transfer_sharded``, ``:337-343``); here it is decided once, from
+    the operators every process packed alike."""
+    return (isinstance(level.r, WEll) and level.r.ring_plan is not None
+            and isinstance(level.p, WEll))
+
+
+def _cycle_general(mg, l, x, b, pars, ctol, Es, ring_r, mesh):
+    """One V/W-cycle on the sharded levels ``0..Es``, the replicated
+    recursion below the boundary (``spmd_cycle.py:346-399``)."""
+    level = mg.levels[l]
+    repeats = 1 if l == 0 else max(pars.cycle_type, 1)
+    pars_l = pars if (l == 0 or pars.coarse_smoother is None) \
+        else pars.replace(smoother=pars.coarse_smoother)
+    if pars.poly_deg_schedule is not None:
+        sched = pars.poly_deg_schedule
+        pars_l = pars_l.replace(poly_deg=sched[min(l, len(sched) - 1)])
+
+    for _ in range(repeats):
+        x = _smooth_local(level, x, b, pars_l, pars.pre_iter, True, mesh)
+        r = b - _ring_spmv(level.a, x, mesh)
+        if l < Es:
+            bc = _ring_spmv(level.r, r, mesh)
+            xc = _cycle_general(mg, l + 1, torch.zeros_like(bc), bc, pars,
+                                ctol, Es, ring_r, mesh)
+            x = x + _ring_spmv(level.p, xc, mesh)
+        else:
+            coarse = mg.levels[l + 1]
+            if ring_r:
+                # R's ring product, then the small coarse vector gathered
+                bc = mesh.all_gather(_ring_spmv(level.r, r, mesh))
+            else:
+                # the fine residual gathered, the replicated R applied
+                bc = spmv(level.r, mesh.all_gather(r).reshape(-1))
+            bc = bc.reshape(-1)[: coarse.pad]
+            bc = torch.where(torch.arange(bc.shape[0], device=bc.device)
+                             < coarse.n, bc, torch.zeros_like(bc))
+            xc = _cycle_level(mg, l + 1, torch.zeros_like(bc), bc, pars,
+                              ctol)
+            if ring_r:
+                xe = well_spmv_local_full(level.p, xc).view(x.shape)
+            else:
+                xe = local_rows(spmv(level.p, xc)[: x.numel()
+                                                  * mesh.world], mesh)
+            x = x + xe.to(x.dtype)
+        x = _smooth_local(level, x, b, pars_l, pars.post_iter, False, mesh)
+    return x
+
+
+def cycle_general(mg, x, b, pars, Es, ring_r, mesh):
+    """One general-mode cycle on the sharded level-0 block ``(S, m)``."""
+    ctol = min(pars.ctol, pars.tol * 0.1) if pars.ctol > pars.tol \
+        else pars.ctol
+    return _cycle_general(mg, 0, x, b, pars, ctol, Es, ring_r, mesh)
+
+
+# ---------------------------------------------------------------------------
 # Driver
 # ---------------------------------------------------------------------------
 
 
 class SpmdAMGSolver:
-    """AMG on a ring of row shards (``amg_tpu``'s ``SpmdAMGSolver``,
-    embedded mode).
+    """AMG on a ring of row shards (``amg_tpu``'s ``SpmdAMGSolver``).
 
     Setup runs on the host as for :class:`~amg_tpu_torch.AMGSolver`, with
     ``dist_devices`` set to the mesh's shard count (pads that split into
-    the shards) and ``embed_levels`` 8 where it is "auto" (-1); levels
-    ``0..E`` are row-sharded over the mesh, the rest replicated.  The
-    mesh defaults to one shard per process on the card; pass
-    ``mesh=make_mesh(D, device="cpu")`` for the CPU.
+    the shards, WEll ring plans, "auto" formats on) and ``embed_levels`` 8
+    where it is "auto" (-1).  An embedded hierarchy (``E >= 1``) runs the
+    embedded mode, levels ``0..E`` row-sharded; one without embedding the
+    general mode, levels ``0..Es`` row-sharded (``Es`` from
+    :func:`general_shard_depth`; ``ValueError`` when level 0 cannot be
+    sharded).  The rest is replicated.  The mesh defaults to one shard per
+    process on the card; pass ``mesh=make_mesh(D, device="cpu")`` for the
+    CPU.
     """
 
     def __init__(self, a, pars: AMGParams = AMGParams(),
@@ -277,35 +396,97 @@ class SpmdAMGSolver:
             self._iperm0 = np.empty_like(self._perm0)
             self._iperm0[self._perm0] = np.arange(len(self._perm0))
         self.E = num_embedded(mg)
+        self.Es = -1
+        self.ring_r = None
         if self.E == 0:
-            raise NotImplementedError(_GENERAL)
+            self.Es = general_shard_depth(mg, self.ndev)
+            if self.Es < 0:
+                raise ValueError(
+                    "SpmdAMGSolver requires either a fine-grid-embedded "
+                    "hierarchy or a ring-capable (WEll/Dia/BandedBlocks) "
+                    "level 0; use DistAMGSolver instead")
         self.pad = mg.levels[0].pad
         if self.pad % self.ndev != 0:
             raise ValueError(f"padded rows {self.pad} not divisible by mesh "
                              f"size {self.ndev}")
         self.m_local = self.pad // self.ndev
-        self.mg = shard_hierarchy(mg, self.mesh, pars,
-                                  replicate_from_level=self.E + 1)
         self.dtype = torch_dtype(pars.dtype)
-        if pars.verbose:
-            log(f"{self.mesh.describe()}; levels 0..{self.E} row-sharded, "
-                f"{self.m_local} rows per shard")
-        # FCG (accel "cg"): f64 outer iteration against the exact
-        # row-sharded level-0 operator when refining
+        hi = pars.accel == "cg" and pars.refine \
+            and self.dtype != torch.float64
         self.a0_hi = None
-        self._accel_dtype = self.dtype
-        if pars.accel == "cg" and pars.refine \
-                and self.dtype != torch.float64:
-            self.a0_hi = shard_dia(Dia.from_csr(
-                hh.a[0], dtype=torch.float64, pad_rows_to=self.pad,
-                device=self.mesh.device), self.mesh)
-            self._accel_dtype = torch.float64
+        if self.E == 0:
+            self._init_general(mg, hh, hi)
+        else:
+            self.mg = shard_hierarchy(mg, self.mesh, pars,
+                                      replicate_from_level=self.E + 1)
+            # FCG (accel "cg"): f64 outer iteration against the exact
+            # row-sharded level-0 operator when refining
+            if hi:
+                self.a0_hi = shard_dia(Dia.from_csr(
+                    hh.a[0], dtype=torch.float64, pad_rows_to=self.pad,
+                    device=self.mesh.device), self.mesh)
+        self._accel_dtype = torch.float64 if self.a0_hi is not None \
+            else self.dtype
+        if pars.verbose:
+            if self.E:
+                log(f"{self.mesh.describe()}; levels 0..{self.E} "
+                    f"row-sharded, {self.m_local} rows per shard")
+            else:
+                log(f"{self.mesh.describe()}; levels 0..{self.Es} "
+                    f"row-sharded (general mode, "
+                    f"{'ring-R' if self.ring_r else 'all-gather'} "
+                    f"boundary), {self.m_local} rows per shard")
+
+    def _init_general(self, mg, hh, hi: bool):
+        """The general mode's placement (``spmd_cycle.py:635-750``): levels
+        ``0..Es`` row-sharded; at an all-gather boundary level ``Es``'s
+        transfers stay replicated.  With ``hi`` FCG runs in f64 against the
+        df64 WEll operator of this process's row groups (B3's window entry),
+        whose row-slice structure and hi plane level 0's f32 operator shares
+        where their entries agree; without a ring plan for it (or a level-0
+        pad of whole row groups per shard) FCG stays in the solve dtype, as
+        ``amg_tpu`` falls back (``:708-710``)."""
+        Es, mesh = self.Es, self.mesh
+        self.ring_r = ring_boundary(mg.levels[Es])
+        sharded = shard_hierarchy(mg, mesh, self.pars,
+                                  replicate_from_level=Es + 1)
+        levels = list(sharded.levels)
+        if not self.ring_r:
+            levels[Es] = dataclasses.replace(levels[Es], p=mg.levels[Es].p,
+                                             r=mg.levels[Es].r)
+        D = self.ndev
+        if hi and self.pad % (1024 * D) == 0:
+            gps = self.pad // 1024 // D
+            w_hi = WEll.from_csr_df64(
+                hh.a[0], pad_rows_to=self.pad, pad_cols_to=self.pad,
+                ring_devices=D, device=mesh.device,
+                groups=(mesh.first * gps, (mesh.first + mesh.local) * gps))
+            if w_hi.ring_plan is not None:
+                self.a0_hi = w_hi
+                a0 = levels[0].a
+                if isinstance(a0, WEll) and a0.vals.dtype == w_hi.vals.dtype \
+                        and a0.rows.nnz == w_hi.rows.nnz:
+                    # the same kept entries (the f32 ones are a subset of
+                    # the df64 ones): the same layout, the same hi plane
+                    levels[0] = dataclasses.replace(levels[0], a=WEll(
+                        w_hi.vals, w_hi.loc, w_hi.base, a0.shape, a0.nnz,
+                        a0.pad_cols, rows=dataclasses.replace(
+                            w_hi.rows, vals_lo=None),
+                        ring_plan=a0.ring_plan))
+        self.mg = Hierarchy(levels=tuple(levels),
+                            coarse_inv=sharded.coarse_inv)
 
     # -- device pieces ---------------------------------------------------
 
+    def _cycle(self, x, b):
+        if self.E:
+            return cycle_spmd(self.mg, x, b, self.pars, self.E, self.mesh)
+        return cycle_general(self.mg, x, b, self.pars, self.Es, self.ring_r,
+                             self.mesh)
+
     def _step(self, x, b):
         """One cycle and the norm of the new residual."""
-        x = cycle_spmd(self.mg, x, b, self.pars, self.E, self.mesh)
+        x = self._cycle(x, b)
         r = b - _ring_spmv(self.mg.levels[0].a, x, self.mesh)
         return x, norm2(r, self.mesh.psum)
 
@@ -318,8 +499,7 @@ class SpmdAMGSolver:
         rn = norm2(r, self.mesh.psum)
         scale = torch.where(rn > 0, rn, torch.ones_like(rn))
         r_lo = (r / scale).to(self.dtype)
-        e = cycle_spmd(self.mg, torch.zeros_like(r_lo), r_lo, self.pars,
-                       self.E, self.mesh)
+        e = self._cycle(torch.zeros_like(r_lo), r_lo)
         return e.to(self._accel_dtype) * scale
 
     def _shard(self, v, dtype):

@@ -971,21 +971,39 @@ class WEll:
                       pad_cols_to: int | None = None,
                       device="cpu",
                       classes: Optional[torch.Tensor] = None,
-                      ring_devices: int | None = None) -> "WEll":
+                      ring_devices: int | None = None,
+                      groups: Optional[Tuple[int, int]] = None) -> "WEll":
         """Pack with the operator split into non-overlapping f32 planes
-        (``vals = f32(v)``, ``vals_lo = f32(v - vals)``)."""
+        (``vals = f32(v)``, ``vals_lo = f32(v - vals)``).  ``groups =
+        (g0, g1)`` keeps the row groups ``[g0, g1)`` only, as
+        :meth:`block` does, without a layout of the whole operator."""
         vals64, loc, base = WEll.pack_host(a, dtype=np.float64,
                                            pad_rows_to=pad_rows_to,
                                            pad_cols_to=pad_cols_to)
         hi = vals64.astype(np.float32)
         lo = (vals64 - hi.astype(np.float64)).astype(np.float32)
         _, pc = WEll._pads(a, pad_rows_to, pad_cols_to)
-        return WEll(torch.from_numpy(hi), torch.from_numpy(loc),
-                    torch.from_numpy(base), a.shape, a.nnz, pc,
-                    vals_lo=torch.from_numpy(lo),
-                    ring_plan=WEll._plan(base, torch.from_numpy(vals64), pc,
-                                         ring_devices),
+        plan = WEll._plan(base, torch.from_numpy(vals64), pc, ring_devices)
+        g = slice(*groups) if groups is not None else slice(None)
+        return WEll(torch.from_numpy(hi[g]), torch.from_numpy(loc[g]),
+                    torch.from_numpy(base[g]), a.shape, a.nnz, pc,
+                    vals_lo=torch.from_numpy(lo[g]), ring_plan=plan,
                     classes=classes, device=device)
+
+    def block(self, g0: int, g1: int, device=None) -> "WEll":
+        """Row groups ``[g0, g1)`` as an operator of their own: one
+        process's block of a ring of row shards (the groups sharding of
+        ``amg_tpu/parallel/dist.py:178-190``).  Its pack is a view of this
+        pack's groups, on the host; its layout is derived on ``device``
+        (default: this layout's) in row order, rows numbered from the
+        block's first row (``g0 * 1024``).  Columns, ``shape``, ``nnz``,
+        ``pad_cols`` and ``ring_plan`` stay the whole operator's."""
+        dev = self.rows.vals.device if device is None else device
+        return WEll(self.vals[g0:g1], self.loc[g0:g1], self.base[g0:g1],
+                    self.shape, self.nnz, self.pad_cols,
+                    vals_lo=(None if self.vals_lo is None
+                             else self.vals_lo[g0:g1]),
+                    ring_plan=self.ring_plan, device=dev)
 
     @staticmethod
     def from_numpy(vals, loc, base, shape, nnz: int, pad_cols: int,

@@ -112,7 +112,27 @@ Phases (any failure raises and the script exits nonzero):
    launch shape, timed beside the whole ring product, the single-device
    B1 product of the same operator, the torch sparse CSR product and its
    bound; then the same solve inside a one-rank NCCL process group
-   (``multihost.initialize``): the same iterations and x bit for bit.
+   (``multihost.initialize``): the same iterations and x bit for bit;
+19. the general SPMD mode: fem2d(1,000,000) (phases 7-9's matrix) in
+   bench_dist.py's fem2d parameters (f32 cycles, FCG in f64, Chebyshev
+   below level 0, f32 coarse operators, WEll from 1,024 rows) with
+   ``SpmdAMGSolver`` on ``make_mesh(4)``, twice: ``use_banded`` on "auto"
+   (WEll levels 0-5, BandedBlocks 6 with Ell transfers: Es = 6 and the
+   all-gather boundary) and "off" (Es = 5, the ring-R boundary); each
+   solved to a host-checked 1e-8 in FCG iterations within 1 of the
+   single-device ``solve_pcg`` with ``dist_devices=4`` packing, with B2's
+   window entry launched on every sharded WEll operator (A, P, R of levels
+   0..Es), B3's on the df64 operator of FCG and no single-device B2/B3
+   launch on a sharded operator; logs Es, the boundary, each level's
+   format and placement, the halo widths per operator, window launches,
+   ring products, halo MiB, all-gathers and psums per FCG iteration,
+   setup, device MiB and cold and warm solves beside the single-device
+   ones; each window entry against its plain version at every launch
+   shape, timed beside the whole ring product, the single-device B2/B3 on
+   the same operator, the fastest torch sparse CSR product of its rows
+   and its bound (B2/B3's bytes with x as the haloed window); then the
+   "auto" solve inside a one-rank NCCL group: the same iterations and x
+   bit for bit.
 
 Each kernel result carries its bound: the larger of the bytes it must
 move (each input read once, each output written once) over the H100's
@@ -121,7 +141,7 @@ f32, 34 TFLOP/s f64, NVIDIA's H100 SXM data sheet).  The last three lines
 of standard output are the card's name and power limit as nvidia-smi
 gives them, one JSON object describing the kernels (one entry per
 epilogue and operator of phases 6 and 9, per launch shape of phase 11,
-and per launch shape and operator of phases 13-18, each with its
+and per launch shape and operator of phases 13-19, each with its
 main-path launch count) and one with the device.  Imports
 torch, numpy, scipy and amg_tpu_torch only.
 """
@@ -1411,7 +1431,7 @@ def phase_fem_auto(a, old, old_summary):
     to 1e-8; each BandedBlocks level's product beside phase 8's (``old``)
     Ell or Dense on the same level.  Returns the kernel rows of every WEll
     launch shape of its solve (tags "fa-": level 4's RCM ordering rewrites
-    P3 and R3, so their layouts are not phase 9's)."""
+    P3 and R3, so their layouts are not phase 9's) and its summary."""
     import amg_tpu_torch as amg
 
     pars = unstructured_pars(amg).replace(use_well="auto", use_banded="auto")
@@ -1428,7 +1448,7 @@ def phase_fem_auto(a, old, old_summary):
     _compare_products("fem-auto", banded, solver, old)
     rows = phase_unstructured_shapes(solver, well, prefix="fa-")
     del solver
-    return rows
+    return rows, summary
 
 
 # ---------------------------------------------------------------------------
@@ -1755,9 +1775,9 @@ def _compare_window(tag, op, mesh, g, flush):
 def _spmd_solver(a, pars, mesh, b):
     """An SpmdAMGSolver on ``mesh`` (counts reset just before), solved
     cold and warm.  Returns the solver, the cold solution and info, the
-    window launches by shape, the ring and collective counts, and the
-    setup seconds, device MiB and warm solve seconds."""
-    from amg_tpu_torch.ops import dia_kernel as D
+    cold run's DIA and WEll launches by shape, the ring and collective
+    counts, and the setup seconds, device MiB and warm solve seconds."""
+    from amg_tpu_torch.ops import dia_kernel as D, well_kernel as W
     from amg_tpu_torch.parallel import SpmdAMGSolver, dist as pdist, halo
 
     _reset_counts()
@@ -1772,7 +1792,7 @@ def _spmd_solver(a, pars, mesh, b):
     mib = (torch.cuda.memory_allocated() - mem0) / 2**20
     x, info = solver.solve(b)
     torch.cuda.synchronize()
-    by_shape = dict(D.launches_by_shape)
+    by_shape = (dict(D.launches_by_shape), dict(W.launches_by_shape))
     counts = dict(halo.counts, **pdist.counts)
     _, info2 = solver.solve(b)
     torch.cuda.synchronize()
@@ -1814,7 +1834,8 @@ def phase_spmd(a, emb_summary):
     mesh = make_mesh(SPMD_SHARDS, device="cuda")
     check(mesh.device.type == "cuda" and mesh.world == 1
           and mesh.local == SPMD_SHARDS, f"mesh {mesh}")
-    solver, x, info, by_shape, counts, summ = _spmd_solver(a, pars, mesh, b)
+    solver, x, info, (by_shape, _), counts, summ = _spmd_solver(a, pars,
+                                                                 mesh, b)
     log(f"[spmd] {mesh.describe()}; pad {solver.pad} = {SPMD_SHARDS} x "
         f"{solver.m_local} rows; E = {solver.E}")
     for l, lv in enumerate(solver.mg.levels):
@@ -1905,7 +1926,311 @@ def phase_spmd(a, emb_summary):
     return rows
 
 
-def _kernel_entries(dia_rows, well_rows, multi_rows=(), window_rows=()):
+# ---------------------------------------------------------------------------
+# 19. the general SPMD mode: fem2d on a ring of row shards
+# ---------------------------------------------------------------------------
+
+
+def general_pars(amg):
+    """bench_dist.py's parameters for ``AMG_DIST_MATRIX=fem2d``
+    (bench_dist.py:136-145): f32 cycles, FCG in f64 (``refine``),
+    Chebyshev below level 0, f32 coarse operators, WEll on from 1,024
+    rows; ``use_banded`` on "auto" (on for a ring)."""
+    return amg.AMGParams(
+        tol=1e-8, dtype="float32", refine=True, verbose=0,
+        coarse_smoother=amg.SmootherType.CHEBYSHEV,
+        coarse_op_dtype="float32", use_well="on", well_min_rows=1024,
+        accel="cg")
+
+
+def _general_ops(solver):
+    """(tag, sharded WEll operator, window entry, input) of every WEll
+    operator of the general ring: A, P and R of the sharded levels
+    0..Es, each a ring product (input "ring"), except at a ring-R boundary
+    level Es's P, applied to the whole coarse vector (input "full"; at an
+    all-gather boundary level Es's P and R are replicated and not listed),
+    and the df64 operator of FCG."""
+    import amg_tpu_torch as amg
+
+    ops = []
+    for l in range(solver.Es + 1):
+        lv = solver.mg.levels[l]
+        for name in ("a", "p", "r"):
+            op = getattr(lv, name)
+            if not isinstance(op, amg.WEll) or (
+                    l == solver.Es and name != "a" and not solver.ring_r):
+                continue
+            full = l == solver.Es and name == "p"
+            ops.append((f"{name.upper()}{l}", op, "window",
+                        "full" if full else "ring"))
+    if solver.a0_hi is not None:
+        ops.append(("a0_hi", solver.a0_hi, "df64_window", "ring"))
+    return ops
+
+
+def _compare_well_window(tag, op, entry, mode, mesh, g, flush):
+    """B2's (``entry="window"``) or B3's (``"df64_window"``) window entry
+    against its plain version on one sharded WEll operator, on a random x
+    as the ring gives it (this process's haloed block, ``mode="ring"``, or
+    the whole coarse vector at col0 = 0, ``"full"``), held to TOL of
+    max|Ax|; timed beside the whole ring product (halo build and launch),
+    the single-device B2/B3 entry on the same operator (one process holds
+    every shard: the block is the whole operator), the fastest torch
+    sparse CSR product of its rows and its bound (B2/B3's bytes with x as
+    the window, halos included).  Returns one result row."""
+    from amg_tpu_torch.ops import well_kernel as K
+    from amg_tpu_torch.parallel import halo
+
+    df64 = entry == "df64_window"
+    fn, plain, single = (
+        (K.spmv_df64_window, K.spmv_df64_window_plain, K.spmv_df64) if df64
+        else (K.spmv_window, K.spmv_window_plain, K.spmv))
+    vdt = op.rows.vals.dtype
+    xdt = torch.float64 if (df64 or vdt == torch.float64) else torch.float32
+    tol = TOL[torch.float64 if df64 else vdt]
+    S, m_in = mesh.local, op.pad_cols // mesh.n_shards
+    if mode == "full":
+        xw, col0 = torch.randn(op.pad_cols, generator=g, dtype=xdt).cuda(), 0
+        xg = xw
+
+        def ring():
+            return halo.well_spmv_local_full(op, xw)
+    else:
+        x = torch.randn(S, m_in, generator=g, dtype=xdt).cuda()
+        xw, col0 = halo.well_ring_window(op, x, mesh)
+        xg = x.reshape(-1)
+
+        def ring():
+            return halo.well_spmv_ring_local(op, x, mesh)
+    want = plain(op, xw, col0)
+    got = fn(op, xw, col0)
+    torch.cuda.synchronize()
+    check(got.dtype == xdt and got.shape == (op.padded_rows,),
+          f"{tag}: window output {got.dtype} {tuple(got.shape)}")
+    scale = want.abs().max().item()
+    err = (got - want).abs().max().item()
+    ok = err <= tol * scale
+    ms = _time_ms(lambda: fn(op, xw, col0), flush)
+    plain_ms = _time_ms(lambda: plain(op, xw, col0), flush)
+    ring_ms = _time_ms(ring, flush)
+    single_ms = _time_ms(lambda: single(op, xg), flush)
+    csr = op.rows.to_csr((op.padded_rows, op.pad_cols))
+    lib_variants = {idx: _time_ms(lambda lib=lib: lib @ xg, flush)
+                    for idx, lib in _lib_variants(csr, xdt).items()}
+    lib_ms = min(lib_variants.values())
+    nbytes, nnz = _layout_bytes(op, df64, xw.shape[0], xw.element_size())
+    bound_ms, bound_by = _bound(nbytes, 2 * nnz, xdt)
+    lo128, hi128 = op.ring_plan
+    row = dict(op=tag, entry=entry, vals=str(vdt)[6:], x=str(xdt)[6:],
+               rows=op.n_rows, nnz=nnz, n_x=xw.shape[0], col0=col0,
+               mode=mode, lo=lo128 * 128, hi=hi128 * 128, S=S,
+               slices=op.rows.n_slices, max_abs_err=err,
+               rel_err=err / scale, tol=tol, ok=ok, ms=ms,
+               plain_ms=plain_ms, ring_ms=ring_ms, single_ms=single_ms,
+               lib_ms=lib_ms, lib_variants=lib_variants, bound_ms=bound_ms,
+               bound_by=bound_by, bytes=nbytes, gbps=nbytes / ms / 1e6)
+    log(f"[general] {tag:8s} {entry:11s} {row['vals']:7s}/{row['x']:7s} "
+        f"rows={op.n_rows} nnz={nnz} {mode} window {xw.shape[0]} (col0 "
+        f"{col0}, lo {row['lo']}, hi {row['hi']}) err {err:.3e} (rel "
+        f"{err / scale:.2e} <= {tol:g}: {ok})  window {ms:.4f} ms "
+        f"{row['gbps']:.1f} GB/s, ring product {ring_ms:.4f} ms; "
+        f"single-device {single_ms:.4f} ms; torch CSR {lib_ms:.4f} ms "
+        f"(int64 {lib_variants['int64']:.4f}, int32 "
+        f"{lib_variants['int32']:.4f}); bound {bound_ms:.4f} ms "
+        f"({bound_by}, {nbytes / 1e6:.1f} MB); plain {plain_ms:.4f} ms")
+    return row
+
+
+def _general_run(a, pars, tag, b, mesh):
+    """The single-device ``solve_pcg`` of ``pars`` packed for the mesh's
+    ring (``dist_devices``), then ``SpmdAMGSolver`` on ``mesh`` (counts
+    reset just before), logged and checked: a host-checked true rres below
+    1e-8, FCG its within 1 of the single-device solve, B2's window entry
+    launched on every sharded WEll operator and B3's on the df64 operator,
+    no single-device B2/B3 product on a sharded operator.  Returns the
+    solver, its cold solution and info, its WEll launches by shape and
+    its summary."""
+    import amg_tpu_torch as amg
+    from amg_tpu_torch.ops import well_kernel as W
+
+    t0 = time.perf_counter()
+    single = amg.AMGSolver(a, pars.replace(dist_devices=mesh.n_shards),
+                           device="cuda", log=lambda *_: None)
+    torch.cuda.synchronize()
+    single_setup_s = time.perf_counter() - t0
+    x1, i1 = single.solve(b)
+    _, i1w = single.solve(b)
+    torch.cuda.synchronize()
+    del single
+    log(f"[{tag}] single-device solve_pcg (dist_devices="
+        f"{mesh.n_shards} packing): setup {single_setup_s:.2f} s, "
+        f"{i1.nits} FCG its, rres {i1.rres:.3e}, cold "
+        f"{i1.solve_seconds:.4f} s, warm {i1w.solve_seconds:.4f} s")
+
+    solver, x, info, (dia_shape, by_shape), counts, summ = _spmd_solver(
+        a, pars, mesh, b)
+    launches = {e: sum(n for k, n in by_shape.items() if k[0] == e)
+                for e in W.ENTRIES}
+    log(f"[{tag}] {mesh.describe()}; pad {solver.pad} = {mesh.n_shards} x "
+        f"{solver.m_local} rows; E = {solver.E}, Es = {solver.Es}, "
+        f"boundary: {'ring R' if solver.ring_r else 'all-gather'}")
+    for l, lv in enumerate(solver.mg.levels):
+        desc = [f"{type(lv.a).__name__} {str(lv.a.vals.dtype)[6:]}"]
+        if isinstance(lv.a, amg.BandedBlocks):
+            desc.append(f"nb={lv.a.nb}")
+        desc.append("row-sharded" if l <= solver.Es else "replicated")
+        for name in ("p", "r"):
+            op = getattr(lv, name)
+            if op is not None and l <= solver.Es:
+                where = ("row-sharded" if l < solver.Es or solver.ring_r
+                         else "replicated")
+                desc.append(f"{name.upper()} {type(op).__name__} ({where})")
+        log(f"[{tag}] level {l}: {lv.n} rows, pad {lv.pad}, "
+            f"{', '.join(desc)}")
+    for l in range(solver.Es + 1):
+        lv = solver.mg.levels[l]
+        for name in ("a", "p", "r"):
+            op = getattr(lv, name)
+            if isinstance(op, amg.WEll) and (l < solver.Es or name == "a"
+                                             or solver.ring_r):
+                m_in = op.pad_cols // mesh.n_shards
+                lo, hi = (t * 128 for t in op.ring_plan)
+                log(f"[{tag}] {name.upper()}{l}: WEll halo lo {lo} hi {hi} "
+                    f"({-(-lo // m_in)} / {-(-hi // m_in)} hop(s) of "
+                    f"{m_in})")
+            elif isinstance(op, amg.BandedBlocks):
+                log(f"[{tag}] {name.upper()}{l}: BandedBlocks halo "
+                    f"{op.nb * 128} each way")
+    if solver.a0_hi is not None:
+        lo, hi = (t * 128 for t in solver.a0_hi.ring_plan)
+        log(f"[{tag}] a0_hi: df64 WEll halo lo {lo} hi {hi}; level 0 "
+            f"shares its row-slice structure and hi plane: "
+            f"{solver.mg.levels[0].a.rows.cols is solver.a0_hi.rows.cols}")
+    true_rel = float(np.linalg.norm(b - a.matvec(x.astype(np.float64)))
+                     / np.linalg.norm(b))
+    gap = float(np.linalg.norm(x - x1) / np.linalg.norm(x1))
+    its = max(info.nits, 1)
+    log(f"[{tag}] setup {summ['setup_s']:.2f} s (single-device "
+        f"{single_setup_s:.2f}), device memory held after setup "
+        f"{summ['mib']:.1f} MiB, cold solve {info.solve_seconds:.4f} s, "
+        f"warm {summ['warm_s']:.4f} s (single-device cold "
+        f"{i1.solve_seconds:.4f}, warm {i1w.solve_seconds:.4f}), "
+        f"{info.nits} FCG its (single-device {i1.nits}), rres "
+        f"{info.rres:.3e}, true rres (host f64) {true_rel:.3e}, "
+        f"||x_spmd - x_single|| / ||x_single|| {gap:.3e}")
+    log(f"[{tag}] per FCG iteration: "
+        f"{(launches['window'] + launches['df64_window']) / its:.1f} "
+        f"window launches (B2 {launches['window'] / its:.1f}, B3 "
+        f"{launches['df64_window'] / its:.1f}), "
+        f"{counts['products'] / its:.1f} ring products (WEll {counts['well_products'] / its:.1f}, "
+        f"BandedBlocks {counts['banded_products'] / its:.1f}), "
+        f"{counts['halo_bytes'] / its / 2**20:.2f} MiB of halo, "
+        f"{counts['all_gather'] / its:.1f} all-gathers, "
+        f"{counts['psum'] / its:.1f} psums, {counts['p2p'] / its:.1f} "
+        f"exchanges between processes; DIA launches {sum(dia_shape.values())}")
+    for k, n in sorted(by_shape.items(), key=str):
+        log(f"[{tag}]   {k[0]} {str(k[1])[6:]} rows={k[2]} nnz={k[3]}: {n}")
+    check(np.all(np.isfinite(x)) and x.shape == (a.n_rows,),
+          f"{tag}: solution not finite or wrong shape")
+    check(solver.E == 0 and solver.Es >= 1,
+          f"{tag}: E = {solver.E}, Es = {solver.Es}")
+    check(true_rel < 1e-8, f"{tag}: true rres {true_rel:.3e}")
+    check(abs(info.nits - i1.nits) <= 1,
+          f"{tag}: {info.nits} FCG its against {i1.nits} single-device")
+    ops = _general_ops(solver)
+    check(solver.a0_hi is not None, f"{tag}: no df64 FCG operator")
+    sharded = set()
+    for t, op, entry, _ in ops:
+        key = (entry, op.rows.vals.dtype, op.n_rows, op.nnz)
+        check(by_shape.get(key, 0) > 0,
+              f"{tag}: {entry} not launched on {t} {key}")
+        sharded.add(key[1:])
+    single_on_ring = [k for k in by_shape
+                      if k[0] in ("spmv", "df64") and k[1:] in sharded]
+    check(not single_on_ring, f"{tag}: single-device B2/B3 launched on a "
+                              f"sharded operator: {single_on_ring}")
+    return solver, x, info, by_shape, dict(summ, nits=info.nits,
+                                           single_nits=i1.nits)
+
+
+def phase_general(a, fem_summary, fem_auto_summary):
+    """19. fem2d(1,000,000) in bench_dist.py's fem2d mode on a ring of 4
+    row shards on the card: ``use_banded`` on "auto" (the all-gather
+    boundary) and "off" (the ring-R boundary), then the first inside a
+    one-rank NCCL process group.  Returns the window entries' rows."""
+    import socket
+    import torch.distributed as tdist
+    import amg_tpu_torch as amg
+    from amg_tpu_torch.parallel import make_mesh, multihost
+
+    b = np.ones(a.n_rows)
+    mesh = make_mesh(SPMD_SHARDS, device="cuda")
+    check(mesh.device.type == "cuda" and mesh.world == 1
+          and mesh.local == SPMD_SHARDS, f"mesh {mesh}")
+    g = torch.Generator().manual_seed(19)
+    rows, kinds = [], []
+    first = None
+    for banded in ("auto", "off"):
+        pars = general_pars(amg).replace(use_banded=banded)
+        tag = f"general-{banded}"
+        solver, x, info, by_shape, summ = _general_run(a, pars, tag, b,
+                                                       mesh)
+        kinds.append(solver.ring_r)
+        log(f"[{tag}] device memory {summ['mib']:.1f} MiB (phase 8 "
+            f"{fem_summary['mib']:.1f}, phase 15 "
+            f"{fem_auto_summary['mib']:.1f})")
+        flush = torch.empty(FLUSH_BYTES, dtype=torch.uint8, device="cuda")
+        for entry in ("window", "df64_window"):
+            for key, n in sorted(by_shape.items(), key=str):
+                if key[0] != entry:
+                    continue
+                match = [(t, op, mode) for t, op, e, mode
+                         in _general_ops(solver) if e == entry
+                         and (op.rows.vals.dtype, op.n_rows, op.nnz)
+                         == key[1:]]
+                check(match, f"{tag}: no sharded operator has the launch "
+                             f"shape {key}")
+                rows.append(_one_row([
+                    _compare_well_window(f"g{banded[0]}-{t}", op, entry,
+                                         mode, mesh, g, flush)
+                    for t, op, mode in match], n))
+        del flush
+        if first is None:
+            first = (pars, x, info)
+        del solver
+    check(kinds == [False, True], f"boundaries {kinds}: the auto layout "
+          "should take the all-gather boundary, use_banded off the ring-R")
+    bad = [r for r in rows if not r["ok"]]
+    check(not bad, f"WEll window entry disagrees with its plain version: "
+                   f"{bad}")
+
+    # the first solve inside a one-rank NCCL process group
+    pars, x, info = first
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        port = sock.getsockname()[1]
+    check(multihost.initialize(f"localhost:{port}", 1, 0, device="cuda"),
+          "NCCL process group not initialized")
+    try:
+        check(tdist.get_backend() == "nccl", f"backend {tdist.get_backend()}")
+        gmesh = make_mesh(SPMD_SHARDS, device="cuda")
+        check(gmesh.group is not None, "mesh without its process group")
+        _, x2, info2, _, counts2, summ2 = _spmd_solver(a, pars, gmesh, b)
+        log(f"[general-nccl] one rank, {gmesh.describe()}: {info2.nits} FCG "
+            f"its, cold {info2.solve_seconds:.4f} s, warm "
+            f"{summ2['warm_s']:.4f} s, {counts2['psum']} psums and "
+            f"{counts2['all_gather']} all-gathers through NCCL; x equal bit "
+            f"for bit: {np.array_equal(x2, x)}")
+        check(info2.nits == info.nits and np.array_equal(x2, x),
+              "general: the one-rank NCCL run differs from the in-process "
+              "run")
+    finally:
+        tdist.destroy_process_group()
+    return rows
+
+
+def _kernel_entries(dia_rows, well_rows, multi_rows=(), window_rows=(),
+                    well_window_rows=()):
     """The ``kernels`` JSON entries: one per (epilogue, launch shape) of
     phases 6, 13, 14, 16 and 17, per (entry, operator) of phases 9, 13, 15
     and 17 (per GS class for the ``gs`` entry), per launch shape of phases
@@ -1948,6 +2273,18 @@ def _kernel_entries(dia_rows, well_rows, multi_rows=(), window_rows=()):
         "ms": r["ms"], "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
         "bound_by": r["bound_by"], "library_ms": r["lib_ms"],
         "lib_ms": r["lib_ms"]} for r in window_rows]
+    out += [{
+        "name": f"well_spmv.{r['entry']}[{r['op']} {r['vals']}/{r['x']} "
+                f"rows={r['rows']} nnz={r['nnz']} {r['mode']} "
+                f"n_x={r['n_x']}]",
+        "route": "cuda", "source": "amg_tpu_torch/csrc/well_spmv.cu",
+        "replaces": ("amg_tpu/ops/pallas_well.py:146"
+                     if r["entry"] == "df64_window"
+                     else "amg_tpu/ops/pallas_well.py:77"),
+        "launches": r["launches"], "max_abs_err": r["max_abs_err"],
+        "ms": r["ms"], "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
+        "bound_by": r["bound_by"], "library_ms": r["lib_ms"],
+        "lib_ms": r["lib_ms"]} for r in well_window_rows]
     return out
 
 
@@ -2004,8 +2341,9 @@ def main() -> int:
     dia_rows += emb_dia
     multi_rows += emb_multi
     stamp("structured embedded")
-    well_rows += phase_fem_auto(a, fem, fem_summary)
-    del fem, a
+    fa_rows, fem_auto_summary = phase_fem_auto(a, fem, fem_summary)
+    well_rows += fa_rows
+    del fem
     stamp("unstructured auto")
     g_dia, g_well, _ = phase_gmres()
     dia_rows += g_dia
@@ -2019,6 +2357,9 @@ def main() -> int:
     stamp("krylov coarsest")
     window_rows = phase_spmd(p3d, emb_summary)
     stamp("spmd ring")
+    well_window_rows = phase_general(a, fem_summary, fem_auto_summary)
+    del a
+    stamp("general spmd")
 
     prev = t_start
     for label, t in stamps:
@@ -2028,7 +2369,8 @@ def main() -> int:
         f"card: {smi}")
     log(smi)
     log(json.dumps({"kernels": _kernel_entries(dia_rows, well_rows,
-                                               multi_rows, window_rows)}))
+                                               multi_rows, window_rows,
+                                               well_window_rows)}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,
         "count": torch.cuda.device_count()}}))

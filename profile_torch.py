@@ -8,6 +8,7 @@
     python3 profile_torch.py --gmres          # phase 16: GMRES acceleration
     python3 profile_torch.py --structured --layout auto --coarsest KRYLOV
     python3 profile_torch.py --spmd 4         # phase 18: 4 row shards
+    python3 profile_torch.py --spmd 4 --matrix fem2d   # phase 19
 
 ``--layout`` picks the format flags: ``compact`` (default; chip_smoke.py
 phases 5 and 8), ``auto`` (``use_well`` and ``use_banded`` on "auto",
@@ -18,7 +19,9 @@ formats); ``--coarsest KRYLOV`` takes the reference's CG -> GMRES
 coarsest solver (phase 17 with ``--structured --layout auto``).
 ``--spmd N`` solves poisson3d(100) in phase 18's mode (bench_dist.py's
 spmd-cg parameters) with ``SpmdAMGSolver`` on a ring of N row shards on
-the card.
+the card; with ``--matrix fem2d`` fem2d(1,000,000) in phase 19's general
+mode (bench_dist.py's fem2d parameters; ``--layout compact`` turns
+``use_banded`` off: phase 19's ring-R solve).
 
 Builds the main-path configuration of ``chip_smoke.py`` (phase 8, or
 phase 5 with ``--structured``; with ``--batched K`` phase 5's solver runs
@@ -99,13 +102,17 @@ def main() -> int:
                     default="DENSE", help="coarsest-level solver")
     ap.add_argument("--spmd", type=int, default=0, metavar="N",
                     help="phase 18's SPMD solve on N row shards")
+    ap.add_argument("--matrix", choices=("poisson3d", "fem2d"),
+                    default="poisson3d",
+                    help="--spmd's matrix: poisson3d(100) (phase 18) or "
+                         "fem2d(1,000,000) (phase 19)")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("profile_torch: needs a CUDA card", file=sys.stderr)
         return 1
     from chip_smoke import (BATCH_TOL, CD_SIDE, FEM_ROWS,
-                            convection_diffusion, spmd_pars, structured_pars,
-                            unstructured_pars)
+                            convection_diffusion, general_pars, spmd_pars,
+                            structured_pars, unstructured_pars)
     if args.package:
         sys.path.insert(0, os.path.abspath(args.package))
     import amg_tpu_torch as amg
@@ -120,6 +127,12 @@ def main() -> int:
         a, pars, what = convection_diffusion(CD_SIDE), amg.AMGParams(
             accel="gmres", tol=1e-8, verbose=0), \
             f"convection-diffusion {CD_SIDE}^2, GMRES"
+    elif args.spmd and args.matrix == "fem2d":
+        a, pars, what = amg.fem2d(FEM_ROWS, seed=0), general_pars(amg), \
+            f"fem2d({FEM_ROWS}), general mode on {args.spmd} row shards"
+        if args.layout == "compact":
+            pars = pars.replace(use_banded="off")
+            what += ", use_banded off"
     elif args.spmd:
         a, pars, what = amg.poisson3d(100), spmd_pars(amg), \
             f"poisson3d(100), spmd-cg on {args.spmd} row shards"
@@ -129,7 +142,8 @@ def main() -> int:
     else:
         a, pars, what = amg.fem2d(FEM_ROWS, seed=0), \
             unstructured_pars(amg), f"fem2d({FEM_ROWS})"
-    if args.layout != "compact":
+    if args.layout != "compact" and not (args.spmd
+                                         and args.matrix == "fem2d"):
         pars = pars.replace(use_well="auto", use_banded="auto")
     if args.layout == "embedded":
         if not (args.structured or args.batched):
@@ -148,7 +162,12 @@ def main() -> int:
 
         solver = SpmdAMGSolver(a, pars, mesh=make_mesh(args.spmd),
                                log=lambda *_: None)
-        what += f" ({solver.mesh.describe()}, E = {solver.E})"
+        what += f" ({solver.mesh.describe()}, E = {solver.E}"
+        if solver.E == 0:
+            what += (f", Es = {solver.Es}, "
+                     f"{'ring-R' if solver.ring_r else 'all-gather'} "
+                     "boundary")
+        what += ")"
     else:
         solver = amg.AMGSolver(a, pars, log=lambda *_: None)
     torch.cuda.synchronize()

@@ -1,11 +1,12 @@
-"""Worker of tests/test_torch_spmd.py's multi-process test: one of N gloo
-processes, each holding its run of the ring's shards on the CPU.
+"""Worker of the port's multi-process tests (tests/test_torch_spmd.py,
+tests/test_torch_spmd_general.py): one of N gloo processes, each holding
+its run of the ring's shards on the CPU.
 
-    python tests/_torch_mh_worker.py PORT RANK NPROC SHARDS OUT
+    python tests/_torch_mh_worker.py PORT RANK NPROC SHARDS OUT [MATRIX]
 
-Solves poisson3d(12) with FCG in f64 on SHARDS shards and writes the
-fetched solution, the iterations and the relative residual to
-``OUT.<rank>.npz``.
+Solves :func:`problem` ``MATRIX`` (default ``poisson3d``) on SHARDS shards
+and writes the fetched solution, the iterations and the relative residual
+to ``OUT.<rank>.npz``.
 """
 
 import sys
@@ -14,20 +15,42 @@ import numpy as np
 import torch
 
 
+def problem(kind="poisson3d"):
+    """``(a, b, pars)`` of a test solve: ``poisson3d``, FCG in f64 on
+    poisson3d(12) (the embedded mode); ``fem2d``, bench_dist.py's fem2d
+    parameters on fem2d(6000, seed=11) (the general mode: f32 cycles, FCG
+    in f64 against the df64 operator), ``dense_level_bytes`` lowered so
+    that the small problem keeps WEll levels."""
+    import amg_tpu_torch as amg
+
+    if kind == "fem2d":
+        a = amg.fem2d(6000, seed=11)
+        pars = amg.AMGParams(
+            verbose=0, tol=1e-8, dtype="float32", refine=True, accel="cg",
+            coarse_smoother=amg.SmootherType.CHEBYSHEV,
+            coarse_op_dtype="float32", use_well="on", well_min_rows=1024,
+            dense_level_bytes=1 << 20)
+        seed = 17
+    else:
+        a = amg.poisson3d(12)
+        pars = amg.AMGParams(verbose=0, tol=1e-10, accel="cg",
+                             coarse_smoother=amg.SmootherType.CHEBYSHEV)
+        seed = 43
+    b = np.random.default_rng(seed).standard_normal(a.n_rows)
+    return a, b, pars
+
+
 def main():
     port, rank, nproc, shards, out = sys.argv[1:6]
+    kind = sys.argv[6] if len(sys.argv) > 6 else "poisson3d"
     rank, nproc, shards = int(rank), int(nproc), int(shards)
     torch.set_num_threads(1)
-    import amg_tpu_torch as amg
     from amg_tpu_torch.parallel import (SpmdAMGSolver, initialize,
                                         is_multiprocess, make_mesh)
 
     assert initialize(f"localhost:{port}", nproc, rank, device="cpu")
     assert is_multiprocess()
-    a = amg.poisson3d(12)
-    b = np.random.default_rng(43).standard_normal(a.n_rows)
-    pars = amg.AMGParams(verbose=0, tol=1e-10, accel="cg",
-                         coarse_smoother=amg.SmootherType.CHEBYSHEV)
+    a, b, pars = problem(kind)
     mesh = make_mesh(shards, device="cpu")
     assert mesh.local == shards // nproc
     s = SpmdAMGSolver(a, pars, mesh=mesh, log=lambda *x: None)

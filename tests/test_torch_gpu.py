@@ -682,3 +682,110 @@ def test_spmd_one_rank_nccl_on_card():
     finally:
         tdist.destroy_process_group()
     assert info2.nits == info.nits and np.array_equal(x2, x)
+
+
+# the window entries of B2/B3 (the general SPMD mode)
+WELL_WINDOW_CASES = ("middle", "edges", "short")
+
+
+@pytest.mark.parametrize("case", WELL_WINDOW_CASES)
+@pytest.mark.parametrize("kind", ["float32", "bfloat16", "float64", "df64"])
+def test_well_window_kernel_matches_plain(kind, case):
+    """B2's and B3's window entries against their plain versions on the
+    card, on the groups-sharded block of an RCM-ordered fem2d operator
+    with its ring plan: ``middle``, the block of rank 1 of 2 processes on
+    a 4-shard ring (col0 > 0, a window inside x); ``edges``, one process
+    holding every shard (col0 = -lo, the window's halos zero beyond the
+    mesh edges); ``short``, rank 0's window one entry short (its last
+    column, a real entry of x, reads 0)."""
+    _needs_card()
+    from amg_tpu_torch.parallel import halo, make_mesh
+    from amg_tpu_torch.parallel.dist import shard_well
+
+    a = _rcm_fem()
+    pad = 8 * 1024
+    if kind == "df64":
+        w = WEll.from_csr_df64(a, pad_rows_to=pad, pad_cols_to=pad,
+                               ring_devices=4, device="cuda")
+    else:
+        w = WEll.from_csr(a, dtype=getattr(torch, kind), pad_rows_to=pad,
+                          pad_cols_to=pad, ring_devices=4, device="cuda")
+    assert w.ring_plan is not None
+    mesh = make_mesh(4)
+    if case != "edges":
+        mesh = type(mesh)(4, mesh.device, rank=int(case == "middle"),
+                          world=2)
+    blk = shard_well(w, mesh)
+    xdt = torch.float64 if kind in ("float64", "df64") else torch.float32
+    x = torch.randn(pad, generator=torch.Generator().manual_seed(8),
+                    dtype=xdt).cuda()
+    lo128, hi128 = w.ring_plan
+    lo, hi = lo128 * 128, hi128 * 128
+    m = pad // 4
+    first = mesh.first * m
+    xp = torch.nn.functional.pad(x, (lo, hi))
+    ext = xp[first:first + lo + mesh.local * m + hi]
+    if case == "short":
+        ext = ext[:-1]
+    col0 = first - lo
+    assert (col0 > 0) == (case == "middle")
+    df64 = kind == "df64"
+    fn, plain = ((well_kernel.spmv_df64_window,
+                  well_kernel.spmv_df64_window_plain) if df64 else
+                 (well_kernel.spmv_window, well_kernel.spmv_window_plain))
+    entry = "df64_window" if df64 else "window"
+    before = well_kernel.launches[entry]
+    got = fn(blk, ext.contiguous(), col0)
+    torch.cuda.synchronize()
+    assert well_kernel.launches[entry] == before + 1
+    want = plain(blk, ext.contiguous(), col0)
+    assert got.shape == (mesh.local * m,) and got.dtype == xdt
+    tol = {"float32": 2e-6, "bfloat16": 1e-5, "float64": 1e-13,
+           "df64": 1e-13}[kind]
+    err = (got - want).abs().max().item() / want.abs().max().item()
+    assert err <= tol, (kind, case, err)
+    # the block's rows of the single-device product (the short window
+    # drops the operator's last column)
+    xs = x.clone()
+    if case == "short":
+        xs[first + mesh.local * m + hi - 1:] = 0
+    single = (well_kernel.spmv_df64 if df64 else well_kernel.spmv)(w, xs)
+    rows = single[first:first + mesh.local * m]
+    err = (got - rows).abs().max().item() / rows.abs().max().item()
+    assert err <= tol, (kind, case, "single", err)
+
+
+def test_spmd_general_solve_on_card():
+    """The general SPMD mode on 4 shards of fem2d(20000) on the card, in
+    bench_dist.py's fem2d parameters, against the port's single-device
+    ``solve_pcg``: iterations within 1, a host-checked 1e-8; B2's window
+    entry launched, B3's window entry launched, and no single-device B2/B3
+    product on a row-sharded operator."""
+    _needs_card()
+    from amg_tpu_torch.parallel import SpmdAMGSolver, make_mesh
+
+    a = amg.fem2d(20000, seed=17)
+    pars = amg.AMGParams(
+        verbose=0, tol=1e-8, dtype="float32", refine=True, accel="cg",
+        coarse_smoother=amg.SmootherType.CHEBYSHEV,
+        coarse_op_dtype="float32", use_well="on", well_min_rows=1024,
+        dense_level_bytes=2e7)
+    b = np.ones(a.n_rows)
+    _, i1 = amg.AMGSolver(a, pars.replace(dist_devices=4),
+                          log=lambda *_: None).solve(b)
+    s = SpmdAMGSolver(a, pars, mesh=make_mesh(4), log=lambda *_: None)
+    assert s.E == 0 and s.Es >= 1 and s.mesh.device.type == "cuda"
+    well_kernel.launches_by_shape.clear()
+    x, i2 = s.solve(b)
+    torch.cuda.synchronize()
+    assert abs(i1.nits - i2.nits) <= 1
+    r = b - a.matvec(x.astype(np.float64))
+    assert np.linalg.norm(r) / np.linalg.norm(b) < 1e-8
+    keys = well_kernel.launches_by_shape
+    assert any(k[0] == "window" for k in keys)
+    assert any(k[0] == "df64_window" for k in keys)
+    sharded = {(op.vals.dtype, op.n_rows, op.nnz)
+               for lv in s.mg.levels[: s.Es + 1]
+               for op in (lv.a, lv.p, lv.r) if isinstance(op, WEll)}
+    assert not [k for k in keys if k[0] in ("spmv", "df64")
+                and k[1:] in sharded]

@@ -12,7 +12,9 @@
 * Multi-process: 2 gloo processes of 2 shards against the in-process 4
   shards (equal iterations, x within 1e-12 relative) and ``fetch``.
 * CLI: ``--devices 4`` against amg_tpu's CLI, ``--dist gspmd`` and a
-  hierarchy without embedding exit with their reasons.
+  hierarchy whose level 0 cannot be sharded exit with their reasons; an
+  unstructured hierarchy runs the general mode
+  (tests/test_torch_spmd_general.py holds that mode against amg_tpu).
 """
 
 import os
@@ -181,11 +183,20 @@ def test_spmd_boundaries_match_single_device(boundary):
 
 
 def test_general_mode_is_not_ported():
-    """A hierarchy without fine-grid embedding (amg_tpu's general mode)
-    raises instead of running anything else."""
-    a = tamg.fem2d(3000, seed=1)
-    with pytest.raises(NotImplementedError, match="general sharded cycle"):
-        SpmdAMGSolver(a, tamg.AMGParams(verbose=0), mesh=_mesh(4), **QUIET)
+    """A hierarchy without fine-grid embedding (E = 0) runs amg_tpu's
+    general mode: level 0 a row-sharded WEll operator, Es >= 1
+    (tests/test_torch_spmd_general.py holds it against amg_tpu); one whose
+    level 0 cannot be sharded (fem2d(3000) at the defaults: Dense) raises
+    amg_tpu's ValueError."""
+    pars = tamg.AMGParams(verbose=0, well_min_rows=1024,
+                          dense_level_bytes=1 << 20)
+    s = SpmdAMGSolver(tamg.fem2d(6000, seed=1), pars, mesh=_mesh(4), **QUIET)
+    assert s.E == 0 and s.Es >= 1
+    assert isinstance(s.mg.levels[0].a, tamg.WEll)
+    assert s.mg.levels[0].gid.shape == (4, s.m_local)
+    with pytest.raises(ValueError, match="ring-capable"):
+        SpmdAMGSolver(tamg.fem2d(3000, seed=1), tamg.AMGParams(verbose=0),
+                      mesh=_mesh(4), **QUIET)
 
 
 # ---------------------------------------------------------------------------
@@ -247,7 +258,9 @@ def test_fetch_in_one_process():
 
 
 def _cli(module, *flags, devices=1):
-    env = dict(os.environ, JAX_PLATFORMS="cpu",
+    # one OpenMP thread: the suite's workers share the machine's cores
+    # (tests/_torch_threads.py)
+    env = dict(os.environ, JAX_PLATFORMS="cpu", OMP_NUM_THREADS="1",
                XLA_FLAGS=f"--xla_force_host_platform_device_count={devices}")
     out = subprocess.run([sys.executable, "-m", module, *flags], cwd=REPO,
                          env=env, capture_output=True, text=True, timeout=300)
@@ -275,8 +288,11 @@ def test_cli_devices_matches_amg_tpu():
 
 
 def test_cli_dist_paths_not_ported():
-    """``--dist gspmd`` and ``auto`` on a hierarchy without embedding exit
-    with the reason; ``--dist spmd`` raises the general-mode error."""
+    """``--dist gspmd`` exits with the reason (the GSPMD solver is not
+    ported), and so does ``auto`` where level 0 cannot be sharded
+    (fem2d:3000: Dense), where amg_tpu falls back to that solver;
+    ``--dist spmd`` there raises SpmdAMGSolver's ValueError; fem2d:70000
+    (WEll level 0) with ``--dist auto`` solves in the general mode."""
     for flags in (("poisson2d:16", "--dist", "gspmd"),
                   ("fem2d:3000", "--dist", "auto")):
         out = _cli("amg_tpu_torch", *flags, "--devices", "4", "--device",
@@ -287,4 +303,12 @@ def test_cli_dist_paths_not_ported():
     out = _cli("amg_tpu_torch", "fem2d:3000", "--devices", "4", "--dist",
                "spmd", "--device", "cpu", "--quiet")
     assert out.returncode != 0
-    assert "NotImplementedError: general sharded cycle" in out.stderr
+    assert "ValueError: SpmdAMGSolver requires" in out.stderr
+    out = _cli("amg_tpu_torch", "fem2d:70000", "--devices", "4", "--dist",
+               "auto", "--device", "cpu", "--smoother", "CHEBYSHEV",
+               "--tol", "1e-3")
+    assert out.returncode == 0, out.stderr
+    assert "general mode" in out.stdout
+    rres = [ln for ln in out.stdout.splitlines()
+            if ln.startswith("AMG relative residual: ")]
+    assert len(rres) == 1 and float(rres[0].split(": ")[1]) < 1e-3
