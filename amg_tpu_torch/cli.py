@@ -15,13 +15,14 @@ WEll, e.g. ``python -m amg_tpu_torch fem2d:1000000 --use-well on --accel
 cg --refine --dtype float32``.  ``--profile DIR`` writes a
 ``torch.profiler`` trace of the solve to ``DIR/trace.json``.
 
-``--devices N`` solves on a ring of N row shards with the SPMD solver
-(``amg_tpu_torch.parallel.SpmdAMGSolver``): all N on the one device of a
-single process, or split over the processes of a ``torchrun`` launch (gloo
-with ``--device cpu``, NCCL between cards; only rank 0 prints).  ``--dist
-gspmd``, and ``auto`` where the SPMD solver cannot run (a hierarchy
-without fine-grid embedding), exit with the reason: ``amg_tpu`` falls back
-to its ``DistAMGSolver`` there, which is not ported yet.
+``--devices N`` solves on a ring of N row shards: all N on the one device
+of a single process, or split over the processes of a ``torchrun`` launch
+(gloo with ``--device cpu``, NCCL between cards; only rank 0 prints).
+``--dist spmd`` runs the SPMD solver (``amg_tpu_torch.parallel.
+SpmdAMGSolver``), ``--dist gspmd`` the GSPMD one (``DistAMGSolver``), and
+``--dist auto`` (the default) the SPMD solver, or the GSPMD one with a
+``# spmd path unavailable`` line where the SPMD solver cannot shard level
+0 (a Dense or Ell level 0), as ``amg_tpu``'s CLI does.
 """
 
 from __future__ import annotations
@@ -121,9 +122,9 @@ def build_argparser() -> argparse.ArgumentParser:
     ap.add_argument("--dist", type=str, default="auto",
                     choices=["auto", "spmd", "gspmd"],
                     help="multi-device path: spmd = the SPMD ring solver "
-                         "(needs an embedded hierarchy); gspmd = the "
-                         "sharding-annotated solver (not ported yet); auto "
-                         "= spmd")
+                         "(needs a ring-capable level 0); gspmd = the "
+                         "sharding-annotated solver; auto = spmd, else "
+                         "gspmd")
     ap.add_argument("--device", type=str, default="cuda",
                     choices=["cuda", "cpu"],
                     help="torch device for the solve (cuda, the default, "
@@ -207,29 +208,23 @@ def _profiler(device: str):
     return torch.profiler.profile(activities=acts)
 
 
-_NO_GSPMD = ("the GSPMD solver (amg_tpu's DistAMGSolver) is not ported yet; "
-             "the port does not fall back to another solver")
-
-
-def _spmd_solver(a, pars, args, out):
-    """The SPMD solver on ``--devices`` shards, or None with the reason on
-    stderr where ``--dist`` asks for, or needs, the unported GSPMD path."""
-    from .parallel import make_mesh
+def _dist_solver(a, pars, args, out):
+    """The multi-device solver on ``--devices`` shards, as
+    ``amg_tpu/cli.py:221-240`` picks it: the SPMD solver unless ``--dist
+    gspmd``; with ``--dist auto`` the GSPMD solver where the SPMD one
+    raises ``ValueError`` (``--dist spmd`` re-raises)."""
+    from .parallel import DistAMGSolver, make_mesh
     from .parallel.spmd_cycle import SpmdAMGSolver
 
-    if args.dist == "gspmd":
-        print(f"amg_tpu_torch: --dist gspmd: {_NO_GSPMD}", file=sys.stderr)
-        return None
-    try:
-        return SpmdAMGSolver(a, pars, mesh=make_mesh(args.devices,
-                                                     device=args.device),
-                             log=out)
-    except ValueError as exc:
-        if args.dist == "spmd":
-            raise
-        print(f"amg_tpu_torch: spmd path unavailable ({exc}); {_NO_GSPMD}",
-              file=sys.stderr)
-        return None
+    mesh = make_mesh(args.devices, device=args.device)
+    if args.dist in ("auto", "spmd"):
+        try:
+            return SpmdAMGSolver(a, pars, mesh=mesh, log=out)
+        except ValueError as exc:
+            if args.dist == "spmd":
+                raise
+            out(f"# spmd path unavailable ({exc}); using the GSPMD solver")
+    return DistAMGSolver(a, pars, mesh=mesh, log=out)
 
 
 def main(argv=None) -> int:
@@ -279,8 +274,7 @@ def _main(args, out) -> int:
 
     def run():
         if args.devices > 1:
-            solver = _spmd_solver(a, pars, args, out)
-            return None if solver is None else solver.solve(b, x0=x0)
+            return _dist_solver(a, pars, args, out).solve(b, x0=x0)
         return solver_amg(a, x0, b, pars, device=args.device)
 
     if args.profile:
@@ -290,8 +284,6 @@ def _main(args, out) -> int:
         prof.export_chrome_trace(os.path.join(args.profile, "trace.json"))
     else:
         result = run()
-    if result is None:
-        return 2
     x, info = result
 
     out(f"AMG residual: {info.ares:g}")

@@ -184,13 +184,15 @@ def format_on(flag: str) -> bool:
 # ---------------------------------------------------------------------------
 
 
-def setup_host(a: CSR, pars: AMGParams, log=print) -> HostHierarchy:
+def setup_host(a: CSR, pars: AMGParams, log=print,
+               device="cuda") -> HostHierarchy:
     """Build the CSR hierarchy on the host.
 
     Control flow and warnings replicate ``SSS_amg_setup``
     (amg/Setup/SSS_SETUP.cu:69-155) including its four break checks.
-    PMIS runs the host splitter at every size (``amg_tpu`` switches to a
-    JAX device routine at 262,144 rows).
+    PMIS runs the host splitter below 262,144 rows and the device one
+    (``cf_split.pmis_split_device``, on ``device``: the card unless the
+    caller asks for the CPU) from there on, as ``amg_tpu`` does.
     """
     t0 = time.perf_counter()
     min_cdof = max(pars.coarse_dof, MIN_CDOF)
@@ -216,7 +218,13 @@ def setup_host(a: CSR, pars: AMGParams, log=print) -> HostHierarchy:
             if cs_type == CoarsenType.RS:
                 vec, col = rs_split(s)
             elif cs_type == CoarsenType.PMIS:
-                vec, col = pmis_split(s)
+                # big graphs: the rounds on the device
+                if al.n_rows >= 262_144:
+                    from .setup_phase import cf_split
+
+                    vec, col = cf_split.pmis_split_device(s, device=device)
+                else:
+                    vec, col = pmis_split(s)
             elif cs_type == CoarsenType.SA:
                 from .setup_phase.aggregation import aggregate
 
@@ -1162,7 +1170,7 @@ def setup(a: CSR, pars: AMGParams, log=print,
     check_supported(pars)
     device = resolve_device(device)
     if hh is None:
-        hh = setup_host(a, pars, log=log)
+        hh = setup_host(a, pars, log=log, device=device)
     # amg_tpu's order: the embedding plan on the unpermuted hierarchy, the
     # reordering of the levels below the embedded ones, then the pack
     plan = embedding_plan(hh, pars)

@@ -8,15 +8,18 @@ ring-R or all-gather coarse boundary); the ring products
 :func:`spmv_dia_ring`, :func:`spmv_well_ring`, :func:`spmv_banded_ring`;
 the sharded placement (:func:`shard_hierarchy`, :func:`shard_vector`) and
 multi-process wiring (:func:`initialize`, :func:`is_multiprocess`,
-:func:`fetch`).  Imported on demand, as ``amg_tpu`` imports its own.  Not
-ported yet: ``DistAMGSolver`` and ``make_host_mesh``.
+:func:`fetch`, :func:`make_host_mesh`); and the GSPMD solver
+:class:`DistAMGSolver` (``amg_tpu``'s sharding-annotated solver: ring
+products where XLA exchanges halos, all-gather products where it gathers
+x).  Imported on demand, as ``amg_tpu`` imports its own.
 """
 
-from .dist import make_mesh, shard_hierarchy, shard_vector
+from .dist import DistAMGSolver, make_mesh, shard_hierarchy, shard_vector
 from .halo import spmv_banded_ring, spmv_dia_ring, spmv_well_ring
 from .spmd_cycle import SpmdAMGSolver
-from .multihost import initialize, is_multiprocess, fetch
+from .multihost import initialize, is_multiprocess, fetch, make_host_mesh
 
 __all__ = ["make_mesh", "shard_hierarchy", "shard_vector", "spmv_dia_ring",
            "spmv_well_ring", "spmv_banded_ring", "SpmdAMGSolver",
-           "initialize", "is_multiprocess", "fetch"]
+           "DistAMGSolver", "initialize", "is_multiprocess", "fetch",
+           "make_host_mesh"]

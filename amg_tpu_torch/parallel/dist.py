@@ -1,10 +1,12 @@
 """The ring of row shards: mesh, collectives, sharded vectors and
-hierarchies.
+hierarchies, and the GSPMD solver.
 
-Port of the mesh and placement half of ``amg_tpu/parallel/dist.py``
-(``make_mesh``, ``shard_vector``, ``shard_hierarchy``, ``:39-270``); its
-``DistAMGSolver`` (the GSPMD path, an all-gather per product in a port) is
-not ported yet.
+Port of ``amg_tpu/parallel/dist.py``: ``make_mesh``, ``shard_vector``,
+``shard_hierarchy`` (``:39-270``) and ``DistAMGSolver`` (``:273-436``),
+the solver whose communication ``amg_tpu`` leaves to XLA's GSPMD
+partitioner.  Here each format takes the product XLA would place for it:
+the ring products of :mod:`.halo` on Dia and BandedBlocks (collective
+permutes there), the all-gather product on WEll, Ell and Dense.
 
 A :class:`Mesh` is an ordered ring of ``D`` shards.  Each process owns a
 contiguous run of ``S = D / world`` of them, all on the process's device,
@@ -31,14 +33,20 @@ exchange is in :mod:`.halo`.  ``counts`` adds up the collectives.
 from __future__ import annotations
 
 import dataclasses
+import time
 
 import numpy as np
 import torch
 import torch.distributed as dist
 
-from ..hierarchy import Hierarchy, Level, resolve_device
-from ..params import AMGParams
-from ..sparse import BandedBlocks, Dia, WEll
+from ..hierarchy import (Hierarchy, Level, _pick_format, resolve_device,
+                         setup)
+from ..ops.blas import norm2
+from ..ops.spmv import spmv
+from ..params import AMGParams, SolveInfo
+from ..solve.cycle import cycle
+from ..solve.driver import print_itinfo
+from ..sparse import BandedBlocks, Dense, Dia, Ell, WEll, torch_dtype
 
 # collectives over every call: psum calls, all_gather calls
 counts = {"psum": 0, "all_gather": 0}
@@ -133,9 +141,10 @@ def _pad_dia_multiple(d: Dia, multiple: int) -> Dia:
 def local_rows(v: torch.Tensor, mesh: Mesh) -> torch.Tensor:
     """This process's ``(S, m)`` block of a global vector whose length
     splits into the mesh's shards (a view when one process holds them
-    all)."""
+    all); ``(S, m, ...)`` for a tensor of rows."""
     m = v.shape[0] // mesh.n_shards
-    return v.view(mesh.n_shards, m)[mesh.first: mesh.first + mesh.local]
+    return v.view(mesh.n_shards, m, *v.shape[1:])[
+        mesh.first: mesh.first + mesh.local]
 
 
 def shard_vector(v, mesh: Mesh, pad_to: int | None = None,
@@ -199,30 +208,81 @@ def shard_banded(a: BandedBlocks, mesh: Mesh) -> BandedBlocks:
     return BandedBlocks(vals, a.nb, a.shape, a.nnz)
 
 
-def shard_matrix(m, mesh: Mesh):
+def shard_rows(m, mesh: Mesh):
+    """An Ell or Dense operator's rows of this process's shards, padded to
+    a multiple of the shard count (``amg_tpu``'s ``_pad_rows_multiple``,
+    ``dist.py:58-75``, and the Dense padding of ``:159-166``: padded Ell
+    slots point at their own row, clipped to the columns, with value 0);
+    a view when one process holds every shard and no padding is needed.
+    ``shape`` and ``nnz`` stay global."""
+    if isinstance(m, Ell):
+        pr = m.padded_rows
+        extra = _round_up(pr, mesh.n_shards) - pr
+        cols, vals = m.cols, m.vals
+        if extra:
+            pad_cols = torch.arange(pr, pr + extra, device=cols.device) \
+                .clamp(0, max(m.n_cols - 1, 0))[:, None]
+            cols = torch.cat([cols, pad_cols.expand(extra, m.width)])
+            vals = torch.cat([vals, vals.new_zeros(extra, m.width)])
+        rows = (cols, vals)
+    elif isinstance(m, Dense):
+        rows = (_pad_vec_multiple(m.vals, mesh.n_shards),)
+    else:
+        raise TypeError(f"no row sharding for {type(m).__name__}")
+    rows = tuple(local_rows(t.to(mesh.device), mesh).flatten(0, 1)
+                 for t in rows)
+    if mesh.world > 1:
+        rows = tuple(t.contiguous() for t in rows)
+    return Ell(*rows, m.shape, m.nnz) if isinstance(m, Ell) \
+        else Dense(*rows, m.shape, m.nnz)
+
+
+def shard_matrix(m, mesh: Mesh, gspmd: bool = False):
     """This process's share of a level operator: Dia, WEll and BandedBlocks
     row-sharded (:func:`shard_dia`, :func:`shard_well`,
-    :func:`shard_banded`); Ell and Dense stay whole (replicated: the
+    :func:`shard_banded`).  Ell and Dense stay whole (replicated: the
     all-gather boundary of the general mode applies them to the gathered
-    vector)."""
+    vector), unless ``gspmd``: then they are row-sharded too
+    (:func:`shard_rows`, ``amg_tpu``'s ``shard_mat``, ``dist.py:145-233``),
+    and a WEll operator stays whole within one process (the all-gather
+    product reads it with x whole, so its GS-class layout serves as is)."""
     if isinstance(m, Dia):
         return shard_dia(m, mesh)
     if isinstance(m, WEll):
-        return shard_well(m, mesh)
+        return m if gspmd and mesh.world == 1 else shard_well(m, mesh)
     if isinstance(m, BandedBlocks):
         return shard_banded(m, mesh)
-    return m
+    return shard_rows(m, mesh) if gspmd else m
 
 
-def _shard_level(level: Level, mesh: Mesh) -> Level:
+def _gid_from_groups(level: Level) -> torch.Tensor | None:
+    """A GS group id per padded row (-1 for none), from a level's row
+    ranges or index groups: the masked GS of a row-sharded level reads it
+    where the single-device level runs range or gather updates."""
+    if level.gid is not None or not (level.ranges or level.groups):
+        return level.gid
+    dev = level.diag.device
+    gid = torch.full((level.pad,), -1, dtype=torch.int32, device=dev)
+    if level.ranges:
+        for g, (start, size) in enumerate(level.ranges):
+            gid[start:start + size] = g
+    else:
+        for g, idx in enumerate(level.groups):
+            gid[idx] = g
+    return gid
+
+
+def _shard_level(level: Level, mesh: Mesh, gspmd: bool = False) -> Level:
     """A row-sharded level: its operators (:func:`shard_matrix`) and
     per-row vectors as this process's shards; the boundary index tensors
     stay whole (they hold global positions), and so do the compact P and R
     of a compact boundary (``member_idx``: they act on the short
     replicated vectors).  ``gs_w`` (the single-device fused GS weights) is
-    dropped: the sharded GS is a ring product and a masked select."""
+    dropped: the sharded GS is a ring product and a masked select (with
+    ``gspmd`` over a group id derived from the level's row ranges or
+    groups where it has none)."""
     def mat(m):
-        return None if m is None else shard_matrix(m, mesh)
+        return None if m is None else shard_matrix(m, mesh, gspmd)
 
     def rows(v):
         if v is None:
@@ -232,28 +292,239 @@ def _shard_level(level: Level, mesh: Mesh) -> Level:
             else local_rows(v, mesh).contiguous()
 
     compact = level.member_idx is not None
+    gid = _gid_from_groups(level) if gspmd else level.gid
     return dataclasses.replace(
         level, a=mat(level.a), p=level.p if compact else mat(level.p),
         r=level.r if compact else mat(level.r),
         diag=rows(level.diag), inv_diag=rows(level.inv_diag),
-        l1_inv=rows(level.l1_inv), gid=rows(level.gid), gs_w=None,
+        l1_inv=rows(level.l1_inv), gid=rows(gid), gs_w=None,
         diag_mask=None, groups=None)
 
 
+def replicated(level: Level, mesh: Mesh, pars: AMGParams | None) -> bool:
+    """``amg_tpu``'s replication rule (``dist.py:252-256``): a level is
+    replicated when its nnz is at most ``pars.coarse_replicate_nnz`` or its
+    pad under 8 rows per shard."""
+    thresh = pars.coarse_replicate_nnz if pars is not None else 65536
+    return level.a.nnz <= thresh or level.pad < 8 * mesh.n_shards
+
+
 def shard_hierarchy(mg: Hierarchy, mesh: Mesh, pars: AMGParams | None = None,
-                    replicate_from_level: int | None = None) -> Hierarchy:
+                    replicate_from_level: int | None = None,
+                    gspmd: bool = False) -> Hierarchy:
     """Levels row-sharded on the mesh, the rest replicated (as they are,
     on the mesh's device).  ``replicate_from_level`` sets the cut (the
     SPMD cycle: sharded embedded levels ``0..E``, replicated compact
-    tail); without it a level replicates when its nnz is at most
-    ``pars.coarse_replicate_nnz`` or its pad under 8 rows per shard."""
-    thresh = pars.coarse_replicate_nnz if pars is not None else 65536
-    D = mesh.n_shards
+    tail); without it each level follows :func:`replicated`.  ``gspmd``
+    places a sharded level as ``amg_tpu``'s GSPMD solver does, Ell and
+    Dense operators row-sharded too (:func:`shard_matrix`)."""
     levels = []
     for l, lvl in enumerate(mg.levels):
         if replicate_from_level is not None:
             replicate = l >= replicate_from_level
         else:
-            replicate = lvl.a.nnz <= thresh or lvl.pad < 8 * D
-        levels.append(lvl if replicate else _shard_level(lvl, mesh))
+            replicate = replicated(lvl, mesh, pars)
+        levels.append(lvl if replicate else _shard_level(lvl, mesh, gspmd))
     return Hierarchy(levels=tuple(levels), coarse_inv=mg.coarse_inv)
+
+
+def level0_perms(hh):
+    """``(perm, inverse)`` of a host hierarchy's level-0 similarity
+    permutation (an RCM-ordered WEll level 0), or ``(None, None)``: b and
+    x0 map in through ``perm``, the solution out through ``inverse``."""
+    perm = hh.perms[0] if hh.perms is not None else None
+    if perm is None:
+        return None, None
+    inv = np.empty_like(perm)
+    inv[perm] = np.arange(len(perm))
+    return perm, inv
+
+
+def gspmd_depth(mg: Hierarchy, mesh: Mesh, pars: AMGParams | None) -> int:
+    """The last row-sharded level ``Es`` of the GSPMD solver (-1: every
+    level replicated).  Levels follow :func:`replicated` (``amg_tpu``'s
+    rule) from level 0 down to the first replicated one; below it every
+    level is replicated, and so are the coarsest level (its dense inverse
+    is replicated) and, in a fine-grid-embedded hierarchy, the boundary
+    level ``E`` and those below it (the single-device cycle crosses that
+    boundary).  ``amg_tpu`` lets XLA move vectors between any placements;
+    here a sharded prefix needs one boundary."""
+    from .spmd_cycle import num_embedded
+
+    last = mg.num_levels - 1
+    E = num_embedded(mg)
+    if E:
+        last = min(last, E)
+    for l in range(last):
+        if replicated(mg.levels[l], mesh, pars):
+            return l - 1
+    return last - 1
+
+
+class DistAMGSolver:
+    """AMG on a ring of row shards with ``amg_tpu``'s GSPMD placement
+    (``amg_tpu``'s ``DistAMGSolver``, ``dist.py:273-436``).
+
+    Setup runs on the host as for :class:`~amg_tpu_torch.AMGSolver`, with
+    ``dist_devices`` set to the mesh's shard count (pads that split into
+    the shards, whole WEll row groups and BandedBlocks block rows per
+    shard; ``amg_tpu``'s ``device_put`` fails where WEll groups do not
+    split).  Levels ``0..Es`` (:func:`gspmd_depth`) are row-sharded with
+    every operator, Ell and Dense included (``shard_hierarchy(...,
+    gspmd=True)``); the rest is replicated.  A sharded level smooths with
+    the whole ``SmootherType`` surface (masked GS per colour), every
+    product the one XLA places (:func:`~.spmd_cycle.gspmd_spmv`: ring
+    products on Dia and BandedBlocks, all-gather products on WEll, Ell and
+    Dense); replicated levels run the single-device cycle.
+
+    :meth:`solve` is the host loop over one cycle and its ``psum``-reduced
+    residual norm; with ``pars.refine`` and a dtype other than f64 it runs
+    :meth:`solve_refined`, f64 defect correction against the row-sharded
+    f64 level-0 operator ``a0_hi`` (Dia through B1's window entry, else
+    Ell through the all-gather product).  Like ``amg_tpu``'s, this solver
+    runs no Krylov acceleration: ``pars.accel`` is not read.  The mesh
+    defaults to one shard per process on the card; pass
+    ``mesh=make_mesh(D, device="cpu")`` for the CPU.
+    """
+
+    def __init__(self, a, pars: AMGParams = AMGParams(),
+                 mesh: Mesh | None = None, log=print):
+        self.mesh = mesh if mesh is not None else make_mesh()
+        self.ndev = self.mesh.n_shards
+        self.a = a
+        self.log = log
+        if pars.dist_devices != self.ndev:
+            pars = pars.replace(dist_devices=self.ndev)
+        self.pars = pars
+        if self.mesh.device.type == "cuda":
+            torch.backends.cuda.matmul.allow_tf32 = False
+        mg, hh = setup(a, pars, log=log, device=self.mesh.device)
+        self.host_hierarchy = hh
+        self._perm0, self._iperm0 = level0_perms(hh)
+        self.Es = gspmd_depth(mg, self.mesh, pars)
+        self.mg = shard_hierarchy(mg, self.mesh, pars,
+                                  replicate_from_level=self.Es + 1,
+                                  gspmd=True)
+        # level-0 vectors: (S, m) blocks of pad rows when sharded
+        self.pad = _round_up(mg.levels[0].pad, self.ndev) \
+            if self.Es >= 0 else mg.levels[0].pad
+        self.dtype = torch_dtype(pars.dtype)
+        self.a0_hi = None
+        if pars.refine and self.dtype != torch.float64:
+            kw = dict(dtype=torch.float64, pad_rows_to=mg.levels[0].pad,
+                      device=self.mesh.device)
+            if _pick_format(hh.a[0], pars) == "dia":
+                hi = Dia.from_csr(hh.a[0], **kw)
+            else:
+                hi = Ell.from_csr(hh.a[0], **kw)
+            self.a0_hi = hi if self.Es < 0 else shard_matrix(hi, self.mesh,
+                                                             gspmd=True)
+        if pars.verbose:
+            if self.Es < 0:
+                log(f"{self.mesh.describe()}; every level replicated "
+                    f"(GSPMD)")
+            else:
+                log(f"{self.mesh.describe()}; levels 0..{self.Es} "
+                    f"row-sharded (GSPMD), {self.pad // self.ndev} rows "
+                    f"per shard")
+
+    # -- device pieces ---------------------------------------------------
+
+    # the sharded pieces come from .spmd_cycle, which imports this module
+
+    def _spmv(self, a, x):
+        if self.Es < 0:
+            return spmv(a, x)[: x.shape[0]]
+        from .spmd_cycle import gspmd_spmv
+
+        return gspmd_spmv(a, x, self.mesh)
+
+    def _norm(self, v):
+        return norm2(v, self.mesh.psum if self.Es >= 0 else None)
+
+    def _cycle(self, x, b):
+        if self.Es < 0:
+            return cycle(self.mg, x, b, self.pars)
+        from .spmd_cycle import cycle_general, gspmd_spmv
+
+        return cycle_general(self.mg, x, b, self.pars, self.Es, True,
+                             self.mesh, gspmd_spmv)
+
+    def _step(self, x, b):
+        """One cycle and the norm of the new residual."""
+        x = self._cycle(x, b)
+        return x, self._norm(b - self._spmv(self.mg.levels[0].a, x))
+
+    def _refine_step(self, x_hi, b_hi):
+        """One defect-correction iteration (``dist.py:333-344``): the f64
+        residual, ``refine_inner_cycles`` cycles on the scaled defect, the
+        f64 update and its residual norm."""
+        r_hi = b_hi - self._spmv(self.a0_hi, x_hi)
+        rn = self._norm(r_hi)
+        scale = torch.where(rn > 0, rn, torch.ones_like(rn))
+        r_lo = (r_hi / scale).to(self.dtype)
+        e = torch.zeros_like(r_lo)
+        for _ in range(max(self.pars.refine_inner_cycles, 1)):
+            e = self._cycle(e, r_lo)
+        x_hi = x_hi + e.to(torch.float64) * scale
+        return x_hi, self._norm(b_hi - self._spmv(self.a0_hi, x_hi))
+
+    def _shard(self, v, dtype):
+        """A host vector in the caller's ordering -> this process's padded
+        ``(S, m)`` block, or the whole padded vector when level 0 is
+        replicated."""
+        n = self.a.n_rows
+        v = np.asarray(v, dtype=np.float64)[:n]
+        if self._perm0 is not None:
+            v = v[self._perm0]
+        if self.Es >= 0:
+            return shard_vector(v, self.mesh, pad_to=self.pad, dtype=dtype)
+        out = torch.zeros(self.pad, dtype=dtype)
+        out[:n] = torch.from_numpy(v)
+        return out.to(self.mesh.device)
+
+    def _unshard(self, xd):
+        from .multihost import fetch
+
+        x = fetch(xd, self.mesh)[: self.a.n_rows]
+        return x[self._iperm0] if self._iperm0 is not None else x
+
+    # -- solves ------------------------------------------------------------
+
+    def _loop(self, b, x0, dtype, step, k, refined):
+        from .spmd_cycle import cycle_host_loop
+
+        pars = self.pars
+        n = self.a.n_rows
+        bd = self._shard(b, dtype)
+        xd = self._shard(x0, dtype) if x0 is not None \
+            else torch.zeros_like(bd)
+        info = SolveInfo()
+        sumb = float(self._norm(bd))
+        if sumb == 0.0:
+            return np.zeros(n), info
+        t0 = time.perf_counter()
+        if pars.verbose:
+            print_itinfo(pars.stop_type, 0, 1.0, sumb, 0.0, log=self.log)
+        if refined:
+            info.residuals.append(sumb)
+        xd = cycle_host_loop(pars, sumb, xd, lambda x: step(x, bd), info,
+                             k=k, log=self.log)
+        info.solve_seconds = time.perf_counter() - t0
+        info.setup_seconds = self.host_hierarchy.setup_seconds
+        return self._unshard(xd), info
+
+    def solve_refined(self, b, x0=None):
+        """Sharded mixed-precision defect correction (``dist.py:340-394``):
+        ``refine_inner_cycles`` cycles in the solve dtype per f64 residual
+        update until the f64 relative residual meets ``tol``;
+        ``info.nits`` counts cycles."""
+        return self._loop(b, x0, torch.float64, self._refine_step,
+                          max(self.pars.refine_inner_cycles, 1), True)
+
+    def solve(self, b, x0=None):
+        """Host loop over cycles (``dist.py:396-436``); runs
+        :meth:`solve_refined` when the solver holds ``a0_hi``."""
+        if self.a0_hi is not None:
+            return self.solve_refined(b, x0)
+        return self._loop(b, x0, self.dtype, self._step, 1, False)

@@ -17,6 +17,15 @@ shards, and the local product then runs on the haloed window:
   cuBLAS product of ``ops/spmv.py`` over the window (an XLA einsum in
   ``amg_tpu``, not a Pallas kernel).
 
+The GSPMD solver (``amg_tpu``'s ``DistAMGSolver``, where XLA places the
+communication) adds the **all-gather product** for the formats whose
+product gathers x (``dist.py:93-101``): WEll, Ell and Dense operators
+row-sharded by :func:`~.dist.shard_matrix` (``gspmd=True``) multiply
+this process's rows by the whole vector, one ``Mesh.all_gather`` of the
+``(S, m)`` block (:func:`spmv_gather_local`; WEll through B2's window
+entry with ``col0 = 0``).  Within one process the gather is a view of the
+flattened block.
+
 Each runs its plain version on CPU tensors.
 
 Halo rule (``halo.py:78-140``): a halo wider than one block takes several
@@ -34,7 +43,8 @@ the split changes no number and is left out here (ROADMAP: overlap of ring
 transfers).
 
 ``counts`` adds up, over every call: ring products (``products``, of
-them ``well_products`` and ``banded_products``), the x bytes that shard
+them ``well_products`` and ``banded_products``), all-gather products
+(``gather_products``), the x bytes that shard
 windows take from other shards (``halo_bytes``, 0 at the mesh edges) and
 the messages and bytes sent between processes (``p2p``, ``p2p_bytes``).
 """
@@ -45,12 +55,13 @@ import torch
 import torch.distributed as dist
 
 from ..ops import dia_kernel, well_kernel
-from ..ops.spmv import banded_window_product
+from ..ops.spmv import banded_window_product, spmv
 from ..sparse import BandedBlocks, Dia, WEll
-from .dist import Mesh, shard_banded, shard_dia, shard_vector, shard_well
+from .dist import (Mesh, local_rows, shard_banded, shard_dia, shard_vector,
+                   shard_well)
 
 counts = {"products": 0, "well_products": 0, "banded_products": 0,
-          "halo_bytes": 0, "p2p": 0, "p2p_bytes": 0}
+          "gather_products": 0, "halo_bytes": 0, "p2p": 0, "p2p_bytes": 0}
 
 
 def dia_halo_widths(offsets) -> tuple[int, int]:
@@ -221,6 +232,32 @@ def well_spmv_local_full(a: WEll, x_full: torch.Tensor) -> torch.Tensor:
     same on every process, so no exchange is needed.  B2's window entry
     with ``col0 = 0``; returns the process's ``a.padded_rows`` rows."""
     return well_kernel.spmv_window(a, x_full[: a.pad_cols], 0)
+
+
+def spmv_local_full(a, x_full: torch.Tensor, mesh: Mesh) -> torch.Tensor:
+    """This process's rows of a row-sharded operator (flat, ``S * m_out``)
+    against the whole input vector ``x_full`` (replicated, or gathered from
+    the ring; it may run past the operator's columns): B2's window entry
+    with ``col0 = 0`` for WEll (:func:`well_spmv_local_full`), the gather of
+    ``ops/spmv.py`` for Ell, the row block times ``x`` for Dense, and for
+    Dia (the square P of an embedded level) the ring product of this
+    process's block of ``x_full``."""
+    if isinstance(a, WEll):
+        return well_spmv_local_full(a, x_full)
+    if isinstance(a, Dia):
+        return dia_spmv_ring_local(a, local_rows(x_full, mesh), mesh) \
+            .reshape(-1)
+    return spmv(a, x_full)
+
+
+def spmv_gather_local(a, x: torch.Tensor, mesh: Mesh) -> torch.Tensor:
+    """This process's ``y = (A x)_local`` ``(S, m_out)`` for a row-sharded
+    WEll, Ell or Dense operator, as XLA computes it under GSPMD: x's
+    ``(S, m_in)`` shards all-gathered (a view within one process), then
+    :func:`spmv_local_full`."""
+    counts["gather_products"] += 1
+    full = mesh.all_gather(x).reshape(-1)
+    return spmv_local_full(a, full, mesh).view(x.shape[0], -1)
 
 
 def banded_spmv_ring_local(a: BandedBlocks, x: torch.Tensor,

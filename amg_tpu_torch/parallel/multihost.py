@@ -23,6 +23,7 @@ all its shards on the card is the single-card form of the same code.
 
 from __future__ import annotations
 
+import dataclasses
 import datetime
 import os
 
@@ -97,3 +98,33 @@ def fetch(x, mesh=None) -> np.ndarray:
     if mesh is None or mesh.world == 1 or x.dim() < 2:
         return x.reshape(-1).cpu().numpy()
     return mesh.all_gather(x).reshape(-1).cpu().numpy()
+
+
+@dataclasses.dataclass(frozen=True)
+class HostMesh:
+    """The ring's shards as a 2-D ``(process, shard)`` grid: ``ids[p, j]``
+    is shard ``j`` of process ``p`` (ring order runs along the rows), with
+    the axis names of ``amg_tpu``'s ``make_host_mesh``.  ``shape`` maps
+    each axis to its size, as a ``jax.sharding.Mesh``'s does."""
+
+    ids: np.ndarray
+    axis_names: tuple = ("host", "chip")
+
+    @property
+    def shape(self) -> dict:
+        return dict(zip(self.axis_names, self.ids.shape))
+
+
+def make_host_mesh(mesh=None, axes: tuple[str, str] = ("host", "chip")):
+    """The ``(processes, shards per process)`` view of a ring (default
+    :func:`~amg_tpu_torch.parallel.dist.make_mesh`'s: one shard per
+    process): ``amg_tpu``'s 2-D ``(process_count, devices per process)``
+    mesh (``multihost.py:105-118``), which tells shardings that cross
+    processes from those within one.  ``torch.distributed.device_mesh``
+    is not used: it assumes one rank per device, and a process here holds
+    ``S`` shards of the ring on its one device."""
+    from .dist import make_mesh
+
+    mesh = make_mesh(device="cpu") if mesh is None else mesh
+    ids = np.arange(mesh.n_shards).reshape(mesh.world, mesh.local)
+    return HostMesh(ids, tuple(axes))

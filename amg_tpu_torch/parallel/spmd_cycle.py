@@ -32,6 +32,12 @@ boundaries, decided once at setup from the operators
 
 FCG runs in f64 against the groups-sharded df64 WEll operator (B3's
 window entry).
+
+The GSPMD solver (:class:`~.dist.DistAMGSolver`) runs the general cycle
+with its own product (:func:`gspmd_spmv`: all-gather products on WEll, Ell
+and Dense) and its boundary always sharded: level ``Es``'s R and P
+row-sharded, R's coarse rows all-gathered, P's rows against the whole
+coarse correction (:func:`~.halo.spmv_local_full`).
 """
 
 from __future__ import annotations
@@ -51,10 +57,10 @@ from ..solve.cycle import _cycle_level
 from ..solve.driver import fcg_host_loop, print_itinfo
 from ..solve.krylov import fcg_init, fcg_step, fcg_refresh
 from ..solve.smoothers import _order, _cg_smooth
-from .dist import (Mesh, local_rows, make_mesh, shard_dia, shard_hierarchy,
-                   shard_vector)
+from .dist import (Mesh, level0_perms, local_rows, make_mesh, shard_dia,
+                   shard_hierarchy, shard_vector)
 from .halo import (banded_spmv_ring_local, dia_spmv_ring_local,
-                   well_spmv_local_full, well_spmv_ring_local)
+                   spmv_gather_local, spmv_local_full, well_spmv_ring_local)
 from .multihost import fetch
 
 
@@ -85,7 +91,17 @@ def _ring_spmv(a, x, mesh: Mesh):
     raise TypeError(f"no ring product for {type(a).__name__}")
 
 
-def _chebyshev_local(level, x, b, degree, mesh):
+def gspmd_spmv(a, x, mesh: Mesh):
+    """The product of a row-sharded operator where ``amg_tpu``'s GSPMD
+    solver leaves the communication to XLA (``dist.py:93-101``): halo
+    exchanges on Dia and BandedBlocks (the ring products), an all-gather of
+    x on WEll, Ell and Dense (:func:`~.halo.spmv_gather_local`)."""
+    if isinstance(a, (Dia, BandedBlocks)):
+        return _ring_spmv(a, x, mesh)
+    return spmv_gather_local(a, x, mesh)
+
+
+def _chebyshev_local(level, x, b, degree, mesh, spmv_fn=_ring_spmv):
     """Chebyshev smoothing with ring products (the math of
     ``solve/smoothers.py::_chebyshev``)."""
     rho = level.rho_dinv_a
@@ -94,24 +110,25 @@ def _chebyshev_local(level, x, b, degree, mesh):
     sigma = theta / delta
     rho_old = 1.0 / sigma
 
-    r = level.inv_diag * (b - _ring_spmv(level.a, x, mesh))
+    r = level.inv_diag * (b - spmv_fn(level.a, x, mesh))
     d = r / theta
     x = x + d
     for _ in range(max(degree - 1, 0)):
         rho_new = 1.0 / (2.0 * sigma - rho_old)
-        r = level.inv_diag * (b - _ring_spmv(level.a, x, mesh))
+        r = level.inv_diag * (b - spmv_fn(level.a, x, mesh))
         d = rho_new * rho_old * d + 2.0 * rho_new / delta * r
         x = x + d
         rho_old = rho_new
     return x
 
 
-def _gs_sweep_local(level, x, b, order, mesh, relax=None):
+def _gs_sweep_local(level, x, b, order, mesh, relax=None,
+                    spmv_fn=_ring_spmv):
     """One masked GS sweep over colour groups with ring products
     (``spmd_cycle.py:167-177``): per group a ring product, then the group's
     rows take the exact GS value."""
     for g in order:
-        ax = _ring_spmv(level.a, x, mesh)
+        ax = spmv_fn(level.a, x, mesh)
         t = (b - ax + level.diag * x) * level.inv_diag
         if relax is not None:
             t = (1.0 - relax) * x + relax * t
@@ -120,30 +137,32 @@ def _gs_sweep_local(level, x, b, order, mesh, relax=None):
     return x
 
 
-def _smooth_local(level, x, b, pars, nsweeps, pre, mesh):
+def _smooth_local(level, x, b, pars, nsweeps, pre, mesh, spmv_fn=_ring_spmv):
     """The whole ``SmootherType`` surface of ``solve/smoothers.py::smooth``
-    on a row-sharded level: every operator application a ring product,
-    every dot a ``psum``."""
+    on a row-sharded level: every operator application ``spmv_fn`` (the
+    ring product; the GSPMD solver's :func:`gspmd_spmv`), every dot a
+    ``psum``."""
     sm = pars.smoother
     if sm in (SmootherType.POLY, SmootherType.CHEBYSHEV):
-        return _chebyshev_local(level, x, b, pars.poly_deg, mesh)
+        return _chebyshev_local(level, x, b, pars.poly_deg, mesh, spmv_fn)
     if sm == SmootherType.CG:
         return _cg_smooth(level, x, b, nsweeps, psum=mesh.psum,
-                          spmv_fn=lambda v: _ring_spmv(level.a, v, mesh))
+                          spmv_fn=lambda v: spmv_fn(level.a, v, mesh))
     if sm in (SmootherType.JACOBI, SmootherType.WJACOBI):
         w = 1.0 if sm == SmootherType.JACOBI else pars.relax
         for _ in range(nsweeps):
-            x = x + w * level.inv_diag * (b - _ring_spmv(level.a, x, mesh))
+            x = x + w * level.inv_diag * (b - spmv_fn(level.a, x, mesh))
         return x
     if sm == SmootherType.L1DIAG:
         for _ in range(nsweeps):
-            x = x + level.l1_inv * (b - _ring_spmv(level.a, x, mesh))
+            x = x + level.l1_inv * (b - spmv_fn(level.a, x, mesh))
         return x
 
     relax = pars.relax
 
     def sweep(x, order, rlx=None):
-        return _gs_sweep_local(level, x, b, order, mesh, relax=rlx)
+        return _gs_sweep_local(level, x, b, order, mesh, relax=rlx,
+                               spmv_fn=spmv_fn)
 
     fwd = _order(level, True, 0, True)
     bwd = _order(level, False, 0, False)
@@ -303,9 +322,13 @@ def ring_boundary(level) -> bool:
             and isinstance(level.p, WEll))
 
 
-def _cycle_general(mg, l, x, b, pars, ctol, Es, ring_r, mesh):
+def _cycle_general(mg, l, x, b, pars, ctol, Es, ring_r, mesh,
+                   spmv_fn=_ring_spmv):
     """One V/W-cycle on the sharded levels ``0..Es``, the replicated
-    recursion below the boundary (``spmd_cycle.py:346-399``)."""
+    recursion below the boundary (``spmd_cycle.py:346-399``).  ``ring_r``:
+    level ``Es``'s R and P are row-sharded (the ring-R boundary, and every
+    GSPMD boundary), else replicated (the all-gather boundary); every
+    product on a sharded level is ``spmv_fn``."""
     level = mg.levels[l]
     repeats = 1 if l == 0 else max(pars.cycle_type, 1)
     pars_l = pars if (l == 0 or pars.coarse_smoother is None) \
@@ -315,18 +338,19 @@ def _cycle_general(mg, l, x, b, pars, ctol, Es, ring_r, mesh):
         pars_l = pars_l.replace(poly_deg=sched[min(l, len(sched) - 1)])
 
     for _ in range(repeats):
-        x = _smooth_local(level, x, b, pars_l, pars.pre_iter, True, mesh)
-        r = b - _ring_spmv(level.a, x, mesh)
+        x = _smooth_local(level, x, b, pars_l, pars.pre_iter, True, mesh,
+                          spmv_fn)
+        r = b - spmv_fn(level.a, x, mesh)
         if l < Es:
-            bc = _ring_spmv(level.r, r, mesh)
+            bc = spmv_fn(level.r, r, mesh)
             xc = _cycle_general(mg, l + 1, torch.zeros_like(bc), bc, pars,
-                                ctol, Es, ring_r, mesh)
-            x = x + _ring_spmv(level.p, xc, mesh)
+                                ctol, Es, ring_r, mesh, spmv_fn)
+            x = x + spmv_fn(level.p, xc, mesh)
         else:
             coarse = mg.levels[l + 1]
             if ring_r:
-                # R's ring product, then the small coarse vector gathered
-                bc = mesh.all_gather(_ring_spmv(level.r, r, mesh))
+                # R's sharded product, then the small coarse vector gathered
+                bc = mesh.all_gather(spmv_fn(level.r, r, mesh))
             else:
                 # the fine residual gathered, the replicated R applied
                 bc = spmv(level.r, mesh.all_gather(r).reshape(-1))
@@ -336,25 +360,63 @@ def _cycle_general(mg, l, x, b, pars, ctol, Es, ring_r, mesh):
             xc = _cycle_level(mg, l + 1, torch.zeros_like(bc), bc, pars,
                               ctol)
             if ring_r:
-                xe = well_spmv_local_full(level.p, xc).view(x.shape)
+                xe = spmv_local_full(level.p, xc, mesh).view(x.shape)
             else:
                 xe = local_rows(spmv(level.p, xc)[: x.numel()
                                                   * mesh.world], mesh)
             x = x + xe.to(x.dtype)
-        x = _smooth_local(level, x, b, pars_l, pars.post_iter, False, mesh)
+        x = _smooth_local(level, x, b, pars_l, pars.post_iter, False, mesh,
+                          spmv_fn)
     return x
 
 
-def cycle_general(mg, x, b, pars, Es, ring_r, mesh):
+def cycle_general(mg, x, b, pars, Es, ring_r, mesh, spmv_fn=_ring_spmv):
     """One general-mode cycle on the sharded level-0 block ``(S, m)``."""
     ctol = min(pars.ctol, pars.tol * 0.1) if pars.ctol > pars.tol \
         else pars.ctol
-    return _cycle_general(mg, 0, x, b, pars, ctol, Es, ring_r, mesh)
+    return _cycle_general(mg, 0, x, b, pars, ctol, Es, ring_r, mesh, spmv_fn)
 
 
 # ---------------------------------------------------------------------------
 # Driver
 # ---------------------------------------------------------------------------
+
+
+def cycle_host_loop(pars, sumb, x, step, info, k: int = 1, log=print):
+    """The host loop of the multi-device solves (``AMGSolver.solve`` and
+    ``solve_refined``'s stopping rules): ``step(x) -> (x, absres)`` runs
+    ``k`` cycles on the device; the host reads the residuals once per
+    step with the live table (``pars.verbose``), else in batches covering
+    4 cycles, and stops at ``tol`` or on a non-finite residual.  Fills
+    ``info`` (``nits`` in cycles) and returns the last accepted x."""
+    absres0 = sumb
+    max_outer = max(pars.max_it // k, 1)
+    check_every = 1 if pars.verbose else max(4 // k, 1)
+    pending: list = []
+    xd = x
+    for outer in range(1, max_outer + 1):
+        xd, absres_d = step(xd)
+        pending.append((outer, xd, absres_d))
+        if len(pending) < check_every and outer != max_outer:
+            continue
+        vals = torch.stack([r for _, _, r in pending]).cpu().numpy()
+        for (outer_i, x_i, _), absres in zip(pending, vals):
+            absres = float(absres)
+            relres = absres / sumb
+            factor = (absres / absres0) ** (1.0 / k) if absres0 > 0 else 0.0
+            absres0 = absres
+            if pars.verbose:
+                print_itinfo(pars.stop_type, outer_i * k, relres, absres,
+                             factor, log=log)
+            if not np.isfinite(absres):
+                return x
+            info.ares, info.rres, info.nits = absres, relres, outer_i * k
+            info.residuals.append(absres)
+            x = x_i
+            if relres < pars.tol:
+                return x
+        pending = []
+    return x
 
 
 class SpmdAMGSolver:
@@ -389,12 +451,7 @@ class SpmdAMGSolver:
         mg, hh = setup(a, pars, log=log, device=self.mesh.device)
         self.host_hierarchy = hh
         # level-0 permutation (a WEll level 0): b/x0 map in, x maps back
-        hp = hh.perms
-        self._perm0 = hp[0] if hp is not None else None
-        self._iperm0 = None
-        if self._perm0 is not None:
-            self._iperm0 = np.empty_like(self._perm0)
-            self._iperm0[self._perm0] = np.arange(len(self._perm0))
+        self._perm0, self._iperm0 = level0_perms(hh)
         self.E = num_embedded(mg)
         self.Es = -1
         self.ring_r = None
@@ -536,37 +593,8 @@ class SpmdAMGSolver:
             print_itinfo(pars.stop_type, 0, 1.0, sumb, 0.0, log=self.log)
         if sumb == 0.0:
             return np.zeros(n), info
-        absres0 = sumb
-        # quiet mode reads the residuals in batches of 4
-        check_every = 1 if pars.verbose else 4
-        pending: list = []
-        stop = False
-        for it in range(1, pars.max_it + 1):
-            xd, absres_d = self._step(xd, bd)
-            pending.append((it, xd, absres_d))
-            if len(pending) < check_every and it != pars.max_it:
-                continue
-            vals = torch.stack([r for _, _, r in pending]).cpu().numpy()
-            for (it_i, x_i, _), absres in zip(pending, vals):
-                absres = float(absres)
-                relres = absres / sumb
-                factor = absres / absres0 if absres0 > 0 else 0.0
-                absres0 = absres
-                if pars.verbose:
-                    print_itinfo(pars.stop_type, it_i, relres, absres,
-                                 factor, log=self.log)
-                if not np.isfinite(absres):
-                    stop = True
-                    break
-                info.ares, info.rres, info.nits = absres, relres, it_i
-                info.residuals.append(absres)
-                xd = x_i
-                if relres < pars.tol:
-                    stop = True
-                    break
-            pending = []
-            if stop:
-                break
+        xd = cycle_host_loop(pars, sumb, xd, lambda x: self._step(x, bd),
+                             info, log=self.log)
         info.solve_seconds = time.perf_counter() - t0
         info.setup_seconds = self.host_hierarchy.setup_seconds
         return self._unshard(xd), info

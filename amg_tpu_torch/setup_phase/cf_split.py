@@ -15,11 +15,15 @@
   trivially portable to the device) for pod-scale problems where the greedy
   queue would be the bottleneck.  No reference equivalent; TPU-native
   addition.
+
+* :func:`pmis_split_device` — the same rounds in torch on a device
+  (``amg_tpu``'s JAX routine, which its setup runs from 262,144 rows).
 """
 
 from __future__ import annotations
 
 import numpy as np
+import torch
 
 from ..params import FGPT, CGPT, ISPT, UNPT
 from ..sparse import CSR
@@ -347,3 +351,76 @@ def pmis_split(s: CSR, seed: int = 42) -> tuple[np.ndarray, int]:
 
     col = int((vec == CGPT).sum())
     return vec, col
+
+
+def pmis_permutation(n: int, seed: int) -> np.ndarray:
+    """The random tie-break of :func:`pmis_split_device`: a permutation of
+    ``0..n-1`` from a CPU ``torch.Generator`` seeded with ``seed``, so the
+    card and the CPU draw the same one (``amg_tpu`` draws
+    ``jax.random.permutation(PRNGKey(seed), n)``; the streams differ)."""
+    g = torch.Generator().manual_seed(seed)
+    return torch.randperm(n, generator=g).numpy()
+
+
+def pmis_split_device(s: CSR, seed: int = 42,
+                      device="cuda") -> tuple[np.ndarray, int]:
+    """PMIS on ``device``: the round loop of ``amg_tpu``'s
+    ``pmis_split_device`` (``cf_split.py:298-367``) in torch.
+
+    Measure ``lam = in-degree of S + (perm + 0.5) / n`` in f64 (``perm``
+    from :func:`pmis_permutation`: distinct tie-breaks 1/n apart, so
+    measures never tie).  Each round takes, per undecided point, the
+    largest measure of its undecided strong neighbours in S and S^T
+    (``scatter_reduce`` ``"amax"``, ``amg_tpu``'s ``segment_max``); points
+    above it become C (if none does, the global undecided maximum: the
+    deadlock net), and the new C points' undecided strong dependents
+    become F.  Rows without strong couplings start as ISPT (nobody
+    depends on them) or FGPT.  The host reads one flag per round, whether
+    undecided points remain.  Returns the host ``cfmark`` and the C count.
+    """
+    from ..hierarchy import resolve_device
+
+    dev = resolve_device(device)
+    n = s.n_rows
+    st = s.transpose()
+    indeg = torch.from_numpy((st.indptr[1:] - st.indptr[:-1])
+                             .astype(np.float64))
+    perm = np.array(pmis_permutation(n, seed), dtype=np.float64)
+    u = (torch.from_numpy(perm) + 0.5) / n
+    lam = (indeg + u).to(dev)
+
+    def edges(m):
+        return (torch.from_numpy(m.row_indices.astype(np.int64)).to(dev),
+                torch.from_numpy(m.indices.astype(np.int64)).to(dev))
+
+    rows_s, cols_s = edges(s)
+    rows_t, cols_t = edges(st)
+    vec0 = np.full(n, UNPT, dtype=np.int64)
+    isolated = s.indptr[1:] == s.indptr[:-1]
+    no_in = st.indptr[1:] == st.indptr[:-1]
+    vec0[isolated & no_in] = ISPT
+    vec0[isolated & ~no_in] = FGPT
+    vec = torch.from_numpy(vec0).to(dev)
+    neg_inf = torch.tensor(-np.inf, dtype=torch.float64, device=dev)
+
+    while True:
+        und = vec == UNPT
+        if not bool(und.any()):
+            break
+        nb_max = torch.full((n,), -np.inf, dtype=torch.float64, device=dev)
+        for rows, cols in ((rows_s, cols_s), (rows_t, cols_t)):
+            both = und[rows] & und[cols]
+            nb_max.scatter_reduce_(0, rows, torch.where(both, lam[cols],
+                                                        neg_inf), "amax")
+        new_c = und & (lam > nb_max)
+        # deadlock net (exact float ties): the global undecided maximum
+        fallback = torch.zeros_like(new_c)
+        fallback[torch.argmax(torch.where(und, lam, neg_inf))] = True
+        new_c = torch.where(new_c.any(), new_c, fallback & und)
+        vec = torch.where(new_c, CGPT, vec)
+        # strong dependents of the new C points -> F
+        hit = torch.zeros(n, dtype=torch.int32, device=dev).index_add_(
+            0, cols_t, new_c[rows_t].to(torch.int32))
+        vec = torch.where((hit > 0) & (vec == UNPT), FGPT, vec)
+    vec = vec.cpu().numpy()
+    return vec, int((vec == CGPT).sum())

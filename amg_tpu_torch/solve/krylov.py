@@ -34,8 +34,10 @@ only between blocks of iterations:
 
 ``counts`` adds up, over every call, the host reads (``syncs``), the
 solves and iterations of ``cg`` and ``gmres``, and the ``cg`` solves that
-did not converge.  The FCG steps take ``psum`` for row-sharded vectors
-(``amg_tpu``'s ``axis_name``); ``cg`` and ``gmres`` run on one device.
+did not converge.  ``cg`` and the FCG steps take ``psum`` for row-sharded
+``(S, m)`` vectors (``amg_tpu``'s ``axis_name``, and what GSPMD makes of
+``amg_tpu``'s ``cg`` on a row-sharded operator); ``gmres`` runs on one
+device.
 """
 
 from __future__ import annotations
@@ -83,11 +85,11 @@ def _safe_div(num, den):
                        torch.zeros_like(num))
 
 
-def _cg_run(a, b, x0, tol, maxit, M=None, stop_type=None):
+def _cg_run(a, b, x0, tol, maxit, M=None, stop_type=None, psum=None):
     """The CG state machine of :func:`cg`.  Returns ``(x, status, it)`` as
-    device tensors shaped like one column's scalars (``()`` for a vector,
-    ``(k, 1)`` for a batch), and host copies of ``status`` and ``it`` from
-    the last host read."""
+    device tensors shaped like one column's scalars (``()`` for a vector
+    or a row-sharded one, ``(k, 1)`` for a batch), and host copies of
+    ``status`` and ``it`` from the last host read."""
     amul = _as_op(a)
     prec = M if M is not None else _identity
     st = StopType.REL_RES if stop_type is None else stop_type
@@ -96,26 +98,34 @@ def _cg_run(a, b, x0, tol, maxit, M=None, stop_type=None):
 
     r0 = b - amul(x0)
     z0 = prec(r0)
-    absres0 = norm2(r0)
+    absres0 = norm2(r0, psum)
     normr0 = torch.clamp(absres0, min=SMALLFLOAT)
-    rho0 = dot(z0, r0)
+    rho0 = dot(z0, r0, psum)
 
     def _absres(r, z):
         if st == StopType.REL_PRECRES:
-            return torch.sqrt(torch.abs(dot(z, r)))
-        return norm2(r)
+            return torch.sqrt(torch.abs(dot(z, r, psum)))
+        return norm2(r, psum)
 
     def _relres(x, absres):
         if st == StopType.MOD_REL_RES:
-            return absres / torch.clamp(norm2(x), min=SMALLFLOAT)
+            return absres / torch.clamp(norm2(x, psum), min=SMALLFLOAT)
         return absres / normr0
+
+    def _near_zero(x):
+        # Check I's ||x||_inf <= tol; row-sharded: no entry above tol on
+        # any shard (a psum of counts)
+        if psum is None:
+            return norminf(x) <= sol_inf_tol
+        return psum(torch.sum(torch.abs(x) > sol_inf_tol, dim=-1)
+                    .to(x.dtype)) == 0
 
     def body(c):
         (x, r, z, p, rho, it, best_x, best_res, stag, more_step,
          status) = c
         running = (status == _RUNNING) & (it < maxit)
         t = amul(p)
-        denom = dot(p, t)
+        denom = dot(p, t, psum)
         breakdown = torch.abs(denom) <= _SMALLFLOAT2
         alpha = torch.where(breakdown, 0.0,
                             rho / torch.where(breakdown, 1.0, denom))
@@ -131,11 +141,11 @@ def _cg_run(a, b, x0, tol, maxit, M=None, stop_type=None):
         best_res_n = torch.where(better, absres, best_res)
 
         # Check I: solution close to zero (reference :245-249)
-        sol_stag = norminf(x_n) <= sol_inf_tol
+        sol_stag = _near_zero(x_n)
 
         # Check II trigger: stagnation (reference :252-256)
-        normu = torch.clamp(norm2(x_n), min=SMALLFLOAT)
-        reldiff = torch.abs(alpha) * norm2(p) / normu
+        normu = torch.clamp(norm2(x_n, psum), min=SMALLFLOAT)
+        reldiff = torch.abs(alpha) * norm2(p, psum) / normu
         stag_trig = (stag <= MAX_STAG) & (reldiff < maxdiff)
 
         # Check III trigger: the recurrence says converged (reference
@@ -172,7 +182,7 @@ def _cg_run(a, b, x0, tol, maxit, M=None, stop_type=None):
                                     int(ErrorCode.ERROR_SOLVER_TOLSMALL),
                                     _RUNNING))))).to(torch.int32)
 
-        rho_n = dot(z_n, r_n)
+        rho_n = dot(z_n, r_n, psum)
         beta = torch.where(rho != 0, rho_n / torch.where(rho != 0, rho, 1.0),
                            0.0)
         p_n = (~restart).to(p.dtype) * p * beta + z_n
@@ -208,7 +218,7 @@ def _cg_run(a, b, x0, tol, maxit, M=None, stop_type=None):
 
 
 def cg(a, b, x0, tol=1e-7, maxit=250, M=None, stop_type=None,
-       return_info=False):
+       return_info=False, psum=None):
     """Conjugate gradients with the reference's full safety-net state
     machine (``amg_tpu.solve.krylov.cg``).
 
@@ -235,6 +245,11 @@ def cg(a, b, x0, tol=1e-7, maxit=250, M=None, stop_type=None,
       accepting; on failure restart up to ``MAX_RESTART`` times, then
       ``ERROR_SOLVER_TOLSMALL`` (:311-355).
 
+    With ``psum`` (:meth:`~amg_tpu_torch.parallel.dist.Mesh.psum`), ``b``
+    and ``x0`` are one row-sharded vector's ``(S, m)`` block and ``a`` its
+    row-sharded product (a callable): every dot and norm is the global
+    one.
+
     The host reads the state once per ``BLOCK`` iterations.  Returns
     ``(x, converged)``, or ``(x, converged, info)`` with ``return_info``
     where ``info = (status_code, iters)`` and ``status_code`` is 1 on
@@ -242,8 +257,8 @@ def cg(a, b, x0, tol=1e-7, maxit=250, M=None, stop_type=None,
     breakdown and 0 when ``maxit`` was exhausted; device tensors, ``()``
     for one vector and ``(k,)`` for a batch.
     """
-    x, status, it, _, _ = _cg_run(a, b, x0, tol, maxit, M, stop_type)
-    if b.dim() == 2:
+    x, status, it, _, _ = _cg_run(a, b, x0, tol, maxit, M, stop_type, psum)
+    if b.dim() == 2 and psum is None:
         status, it = status.reshape(-1), it.reshape(-1)
     converged = status == _CONVERGED
     if return_info:

@@ -132,7 +132,32 @@ Phases (any failure raises and the script exits nonzero):
    the same operator, the fastest torch sparse CSR product of its rows
    and its bound (B2/B3's bytes with x as the haloed window); then the
    "auto" solve inside a one-rank NCCL group: the same iterations and x
-   bit for bit.
+   bit for bit;
+20. the GSPMD solver: poisson3d(100) in bench_dist.py's gspmd parameters
+   (f32 cycles with f64 defect correction, Chebyshev below level 0, bf16
+   coarse operators, WEll on "auto" from 65,536 rows, no Krylov
+   acceleration) with ``DistAMGSolver`` on ``make_mesh(4)``, beside the
+   single-device ``solve_refined`` with ``dist_devices=4`` packing: a
+   host-checked true rres below 1e-8 in its cycles within 1; logs each
+   level's formats and placement, the launches per solve of B1's window
+   entry and of B2's ``col0 = 0`` entry (the all-gather product), ring
+   and all-gather products, all-gathers and psums per cycle, device MiB,
+   cold and warm seconds; B1's window entry launched on every sharded Dia
+   level and on ``a0_hi``, B2's on every sharded WEll operator, no
+   single-device B1/B2 launch on a sharded operator; each window entry
+   against its plain version at every launch shape, timed beside the
+   single-device kernel on the same operator (``_compare_window``,
+   ``_compare_well_window`` with the whole vector); then the same solve
+   in a one-rank NCCL group: x bit for bit;
+21. the device PMIS splitter: ``pmis_split_device`` on the strength graph
+   of fem2d(1,000,000, seed=0)'s level 0 on the card and on the CPU
+   (partitions equal bit for bit) beside the host ``pmis_split``, each
+   with no undecided point and a C point among the strong links of every
+   F point that has them (the strongly linked C-C pairs, which PMIS
+   admits across rounds, are logged); then phase 8's setup with
+   ``cs_type=PMIS``, which takes the device splitter from 262,144 rows,
+   solved with FCG beside the same setup on the host splitter: both
+   converged, iterations within 20%.
 
 Each kernel result carries its bound: the larger of the bytes it must
 move (each input read once, each output written once) over the H100's
@@ -141,8 +166,9 @@ f32, 34 TFLOP/s f64, NVIDIA's H100 SXM data sheet).  The last three lines
 of standard output are the card's name and power limit as nvidia-smi
 gives them, one JSON object describing the kernels (one entry per
 epilogue and operator of phases 6 and 9, per launch shape of phase 11,
-and per launch shape and operator of phases 13-19, each with its
-main-path launch count) and one with the device.  Imports
+and per launch shape and operator of phases 13-20, each with its
+main-path launch count; phase 20's rows join those of phases 18 and 19)
+and one with the device.  Imports
 torch, numpy, scipy and amg_tpu_torch only.
 """
 
@@ -1772,11 +1798,12 @@ def _compare_window(tag, op, mesh, g, flush):
     return row
 
 
-def _spmd_solver(a, pars, mesh, b):
-    """An SpmdAMGSolver on ``mesh`` (counts reset just before), solved
-    cold and warm.  Returns the solver, the cold solution and info, the
-    cold run's DIA and WEll launches by shape, the ring and collective
-    counts, and the setup seconds, device MiB and warm solve seconds."""
+def _spmd_solver(a, pars, mesh, b, solver_cls=None):
+    """An SpmdAMGSolver (or ``solver_cls``) on ``mesh`` (counts reset just
+    before), solved cold and warm.  Returns the solver, the cold solution
+    and info, the cold run's DIA and WEll launches by shape, the ring and
+    collective counts, and the setup seconds, device MiB and warm solve
+    seconds."""
     from amg_tpu_torch.ops import dia_kernel as D, well_kernel as W
     from amg_tpu_torch.parallel import SpmdAMGSolver, dist as pdist, halo
 
@@ -1786,7 +1813,8 @@ def _spmd_solver(a, pars, mesh, b):
             c[k] = 0
     mem0 = torch.cuda.memory_allocated()
     t0 = time.perf_counter()
-    solver = SpmdAMGSolver(a, pars, mesh=mesh, log=lambda *_: None)
+    solver = (solver_cls or SpmdAMGSolver)(a, pars, mesh=mesh,
+                                           log=lambda *_: None)
     torch.cuda.synchronize()
     setup_s = time.perf_counter() - t0
     mib = (torch.cuda.memory_allocated() - mem0) / 2**20
@@ -2020,7 +2048,7 @@ def _compare_well_window(tag, op, entry, mode, mesh, g, flush):
     lib_ms = min(lib_variants.values())
     nbytes, nnz = _layout_bytes(op, df64, xw.shape[0], xw.element_size())
     bound_ms, bound_by = _bound(nbytes, 2 * nnz, xdt)
-    lo128, hi128 = op.ring_plan
+    lo128, hi128 = op.ring_plan or (0, 0)
     row = dict(op=tag, entry=entry, vals=str(vdt)[6:], x=str(xdt)[6:],
                rows=op.n_rows, nnz=nnz, n_x=xw.shape[0], col0=col0,
                mode=mode, lo=lo128 * 128, hi=hi128 * 128, S=S,
@@ -2229,13 +2257,278 @@ def phase_general(a, fem_summary, fem_auto_summary):
     return rows
 
 
+# ---------------------------------------------------------------------------
+# 20. the GSPMD solver: ring products where XLA exchanges halos, all-gather
+# products where it gathers
+# ---------------------------------------------------------------------------
+
+
+def gspmd_pars(amg):
+    """bench_dist.py's ``AMG_DIST_SOLVER=gspmd`` parameters for poisson3d
+    (bench_dist.py:132-145): f32 cycles with f64 defect correction,
+    Chebyshev below level 0, bf16 coarse operators, WEll on "auto" from
+    65,536 rows, no Krylov acceleration."""
+    return amg.AMGParams(
+        tol=1e-8, dtype="float32", refine=True, verbose=0,
+        coarse_smoother=amg.SmootherType.CHEBYSHEV,
+        coarse_op_dtype="bfloat16", use_well="auto", well_min_rows=65536,
+        accel="none")
+
+
+def phase_gspmd(a):
+    """20. poisson3d(100) in bench_dist.py's gspmd mode with DistAMGSolver
+    on a ring of 4 row shards on the card, beside the single-device
+    solve_refined with the same packing, then inside a one-rank NCCL
+    process group.  Returns the B1 and B2 window entries' rows."""
+    import socket
+    import torch.distributed as tdist
+    import amg_tpu_torch as amg
+    from amg_tpu_torch.ops import dia_kernel as D
+    from amg_tpu_torch.parallel import DistAMGSolver, make_mesh, multihost
+
+    pars = gspmd_pars(amg)
+    b = np.ones(a.n_rows)
+    _reset_counts()
+    t0 = time.perf_counter()
+    single = amg.AMGSolver(a, pars.replace(dist_devices=SPMD_SHARDS),
+                           device="cuda", log=lambda *_: None)
+    torch.cuda.synchronize()
+    single_setup_s = time.perf_counter() - t0
+    x1, i1 = single.solve(b)
+    _, i1w = single.solve(b)
+    torch.cuda.synchronize()
+    del single
+    log(f"[gspmd] single-device solve_refined (dist_devices="
+        f"{SPMD_SHARDS} packing): setup {single_setup_s:.2f} s, {i1.nits} "
+        f"cycles, rres {i1.rres:.3e}, cold {i1.solve_seconds:.4f} s, warm "
+        f"{i1w.solve_seconds:.4f} s")
+
+    mesh = make_mesh(SPMD_SHARDS, device="cuda")
+    check(mesh.device.type == "cuda" and mesh.world == 1
+          and mesh.local == SPMD_SHARDS, f"mesh {mesh}")
+    solver, x, info, (dia_shape, well_shape), counts, summ = _spmd_solver(
+        a, pars, mesh, b, DistAMGSolver)
+    log(f"[gspmd] {mesh.describe()}; level-0 pad {solver.pad} = "
+        f"{SPMD_SHARDS} x {solver.pad // SPMD_SHARDS} rows; Es = "
+        f"{solver.Es}; a0_hi {type(solver.a0_hi).__name__}")
+    for l, lv in enumerate(solver.mg.levels):
+        place = "row-sharded" if l <= solver.Es else "replicated"
+        desc = [f"{type(lv.a).__name__} {str(lv.a.vals.dtype)[6:]}"]
+        for name in ("p", "r"):
+            op = getattr(lv, name)
+            if op is not None:
+                desc.append(f"{name.upper()} {type(op).__name__}")
+        log(f"[gspmd] level {l}: {lv.n} rows, {', '.join(desc)}, {place}")
+    true_rel = float(np.linalg.norm(b - a.matvec(x.astype(np.float64)))
+                     / np.linalg.norm(b))
+    gap = float(np.linalg.norm(x - x1) / np.linalg.norm(x1))
+    its = max(info.nits, 1)
+    b1w = sum(n for k, n in dia_shape.items() if k[0] == D.WINDOW)
+    b2w = sum(n for k, n in well_shape.items() if k[0] == "window")
+    log(f"[gspmd] setup {summ['setup_s']:.2f} s (single-device "
+        f"{single_setup_s:.2f}), device memory held after setup "
+        f"{summ['mib']:.1f} MiB, cold solve {info.solve_seconds:.4f} s, "
+        f"warm {summ['warm_s']:.4f} s (single-device cold "
+        f"{i1.solve_seconds:.4f}, warm {i1w.solve_seconds:.4f}), "
+        f"{info.nits} cycles (single-device {i1.nits}), rres "
+        f"{info.rres:.3e}, true rres (host f64) {true_rel:.3e}, "
+        f"||x_gspmd - x_single|| / ||x_single|| {gap:.3e}")
+    log(f"[gspmd] per solve: {b1w} launches of B1's window entry, {b2w} of "
+        f"B2's col0 = 0 entry, {sum(dia_shape.values()) - b1w} other B1/B4 "
+        f"and {sum(well_shape.values()) - b2w} other B2/B3 launches; per "
+        f"cycle: {counts['products'] / its:.1f} ring products, "
+        f"{counts['gather_products'] / its:.1f} all-gather products, "
+        f"{counts['all_gather'] / its:.1f} all-gathers, "
+        f"{counts['psum'] / its:.1f} psums, "
+        f"{counts['halo_bytes'] / its / 2**20:.2f} MiB of halo")
+    for k, n in sorted(dia_shape.items(), key=str):
+        log(f"[gspmd]   {k[0]} {str(k[1])[6:]}/{str(k[2])[6:]} "
+            f"{', '.join(map(str, k[3:]))}: {n}")
+    for k, n in sorted(well_shape.items(), key=str):
+        log(f"[gspmd]   {k[0]} {str(k[1])[6:]} rows={k[2]} nnz={k[3]}: {n}")
+    check(np.all(np.isfinite(x)) and x.shape == (a.n_rows,),
+          "gspmd: solution not finite or wrong shape")
+    check(solver.Es >= 1, f"gspmd: Es = {solver.Es}")
+    check(true_rel < 1e-8, f"gspmd: true rres {true_rel:.3e}")
+    check(abs(info.nits - i1.nits) <= 1,
+          f"gspmd: {info.nits} cycles against {i1.nits} single-device")
+    sharded = solver.mg.levels[: solver.Es + 1]
+    dia_ops = [(f"A{l}", lv.a) for l, lv in enumerate(sharded)
+               if isinstance(lv.a, amg.Dia)]
+    dia_ops.append(("a0_hi", solver.a0_hi))
+    well_ops = [(f"{n.upper()}{l}", getattr(lv, n))
+                for l, lv in enumerate(sharded) for n in ("a", "p", "r")
+                if isinstance(getattr(lv, n), amg.WEll)]
+    check(isinstance(solver.a0_hi, amg.Dia) and well_ops,
+          f"gspmd: a0_hi {type(solver.a0_hi).__name__}, sharded WEll "
+          f"operators {[t for t, _ in well_ops]}")
+    def window_key(op):
+        xdt = torch.float64 if op.vals.dtype == torch.float64 \
+            else torch.float32
+        return (D.WINDOW, op.vals.dtype, xdt, op.n_diags,
+                op.vals.shape[1] // SPMD_SHARDS, SPMD_SHARDS)
+
+    for tag, op in dia_ops:
+        check(dia_shape.get(window_key(op), 0) > 0, f"gspmd: B1's window "
+              f"entry not launched on {tag} {window_key(op)}")
+    for tag, op in well_ops:
+        key = ("window", op.rows.vals.dtype, op.n_rows, op.nnz)
+        check(well_shape.get(key, 0) > 0,
+              f"gspmd: B2's col0 = 0 entry not launched on {tag} {key}")
+    single_on_ring = [k for k in dia_shape
+                      if k[0] in D.EPILOGUES and k[4] == solver.pad]
+    single_on_ring += [k for k in well_shape if k[0] == "spmv" and k[1:] in
+                       {(op.rows.vals.dtype, op.n_rows, op.nnz)
+                        for _, op in well_ops}]
+    check(not single_on_ring, f"gspmd: a single-device kernel launched on "
+                              f"a row-sharded operator: {single_on_ring}")
+
+    # every launch shape against its plain version, beside the
+    # single-device kernel on the same operator
+    g = torch.Generator().manual_seed(20)
+    flush = torch.empty(FLUSH_BYTES, dtype=torch.uint8, device="cuda")
+    b1_rows, b2_rows = [], []
+    for key, n in sorted(dia_shape.items(), key=str):
+        if key[0] != D.WINDOW:
+            continue
+        match = [(t, op) for t, op in dia_ops if window_key(op) == key]
+        check(match, f"gspmd: no sharded Dia operator has the window "
+                     f"shape {key}")
+        b1_rows.append(_one_row([_compare_window("gs-" + t, op, mesh, g,
+                                                 flush)
+                                 for t, op in match], n))
+    for key, n in sorted(well_shape.items(), key=str):
+        if key[0] != "window":
+            continue
+        match = [(t, op) for t, op in well_ops
+                 if (op.rows.vals.dtype, op.n_rows, op.nnz) == key[1:]]
+        check(match, f"gspmd: no sharded WEll operator has the launch "
+                     f"shape {key}")
+        b2_rows.append(_one_row([
+            _compare_well_window("gs-" + t, op, "window", "full", mesh, g,
+                                 flush) for t, op in match], n))
+    del flush
+    bad = [r for r in b1_rows + b2_rows if not r["ok"]]
+    check(not bad, f"gspmd: a window entry disagrees with its plain "
+                   f"version: {bad}")
+
+    # the same solve inside a one-rank NCCL process group
+    del solver
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        port = sock.getsockname()[1]
+    check(multihost.initialize(f"localhost:{port}", 1, 0, device="cuda"),
+          "NCCL process group not initialized")
+    try:
+        check(tdist.get_backend() == "nccl", f"backend {tdist.get_backend()}")
+        gmesh = make_mesh(SPMD_SHARDS, device="cuda")
+        check(gmesh.group is not None, "mesh without its process group")
+        _, x2, info2, _, counts2, summ2 = _spmd_solver(a, pars, gmesh, b,
+                                                       DistAMGSolver)
+        log(f"[gspmd-nccl] one rank, {gmesh.describe()}: {info2.nits} "
+            f"cycles, cold {info2.solve_seconds:.4f} s, warm "
+            f"{summ2['warm_s']:.4f} s, {counts2['psum']} psums and "
+            f"{counts2['all_gather']} all-gathers through NCCL; x equal bit "
+            f"for bit: {np.array_equal(x2, x)}")
+        check(info2.nits == info.nits and np.array_equal(x2, x),
+              "gspmd: the one-rank NCCL run differs from the in-process run")
+    finally:
+        tdist.destroy_process_group()
+    return b1_rows, b2_rows
+
+
+# ---------------------------------------------------------------------------
+# 21. the device PMIS splitter
+# ---------------------------------------------------------------------------
+
+
+def phase_pmis(a):
+    """21. ``pmis_split_device`` on the strength graph of fem2d(1,000,000,
+    seed=0)'s level 0, on the card and on the CPU (equal partitions, the
+    PMIS checks), beside the host ``pmis_split``; then phase 8's setup
+    with ``cs_type=PMIS`` through the device splitter, solved with FCG
+    beside the same setup on the host splitter."""
+    import amg_tpu_torch as amg
+    from amg_tpu_torch.params import CGPT, FGPT, UNPT
+    from amg_tpu_torch.setup_phase import cf_split
+    from amg_tpu_torch.setup_phase.strength import strength_matrix
+
+    pars = unstructured_pars(amg).replace(cs_type=amg.CoarsenType.PMIS)
+    s = strength_matrix(a, pars.strong_threshold, pars.max_row_sum)
+    rows, cols = s.row_indices, s.indices.astype(np.int64)
+    res = {}
+    for where in ("cuda", "cpu", "host"):
+        t0 = time.perf_counter()
+        if where == "host":
+            vec, col = cf_split.pmis_split(s)
+        else:
+            vec, col = cf_split.pmis_split_device(s, device=where)
+            torch.cuda.synchronize()
+        sec = time.perf_counter() - t0
+        covered = np.zeros(s.n_rows, dtype=bool)
+        covered[rows[vec[cols] == CGPT]] = True
+        uncovered = int(np.sum((vec == FGPT) & (s.row_degrees > 0)
+                               & ~covered))
+        cc = int(np.sum((vec[rows] == CGPT) & (vec[cols] == CGPT)))
+        res[where] = (vec, col)
+        log(f"[pmis] {where:4s}: {col} C points of {s.n_rows} "
+            f"({col / s.n_rows:.4f}), {sec:.3f} s; undecided "
+            f"{int(np.sum(vec == UNPT))}, F points with strong links and no "
+            f"C among them {uncovered}, strongly linked C-C pairs {cc}")
+        check(not np.any(vec == UNPT) and uncovered == 0,
+              f"pmis {where}: not a valid PMIS splitting")
+    check(np.array_equal(res["cuda"][0], res["cpu"][0]),
+          "pmis: the card's partition differs from the CPU's")
+    check(0.5 < res["cuda"][1] / res["host"][1] < 2.0,
+          "pmis: C fraction far from the host splitter's")
+
+    calls = []
+    real = cf_split.pmis_split_device
+
+    def device_spy(s, seed=42, device="cuda"):
+        calls.append((s.n_rows, str(device)))
+        return real(s, seed, device=device)
+
+    out = {}
+    for where, fn in (("device", device_spy),
+                      ("host", lambda s, seed=42, device=None:
+                       cf_split.pmis_split(s, seed))):
+        cf_split.pmis_split_device = fn
+        try:
+            t0 = time.perf_counter()
+            solver = amg.AMGSolver(a, pars, device="cuda",
+                                   log=lambda *_: None)
+            torch.cuda.synchronize()
+            setup_s = time.perf_counter() - t0
+        finally:
+            cf_split.pmis_split_device = real
+        b = np.ones(a.n_rows)
+        x, info = solver.solve(b)
+        true_rel = float(np.linalg.norm(b - a.matvec(x.astype(np.float64)))
+                         / np.linalg.norm(b))
+        hh = solver.host_hierarchy
+        out[where] = (info.nits, true_rel < pars.tol)
+        log(f"[pmis] setup with the {where} splitter: {setup_s:.2f} s, "
+            f"{hh.num_levels} levels, rows {[m.n_rows for m in hh.a]}; FCG "
+            f"{info.nits} its, true rres {true_rel:.3e}, solve "
+            f"{info.solve_seconds:.4f} s")
+        del solver
+    log(f"[pmis] device splitter calls in the PMIS setup: {calls}")
+    check(calls and calls[0] == (a.n_rows, "cuda"),
+          f"pmis: the setup did not call the device splitter: {calls}")
+    (nd, okd), (nh, okh) = out["device"], out["host"]
+    check(okd and okh, f"pmis: statuses {okd} / {okh}")
+    check(abs(nd - nh) <= 0.2 * max(nd, nh),
+          f"pmis: {nd} against {nh} FCG its")
+
+
 def _kernel_entries(dia_rows, well_rows, multi_rows=(), window_rows=(),
                     well_window_rows=()):
     """The ``kernels`` JSON entries: one per (epilogue, launch shape) of
     phases 6, 13, 14, 16 and 17, per (entry, operator) of phases 9, 13, 15
     and 17 (per GS class for the ``gs`` entry), per launch shape of phases
-    11, 14 and 17, and per launch shape of B1's window entry in phase
-    18."""
+    11, 14 and 17, and per launch shape of B1's window entry in phases
+    18 and 20 and of B2/B3's in phases 19 and 20."""
     out = [{
         "name": f"dia_spmv.{r['epilogue']}[{r['op']} {r['vals']}/{r['x']} "
                 f"nd={r['nd']} pad={r['pad']}]",
@@ -2358,8 +2651,14 @@ def main() -> int:
     window_rows = phase_spmd(p3d, emb_summary)
     stamp("spmd ring")
     well_window_rows = phase_general(a, fem_summary, fem_auto_summary)
-    del a
     stamp("general spmd")
+    g_b1, g_b2 = phase_gspmd(p3d)
+    window_rows += g_b1
+    well_window_rows += g_b2
+    stamp("gspmd")
+    phase_pmis(a)
+    del a
+    stamp("device pmis")
 
     prev = t_start
     for label, t in stamps:

@@ -9,6 +9,8 @@
     python3 profile_torch.py --structured --layout auto --coarsest KRYLOV
     python3 profile_torch.py --spmd 4         # phase 18: 4 row shards
     python3 profile_torch.py --spmd 4 --matrix fem2d   # phase 19
+    python3 profile_torch.py --gspmd 4        # phase 20: GSPMD, 4 shards
+    python3 profile_torch.py --gspmd 4 --single   # its one-device reference
 
 ``--layout`` picks the format flags: ``compact`` (default; chip_smoke.py
 phases 5 and 8), ``auto`` (``use_well`` and ``use_banded`` on "auto",
@@ -21,7 +23,11 @@ coarsest solver (phase 17 with ``--structured --layout auto``).
 spmd-cg parameters) with ``SpmdAMGSolver`` on a ring of N row shards on
 the card; with ``--matrix fem2d`` fem2d(1,000,000) in phase 19's general
 mode (bench_dist.py's fem2d parameters; ``--layout compact`` turns
-``use_banded`` off: phase 19's ring-R solve).
+``use_banded`` off: phase 19's ring-R solve).  ``--gspmd N`` solves
+poisson3d(100) in phase 20's mode (bench_dist.py's gspmd parameters) with
+``DistAMGSolver`` on a ring of N row shards on the card; with
+``--single`` the single-device ``AMGSolver`` of the same parameters and
+packing (``dist_devices=N``), phase 20's reference.
 
 Builds the main-path configuration of ``chip_smoke.py`` (phase 8, or
 phase 5 with ``--structured``; with ``--batched K`` phase 5's solver runs
@@ -102,6 +108,11 @@ def main() -> int:
                     default="DENSE", help="coarsest-level solver")
     ap.add_argument("--spmd", type=int, default=0, metavar="N",
                     help="phase 18's SPMD solve on N row shards")
+    ap.add_argument("--gspmd", type=int, default=0, metavar="N",
+                    help="phase 20's GSPMD solve on N row shards")
+    ap.add_argument("--single", action="store_true",
+                    help="with --gspmd N: the single-device solve of the "
+                         "same parameters and packing")
     ap.add_argument("--matrix", choices=("poisson3d", "fem2d"),
                     default="poisson3d",
                     help="--spmd's matrix: poisson3d(100) (phase 18) or "
@@ -111,8 +122,8 @@ def main() -> int:
         print("profile_torch: needs a CUDA card", file=sys.stderr)
         return 1
     from chip_smoke import (BATCH_TOL, CD_SIDE, FEM_ROWS,
-                            convection_diffusion, general_pars, spmd_pars,
-                            structured_pars, unstructured_pars)
+                            convection_diffusion, general_pars, gspmd_pars,
+                            spmd_pars, structured_pars, unstructured_pars)
     if args.package:
         sys.path.insert(0, os.path.abspath(args.package))
     import amg_tpu_torch as amg
@@ -136,6 +147,9 @@ def main() -> int:
     elif args.spmd:
         a, pars, what = amg.poisson3d(100), spmd_pars(amg), \
             f"poisson3d(100), spmd-cg on {args.spmd} row shards"
+    elif args.gspmd:
+        a, pars, what = amg.poisson3d(100), gspmd_pars(amg), \
+            f"poisson3d(100), gspmd on {args.gspmd} row shards"
     elif args.structured or args.batched:
         a, pars, what = amg.poisson3d(100), structured_pars(amg), \
             "poisson3d(100)"
@@ -143,7 +157,8 @@ def main() -> int:
         a, pars, what = amg.fem2d(FEM_ROWS, seed=0), \
             unstructured_pars(amg), f"fem2d({FEM_ROWS})"
     if args.layout != "compact" and not (args.spmd
-                                         and args.matrix == "fem2d"):
+                                         and args.matrix == "fem2d") \
+            and not args.gspmd:
         pars = pars.replace(use_well="auto", use_banded="auto")
     if args.layout == "embedded":
         if not (args.structured or args.batched):
@@ -168,6 +183,16 @@ def main() -> int:
                      f"{'ring-R' if solver.ring_r else 'all-gather'} "
                      "boundary")
         what += ")"
+    elif args.gspmd and args.single:
+        solver = amg.AMGSolver(a, pars.replace(dist_devices=args.gspmd),
+                               log=lambda *_: None)
+        what += ", single device"
+    elif args.gspmd:
+        from amg_tpu_torch.parallel import DistAMGSolver, make_mesh
+
+        solver = DistAMGSolver(a, pars, mesh=make_mesh(args.gspmd),
+                               log=lambda *_: None)
+        what += f" ({solver.mesh.describe()}, Es = {solver.Es})"
     else:
         solver = amg.AMGSolver(a, pars, log=lambda *_: None)
     torch.cuda.synchronize()

@@ -789,3 +789,44 @@ def test_spmd_general_solve_on_card():
                for op in (lv.a, lv.p, lv.r) if isinstance(op, WEll)}
     assert not [k for k in keys if k[0] in ("spmv", "df64")
                 and k[1:] in sharded]
+
+
+def test_pmis_device_card_equals_cpu():
+    """``pmis_split_device`` on the card and on the CPU: the same
+    permutation (drawn on the CPU), the same rounds, equal partitions."""
+    _needs_card()
+    from amg_tpu_torch.setup_phase.cf_split import pmis_split_device
+    from amg_tpu_torch.setup_phase.strength import strength_matrix
+
+    s = strength_matrix(amg.fem2d(20000, seed=0))
+    vc, cc = pmis_split_device(s, device="cuda")
+    vh, ch = pmis_split_device(s, device="cpu")
+    assert cc == ch > 0
+    np.testing.assert_array_equal(vc, vh)
+
+
+def test_gspmd_solve_on_card():
+    """DistAMGSolver on 4 shards of the card in bench_dist.py's gspmd
+    parameters (f32 cycles, f64 defect correction, bf16 coarse operators),
+    poisson3d(24): the single-device solve_refined's iterations within 1,
+    a true rres below 1e-8, B1's window entry launched."""
+    _needs_card()
+    from amg_tpu_torch.parallel import DistAMGSolver, make_mesh
+
+    a = amg.poisson3d(24)
+    pars = amg.AMGParams(
+        verbose=0, tol=1e-8, dtype="float32", refine=True,
+        coarse_smoother=amg.SmootherType.CHEBYSHEV,
+        coarse_op_dtype="bfloat16", coarse_replicate_nnz=2000)
+    b = np.ones(a.n_rows)
+    _, i1 = amg.AMGSolver(a, pars.replace(dist_devices=4),
+                          log=lambda *_: None).solve(b)
+    s = DistAMGSolver(a, pars, mesh=make_mesh(4), log=lambda *_: None)
+    assert s.Es >= 1 and s.mesh.device.type == "cuda"
+    dia_kernel.launches_by_shape.clear()
+    x, i2 = s.solve(b)
+    torch.cuda.synchronize()
+    assert abs(i1.nits - i2.nits) <= 1
+    r = b - a.matvec(x.astype(np.float64))
+    assert np.linalg.norm(r) / np.linalg.norm(b) < 1e-8
+    assert any(k[0] == dia_kernel.WINDOW for k in dia_kernel.launches_by_shape)

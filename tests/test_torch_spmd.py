@@ -11,9 +11,9 @@
   holds its own), Chebyshev everywhere on the port alone.
 * Multi-process: 2 gloo processes of 2 shards against the in-process 4
   shards (equal iterations, x within 1e-12 relative) and ``fetch``.
-* CLI: ``--devices 4`` against amg_tpu's CLI, ``--dist gspmd`` and a
-  hierarchy whose level 0 cannot be sharded exit with their reasons; an
-  unstructured hierarchy runs the general mode
+* CLI: ``--devices 4`` against amg_tpu's CLI; ``--dist gspmd`` and a
+  hierarchy whose level 0 cannot be sharded run the GSPMD solver, as
+  amg_tpu's CLI does; an unstructured hierarchy runs the general mode
   (tests/test_torch_spmd_general.py holds that mode against amg_tpu).
 """
 
@@ -288,18 +288,36 @@ def test_cli_devices_matches_amg_tpu():
 
 
 def test_cli_dist_paths_not_ported():
-    """``--dist gspmd`` exits with the reason (the GSPMD solver is not
-    ported), and so does ``auto`` where level 0 cannot be sharded
-    (fem2d:3000: Dense), where amg_tpu falls back to that solver;
-    ``--dist spmd`` there raises SpmdAMGSolver's ValueError; fem2d:70000
-    (WEll level 0) with ``--dist auto`` solves in the general mode."""
-    for flags in (("poisson2d:16", "--dist", "gspmd"),
-                  ("fem2d:3000", "--dist", "auto")):
-        out = _cli("amg_tpu_torch", *flags, "--devices", "4", "--device",
-                   "cpu", "--quiet")
-        assert out.returncode == 2, out.stderr
-        assert "not ported yet" in out.stderr
-        assert "AMG iterations" not in out.stdout
+    """The multi-device paths of amg_tpu/cli.py:221-240: ``--dist gspmd``
+    solves with the GSPMD solver (poisson2d:16); ``--dist auto`` on
+    fem2d:3000 (Dense level 0, which the SPMD solver cannot shard) prints
+    amg_tpu's fallback line and solves with it, printing amg_tpu's lines
+    under the rule of test_torch_solve.py::test_cli_matches_amg_tpu
+    (amg_tpu on one virtual device, where its "auto" packs what the port's
+    does: on four it resolves BandedBlocks off and its table drifts 3e-3
+    from the port's); ``--dist spmd`` there raises SpmdAMGSolver's
+    ValueError; fem2d:70000 (WEll level 0) with ``--dist auto`` solves in
+    the general mode."""
+    out = _cli("amg_tpu_torch", "poisson2d:16", "--dist", "gspmd",
+               "--devices", "4", "--device", "cpu", "--quiet")
+    assert out.returncode == 0, out.stderr
+    assert "AMG iterations" in out.stdout
+    want = _cli("amg_tpu", "fem2d:3000", "--devices", "4", devices=1)
+    got = _cli("amg_tpu_torch", "fem2d:3000", "--devices", "4", "--device",
+               "cpu")
+    assert want.returncode == 0, want.stderr
+    assert got.returncode == 0, got.stderr
+    skip = ("AMG setup time", "AMG solve time", "AMG totally time")
+    w = [ln for ln in want.stdout.splitlines() if not ln.startswith(skip)]
+    g = [ln for ln in got.stdout.splitlines() if not ln.startswith(skip)]
+    fallback = [ln for ln in g if ln.startswith("# spmd path unavailable")]
+    assert fallback == [ln for ln in w
+                        if ln.startswith("# spmd path unavailable")]
+    assert fallback[0].endswith("; using the GSPMD solver")
+    mesh = [ln for ln in g if ln.startswith("mesh: ")]
+    assert mesh == ["mesh: 4 shards, 1 process, cpu; every level "
+                    "replicated (GSPMD)"]
+    _assert_cli_match([ln for ln in g if ln not in mesh], w)
     out = _cli("amg_tpu_torch", "fem2d:3000", "--devices", "4", "--dist",
                "spmd", "--device", "cpu", "--quiet")
     assert out.returncode != 0
