@@ -24,6 +24,8 @@ level 0's pad; ``embed_levels=-1`` resolves to 0 (no embedding), as in
 from __future__ import annotations
 
 import dataclasses
+import os
+import sys
 import time
 from typing import Optional, Tuple
 
@@ -1119,32 +1121,38 @@ def to_device(hh: HostHierarchy, pars: AMGParams, device="cuda",
         pads[0] = pad0
     for l in range(1, E + 1):
         pads[l] = pad0
+    timers = _setup_timers()
     levels = []
     for l in range(nl):
+        t_l = time.perf_counter()
         if E >= 1 and l <= E:
             pad_next = pads[l + 1] if l < nl - 1 else None
             levels.append(_embedded_level(hh, l, E, emb, pad0, pad_next,
                                           dtype, pars, device,
                                           boundary=boundary))
-            continue
-        p = hh.p[l] if l < nl - 1 else None
-        r = hh.r[l] if l < nl - 1 else None
-        cf = hh.cfmark[l] if l < len(hh.cfmark) else None
-        pad_coarse = pads[l + 1] if l < nl - 1 else None
-        gs_key = hh.gs_key[l] if hh.gs_key is not None else None
-        levels.append(
-            _level_from_csr(hh.a[l], p, r, cf, pads[l], pad_coarse, dtype,
-                            pars, device, gs_key=gs_key, is_coarse=l >= 1,
-                            banded_nb=(hh.banded_nb[l]
-                                       if hh.banded_nb is not None
-                                       else None))
-        )
+        else:
+            p = hh.p[l] if l < nl - 1 else None
+            r = hh.r[l] if l < nl - 1 else None
+            cf = hh.cfmark[l] if l < len(hh.cfmark) else None
+            pad_coarse = pads[l + 1] if l < nl - 1 else None
+            gs_key = hh.gs_key[l] if hh.gs_key is not None else None
+            levels.append(
+                _level_from_csr(hh.a[l], p, r, cf, pads[l], pad_coarse,
+                                dtype, pars, device, gs_key=gs_key,
+                                is_coarse=l >= 1,
+                                banded_nb=(hh.banded_nb[l]
+                                           if hh.banded_nb is not None
+                                           else None))
+            )
+        if timers:
+            _timer_line(f"  pack level {l}", t_l, device)
 
     # dense inverse of the coarsest operator, by host LAPACK in the solve
     # dtype, stored and applied in the solve dtype
     ac = hh.a[-1]
     pad_c = pads[-1]
     inv_dtype = np.dtype(pars.dtype)
+    t_inv = time.perf_counter()
     try:
         inv = np.linalg.inv(ac.to_dense(inv_dtype))
     except np.linalg.LinAlgError:
@@ -1154,7 +1162,27 @@ def to_device(hh: HostHierarchy, pars: AMGParams, device="cuda",
     full = np.zeros((pad_c, pad_c), dtype=inv_dtype)
     full[: ac.n_rows, : ac.n_cols] = inv
     coarse_inv = _to_device(full, dtype, device)
+    if timers:
+        _timer_line("  pack coarse inverse", t_inv, device)
     return Hierarchy(levels=tuple(levels), coarse_inv=coarse_inv)
+
+
+def _setup_timers() -> bool:
+    """``AMG_SETUP_TIMERS=1``: the pack prints each level's seconds to
+    stderr and :func:`setup` logs its phases (``amg_tpu``'s labels)."""
+    return os.environ.get("AMG_SETUP_TIMERS", "0") == "1"
+
+
+def _sync(device):
+    """Wait for the card's queued work before a timer reading."""
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+
+
+def _timer_line(label, t0, device):
+    _sync(device)
+    print(f"{label}: {time.perf_counter() - t0:.2f}s", file=sys.stderr,
+          flush=True)
 
 
 def setup(a: CSR, pars: AMGParams, log=print,
@@ -1169,11 +1197,21 @@ def setup(a: CSR, pars: AMGParams, log=print,
     """
     check_supported(pars)
     device = resolve_device(device)
+    timers = _setup_timers()
+    marks = [time.perf_counter()]
+
+    def lap():
+        if timers:
+            _sync(device)
+        marks.append(time.perf_counter())
+
     if hh is None:
         hh = setup_host(a, pars, log=log, device=device)
+    lap()
     # amg_tpu's order: the embedding plan on the unpermuted hierarchy, the
     # reordering of the levels below the embedded ones, then the pack
     plan = embedding_plan(hh, pars)
+    lap()
     # hh.perms set => reorder_for_gs already ran on this hierarchy (e.g. a
     # checkpoint-restored one, saved post-reorder)
     if pars.reorder_gs and hh.perms is None:
@@ -1184,7 +1222,13 @@ def setup(a: CSR, pars: AMGParams, log=print,
         # the coarse permutations are baked in, but a WEll level 0 still
         # needs its RCM pass
         reorder_l0_for_well(hh, pars)
+    lap()
     mg = to_device(hh, pars, device=device, plan=plan)
+    lap()
+    if timers:
+        host, plan_s, reorder, pack = np.diff(marks)
+        log(f"setup phases: host {host:.2f}s, plan {plan_s:.2f}s, "
+            f"reorder {reorder:.2f}s, pack {pack:.2f}s")
     if pars.verbose:
         log(complexity_print(hh))
         log(f"AMG setup time: {hh.setup_seconds:g} s")

@@ -42,3 +42,13 @@ def norminf(x):
         return torch.zeros((), dtype=x.dtype, device=x.device)
     return torch.max(torch.abs(x))
 
+
+def axpy(alpha, x, y):
+    """y + alpha*x (reference SSS_blas_array_axpy, amg/SSS_utils.c:217)."""
+    return y + alpha * x
+
+
+def axpby(alpha, x, beta, y):
+    """alpha*x + beta*y (reference SSS_blas_array_axpby,
+    amg/SSS_utils.c:248)."""
+    return alpha * x + beta * y

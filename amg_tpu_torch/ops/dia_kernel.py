@@ -39,7 +39,9 @@ tensors take the plain version (``*_plain``), which the tests and
 ``chip_smoke.py`` also use as the reference.  B1 reads ``x`` through
 shared-memory windows laid out by :func:`plan`.  ``launches``
 counts kernel launches per B1 epilogue (:data:`EPILOGUES`) and per B4
-epilogue (:data:`MULTI`).
+epilogue (:data:`MULTI`); a call made while a CUDA graph is captured is
+counted too, and the code that captures takes those counts back and adds
+them again at every replay (``solve.driver.JitLoop``).
 """
 
 from __future__ import annotations
@@ -123,10 +125,13 @@ def plan(offsets: tuple) -> tuple:
     return tuple(segs)
 
 
-@functools.lru_cache(maxsize=64)
+@functools.cache
 def _plan_on(offsets: tuple, device: torch.device):
     """(the plan as an ``(n, 4)`` int32 tensor on ``device``, n, the number
-    of windowed runs, the widest span or -1)."""
+    of windowed runs, the widest span or -1).  Made on first use (a copy
+    to the device, which a CUDA graph capture cannot hold: the solve
+    runs an eager step before it captures) and never evicted, since a
+    captured graph keeps the tensor's address."""
     segs = plan(offsets)
     t = torch.tensor(segs or ((0, 0, 0, -1),), dtype=torch.int32,
                      device=device)

@@ -122,6 +122,11 @@ def spmv(a, x: torch.Tensor) -> torch.Tensor:
     raise NotImplementedError(f"no SpMV for {type(a).__name__}")
 
 
+def spmv_n(a, x: torch.Tensor) -> torch.Tensor:
+    """y = A @ x truncated to the logical row count."""
+    return spmv(a, x)[..., : a.n_rows]
+
+
 def residual(a, x: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """r = b - A @ x (reference ``SSS_blas_mv_amxpy`` with alpha=-1 as used
     by the outer loop, amg/Solve/SSS_SOLVE.c:59-60)."""

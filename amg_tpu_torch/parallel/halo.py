@@ -51,12 +51,14 @@ the messages and bytes sent between processes (``p2p``, ``p2p_bytes``).
 
 from __future__ import annotations
 
+import dataclasses
+
 import torch
 import torch.distributed as dist
 
 from ..ops import dia_kernel, well_kernel
 from ..ops.spmv import banded_window_product, spmv
-from ..sparse import BandedBlocks, Dia, WEll
+from ..sparse import BandedBlocks, Dense, Dia, WEll
 from .dist import (Mesh, local_rows, shard_banded, shard_dia, shard_vector,
                    shard_well)
 
@@ -239,14 +241,20 @@ def spmv_local_full(a, x_full: torch.Tensor, mesh: Mesh) -> torch.Tensor:
     against the whole input vector ``x_full`` (replicated, or gathered from
     the ring; it may run past the operator's columns): B2's window entry
     with ``col0 = 0`` for WEll (:func:`well_spmv_local_full`), the gather of
-    ``ops/spmv.py`` for Ell, the row block times ``x`` for Dense, and for
-    Dia (the square P of an embedded level) the ring product of this
-    process's block of ``x_full``."""
+    ``ops/spmv.py`` for Ell, one matvec per shard's row block for Dense,
+    and for Dia (the square P of an embedded level) the ring product of
+    this process's block of ``x_full``.  cuBLAS picks its gemv by the
+    rows, so one matvec over S shards' rows sums them in another order
+    than S processes of one shard each; per shard, every layout of the
+    same ring computes the same rows alike."""
     if isinstance(a, WEll):
         return well_spmv_local_full(a, x_full)
     if isinstance(a, Dia):
         return dia_spmv_ring_local(a, local_rows(x_full, mesh), mesh) \
             .reshape(-1)
+    if isinstance(a, Dense) and mesh.local > 1:
+        return torch.cat([spmv(Dense(v, a.shape, a.nnz), x_full)
+                          for v in a.vals.chunk(mesh.local)])
     return spmv(a, x_full)
 
 
@@ -273,7 +281,17 @@ def banded_spmv_ring_local(a: BandedBlocks, x: torch.Tensor,
     ext, lo = haloed_block(x, halo, halo, mesh)
     if lo != halo:
         raise ValueError(f"halo of {halo} entries rounded to {lo}")
-    return banded_window_product(a, ext[None], x.dtype).view(x.shape)
+    if mesh.local == 1:
+        return banded_window_product(a, ext[None], x.dtype).view(x.shape)
+    # one batched product per shard, as a process holding only that
+    # shard runs it: cuBLAS's f32 batched product sums in another order
+    # for another batch count
+    S, m = x.shape
+    q = a.vals.shape[0] // S
+    return torch.cat([banded_window_product(
+        dataclasses.replace(a, vals=a.vals[s * q:(s + 1) * q]),
+        ext[None, s * m:(s + 1) * m + 2 * halo], x.dtype)
+        for s in range(S)])
 
 
 def spmv_well_ring(w: WEll, x, mesh: Mesh) -> torch.Tensor:

@@ -500,9 +500,11 @@ class SpmdAMGSolver:
         transfers stay replicated.  With ``hi`` FCG runs in f64 against the
         df64 WEll operator of this process's row groups (B3's window entry),
         whose row-slice structure and hi plane level 0's f32 operator shares
-        where their entries agree; without a ring plan for it (or a level-0
-        pad of whole row groups per shard) FCG stays in the solve dtype, as
-        ``amg_tpu`` falls back (``:708-710``)."""
+        where their entries agree.  Without a ring plan for it (or a level-0
+        pad of whole row groups per shard) a Dia level 0 gives FCG the
+        row-sharded f64 Dia (B1's window entry), as the embedded mode does;
+        any other level 0 keeps FCG in the solve dtype, as ``amg_tpu``
+        falls back (``:708-710``), and says so under ``verbose``."""
         Es, mesh = self.Es, self.mesh
         self.ring_r = ring_boundary(mg.levels[Es])
         sharded = shard_hierarchy(mg, mesh, self.pars,
@@ -530,6 +532,15 @@ class SpmdAMGSolver:
                         a0.pad_cols, rows=dataclasses.replace(
                             w_hi.rows, vals_lo=None),
                         ring_plan=a0.ring_plan))
+        if hi and self.a0_hi is None:
+            if isinstance(mg.levels[0].a, Dia):
+                self.a0_hi = shard_dia(Dia.from_csr(
+                    hh.a[0], dtype=torch.float64, pad_rows_to=self.pad,
+                    device=mesh.device), mesh)
+            elif self.pars.verbose:
+                self.log(f"# no f64 ring operator for the "
+                         f"{type(mg.levels[0].a).__name__} level 0: FCG "
+                         f"runs in {self.pars.dtype}")
         self.mg = Hierarchy(levels=tuple(levels),
                             coarse_inv=sharded.coarse_inv)
 

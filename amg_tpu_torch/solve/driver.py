@@ -20,7 +20,9 @@ preconditioned by one cycle, likewise), and with
 :meth:`AMGSolver.solve_refined` (f32 cycles, f64 outer residual).
 Residual norms are fetched to the host in batches when the live table is
 off.  :meth:`AMGSolver.solve_batched` runs the cycle on a ``(k, pad)``
-batch of right-hand sides.
+batch of right-hand sides.  :meth:`AMGSolver.solve_jit` keeps the loop's
+state on the device and runs masked steps (:class:`JitLoop`), on the card
+as replays of a CUDA graph of one step.
 """
 
 from __future__ import annotations
@@ -31,9 +33,11 @@ import time
 import numpy as np
 import torch
 
-from ..params import AMGParams, SolveInfo, StopType, MAX_RESTART
+from ..params import (AMGParams, CoarsestSolver, SolveInfo, StopType,
+                      MAX_RESTART)
 from ..sparse import CSR, Dia, Dense, Ell, WEll, torch_dtype
 from ..hierarchy import setup, _pick_format, resolve_device
+from ..ops import dia_kernel, well_kernel
 from ..ops.spmv import spmv
 from ..ops.blas import norm2
 from .cycle import cycle
@@ -131,6 +135,163 @@ def fcg_host_loop(pars, sumb, st, absres0, step, refresh, truenorm,
     return xd
 
 
+# masked steps per host read in solve_jit's loop: the quiet cadence of
+# AMGSolver.solve (one residual fetch per 4 cycles)
+JIT_BLOCK = 4
+
+
+def _launch_counts() -> dict:
+    """The kernel modules' launch counters, copied."""
+    return {K: (dict(K.launches), dict(K.launches_by_shape))
+            for K in (dia_kernel, well_kernel)}
+
+
+def _add_launches(delta: dict, times: int):
+    """Add ``times`` x ``delta`` (counts as :func:`_launch_counts` gives
+    them) to the kernel modules' counters; keys that fall to 0 go."""
+    for K, (entries, shapes) in delta.items():
+        for e, n in entries.items():
+            K.launches[e] += n * times
+        for key, n in shapes.items():
+            v = K.launches_by_shape.get(key, 0) + n * times
+            if v:
+                K.launches_by_shape[key] = v
+            else:
+                K.launches_by_shape.pop(key, None)
+
+
+def _count_delta(before: dict, after: dict) -> dict:
+    """``after - before``, the nonzero counts only."""
+    return {K: tuple({k: n - b.get(k, 0) for k, n in a.items()
+                      if n != b.get(k, 0)}
+                     for a, b in zip(after[K], before[K]))
+            for K in after}
+
+
+class JitLoop:
+    """The loop of :meth:`AMGSolver.solve_jit` with its state on the
+    device: the counterpart of ``amg_tpu``'s ``lax.while_loop``
+    (``amg_tpu/solve/driver.py:168-191``).
+
+    Static buffers hold ``x``, ``b``, the iteration ``it`` (int32), the
+    last residual ``absres``, ``sumb = ||b||`` and the history ``hist``
+    (``max_it + 1`` entries, NaN where unused).  One masked step runs
+    ``step(x, b) -> (x, ||b - A x||)`` (the solver's ``_step``, a cycle
+    and its residual norm; passed per call, so that the loop, which the
+    solver holds, holds no reference back to it) and keeps its results
+    only while ``it < max_it and absres / sumb >= tol``, so a step past
+    the stop changes nothing; it leaves that condition for the next step
+    in ``cont``.  The host runs steps in blocks of :data:`JIT_BLOCK` and
+    reads ``cont`` once per block.
+
+    With ``graph`` (a CUDA device) the step is captured once in a
+    ``torch.cuda.CUDAGraph`` and every step is one replay; otherwise the
+    same masked step runs eagerly.  A capture runs two eager warm-up steps
+    on scratch copies of the state first, on a side stream: the first
+    builds the kernels and makes their first-use tensors (B1's read
+    plans), the second runs under ``torch.cuda.set_sync_debug_mode(
+    "error")``, so a step that reads the host raises.  The kernel wrappers
+    count a launch when they are called, which during a capture launches
+    nothing; the capture's counts are taken back and each replay adds
+    them (``per_step``).
+    """
+
+    def __init__(self, device, dtype, pad: int, max_it: int, tol: float,
+                 graph: bool):
+        self.max_it = max_it
+        self.tol = tol
+        kw = dict(dtype=dtype, device=device)
+        self.x = torch.zeros(pad, **kw)
+        self.b = torch.zeros(pad, **kw)
+        self.it = torch.zeros((), dtype=torch.int32, device=device)
+        self.absres = torch.zeros((), **kw)
+        self.sumb = torch.zeros((), **kw)
+        self.hist = torch.full((max_it + 1,), float("nan"), **kw)
+        self.cont = torch.zeros((), dtype=torch.bool, device=device)
+        self.use_graph = graph
+        self.graph = None
+        self.per_step = None        # kernel launches of one replay
+        self.capture_seconds = 0.0
+        self.blocks = 0             # of the last run
+        self.host_reads = 0         # of the last run
+
+    @property
+    def state(self):
+        return (self.x, self.b, self.it, self.absres, self.sumb, self.hist,
+                self.cont)
+
+    def _go_on(self, it, absres, sumb):
+        return (it < self.max_it) & (absres / sumb >= self.tol)
+
+    def masked_step(self, step, x, b, it, absres, sumb, hist, cont):
+        """One step on the state tensors given, in place."""
+        active = self._go_on(it, absres, sumb)
+        x_new, r = step(x, b)
+        x.copy_(torch.where(active, x_new, x))
+        absres.copy_(torch.where(active, r, absres))
+        at = (it.long() + 1).clamp_(max=self.max_it).reshape(1)
+        hist.index_put_((at,), torch.where(active, r, hist.index_select(
+            0, at)[0]).reshape(1))
+        it.add_(active.to(it.dtype))
+        cont.copy_(self._go_on(it, absres, sumb))
+
+    def load(self, xd, bd):
+        """Start a solve from ``xd`` with right-hand side ``bd``."""
+        self.x.copy_(xd)
+        self.b.copy_(bd)
+        self.sumb.copy_(norm2(self.b))
+        self.it.zero_()
+        self.absres.copy_(self.sumb)
+        self.hist.fill_(float("nan"))
+        self.hist[:1].copy_(self.sumb.reshape(1))
+        self.cont.copy_(self._go_on(self.it, self.absres, self.sumb))
+
+    def capture(self, step):
+        """Warm up and capture the masked step on the static buffers."""
+        t0 = time.perf_counter()
+        with torch.cuda.device(self.x.device):
+            scratch = [t.clone() for t in self.state]
+            side = torch.cuda.Stream()
+            side.wait_stream(torch.cuda.current_stream())
+            with torch.cuda.stream(side):
+                self.masked_step(step, *scratch)
+                mode = torch.cuda.get_sync_debug_mode()
+                torch.cuda.set_sync_debug_mode("error")
+                try:
+                    self.masked_step(step, *scratch)
+                finally:
+                    torch.cuda.set_sync_debug_mode(mode)
+            torch.cuda.current_stream().wait_stream(side)
+            before = _launch_counts()
+            graph = torch.cuda.CUDAGraph()
+            with torch.cuda.graph(graph):
+                self.masked_step(step, *self.state)
+            self.per_step = _count_delta(before, _launch_counts())
+            _add_launches(self.per_step, -1)
+            torch.cuda.synchronize()
+        self.graph = graph
+        self.capture_seconds = time.perf_counter() - t0
+
+    def run(self, step):
+        """Blocks of :data:`JIT_BLOCK` steps until the stop condition,
+        one host read of ``cont`` before each block."""
+        if self.use_graph and self.graph is None:
+            self.capture(step)
+        self.blocks = self.host_reads = 0
+        for _ in range(-(-self.max_it // JIT_BLOCK) + 1):
+            self.host_reads += 1
+            if not bool(self.cont):
+                break
+            for _ in range(JIT_BLOCK):
+                if self.graph is not None:
+                    self.graph.replay()
+                else:
+                    self.masked_step(step, *self.state)
+            if self.graph is not None:
+                _add_launches(self.per_step, JIT_BLOCK)
+            self.blocks += 1
+
+
 class AMGSolver:
     """Setup once, solve many times, on one ``device`` (default the CUDA
     card; pass ``device="cpu"`` for the CPU).
@@ -196,6 +357,9 @@ class AMGSolver:
         # FCG runs in f64 around the f32 cycle when refining
         self._accel_dtype = (torch.float64 if self.a0_hi is not None
                              else self.dtype)
+        # solve_jit's loop, made on its first call
+        self.jit_loop = None
+        self._jit_key = None
 
     def _share_level0_plane(self):
         """The df64 hi plane IS the f32 pack of level 0 (same packer, same
@@ -552,9 +716,50 @@ class AMGSolver:
                      f"relres {info.rres:g}, {info.solve_seconds:g} s")
         return self._unpad_vec(xd), info
 
-    def solve_jit(self, b, x0=None):
-        raise NotImplementedError("solve_jit has no PyTorch counterpart "
-                                  "(the solve runs eagerly)")
+    def solve_jit(self, b, x0=None) -> tuple[np.ndarray, SolveInfo]:
+        """The solve with its loop on the device (``amg_tpu``'s
+        ``solve_jit``, ``amg_tpu/solve/driver.py:621-641``): cycles while
+        ``it < max_it`` and ``||r|| / ||b|| >= tol``, no host read per
+        iteration, no defect correction or Krylov acceleration and no stop
+        type but the relative residual, whatever ``pars`` say.
+        ``info.residuals`` is ``||b||`` and then each cycle's residual.
+
+        On the card the masked step is a CUDA graph, captured on the first
+        call and replayed by every later one (:class:`JitLoop`); a KRYLOV
+        coarsest solve reads the host inside the cycle, so such a
+        hierarchy runs the same loop eagerly on the card.  On the CPU the
+        loop runs eagerly."""
+        pars = self.pars
+        n = self.a.n_rows
+        key = (self.device, self.dtype, self.pad, pars.max_it, pars.tol)
+        loop = self.jit_loop
+        if loop is None or self._jit_key != key:
+            graph = self.device.type == "cuda"
+            if graph and pars.coarsest_solver == CoarsestSolver.KRYLOV:
+                graph = False
+                if pars.verbose:
+                    self.log("solve_jit: the KRYLOV coarsest solve reads "
+                             "the host, so the loop runs eagerly on "
+                             f"{self.device}")
+            loop = JitLoop(self.device, self.dtype, self.pad, pars.max_it,
+                           pars.tol, graph)
+            self.jit_loop, self._jit_key = loop, key
+        bd = self._pad_vec(b)
+        xd = self._pad_vec(x0 if x0 is not None else np.zeros(n))
+        t0 = time.perf_counter()
+        loop.load(xd, bd)
+        loop.run(self._step)
+        info = SolveInfo()
+        info.nits = int(loop.it)
+        info.ares = float(loop.absres)
+        sumb = float(loop.sumb)
+        info.rres = info.ares / max(sumb, 1e-300)
+        h = loop.hist.cpu().numpy()
+        info.residuals = [float(v) for v in h[~np.isnan(h)]]
+        x = self._unpad_vec(loop.x)
+        info.solve_seconds = time.perf_counter() - t0
+        info.setup_seconds = self.host_hierarchy.setup_seconds
+        return x, info
 
 
 def solver_amg(a: CSR, x, b, pars: AMGParams = AMGParams(), log=print,

@@ -157,7 +157,26 @@ Phases (any failure raises and the script exits nonzero):
    admits across rounds, are logged); then phase 8's setup with
    ``cs_type=PMIS``, which takes the device splitter from 262,144 rows,
    solved with FCG beside the same setup on the host splitter: both
-   converged, iterations within 20%.
+   converged, iterations within 20%;
+22. ``solve_jit``, the solve whose loop stays on the card: phase 13's
+   host hierarchy (poisson3d(100), "auto": Dia, Dia, WEll, BandedBlocks,
+   Dense, Dense) and phase 15's (fem2d(1,000,000), WEll 0-3,
+   BandedBlocks 4-7, Dense) with f32 cycles to 1e-6 and no defect
+   correction or Krylov acceleration (``jit_pars``; b = A x for a seeded
+   x, ``jit_rhs``), each ``solve_jit`` a CUDA graph of one masked cycle
+   step replayed in blocks (B1's update, resid and spmv and B2's spmv in
+   the structured graph; B2's spmv and its ``gs`` class update on level
+   0's 14 classes in the unstructured one); gates against ``solve`` on
+   the same solver: equal iterations, histories within rtol 1e-5 (and
+   whether they are bit-identical), x within 1e-6 * ||x||, a host f64
+   true rres below 1.5e-6, one replay from a fixed x equal to one eager
+   step; logs capture seconds, device MiB after the cold call against
+   before, blocks and host reads per solve, warm seconds of both entries
+   (median of 3); kernel against plain at every launch shape of both
+   graphs (tags ``j-``, ``jf-``; a graph's launches are counted as the
+   capture's times the replays).  Then phase 17's KRYLOV hierarchy, whose
+   ``solve_jit`` runs the eager masked loop on the card (logged), with
+   the same gates but the replay.
 
 Each kernel result carries its bound: the larger of the bytes it must
 move (each input read once, each output written once) over the H100's
@@ -166,7 +185,7 @@ f32, 34 TFLOP/s f64, NVIDIA's H100 SXM data sheet).  The last three lines
 of standard output are the card's name and power limit as nvidia-smi
 gives them, one JSON object describing the kernels (one entry per
 epilogue and operator of phases 6 and 9, per launch shape of phase 11,
-and per launch shape and operator of phases 13-20, each with its
+and per launch shape and operator of phases 13-20 and 22, each with its
 main-path launch count; phase 20's rows join those of phases 18 and 19)
 and one with the device.  Imports
 torch, numpy, scipy and amg_tpu_torch only.
@@ -1457,7 +1476,8 @@ def phase_fem_auto(a, old, old_summary):
     to 1e-8; each BandedBlocks level's product beside phase 8's (``old``)
     Ell or Dense on the same level.  Returns the kernel rows of every WEll
     launch shape of its solve (tags "fa-": level 4's RCM ordering rewrites
-    P3 and R3, so their layouts are not phase 9's) and its summary."""
+    P3 and R3, so their layouts are not phase 9's), its summary and its
+    host hierarchy (phase 22's)."""
     import amg_tpu_torch as amg
 
     pars = unstructured_pars(amg).replace(use_well="auto", use_banded="auto")
@@ -1473,8 +1493,9 @@ def phase_fem_auto(a, old, old_summary):
         f"s (phase 8: {old_summary['warm_solve_s']:.4f})")
     _compare_products("fem-auto", banded, solver, old)
     rows = phase_unstructured_shapes(solver, well, prefix="fa-")
+    hh = solver.host_hierarchy
     del solver
-    return rows, summary
+    return rows, summary, hh
 
 
 # ---------------------------------------------------------------------------
@@ -2522,13 +2543,205 @@ def phase_pmis(a):
           f"pmis: {nd} against {nh} FCG its")
 
 
+# ---------------------------------------------------------------------------
+# 22. solve_jit: the masked cycle step as a CUDA graph
+# ---------------------------------------------------------------------------
+
+
+JIT_TOL = 1e-6             # f32 cycles reach it without defect correction
+JIT_TRUE_RRES = 1.5e-6     # tol plus the f32 residual's floor (~6e-8 ||b||)
+JIT_REPS = 3               # warm solves timed per entry point (median)
+
+
+def jit_pars(pars):
+    """Phase 22's parameters from a main path's: f32 cycles without defect
+    correction or Krylov acceleration (solve_jit runs neither), to
+    ``JIT_TOL``."""
+    return pars.replace(refine=False, accel="none", tol=JIT_TOL)
+
+
+def jit_rhs(a, seed=22):
+    """b = A x for a seeded standard-normal x.  With b = ones the solution
+    is large and smooth, and the f32 residual of a cycle cannot fall below
+    ~eps32 * || |A| |x| || / ||b||: poisson3d(64) stalls at 2.5e-5 and
+    fem2d(70,000) at 2e-3 (the CPU, plain versions), above tol; with this
+    b the floor is ~1e-7."""
+    return a.matvec(np.random.default_rng(seed).standard_normal(a.n_rows))
+
+
+def _median_s(fn):
+    times = []
+    for _ in range(JIT_REPS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+    return statistics.median(times)
+
+
+def _one_replay_vs_step(solver, n):
+    """One replay of the captured step from a fixed seeded x against one
+    eager ``_step`` from the same x: max |x difference| and max |x|.
+    Neither is counted as a main-path launch (the counts were read)."""
+    loop = solver.jit_loop
+    rng = np.random.default_rng(23)
+    xd = solver._pad_vec(rng.standard_normal(n))
+    bd = solver._pad_vec(rng.standard_normal(n))
+    loop.load(xd, bd)
+    loop.graph.replay()
+    x_eager, _ = solver._step(xd, bd)
+    torch.cuda.synchronize()
+    return ((loop.x - x_eager).abs().max().item(),
+            x_eager.abs().max().item())
+
+
+def _jit_against_solve(tag, solver, a, b, graph=True):
+    """``solve_jit`` on ``solver`` (counts set to 0 just before its cold
+    call and read just after) against ``solve`` on the same solver: equal
+    iterations, histories within rtol 1e-5, x within 1e-6 * ||x||, a host
+    f64 true rres below ``JIT_TRUE_RRES``; with ``graph`` one replay
+    equal to one eager step.  Logs capture seconds, device MiB after the
+    capture against before, blocks and host reads per solve, warm
+    seconds of both entries.  Returns the cold call's DIA and WEll
+    launches by shape and a summary."""
+    from amg_tpu_torch.ops import dia_kernel as D, well_kernel as W
+    from amg_tpu_torch.solve.driver import JIT_BLOCK
+
+    _reset_counts()
+    torch.cuda.synchronize()
+    mem0, res0 = torch.cuda.memory_allocated(), torch.cuda.memory_reserved()
+    t0 = time.perf_counter()
+    x, info = solver.solve_jit(b)
+    torch.cuda.synchronize()
+    cold_s = time.perf_counter() - t0
+    dia, well = dict(D.launches_by_shape), dict(W.launches_by_shape)
+    launches = (dict(D.launches), dict(W.launches))
+    mib = (torch.cuda.memory_allocated() - mem0) / 2**20
+    rmib = (torch.cuda.memory_reserved() - res0) / 2**20
+    loop = solver.jit_loop
+    xs, info_s = solver.solve(b)
+    torch.cuda.synchronize()
+    true_rel = float(np.linalg.norm(b - a.matvec(x.astype(np.float64)))
+                     / np.linalg.norm(b))
+    hj, hs = np.array(info.residuals), np.array(info_s.residuals)
+    same = hj.shape == hs.shape and np.array_equal(hj, hs)
+    x_gap = float(np.linalg.norm(x - xs) / np.linalg.norm(xs))
+    warm_jit = _median_s(lambda: solver.solve_jit(b))
+    warm_solve = _median_s(lambda: solver.solve(b))
+    log(f"[{tag}] solve_jit: {info.nits} its, rres {info.rres:.3e}, true "
+        f"rres (host f64) {true_rel:.3e}; solve: {info_s.nits} its; "
+        f"histories bit-identical: {same}; x gap {x_gap:.3e} of ||x||")
+    route = ("CUDA graph of one masked step" if loop.graph is not None
+             else "eager masked loop")
+    log(f"[{tag}] route: {route} on {loop.x.device}; capture "
+        f"{loop.capture_seconds:.3f} s; "
+        f"device MiB after the cold call against before: allocated "
+        f"{mib:+.1f}, reserved {rmib:+.1f}; {loop.blocks} blocks of "
+        f"{JIT_BLOCK} steps, {loop.host_reads} host reads of the stop flag "
+        f"per solve (+4 for the results)")
+    log(f"[{tag}] cold solve_jit {cold_s:.4f} s; warm (median of "
+        f"{JIT_REPS}) solve_jit {warm_jit:.4f} s, solve {warm_solve:.4f} s")
+    log(f"[{tag}] launches: DIA {launches[0]}, WEll {launches[1]}")
+    check(np.all(np.isfinite(x)) and x.shape == (a.n_rows,),
+          f"{tag}: solution not finite or wrong shape")
+    check(info.nits == info_s.nits,
+          f"{tag}: solve_jit {info.nits} its, solve {info_s.nits}")
+    check(hj.shape == hs.shape and np.allclose(hj, hs, rtol=1e-5, atol=0),
+          f"{tag}: histories differ: {hj} against {hs}")
+    check(x_gap <= 1e-6, f"{tag}: x gap {x_gap:.3e}")
+    check(info.rres < JIT_TOL and true_rel < JIT_TRUE_RRES,
+          f"{tag}: true rres {true_rel:.3e}")
+    summary = dict(nits=info.nits, cold_s=cold_s, warm_jit_s=warm_jit,
+                   warm_solve_s=warm_solve, mib=mib, reserved_mib=rmib,
+                   capture_s=loop.capture_seconds, blocks=loop.blocks,
+                   reads=loop.host_reads)
+    if graph:
+        check(loop.graph is not None, f"{tag}: no CUDA graph captured")
+        diff, scale = _one_replay_vs_step(solver, a.n_rows)
+        log(f"[{tag}] one replay against one eager step from the same x: "
+            f"max |dx| {diff:.3e} (max |x| {scale:.3e})")
+        check(diff <= 1e-6 * scale, f"{tag}: a replay differs from an "
+                                    f"eager step by {diff:.3e}")
+        summary["step_diff"] = diff
+    else:
+        check(loop.graph is None and loop.x.is_cuda,
+              f"{tag}: not the eager masked loop on the card")
+    return dia, well, summary
+
+
+def _graph_launches(loop, K, entries):
+    """Check that ``loop``'s graph replays kernel module ``K``'s
+    ``entries`` (the capture recorded them)."""
+    per_entry = loop.per_step[K][0]
+    check(all(per_entry.get(e, 0) > 0 for e in entries),
+          f"the graph does not launch {entries}: {per_entry}")
+    return per_entry
+
+
+def phase_jit(p3d, auto_hh, fem, fem_hh):
+    """22. ``solve_jit`` at full width: poisson3d(100) with phase 13's
+    parameters and host hierarchy, fem2d(1,000,000) with phase 15's, both
+    as ``jit_pars`` (f32 cycles to 1e-6, no defect correction or Krylov
+    acceleration) on ``jit_rhs``; B1 (update, resid, spmv) and B2 (spmv)
+    replayed in the structured graph, B2 (spmv, gs on level 0's classes)
+    in the unstructured one; then phase 17's KRYLOV hierarchy, whose
+    ``solve_jit`` runs the eager masked loop on the card.  Returns the
+    kernel rows of both graphs' launch shapes (tags "j-", "jf-")."""
+    import amg_tpu_torch as amg
+    from amg_tpu_torch.ops import dia_kernel as D, well_kernel as W
+
+    quiet = dict(device="cuda", log=lambda *_: None)
+    pars = jit_pars(structured_pars(amg).replace(use_well="auto",
+                                                 use_banded="auto"))
+    b = jit_rhs(p3d)
+    solver = amg.AMGSolver(p3d, pars, host_hierarchy=auto_hh, **quiet)
+    check(_formats(solver) == STRUCTURED_AUTO,
+          f"jit formats {_formats(solver)}")
+    dia, well, summary = _jit_against_solve("jit", solver, p3d, b)
+    per_dia = _graph_launches(solver.jit_loop, D, ("update", "resid",
+                                                   "spmv"))
+    per_well = _graph_launches(solver.jit_loop, W, ("spmv",))
+    log(f"[jit] launches per replay: DIA {per_dia}, WEll {per_well}")
+    dia_rows = phase_main_shapes(solver, dia, prefix="j-")
+    well_rows = phase_unstructured_shapes(solver, well, prefix="j-")
+    del solver
+
+    lines = []
+    ks = amg.AMGSolver(p3d, pars.replace(
+        coarsest_solver=amg.CoarsestSolver.KRYLOV, verbose=1),
+        host_hierarchy=auto_hh, device="cuda", log=lines.append)
+    _, _, ksum = _jit_against_solve("jit-krylov", ks, p3d, b, graph=False)
+    route = [ln for ln in lines if ln.startswith("solve_jit:")]
+    log(f"[jit-krylov] {route}")
+    check(len(route) == 1, "the KRYLOV route was not logged")
+    del ks
+
+    fpars = jit_pars(unstructured_pars(amg).replace(use_well="auto",
+                                                    use_banded="auto"))
+    fb = jit_rhs(fem)
+    fs = amg.AMGSolver(fem, fpars, host_hierarchy=fem_hh, **quiet)
+    check(_formats(fs) == FEM_AUTO, f"jit fem2d formats {_formats(fs)}")
+    _, fwell, fsum = _jit_against_solve("jit-fem", fs, fem, fb)
+    per_well = _graph_launches(fs.jit_loop, W, ("spmv", "gs"))
+    n_cls = len(fs.mg.levels[0].a.rows.segments) - 1
+    log(f"[jit-fem] launches per replay: WEll {per_well}, level 0's "
+        f"{n_cls} GS classes")
+    check(per_well["gs"] % n_cls == 0, "gs launches per replay do not "
+                                       "cover level 0's classes")
+    well_rows += phase_unstructured_shapes(fs, fwell, prefix="jf-")
+    del fs
+    log(f"[jit] summary: structured {summary}; krylov {ksum}; fem2d {fsum}")
+    return dia_rows, well_rows
+
+
 def _kernel_entries(dia_rows, well_rows, multi_rows=(), window_rows=(),
                     well_window_rows=()):
     """The ``kernels`` JSON entries: one per (epilogue, launch shape) of
-    phases 6, 13, 14, 16 and 17, per (entry, operator) of phases 9, 13, 15
-    and 17 (per GS class for the ``gs`` entry), per launch shape of phases
-    11, 14 and 17, and per launch shape of B1's window entry in phases
-    18 and 20 and of B2/B3's in phases 19 and 20."""
+    phases 6, 13, 14, 16, 17 and 22, per (entry, operator) of phases 9,
+    13, 15, 17 and 22 (per GS class for the ``gs`` entry), per launch
+    shape of phases 11, 14 and 17, and per launch shape of B1's window
+    entry in phases 18 and 20 and of B2/B3's in phases 19 and 20."""
     out = [{
         "name": f"dia_spmv.{r['epilogue']}[{r['op']} {r['vals']}/{r['x']} "
                 f"nd={r['nd']} pad={r['pad']}]",
@@ -2634,7 +2847,8 @@ def main() -> int:
     dia_rows += emb_dia
     multi_rows += emb_multi
     stamp("structured embedded")
-    fa_rows, fem_auto_summary = phase_fem_auto(a, fem, fem_summary)
+    fa_rows, fem_auto_summary, fem_auto_hh = phase_fem_auto(a, fem,
+                                                            fem_summary)
     well_rows += fa_rows
     del fem
     stamp("unstructured auto")
@@ -2657,8 +2871,12 @@ def main() -> int:
     well_window_rows += g_b2
     stamp("gspmd")
     phase_pmis(a)
-    del a
     stamp("device pmis")
+    j_dia, j_well = phase_jit(p3d, auto_hh, a, fem_auto_hh)
+    dia_rows += j_dia
+    well_rows += j_well
+    del a, auto_hh, fem_auto_hh
+    stamp("solve_jit graph")
 
     prev = t_start
     for label, t in stamps:

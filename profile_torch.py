@@ -11,6 +11,8 @@
     python3 profile_torch.py --spmd 4 --matrix fem2d   # phase 19
     python3 profile_torch.py --gspmd 4        # phase 20: GSPMD, 4 shards
     python3 profile_torch.py --gspmd 4 --single   # its one-device reference
+    python3 profile_torch.py --structured --layout auto --jit   # phase 22
+    python3 profile_torch.py --layout auto --jit   # phase 22's fem2d solve
 
 ``--layout`` picks the format flags: ``compact`` (default; chip_smoke.py
 phases 5 and 8), ``auto`` (``use_well`` and ``use_banded`` on "auto",
@@ -27,7 +29,11 @@ mode (bench_dist.py's fem2d parameters; ``--layout compact`` turns
 poisson3d(100) in phase 20's mode (bench_dist.py's gspmd parameters) with
 ``DistAMGSolver`` on a ring of N row shards on the card; with
 ``--single`` the single-device ``AMGSolver`` of the same parameters and
-packing (``dist_devices=N``), phase 20's reference.
+packing (``dist_devices=N``), phase 20's reference.  ``--jit`` takes
+phase 22's parameters (``chip_smoke.jit_pars``: f32 cycles to 1e-6, no
+defect correction or Krylov acceleration) and right-hand side
+(``jit_rhs``) and profiles a warm ``solve`` and then a warm ``solve_jit``
+(the masked cycle step replayed as a CUDA graph) on the same solver.
 
 Builds the main-path configuration of ``chip_smoke.py`` (phase 8, or
 phase 5 with ``--structured``; with ``--batched K`` phase 5's solver runs
@@ -113,6 +119,9 @@ def main() -> int:
     ap.add_argument("--single", action="store_true",
                     help="with --gspmd N: the single-device solve of the "
                          "same parameters and packing")
+    ap.add_argument("--jit", action="store_true",
+                    help="phase 22: profile solve and then solve_jit on "
+                         "the same solver")
     ap.add_argument("--matrix", choices=("poisson3d", "fem2d"),
                     default="poisson3d",
                     help="--spmd's matrix: poisson3d(100) (phase 18) or "
@@ -123,11 +132,11 @@ def main() -> int:
         return 1
     from chip_smoke import (BATCH_TOL, CD_SIDE, FEM_ROWS,
                             convection_diffusion, general_pars, gspmd_pars,
-                            spmd_pars, structured_pars, unstructured_pars)
+                            jit_pars, jit_rhs, spmd_pars, structured_pars,
+                            unstructured_pars)
     if args.package:
         sys.path.insert(0, os.path.abspath(args.package))
     import amg_tpu_torch as amg
-    from torch.profiler import ProfilerActivity, profile
 
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
@@ -170,6 +179,12 @@ def main() -> int:
     if args.coarsest == "KRYLOV":
         pars = pars.replace(coarsest_solver=amg.CoarsestSolver.KRYLOV)
         what += ", KRYLOV coarsest solver"
+    if args.jit:
+        if args.spmd or args.gspmd or args.batched or args.gmres:
+            ap.error("--jit takes the one-device solve of poisson3d or "
+                     "fem2d")
+        pars = jit_pars(pars)
+        what += ", f32 cycles to 1e-6 (phase 22)"
     mem0 = torch.cuda.memory_allocated()
     t0 = time.perf_counter()
     if args.spmd:
@@ -202,15 +217,30 @@ def main() -> int:
     if args.batched:
         what += f", solve_batched k={args.batched}"
         B = np.random.default_rng(6).standard_normal((a.n_rows, args.batched))
-
-        def run():
-            return solver.solve_batched(B, tol=BATCH_TOL)
+        _report(what, lambda: solver.solve_batched(B, tol=BATCH_TOL))
+    elif args.jit:
+        b = jit_rhs(a)
+        _report(what + ", solve", lambda: solver.solve(b))
+        _report(what + ", solve_jit", lambda: solver.solve_jit(b))
+        loop = solver.jit_loop
+        print(f"solve_jit: capture {loop.capture_seconds:.3f} s, "
+              f"{loop.blocks} blocks, {loop.host_reads} host reads of the "
+              f"stop flag per solve; device MiB held "
+              f"{torch.cuda.memory_allocated() / 2**20:.1f}, reserved "
+              f"{torch.cuda.memory_reserved() / 2**20:.1f}")
     else:
         b = (np.random.default_rng(16).standard_normal(a.n_rows)
              if args.gmres else np.ones(a.n_rows))
+        _report(what, lambda: solver.solve(b))
+    return 0
 
-        def run():
-            return solver.solve(b)
+
+def _report(what, run):
+    """Wall seconds of a cold and two warm calls of ``run``, then one more
+    warm call under ``torch.profiler``: device time by kernel and by
+    group, and the device's busy share of the profiled window."""
+    from torch.profiler import ProfilerActivity, profile
+
     times = []
     for _ in range(3):
         torch.cuda.synchronize()
@@ -249,7 +279,6 @@ def main() -> int:
     print("device time by group (ms, share, calls):")
     for g, (us, c) in sorted(groups.items(), key=lambda kv: -kv[1][0]):
         print(f"  {us / 1e3:9.3f} {100 * us / total:5.1f}% {c:6d}  {g}")
-    return 0
 
 
 if __name__ == "__main__":

@@ -830,3 +830,103 @@ def test_gspmd_solve_on_card():
     r = b - a.matvec(x.astype(np.float64))
     assert np.linalg.norm(r) / np.linalg.norm(b) < 1e-8
     assert any(k[0] == dia_kernel.WINDOW for k in dia_kernel.launches_by_shape)
+
+
+def _jit_solver(case, **kw):
+    """chip_smoke.py phase 22's parameters at test size: f32 cycles to
+    1e-6 without defect correction on poisson3d(32)'s one-device "auto"
+    layout (Dia, Dia, WEll levels: B1 and B2 in the step) or on
+    fem2d(20000)'s WEll levels (B2's product and its GS class update)."""
+    common = dict(dtype="float32", smoother=amg.SmootherType.GS,
+                  coarse_smoother=amg.SmootherType.CHEBYSHEV, tol=1e-6,
+                  max_it=60, embed_levels=0, verbose=0)
+    if case == "structured":
+        a = amg.poisson3d(32)
+        pars = amg.AMGParams(coarse_op_dtype="bfloat16", well_min_rows=2000,
+                             dense_level_bytes=1e6, **common)
+    else:
+        a = amg.fem2d(20000, seed=17)
+        pars = amg.AMGParams(coarse_op_dtype="float32", use_well="on",
+                             use_banded="off", well_min_rows=1024,
+                             dense_level_bytes=2e7, **common)
+    solver = amg.AMGSolver(a, pars.replace(**kw), log=lambda *_: None)
+    b = a.matvec(np.random.default_rng(31).standard_normal(a.n_rows))
+    return a, solver, b
+
+
+@pytest.mark.parametrize("case", ["structured", "unstructured"])
+def test_solve_jit_graph_equals_eager_loop_on_card(case):
+    """solve_jit replays a captured CUDA graph holding B1/B2 launches; its
+    iterations equal the eager masked loop's on the card, histories within
+    rtol 1e-5, x within 1e-6 * ||x||, and a warm call replays the same
+    graph with the same result.  Launch counts: capture x replays."""
+    _needs_card()
+    from amg_tpu_torch.solve.driver import JIT_BLOCK, JitLoop
+
+    a, solver, b = _jit_solver(case)
+    x, info = solver.solve_jit(b)
+    loop = solver.jit_loop
+    assert loop.graph is not None and info.rres < 1e-6
+    per_dia, per_well = loop.per_step[dia_kernel][0], \
+        loop.per_step[well_kernel][0]
+    if case == "structured":
+        assert all(per_dia.get(e, 0) > 0 for e in EPILOGUES)
+        assert per_well.get("spmv", 0) > 0
+    else:
+        assert per_well.get("spmv", 0) > 0 and per_well.get("gs", 0) > 0
+    eager = JitLoop(solver.device, solver.dtype, solver.pad,
+                    solver.pars.max_it, solver.pars.tol, graph=False)
+    eager.load(solver._pad_vec(np.zeros(a.n_rows)), solver._pad_vec(b))
+    eager.run(solver._step)
+    assert int(eager.it) == info.nits and eager.graph is None
+    h = eager.hist.cpu().numpy()
+    np.testing.assert_allclose(info.residuals, h[~np.isnan(h)], rtol=1e-5)
+    xe = solver._unpad_vec(eager.x)
+    assert np.linalg.norm(x - xe) <= 1e-6 * np.linalg.norm(xe)
+    before = dict(well_kernel.launches)
+    x2, info2 = solver.solve_jit(b)
+    assert solver.jit_loop is loop and info2.nits == info.nits
+    np.testing.assert_array_equal(x2, x)
+    assert well_kernel.launches["spmv"] - before["spmv"] \
+        == per_well["spmv"] * loop.blocks * JIT_BLOCK
+
+
+def test_solve_jit_capture_raises_on_a_host_read():
+    """A step that reads the host cannot be captured: the warm-up under
+    torch.cuda.set_sync_debug_mode("error") raises, and nothing falls
+    back to an eager loop."""
+    _needs_card()
+    a, solver, b = _jit_solver("structured")
+    step = solver._step
+
+    def reading_step(x, b):
+        x, r = step(x, b)
+        float(r)    # a host read
+        return x, r
+
+    solver._step = reading_step
+    with pytest.raises(RuntimeError):
+        solver.solve_jit(b)
+    assert torch.cuda.get_sync_debug_mode() == 0
+
+
+def test_solve_jit_krylov_runs_eagerly_on_card():
+    """A KRYLOV coarsest solve reads the host inside the cycle: solve_jit
+    logs that and runs the masked loop eagerly on the card, equal to
+    solve."""
+    _needs_card()
+    lines = []
+    a = amg.poisson3d(24)
+    solver = amg.AMGSolver(a, amg.AMGParams(
+        dtype="float32", coarsest_solver=amg.CoarsestSolver.KRYLOV,
+        tol=1e-6, verbose=1), log=lines.append)
+    b = a.matvec(np.random.default_rng(32).standard_normal(a.n_rows))
+    xs, i_s = solver.solve(b)
+    x, info = solver.solve_jit(b)
+    loop = solver.jit_loop
+    assert loop.graph is None and loop.x.is_cuda
+    assert any(ln.startswith("solve_jit:") and "KRYLOV" in ln
+               for ln in lines)
+    assert info.nits == i_s.nits
+    np.testing.assert_allclose(info.residuals, i_s.residuals, rtol=1e-5)
+    assert np.linalg.norm(x - xs) <= 1e-6 * np.linalg.norm(xs)
