@@ -106,6 +106,11 @@ class Hierarchy:
 
     levels: Tuple[Level, ...]
     coarse_inv: torch.Tensor      # (pad_c, pad_c) dense inverse of coarsest A
+    # the KRYLOV coarsest solves made on this hierarchy, by right-hand
+    # side shape, dtype, device and tolerance, the last one per number of
+    # dimensions (solve.cycle.krylov_solver)
+    krylov: dict = dataclasses.field(default_factory=dict, init=False,
+                                     repr=False, compare=False)
 
     @property
     def num_levels(self) -> int:

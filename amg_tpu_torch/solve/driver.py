@@ -33,15 +33,14 @@ import time
 import numpy as np
 import torch
 
-from ..params import (AMGParams, CoarsestSolver, SolveInfo, StopType,
-                      MAX_RESTART)
+from ..params import AMGParams, SolveInfo, StopType, MAX_RESTART
 from ..sparse import CSR, Dia, Dense, Ell, WEll, torch_dtype
 from ..hierarchy import setup, _pick_format, resolve_device
-from ..ops import dia_kernel, well_kernel
+from ..ops import launch_counts
 from ..ops.spmv import spmv
 from ..ops.blas import norm2
 from .cycle import cycle
-from .krylov import fcg_init, fcg_step, fcg_refresh, gmres
+from .krylov import fcg_init, fcg_step, fcg_refresh, gmres_stepwise
 
 
 def print_itinfo(stop_type, it, relres, absres, factor, log=print):
@@ -140,34 +139,6 @@ def fcg_host_loop(pars, sumb, st, absres0, step, refresh, truenorm,
 JIT_BLOCK = 4
 
 
-def _launch_counts() -> dict:
-    """The kernel modules' launch counters, copied."""
-    return {K: (dict(K.launches), dict(K.launches_by_shape))
-            for K in (dia_kernel, well_kernel)}
-
-
-def _add_launches(delta: dict, times: int):
-    """Add ``times`` x ``delta`` (counts as :func:`_launch_counts` gives
-    them) to the kernel modules' counters; keys that fall to 0 go."""
-    for K, (entries, shapes) in delta.items():
-        for e, n in entries.items():
-            K.launches[e] += n * times
-        for key, n in shapes.items():
-            v = K.launches_by_shape.get(key, 0) + n * times
-            if v:
-                K.launches_by_shape[key] = v
-            else:
-                K.launches_by_shape.pop(key, None)
-
-
-def _count_delta(before: dict, after: dict) -> dict:
-    """``after - before``, the nonzero counts only."""
-    return {K: tuple({k: n - b.get(k, 0) for k, n in a.items()
-                      if n != b.get(k, 0)}
-                     for a, b in zip(after[K], before[K]))
-            for K in after}
-
-
 class JitLoop:
     """The loop of :meth:`AMGSolver.solve_jit` with its state on the
     device: the counterpart of ``amg_tpu``'s ``lax.while_loop``
@@ -212,6 +183,7 @@ class JitLoop:
         self.graph = None
         self.per_step = None        # kernel launches of one replay
         self.capture_seconds = 0.0
+        self.embedded = ()          # KRYLOV coarsest solves in the graph
         self.blocks = 0             # of the last run
         self.host_reads = 0         # of the last run
 
@@ -262,12 +234,13 @@ class JitLoop:
                 finally:
                     torch.cuda.set_sync_debug_mode(mode)
             torch.cuda.current_stream().wait_stream(side)
-            before = _launch_counts()
+            before = launch_counts.snapshot()
             graph = torch.cuda.CUDAGraph()
             with torch.cuda.graph(graph):
                 self.masked_step(step, *self.state)
-            self.per_step = _count_delta(before, _launch_counts())
-            _add_launches(self.per_step, -1)
+            self.per_step = launch_counts.delta(before,
+                                                launch_counts.snapshot())
+            launch_counts.add(self.per_step, -1)
             torch.cuda.synchronize()
         self.graph = graph
         self.capture_seconds = time.perf_counter() - t0
@@ -288,7 +261,7 @@ class JitLoop:
                 else:
                     self.masked_step(step, *self.state)
             if self.graph is not None:
-                _add_launches(self.per_step, JIT_BLOCK)
+                launch_counts.add(self.per_step, JIT_BLOCK)
             self.blocks += 1
 
 
@@ -626,8 +599,11 @@ class AMGSolver:
         One AMG cycle (in ``pars.dtype``) preconditions each Arnoldi step
         of GMRES(``min(MAX_RESTART, max_it)``), which runs in f64 when
         ``pars.refine`` is set, else in ``pars.dtype``; the host reads each
-        step's Hessenberg column, so the restart stops at the step where
-        the residual estimate passes ``tol``.  ``info.nits`` counts the
+        step's ``done`` flag (:func:`~.krylov.gmres_stepwise`; the Givens
+        step and back-substitution run on the device), so the restart
+        stops at the step where the residual estimate passes ``tol``
+        instead of running the masked steps, a cycle each.  ``info.nits``
+        counts the
         Arnoldi steps (= cycles); ``info.ares``/``rres`` are the true
         residual ``b - A x`` of the returned solution.  As in ``amg_tpu``
         the stop is taken on the Givens estimate, so an f32 cycle can stop
@@ -645,10 +621,10 @@ class AMGSolver:
         t0 = time.perf_counter()
         if sumb == 0.0:
             return np.zeros(n), info
-        xd, _, nits = gmres(self._amul, bd, xd, tol=pars.tol,
-                            maxit=pars.max_it,
-                            restart=min(MAX_RESTART, pars.max_it),
-                            M=self._prec, return_iters=True)
+        xd, _, nits = gmres_stepwise(self._amul, bd, xd, tol=pars.tol,
+                                     maxit=pars.max_it,
+                                     restart=min(MAX_RESTART, pars.max_it),
+                                     M=self._prec)
         absres = float(norm2(bd - self._amul(xd)))
         info.ares = absres
         info.rres = absres / sumb
@@ -726,29 +702,26 @@ class AMGSolver:
 
         On the card the masked step is a CUDA graph, captured on the first
         call and replayed by every later one (:class:`JitLoop`); a KRYLOV
-        coarsest solve reads the host inside the cycle, so such a
-        hierarchy runs the same loop eagerly on the card.  On the CPU the
-        loop runs eagerly."""
+        coarsest solve is its own graph of while and if nodes, added to
+        the step's.  On the CPU the loop runs eagerly."""
         pars = self.pars
         n = self.a.n_rows
         key = (self.device, self.dtype, self.pad, pars.max_it, pars.tol)
         loop = self.jit_loop
         if loop is None or self._jit_key != key:
-            graph = self.device.type == "cuda"
-            if graph and pars.coarsest_solver == CoarsestSolver.KRYLOV:
-                graph = False
-                if pars.verbose:
-                    self.log("solve_jit: the KRYLOV coarsest solve reads "
-                             "the host, so the loop runs eagerly on "
-                             f"{self.device}")
             loop = JitLoop(self.device, self.dtype, self.pad, pars.max_it,
-                           pars.tol, graph)
+                           pars.tol, self.device.type == "cuda")
             self.jit_loop, self._jit_key = loop, key
         bd = self._pad_vec(b)
         xd = self._pad_vec(x0 if x0 is not None else np.zeros(n))
         t0 = time.perf_counter()
         loop.load(xd, bd)
+        captured = loop.graph is not None
         loop.run(self._step)
+        if loop.graph is not None and not captured:
+            # the step's graph holds the nodes of the KRYLOV coarsest
+            # graphs it captured, which run on their pools: keep them
+            loop.embedded = tuple(self.mg.krylov.values())
         info = SolveInfo()
         info.nits = int(loop.it)
         info.ares = float(loop.absres)

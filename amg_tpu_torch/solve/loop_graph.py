@@ -1,0 +1,248 @@
+"""Device loops: a small program of loop bodies, run by the host on the
+CPU and as one CUDA graph with while and if nodes on the card.
+
+``amg_tpu`` keeps its Krylov loops on the device with ``lax.while_loop``
+and ``lax.cond``.  Here a loop is a program of steps over tensors whose
+addresses stay fixed:
+
+* a *segment*, a callable that reads and writes the loop's state tensors
+  in place (``copy_``) and reads nothing from the host;
+* :class:`While`: run ``body`` while the device flag ``flag`` (one bool)
+  is set; the body leaves the flag for the next test;
+* :class:`If`: run ``body`` once if ``flag`` is set;
+* :class:`Copy`: copy one contiguous tensor into another of its shape.
+
+:func:`run_plain` runs a program on the host: a Python ``while``/``if`` on
+``bool(flag)``, one host read per test (``krylov.counts["syncs"]``), the
+plain version of the nodes.  :class:`LoopGraph` makes it one CUDA graph:
+each segment is run eagerly twice (the second time under
+``torch.cuda.set_sync_debug_mode("error")``, so a segment that reads the
+host raises), captured once with ``torch.cuda.CUDAGraph(keep_graph=True)``
+(one memory pool for all of a program's captures: segments run one after
+another and hand nothing to each other but the state tensors), and placed
+as a child graph node; while and if nodes are added with the CUDA
+runtime's conditional nodes (``ops.krylov_small.Graph``), a one-thread
+kernel setting each condition from its flag.  The graph is instantiated
+once and launched on the current stream; inside another capture
+(``torch.cuda.is_current_stream_capturing()``) the same nodes are added to
+the graph being captured instead (:meth:`LoopGraph.add_to_capture`).
+
+A kernel wrapper counts its launch when a segment is captured; the graph
+takes those counts back and counts each captured segment's runs on the
+device.  :func:`settle` adds them, runs times, to the kernel modules'
+counters (one host read per graph): whoever reads the counters calls it
+just after the run it measures, and before setting them to 0.  There is
+no fallback: a failure to build, capture or instantiate raises.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import time
+import weakref
+
+import torch
+
+from ..ops import launch_counts, krylov_small
+
+
+@dataclasses.dataclass(eq=False)
+class While:
+    flag: torch.Tensor
+    body: tuple
+
+
+@dataclasses.dataclass(eq=False)
+class If:
+    flag: torch.Tensor
+    body: tuple
+
+
+@dataclasses.dataclass(eq=False)
+class Copy:
+    dst: torch.Tensor
+    src: torch.Tensor
+
+
+def run_plain(prog, read):
+    """Run ``prog`` on the host; ``read(flag) -> bool`` reads a flag."""
+    for step in prog:
+        if isinstance(step, While):
+            while read(step.flag):
+                run_plain(step.body, read)
+        elif isinstance(step, If):
+            if read(step.flag):
+                run_plain(step.body, read)
+        elif isinstance(step, Copy):
+            step.dst.copy_(step.src)
+        else:
+            step()
+
+
+def segments(prog) -> list:
+    """The program's segments, each once, in program order."""
+    out: list = []
+    for step in prog:
+        if isinstance(step, (While, If)):
+            out += [s for s in segments(step.body) if s not in out]
+        elif not isinstance(step, Copy) and step not in out:
+            out.append(step)
+    return out
+
+
+# graphs whose captured segments launched counted kernels
+_pending: "weakref.WeakSet[LoopGraph]" = weakref.WeakSet()
+
+
+def settle():
+    """Add the kernel launches of every graph's segment runs since the
+    last call to the kernel modules' counters (one host read per graph
+    with counted launches)."""
+    for g in list(_pending):
+        g.settle()
+
+
+class LoopGraph:
+    """``prog`` as one CUDA graph on ``device``.
+
+    ``restore``: tensors whose values the eager warm-up of the segments
+    must not change (the Krylov layer's device counters).  After
+    :meth:`build`: ``nodes`` (the graph's nodes, child graphs' and
+    conditional bodies' included), ``captures`` (captured segments),
+    ``build_seconds`` (warm-up, captures and instantiation),
+    ``pool_bytes`` (device memory the captures took)."""
+
+    def __init__(self, prog, device, restore=()):
+        self.prog = tuple(prog)
+        self.device = torch.device(device)
+        self.restore = tuple(restore)
+        self.segs = segments(self.prog)
+        self.captured: dict = {}      # segment -> torch CUDAGraph
+        self.counted: dict = {}       # segment -> (index, launch counts)
+        self.runs = None              # runs of counted segments (int64)
+        self.settled: list = []
+        self.increments: dict = {}    # index -> CUDAGraph of runs[i] += 1
+        self.root = self.exec = None
+        self.nodes = self.captures = self.pool_bytes = 0
+        self.build_seconds = 0.0
+
+    def _warm_up(self, stream):
+        saved = [t.clone() for t in self.restore]
+        with torch.cuda.stream(stream):
+            for seg in self.segs:
+                seg()
+            mode = torch.cuda.get_sync_debug_mode()
+            torch.cuda.set_sync_debug_mode("error")
+            try:
+                for seg in self.segs:
+                    seg()
+            finally:
+                torch.cuda.set_sync_debug_mode(mode)
+            for t, v in zip(self.restore, saved):
+                t.copy_(v)
+
+    def _capture(self, fn, stream, pool):
+        g = torch.cuda.CUDAGraph(keep_graph=True)
+        with torch.cuda.stream(stream):
+            g.capture_begin(pool=pool)
+            try:
+                fn()
+            finally:
+                g.capture_end()
+        return g
+
+    def build(self):
+        """Warm up, capture every segment, compose and instantiate."""
+        if torch.cuda.is_current_stream_capturing():
+            raise RuntimeError("a device loop's graph is built outside "
+                               "captures: run its solve once eagerly first")
+        t0 = time.perf_counter()
+        krylov_small.build()
+        cur = torch.cuda.current_stream(self.device)
+        side = torch.cuda.Stream(self.device)
+        side.wait_stream(cur)
+        self._warm_up(side)
+        side.synchronize()
+        mem0 = torch.cuda.memory_reserved(self.device)
+        pool = None
+        counted = []
+        for seg in self.segs:
+            before = launch_counts.snapshot()
+            g = self._capture(seg, side, pool)
+            pool = pool or g.pool()
+            d = launch_counts.delta(before, launch_counts.snapshot())
+            launch_counts.add(d, -1)
+            self.captured[seg] = g
+            if not launch_counts.empty(d):
+                self.counted[seg] = (len(counted), d)
+                counted.append(seg)
+        if counted:
+            self.runs = torch.zeros(len(counted), dtype=torch.int64,
+                                    device=self.device)
+            self.settled = [0] * len(counted)
+            for seg, (i, _) in self.counted.items():
+                self.increments[i] = self._capture(
+                    lambda i=i: self.runs[i: i + 1].add_(1), side, pool)
+            _pending.add(self)
+        self.captures = len(self.captured)
+        side.synchronize()
+        self.pool_bytes = torch.cuda.memory_reserved(self.device) - mem0
+        cur.wait_stream(side)
+        self.root = krylov_small.Graph.new()
+        self._emit(self.root, self.prog)
+        self.nodes = self.root.nodes
+        self.exec = self.root.instantiate()
+        self.build_seconds = time.perf_counter() - t0
+
+    def _emit(self, g, prog):
+        for step in prog:
+            if isinstance(step, (While, If)):
+                with g.conditional(step.flag, isinstance(step, While)) as b:
+                    self._emit(b, step.body)
+            elif isinstance(step, Copy):
+                g.copy(step.dst, step.src)
+            else:
+                g.child(self.captured[step].raw_cuda_graph())
+                if step in self.counted:
+                    i = self.counted[step][0]
+                    g.child(self.increments[i].raw_cuda_graph())
+
+    def launch(self):
+        """Run the graph on the current stream."""
+        if self.exec is None:
+            self.build()
+        self.exec.launch(self.device)
+
+    def add_to_capture(self):
+        """Add the graph's nodes to the graph the current stream is
+        capturing (the graph is built first, outside any capture)."""
+        if self.exec is None:
+            self.build()
+        stream = torch.cuda.current_stream(self.device)
+        g = krylov_small.Graph.capturing(stream)
+        self._emit(g, self.prog)
+        g.continue_capture(stream)
+
+    def settle(self):
+        """Add this graph's kernel launches since its last settle to the
+        counters (one host read)."""
+        if self.runs is None:
+            return
+        runs = self.runs.tolist()
+        for seg, (i, d) in self.counted.items():
+            if runs[i] != self.settled[i]:
+                launch_counts.add(d, runs[i] - self.settled[i])
+                self.settled[i] = runs[i]
+
+    def close(self):
+        if self.exec is not None:
+            self.exec.close()
+        if self.root is not None:
+            self.root.close()
+        self.exec = self.root = None
+
+    def __del__(self):
+        try:
+            self.close()
+        except Exception:       # noqa: BLE001  (interpreter shutdown)
+            pass

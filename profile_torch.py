@@ -20,7 +20,9 @@ phases 13 and 15) or ``embedded`` (auto plus ``embed_levels=8``, phase
 14; poisson3d only).  ``--gmres`` solves phase 16's 1000 x 1000
 convection-diffusion operator with ``accel="gmres"`` (f64 cycles, "auto"
 formats); ``--coarsest KRYLOV`` takes the reference's CG -> GMRES
-coarsest solver (phase 17 with ``--structured --layout auto``).
+coarsest solver (phase 17 with ``--structured --layout auto``), each
+coarsest solve one CUDA graph of while and if nodes, whose nodes, build
+seconds and pool are printed after the profile.
 ``--spmd N`` solves poisson3d(100) in phase 18's mode (bench_dist.py's
 spmd-cg parameters) with ``SpmdAMGSolver`` on a ring of N row shards on
 the card; with ``--matrix fem2d`` fem2d(1,000,000) in phase 19's general
@@ -232,6 +234,13 @@ def main() -> int:
         b = (np.random.default_rng(16).standard_normal(a.n_rows)
              if args.gmres else np.ones(a.n_rows))
         _report(what, lambda: solver.solve(b))
+    for key, ks in getattr(solver.mg, "krylov", {}).items():
+        g = ks.graph
+        if g is not None:
+            print(f"KRYLOV coarsest graph for b {key[0]}: {g.nodes} nodes, "
+                  f"{g.captures} captured segments, built in "
+                  f"{g.build_seconds:.3f} s, pool "
+                  f"{g.pool_bytes / 2**20:.1f} MiB")
     return 0
 
 

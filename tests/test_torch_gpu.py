@@ -910,23 +910,238 @@ def test_solve_jit_capture_raises_on_a_host_read():
     assert torch.cuda.get_sync_debug_mode() == 0
 
 
-def test_solve_jit_krylov_runs_eagerly_on_card():
-    """A KRYLOV coarsest solve reads the host inside the cycle: solve_jit
-    logs that and runs the masked loop eagerly on the card, equal to
-    solve."""
+def test_solve_jit_krylov_runs_as_a_graph_on_card():
+    """A KRYLOV coarsest solve is a CUDA graph of while and if nodes: the
+    solve_jit step captures it (its nodes are added to the step's graph),
+    with solve's iterations, histories within rtol 1e-5 and x within
+    1e-6 * ||x||; the Krylov loops read the host 0 times in either."""
     _needs_card()
-    lines = []
+    from amg_tpu_torch.solve import krylov
+
     a = amg.poisson3d(24)
     solver = amg.AMGSolver(a, amg.AMGParams(
         dtype="float32", coarsest_solver=amg.CoarsestSolver.KRYLOV,
-        tol=1e-6, verbose=1), log=lines.append)
+        tol=1e-6, verbose=0), log=lambda *_: None)
     b = a.matvec(np.random.default_rng(32).standard_normal(a.n_rows))
+    syncs = krylov.counts["syncs"]
     xs, i_s = solver.solve(b)
     x, info = solver.solve_jit(b)
+    assert krylov.counts["syncs"] == syncs
     loop = solver.jit_loop
-    assert loop.graph is None and loop.x.is_cuda
-    assert any(ln.startswith("solve_jit:") and "KRYLOV" in ln
-               for ln in lines)
+    assert loop.graph is not None and loop.x.is_cuda
+    assert all(ks.graph is not None for ks in solver.mg.krylov.values())
     assert info.nits == i_s.nits
     np.testing.assert_allclose(info.residuals, i_s.residuals, rtol=1e-5)
     assert np.linalg.norm(x - xs) <= 1e-6 * np.linalg.norm(xs)
+
+
+def _ulps(a, b):
+    """Largest distance in units in the last place (float tensors of one
+    dtype)."""
+    it = torch.int32 if a.dtype == torch.float32 else torch.int64
+    mask = (1 << ((32 if it == torch.int32 else 64) - 1)) - 1
+
+    def line(t):
+        i = t.contiguous().view(it).to(torch.int64)
+        return torch.where(i < 0, -(i & mask), i)
+
+    return int((line(a) - line(b)).abs().max())
+
+
+@pytest.mark.parametrize("dtype", ["float32", "float64"])
+def test_krylov_small_kernels_match_plain(dtype):
+    """krylov_small.cu's Givens step and back-substitution against their
+    plain versions on the card: 4 seeded restarts of 30 steps (120
+    columns, two restarts stopping inside), fed the columns of a real
+    Arnoldi process; rotations, g, H and y within 4 ulp, done and k_eff
+    equal; launches counted."""
+    _needs_card()
+    from amg_tpu_torch.ops import krylov_small as KS
+
+    dt, m = getattr(torch, dtype), 30
+    before = dict(KS.launches)
+    for seed, tol in ((0, 1e-6), (1, 1e-12), (2, 1e-5), (3, 1e-12)):
+        rng = np.random.default_rng(seed)
+        n = 200
+        mat = np.eye(n) + 0.4 * rng.standard_normal((n, n)) / np.sqrt(n)
+        r = rng.standard_normal(n)
+        beta = np.linalg.norm(r)
+        V, cols = [r / beta], np.zeros((m, m + 1))
+        for j in range(m):
+            w = mat @ V[j]
+            for i in range(j + 1):
+                cols[j, i] = V[i] @ w
+                w = w - cols[j, i] * V[i]
+            cols[j, j + 1] = np.linalg.norm(w)
+            V.append(w / cols[j, j + 1])
+        hraw = torch.tensor(cols, dtype=dt, device="cuda")
+        st = []
+        for _ in range(2):
+            t = dict(H=torch.zeros((m + 1, m), dtype=dt, device="cuda"),
+                     cs=torch.zeros(m, dtype=dt, device="cuda"),
+                     sn=torch.zeros(m, dtype=dt, device="cuda"),
+                     g=torch.zeros(m + 1, dtype=dt, device="cuda"),
+                     done=torch.zeros((), dtype=torch.bool, device="cuda"),
+                     k_eff=torch.zeros((), dtype=torch.int32, device="cuda"),
+                     normr0=torch.tensor(beta, dtype=dt, device="cuda"))
+            t["g"][0] = beta
+            st.append(t)
+        for j in range(m):
+            for fn, t in ((KS.givens, st[0]), (KS.givens_plain, st[1])):
+                fn(hraw[j], j, t["H"], t["cs"], t["sn"], t["g"], t["done"],
+                   t["k_eff"], t["normr0"], tol)
+            torch.cuda.synchronize()
+            for k in ("H", "cs", "sn", "g"):
+                assert _ulps(st[0][k], st[1][k]) <= 4, (seed, j, k)
+            assert bool(st[0]["done"]) == bool(st[1]["done"])
+            assert int(st[0]["k_eff"]) == int(st[1]["k_eff"])
+        k, p = st
+        if tol > 1e-8:
+            assert int(k["k_eff"]) < m, seed
+        y = KS.backsub(k["H"], k["g"], k["k_eff"])
+        assert y.is_cuda
+        assert _ulps(y, KS.backsub_plain(k["H"], k["g"], k["k_eff"])) <= 4
+    assert KS.launches["givens"] - before["givens"] == 4 * m
+    assert KS.launches["backsub"] - before["backsub"] == 4
+
+
+@pytest.mark.parametrize("dtype", ["float64", "float32"])
+def test_cg_graph_equals_plain_on_card(dtype):
+    """cg as one CUDA graph (a while node) against its host loop on the
+    card, poisson2d(20) (Ell f64; Dense f32 at tol 1e-9, where CG ends on
+    the Check III net) and a (3, pad) batch: equal statuses and
+    iterations, x within 1e-12 (f64) or 1e-6 (f32) of ||x||."""
+    _needs_card()
+    from amg_tpu_torch.solve import krylov
+    from amg_tpu_torch.sparse import Dense, Ell
+
+    a = amg.poisson2d(20)
+    dt = getattr(torch, dtype)
+    op = (Ell.from_csr(a, device="cuda") if dtype == "float64" else
+          Dense.from_csr(a, dtype=dt, pad_rows_to=512, device="cuda"))
+    pad = op.padded_rows
+    B = torch.zeros((3, pad), dtype=dt)
+    B[:, :400] = torch.from_numpy(
+        np.random.default_rng(2).standard_normal((3, 400)))
+    tol = 1e-10 if dtype == "float64" else 1e-9
+    for b in (B[0].cuda(), B.cuda()):
+        syncs = krylov.counts["syncs"]
+        xg, _, (sg, ig) = krylov.cg(op, b, torch.zeros_like(b), tol=tol,
+                                    maxit=1000, return_info=True)
+        assert krylov.counts["syncs"] == syncs
+        xp, _, (sp, ip) = krylov.cg_plain(op, b, torch.zeros_like(b),
+                                          tol=tol, maxit=1000,
+                                          return_info=True)
+        assert krylov.counts["syncs"] > syncs
+        assert torch.equal(sg, sp) and torch.equal(ig, ip)
+        gap = ((xg - xp).norm() / xp.norm()).item()
+        assert gap <= (1e-12 if dtype == "float64" else 1e-6)
+
+
+def test_gmres_graph_equals_plain_on_card():
+    """gmres as one CUDA graph (a while node over restarts of 5 steps)
+    against its host loop on the card, on 2-D convection-diffusion
+    (poisson-like, nonsymmetric) in f64: equal verdict and steps, x within
+    1e-12 of ||x||; the Givens kernel ran 5 times per restart."""
+    _needs_card()
+    from amg_tpu_torch.ops import krylov_small as KS
+    from amg_tpu_torch.solve import krylov
+    from amg_tpu_torch.sparse import Ell
+
+    n = 24
+    d = np.diag(np.arange(2.0, 2.0 + n)) + 0.3 * np.triu(np.ones((n, n)), 1)
+    op = Ell.from_csr(CSR.from_dense(d), device="cuda")
+    b = torch.zeros(op.padded_rows, dtype=torch.float64)
+    b[:n] = torch.from_numpy(d @ np.random.default_rng(7).standard_normal(n))
+    b = b.cuda()
+    before = KS.launches["givens"]
+    xg, cg, ig = krylov.gmres(op, b, torch.zeros_like(b), tol=1e-10,
+                              maxit=300, restart=5, return_iters=True)
+    restarts = -(-int(ig) // 5)
+    assert KS.launches["givens"] - before >= 5 * restarts
+    xp, cp, ip = krylov.gmres_plain(op, b, torch.zeros_like(b), tol=1e-10,
+                                    maxit=300, restart=5, return_iters=True)
+    assert bool(cg) and bool(cp) and int(ig) == int(ip) and restarts > 1
+    assert ((xg - xp).norm() / xp.norm()).item() <= 1e-12
+
+
+def _krylov_solver(**kw):
+    """The bench configuration with the KRYLOV coarsest solver at
+    poisson3d(24) (f32 cycles, f64 defect correction, bf16 coarse
+    operators: ctol 1e-9 is out of f32's reach, so every coarsest solve
+    runs CG to the Check III net and then GMRES)."""
+    a = amg.poisson3d(24)
+    pars = amg.AMGParams(dtype="float32", refine=True,
+                         coarse_op_dtype="bfloat16",
+                         coarsest_solver=amg.CoarsestSolver.KRYLOV,
+                         tol=1e-8, verbose=0, **kw)
+    return a, amg.AMGSolver(a, pars, log=lambda *_: None)
+
+
+@pytest.mark.parametrize("k", [1, 4])
+def test_coarsest_graph_equals_plain_on_card(k):
+    """The KRYLOV coarsest solve as one CUDA graph (CG's while node, an if
+    node per column around GMRES's while node) against its host loops on
+    the card, one vector and a (4, pad) batch: equal CG statuses and
+    iterations and GMRES iterations per column, x within 1e-6 of ||x||;
+    0 host reads on the graph route; the graph is cached per shape."""
+    _needs_card()
+    from amg_tpu_torch.solve import cycle, krylov
+
+    a, solver = _krylov_solver()
+    lv = solver.mg.levels[-1]
+    g = torch.Generator().manual_seed(k)
+    b = torch.zeros((k, lv.pad) if k > 1 else (lv.pad,))
+    b[..., : lv.n] = torch.randn(b[..., : lv.n].shape, generator=g)
+    b = b.cuda()
+    ks = cycle.krylov_solver(solver.mg, b, 1e-9)
+
+    def state():
+        return (ks.cg.status.cpu(), ks.cg.it.cpu(), ks.gm_its.cpu())
+
+    syncs = krylov.counts["syncs"]
+    xg = ks.solve(b)
+    torch.cuda.synchronize()
+    assert krylov.counts["syncs"] == syncs and ks.graph.nodes > 0
+    sg = state()
+    xp = ks.solve_plain(b)
+    sp = state()
+    assert all(torch.equal(u, v) for u, v in zip(sg, sp))
+    assert (sg[2] > 0).all()        # GMRES ran on every column
+    assert ((xg - xp).norm() / xp.norm()).item() <= 1e-6
+    assert cycle.krylov_solver(solver.mg, b, 1e-9) is ks
+
+
+def test_krylov_graph_failures_raise_on_card(monkeypatch, tmp_path):
+    """No fallback to the host loops on the card: a krylov_small.cu that
+    does not build, and a conditional handle the CUDA runtime refuses,
+    make the KRYLOV coarsest solve raise, with no host read made."""
+    _needs_card()
+    from amg_tpu_torch.ops import cuda_build, krylov_small as KS
+    from amg_tpu_torch.solve import cycle, krylov
+
+    a, solver = _krylov_solver()
+    lv = solver.mg.levels[-1]
+    b = torch.zeros(lv.pad, device="cuda")
+    b[: lv.n] = 1.0
+    lib = cuda_build.CudaLibrary("krylov_small.cu", KS._bind)
+    lib.so = str(tmp_path / "libkrylov_small.so")
+    monkeypatch.setattr(KS, "_LIB", lib)
+    monkeypatch.setattr(cuda_build, "nvcc", lambda: "false")
+    syncs = krylov.counts["syncs"]
+    with pytest.raises(RuntimeError, match="nvcc failed"):
+        cycle.krylov_solver(solver.mg, b, 1e-9).solve(b)
+    monkeypatch.undo()
+
+    call = KS._call
+
+    def refuse(name, *args):
+        if name == "ks_handle":
+            raise RuntimeError("ks_handle failed: CUDA error 1")
+        return call(name, *args)
+
+    monkeypatch.setattr(KS, "_call", refuse)
+    solver.mg.krylov.clear()
+    with pytest.raises(RuntimeError, match="ks_handle"):
+        cycle.krylov_solver(solver.mg, b, 1e-9).solve(b)
+    assert krylov.counts["syncs"] == syncs

@@ -165,7 +165,8 @@ def test_solve_jit_well_level0_permutation():
 
 
 def test_solve_jit_krylov_coarsest_matches_solve():
-    """The KRYLOV coarsest solve (CG then GMRES, host reads per block):
+    """The KRYLOV coarsest solve (CG then GMRES; on the CPU their host
+    loops, on the card a graph inside the step's, tests/test_torch_gpu.py):
     the masked loop equals the port's solve."""
     st = tamg.AMGSolver(tamg.poisson2d(16), tamg.AMGParams(
         verbose=0, coarsest_solver=tamg.CoarsestSolver.KRYLOV), **QUIET,
