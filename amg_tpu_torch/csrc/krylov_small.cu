@@ -4,15 +4,17 @@
 //
 // No TPU kernel: amg_tpu runs this work as lax.fori_loop scalar code inside
 // its GMRES lax.while_loop (amg_tpu/solve/krylov.py), which XLA keeps on the
-// device.  Two kernels, one thread each, in float or double (the vectors'
+// device.  Two kernels, one warp each, in float or double (the vectors'
 // type), in amg_tpu's order:
 //
-//   givens   step j of the Givens update (:336-362): rotate the raw
-//            Hessenberg column hraw[0 .. j+1] by rotations 0 .. j-1, make
-//            rotation j, store the rotated column as H[:, j], rotate g, and
-//            update the restart's done flag and k_eff; a step with done
-//            already set changes nothing but recomputes its values, as
-//            amg_tpu's masked step does
+//   givens   Arnoldi step j's scalar tail, j read from the card (:336-362):
+//            store the raw Hessenberg column (the step's Gram-Schmidt
+//            coefficients with h[j+1] = ||w||) as hraw[j], rotate it by
+//            rotations 0 .. j-1, make rotation j, store the rotated column
+//            as H[:, j], rotate g, update the restart's done flag and
+//            k_eff, advance j and set the step loop's flag (j < m and not
+//            done); a step with done already set changes nothing but
+//            recomputes its values, as amg_tpu's masked step does
 //   backsub  the masked back-substitution (:371-379): y[jj] for jj = m-1
 //            .. 0, 0 where jj >= k_eff
 //
@@ -20,15 +22,22 @@
 // intrinsics, which nvcc does not contract into FMAs), so that the kernels
 // compute what their plain PyTorch versions (ops/krylov_small.py) compute
 // with one elementwise operation per step, bit for bit.  The back-
-// substitution's row products are summed from column jj + 1 up: the terms
-// left of it are exact zeros (H is upper triangular, y is 0 there).
+// substitution sums each row's products from column jj + 1 up to m - 1,
+// as the plain version does.
 //
 // What bounds them on an H100: neither bytes (a few hundred) nor flops
-// (~6 j per Givens step), but the latency of a chain of dependent scalar
-// operations in one thread: ~4 us per Givens step and ~35 us per back-
-// substitution on an H100 80GB HBM3 (chip_smoke.py phase 17).  As one-
-// element torch operations, ~200 per Givens step and ~1,000 per back-
-// substitution, the same chains take 1.2 and 11 ms there.
+// (~6 j per Givens step, ~m^2 per back-substitution), but latency: the
+// launch, the round trips to memory and a chain of dependent scalar
+// operations.  So each kernel is one warp that issues all its global
+// loads at once (none waits on another; the back-substitution stages H's
+// whole m x m block rather than wait on k_eff) into shared memory, and
+// runs the dependent chain in one lane reading shared memory ahead of its
+// arithmetic; the lanes stage and store.  Lanes forming a row's products
+// for lane 0 cost more than they save: a store, a barrier and a broadcast
+// on every row's serial path (PERF.md).  The Givens step also
+// absorbs the step's scalar tail (the column's store, j += 1, the loop
+// flag), so an Arnoldi step indexes the basis through the device j and a
+// restart is one captured step under a while node.
 //
 // Graph assembly: plain entries around the CUDA runtime's graph API, so
 // that the Python side can compose captured loop bodies into conditional
@@ -38,7 +47,10 @@
 // before a conditional node, and at the end of a while node's body.  Each
 // node is added after at most one dependency (the Python side chains them).
 // ks_capture_tail / ks_capture_continue add nodes to a graph that a stream
-// is capturing, between the captured work before and after.
+// is capturing, between the captured work before and after;
+// ks_capture_begin / ks_capture_end capture a stream's work straight into
+// a graph (a conditional node's body), for work whose capture holds
+// conditional nodes itself, which a child graph may not.
 //
 // Bound with ctypes: plain extern "C" entries returning the CUDA error (0
 // on success); the kernel entries return cudaGetLastError() after the
@@ -51,6 +63,7 @@
 namespace {
 
 constexpr int kMaxM = 64;   // longest restart m (krylov_small.MAX_M)
+constexpr int kWarp = 32;
 
 template <typename T>
 struct Rn;
@@ -73,62 +86,159 @@ struct Rn<double> {
   static __device__ double sqrt(double a) { return __dsqrt_rn(a); }
 };
 
-// H is (m + 1, m) row-major: H[i, j] at i * m + j.
+// H is (m + 1, m) row-major: H[i, j] at i * m + j; hraw (m, m + 1).  One
+// warp.  Every global load is issued at once, none waiting on another (g
+// is staged whole rather than read at g[j]), so the kernel pays one memory
+// latency; lane 0 then runs the chain of rotations from shared memory and
+// the lanes store H's column.
 template <typename T>
-__global__ void givens_kernel(const T* __restrict__ hraw, int j, int m,
-                              T* __restrict__ H, T* __restrict__ cs,
-                              T* __restrict__ sn, T* __restrict__ g,
-                              bool* __restrict__ done,
-                              int* __restrict__ k_eff,
-                              const T* __restrict__ normr0, T tol, T tiny) {
+__global__ void __launch_bounds__(kWarp) givens_kernel(
+    const T* __restrict__ hcol, const T* __restrict__ hnorm,
+    int* __restrict__ jp, int m, T* __restrict__ hraw, T* __restrict__ H,
+    T* __restrict__ cs, T* __restrict__ sn, T* __restrict__ g,
+    bool* __restrict__ done, int* __restrict__ k_eff, bool* __restrict__ go,
+    const T* __restrict__ normr0, T tol, T tiny) {
   using R = Rn<T>;
-  T h[kMaxM + 1];
-  for (int i = 0; i <= j + 1; ++i) h[i] = hraw[i];
-  const T hj1 = h[j + 1];
-  for (int i = 0; i < j; ++i) {
-    const T a = h[i], b = h[i + 1];
-    h[i] = R::add(R::mul(cs[i], a), R::mul(sn[i], b));
-    h[i + 1] = R::add(R::mul(-sn[i], a), R::mul(cs[i], b));
+  constexpr int kPer = (kMaxM + 1 + kWarp - 1) / kWarp;  // entries a lane
+  __shared__ T h[kMaxM + 1];
+  __shared__ T g_s[kMaxM + 1];
+  __shared__ T c_s[kMaxM];
+  __shared__ T s_s[kMaxM];
+  __shared__ bool keep;
+  const int lane = threadIdx.x;
+  const int j = *jp;    // every lane reads j before lane 0 advances it
+  const T hj1 = *hnorm;
+  T hv[kPer], gv[kPer], cv[kPer], sv[kPer];
+#pragma unroll
+  for (int u = 0; u < kPer; ++u) {
+    const int i = lane + u * kWarp;
+    hv[u] = i <= m ? hcol[i] : T(0);
+    gv[u] = i <= m ? g[i] : T(0);
+    cv[u] = i < m ? cs[i] : T(0);
+    sv[u] = i < m ? sn[i] : T(0);
   }
-  const T denom = R::sqrt(R::add(R::mul(h[j], h[j]),
-                                 R::mul(h[j + 1], h[j + 1])));
-  const bool big = denom > tiny;
-  const T dm = denom > tiny ? denom : tiny;
-  const T c = big ? R::div(h[j], dm) : T(1);
-  const T s = big ? R::div(h[j + 1], dm) : T(0);
-  h[j] = R::add(R::mul(c, h[j]), R::mul(s, h[j + 1]));
-  h[j + 1] = T(0);
-  const T gj1 = R::mul(-s, g[j]);
-  const T gj = R::mul(c, g[j]);
   const bool was_done = *done;
-  if (!was_done) {
-    cs[j] = c;
-    sn[j] = s;
-    for (int i = 0; i <= m; ++i) H[i * m + j] = i <= j + 1 ? h[i] : T(0);
-    g[j] = gj;
-    g[j + 1] = gj1;
-    *k_eff = j + 1;
+  const T nr0 = *normr0;
+  if (j < 0 || j >= m) {
+    if (lane == 0) *go = false;
+    return;
   }
-  *done = was_done || R::div(fabs(gj1), *normr0) < tol || hj1 <= tiny;
+#pragma unroll
+  for (int u = 0; u < kPer; ++u) {
+    const int i = lane + u * kWarp;
+    if (i <= m) {
+      const T v = i == j + 1 ? hj1 : hv[u];
+      h[i] = v;
+      g_s[i] = gv[u];
+      hraw[j * (m + 1) + i] = v;
+    }
+    if (i < m) {
+      c_s[i] = cv[u];
+      s_s[i] = sv[u];
+    }
+  }
+  __syncwarp();
+  if (lane == 0) {
+    T a = h[0];   // h[i] as rotated by rotations 0 .. i-1
+    for (int i = 0; i < j; ++i) {
+      const T b = h[i + 1], c = c_s[i], s = s_s[i];
+      h[i] = R::add(R::mul(c, a), R::mul(s, b));
+      a = R::add(R::mul(-s, a), R::mul(c, b));
+    }
+    const T denom = R::sqrt(R::add(R::mul(a, a), R::mul(hj1, hj1)));
+    const bool big = denom > tiny;
+    const T dm = big ? denom : tiny;
+    const T c = big ? R::div(a, dm) : T(1);
+    const T s = big ? R::div(hj1, dm) : T(0);
+    h[j] = R::add(R::mul(c, a), R::mul(s, hj1));
+    const T gj = g_s[j];
+    const T gj1 = R::mul(-s, gj);
+    if (!was_done) {
+      cs[j] = c;
+      sn[j] = s;
+      g[j] = R::mul(c, gj);
+      g[j + 1] = gj1;
+      *k_eff = j + 1;
+    }
+    const bool now = was_done || R::div(fabs(gj1), nr0) < tol || hj1 <= tiny;
+    *done = now;
+    *jp = j + 1;
+    *go = j + 1 < m && !now;
+    keep = !was_done;
+  }
+  __syncwarp();
+  if (keep)
+    for (int i = lane; i <= m; i += kWarp) H[i * m + j] = i <= j ? h[i] : T(0);
 }
 
+// One warp.  The lanes stage rows 0 .. m-1 of H (whole, so that no load
+// waits on k_eff) and g, every load issued at once for m <= 32 (kStage
+// per lane in flight), and zero y.  Lane 0 then runs the rows from the
+// last: row jj's products H[jj, c] * y[c], c > jj, formed and summed in
+// column order (the plain version's order), kLoads pairs loaded ahead of
+// the arithmetic, then the division; y stays in shared memory, so no row
+// waits on a barrier or a broadcast.  Rows jj >= k_eff are 0 and cost
+// nothing.
 template <typename T>
-__global__ void backsub_kernel(const T* __restrict__ H,
-                               const T* __restrict__ g,
-                               const int* __restrict__ k_eff, int m,
-                               T* __restrict__ y, T tiny) {
+__global__ void __launch_bounds__(kWarp) backsub_kernel(
+    const T* __restrict__ H, const T* __restrict__ g,
+    const int* __restrict__ k_eff, int m, T* __restrict__ y, T tiny) {
   using R = Rn<T>;
-  const int k = *k_eff;
-  for (int jj = m - 1; jj >= 0; --jj) {
-    T acc = T(0);
-    for (int c = jj + 1; c < m; ++c)
-      acc = R::add(acc, R::mul(H[jj * m + c], y[c]));
-    const T s = R::sub(g[jj], acc);
-    const T hjj = H[jj * m + jj];
-    const T val = fabs(hjj) > tiny ? R::div(s, hjj) : T(0);
-    y[jj] = jj < k ? val : T(0);
+  constexpr int kStage = 32;
+  constexpr int kLoads = 16;
+  __shared__ T hs[kMaxM * kMaxM];
+  __shared__ T gs[kMaxM];
+  __shared__ T ys[kMaxM];
+  const int lane = threadIdx.x;
+  const int k_raw = *k_eff;
+  const T g0 = lane < m ? g[lane] : T(0);
+  const T g1 = lane + kWarp < m ? g[lane + kWarp] : T(0);
+  const int n = m * m;
+  for (int e0 = lane; e0 < n; e0 += kWarp * kStage) {
+    T v[kStage];
+#pragma unroll
+    for (int u = 0; u < kStage; ++u) {
+      const int e = e0 + u * kWarp;
+      v[u] = e < n ? H[e] : T(0);
+    }
+#pragma unroll
+    for (int u = 0; u < kStage; ++u) {
+      const int e = e0 + u * kWarp;
+      if (e < n) hs[e] = v[u];
+    }
   }
+  if (lane < m) gs[lane] = g0;
+  if (lane + kWarp < m) gs[lane + kWarp] = g1;
+  for (int i = lane; i < m; i += kWarp) ys[i] = T(0);
+  const int k = min(max(k_raw, 0), m);
+  __syncwarp();
+  if (lane == 0) {
+    for (int jj = k - 1; jj >= 0; --jj) {
+      const T* row = hs + jj * m;
+      T acc = T(0);
+      for (int c = jj + 1; c < m; c += kLoads) {
+        T hv[kLoads], yv[kLoads];
+#pragma unroll
+        for (int u = 0; u < kLoads; ++u) {
+          const bool in = c + u < m;
+          hv[u] = in ? row[c + u] : T(0);
+          yv[u] = in ? ys[c + u] : T(0);
+        }
+#pragma unroll
+        for (int u = 0; u < kLoads; ++u)
+          if (c + u < m) acc = R::add(acc, R::mul(hv[u], yv[u]));
+      }
+      const T s = R::sub(gs[jj], acc);
+      const T hjj = row[jj];
+      ys[jj] = fabs(hjj) > tiny ? R::div(s, hjj) : T(0);
+    }
+  }
+  __syncwarp();
+  for (int i = lane; i < m; i += kWarp) y[i] = ys[i];
 }
+
+// launched as the kernels are: the latency floor of one launch
+__global__ void __launch_bounds__(kWarp) empty_kernel() {}
 
 __global__ void set_flag_kernel(cudaGraphConditionalHandle handle,
                                 const unsigned char* flag) {
@@ -136,20 +246,22 @@ __global__ void set_flag_kernel(cudaGraphConditionalHandle handle,
 }
 
 template <typename T>
-int givens(const void* hraw, int j, int m, void* H, void* cs, void* sn,
-           void* g, void* done, void* k_eff, const void* normr0, T tol,
-           T tiny, void* stream) {
-  if (m > kMaxM || j < 0 || j >= m) return (int)cudaErrorInvalidValue;
-  givens_kernel<T><<<1, 1, 0, (cudaStream_t)stream>>>(
-      (const T*)hraw, j, m, (T*)H, (T*)cs, (T*)sn, (T*)g, (bool*)done,
-      (int*)k_eff, (const T*)normr0, tol, tiny);
+int givens(const void* hcol, const void* hnorm, void* j, int m, void* hraw,
+           void* H, void* cs, void* sn, void* g, void* done, void* k_eff,
+           void* go, const void* normr0, T tol, T tiny, void* stream) {
+  if (m < 1 || m > kMaxM) return (int)cudaErrorInvalidValue;
+  givens_kernel<T><<<1, kWarp, 0, (cudaStream_t)stream>>>(
+      (const T*)hcol, (const T*)hnorm, (int*)j, m, (T*)hraw, (T*)H, (T*)cs,
+      (T*)sn, (T*)g, (bool*)done, (int*)k_eff, (bool*)go, (const T*)normr0,
+      tol, tiny);
   return (int)cudaGetLastError();
 }
 
 template <typename T>
 int backsub(const void* H, const void* g, const void* k_eff, int m, void* y,
             T tiny, void* stream) {
-  backsub_kernel<T><<<1, 1, 0, (cudaStream_t)stream>>>(
+  if (m < 1 || m > kMaxM) return (int)cudaErrorInvalidValue;
+  backsub_kernel<T><<<1, kWarp, 0, (cudaStream_t)stream>>>(
       (const T*)H, (const T*)g, (const int*)k_eff, m, (T*)y, tiny);
   return (int)cudaGetLastError();
 }
@@ -165,21 +277,23 @@ size_t deps(void* dep, cudaGraphNode_t* out) {
 
 extern "C" {
 
-// H (m + 1, m), hraw (m + 1,), cs, sn (m,), g (m + 1,), done (bool),
-// k_eff (int32), normr0 (scalar) on the card, in the entry's type.
-int ks_givens_f32(const void* hraw, int j, int m, void* H, void* cs,
-                  void* sn, void* g, void* done, void* k_eff,
-                  const void* normr0, float tol, float tiny, void* stream) {
-  return givens<float>(hraw, j, m, H, cs, sn, g, done, k_eff, normr0, tol,
-                       tiny, stream);
+// hcol (m + 1,), hnorm (scalar), hraw (m, m + 1), H (m + 1, m), cs, sn
+// (m,), g (m + 1,), normr0 (scalar) on the card in the entry's type; j and
+// k_eff int32, done and go bool.
+int ks_givens_f32(const void* hcol, const void* hnorm, void* j, int m,
+                  void* hraw, void* H, void* cs, void* sn, void* g,
+                  void* done, void* k_eff, void* go, const void* normr0,
+                  float tol, float tiny, void* stream) {
+  return givens<float>(hcol, hnorm, j, m, hraw, H, cs, sn, g, done, k_eff,
+                       go, normr0, tol, tiny, stream);
 }
 
-int ks_givens_f64(const void* hraw, int j, int m, void* H, void* cs,
-                  void* sn, void* g, void* done, void* k_eff,
-                  const void* normr0, double tol, double tiny,
-                  void* stream) {
-  return givens<double>(hraw, j, m, H, cs, sn, g, done, k_eff, normr0, tol,
-                        tiny, stream);
+int ks_givens_f64(const void* hcol, const void* hnorm, void* j, int m,
+                  void* hraw, void* H, void* cs, void* sn, void* g,
+                  void* done, void* k_eff, void* go, const void* normr0,
+                  double tol, double tiny, void* stream) {
+  return givens<double>(hcol, hnorm, j, m, hraw, H, cs, sn, g, done, k_eff,
+                        go, normr0, tol, tiny, stream);
 }
 
 // y (m,) from H (m + 1, m), g (m + 1,) and k_eff (int32).
@@ -191,6 +305,11 @@ int ks_backsub_f32(const void* H, const void* g, const void* k_eff, int m,
 int ks_backsub_f64(const void* H, const void* g, const void* k_eff, int m,
                    void* y, double tiny, void* stream) {
   return backsub<double>(H, g, k_eff, m, y, tiny, stream);
+}
+
+int ks_empty(void* stream) {
+  empty_kernel<<<1, kWarp, 0, (cudaStream_t)stream>>>();
+  return (int)cudaGetLastError();
 }
 
 int ks_graph_create(void** graph) {
@@ -306,6 +425,26 @@ int ks_capture_continue(void* stream, void* node) {
   cudaGraphNode_t d = (cudaGraphNode_t)node;
   return (int)cudaStreamUpdateCaptureDependencies(
       (cudaStream_t)stream, &d, 1, cudaStreamSetCaptureDependencies);
+}
+
+// Capture the work then given to `stream` straight into `graph`, after
+// `dep` (none when null), until ks_capture_end.
+int ks_capture_begin(void* stream, void* graph, void* dep) {
+  cudaGraphNode_t d;
+  const size_t n = deps(dep, &d);
+  return (int)cudaStreamBeginCaptureToGraph(
+      (cudaStream_t)stream, (cudaGraph_t)graph, n ? &d : nullptr, nullptr, n,
+      cudaStreamCaptureModeThreadLocal);
+}
+
+// End the capture of `stream`; *dep is the node after which the graph's
+// next node goes (as ks_capture_tail gives it).
+int ks_capture_end(void* stream, void** dep) {
+  void* graph = nullptr;
+  const int err = ks_capture_tail(stream, &graph, dep);
+  cudaGraph_t g;
+  const cudaError_t end = cudaStreamEndCapture((cudaStream_t)stream, &g);
+  return err != 0 ? err : (int)end;
 }
 
 }  // extern "C"

@@ -5,25 +5,30 @@ Krylov layer's loops on the card.
 No TPU kernel: ``amg_tpu`` runs this work as ``lax.fori_loop`` scalar code
 inside its GMRES ``lax.while_loop`` (``amg_tpu/solve/krylov.py``), which
 XLA keeps on the device.  Two entries, in the vectors' dtype (f32 or
-f64), in ``amg_tpu``'s order, each one thread on the card::
+f64), in ``amg_tpu``'s order, each one warp on the card::
 
-    givens(hraw, j, H, cs, sn, g, done, k_eff, normr0, tol)
-        step j of the Givens update (amg_tpu/solve/krylov.py:336-362), IN
-        PLACE: rotate the raw Hessenberg column ``hraw`` (m + 1) by the
-        rotations ``cs[:j]``, ``sn[:j]``, make rotation j and rotate ``g``;
-        store rotation j, the rotated column as ``H[:, j]``, ``g[j]``,
-        ``g[j + 1]`` and ``k_eff = j + 1`` unless ``done`` was set, then
-        set ``done`` where the residual estimate ``|g[j+1]| / normr0``
-        passed ``tol`` or the step broke down (``hraw[j+1] <= SMALLFLOAT``)
+    givens(hcol, hnorm, j, hraw, H, cs, sn, g, done, k_eff, go, normr0, tol)
+        the scalar tail of Arnoldi step ``j`` (a 0-d int32 on the device;
+        amg_tpu/solve/krylov.py:336-362), IN PLACE: store the raw
+        Hessenberg column, ``hcol`` (m + 1; the step's Gram-Schmidt
+        coefficients) with ``hnorm`` at j + 1, as ``hraw[j]``; rotate it by
+        the rotations ``cs[:j]``, ``sn[:j]``, make rotation j and rotate
+        ``g``; store rotation j, the rotated column as ``H[:, j]``,
+        ``g[j]``, ``g[j + 1]`` and ``k_eff = j + 1`` unless ``done`` was
+        set, then set ``done`` where the residual estimate ``|g[j+1]| /
+        normr0`` passed ``tol`` or the step broke down (``hnorm <=
+        SMALLFLOAT``); advance ``j`` and set ``go = j < m and not done``
     backsub(H, g, k_eff) -> y
         the masked back-substitution (:371-379): ``y[jj]`` for jj = m-1 ..
         0 on the ``k_eff x k_eff`` triangle, 0 for jj >= k_eff
 
-``H`` is ``(m + 1, m)``, ``cs``, ``sn`` ``(m,)``, ``g`` ``(m + 1,)``,
-``done`` a 0-d bool, ``k_eff`` a 0-d int32 and ``normr0`` a 0-d tensor of
-the dtype.  Each multiply, add, divide and square root of a kernel rounds
-once, as one elementwise torch operation does, so the kernels and the
-plain versions agree bit for bit.
+``H`` is ``(m + 1, m)``, ``hraw`` ``(m, m + 1)``, ``cs``, ``sn`` ``(m,)``,
+``g`` ``(m + 1,)``, ``done`` and ``go`` 0-d bools, ``j`` and ``k_eff`` 0-d
+int32 and ``hnorm``, ``normr0`` 0-d tensors of the dtype.  Each multiply,
+add, divide and square root of a kernel rounds once, as one elementwise
+torch operation does, so the kernels and the plain versions agree bit for
+bit.  The plain versions read nothing on the host: ``givens_plain``
+selects with ``j`` as a tensor, as ``amg_tpu``'s masked loop does.
 
 Dispatch is by the tensors' device: CUDA tensors launch the kernels in
 ``amg_tpu_torch/csrc/krylov_small.cu`` (built with ``nvcc`` on first use
@@ -32,10 +37,14 @@ take the plain versions (``*_plain``), which ``chip_smoke.py`` also holds
 the kernels against.  ``launches`` counts kernel launches per entry and
 ``launches_by_shape`` per (entry, dtype, m); a launch captured into a
 graph is counted once per run of the graph (``solve.loop_graph``).
+:func:`launch_floor` launches an empty kernel the way the two are
+launched (one warp), the latency floor ``chip_smoke.py`` times them
+against.
 
 :class:`Graph` builds CUDA graphs node by node from the same library:
-child graphs (captured loop bodies), device-to-device copies, and while
-and if nodes whose condition is a device flag (a bool tensor), set by a
+child graphs (captured loop bodies), work captured straight into the
+graph (:meth:`Graph.capture`), device-to-device copies, and while and if
+nodes whose condition is a device flag (a bool tensor), set by a
 one-thread kernel before the node and at the end of a while node's body.
 """
 
@@ -64,7 +73,8 @@ def _bind(dll):
     p, i32 = ctypes.c_void_p, ctypes.c_int
     for suffix, real in (("_f32", ctypes.c_float), ("_f64", ctypes.c_double)):
         fn = getattr(dll, "ks_givens" + suffix)
-        fn.argtypes = [p, i32, i32, p, p, p, p, p, p, p, real, real, p]
+        fn.argtypes = [p, p, p, i32, p, p, p, p, p, p, p, p, p, real, real,
+                       p]
         fn.restype = i32
         fn = getattr(dll, "ks_backsub" + suffix)
         fn.argtypes = [p, p, p, i32, p, real, p]
@@ -80,7 +90,8 @@ def _bind(dll):
             ("ks_add_copy", [p, p, p, p, size, pp]),
             ("ks_instantiate", [p, pp]), ("ks_launch", [p, p]),
             ("ks_exec_destroy", [p]), ("ks_capture_tail", [p, pp, pp]),
-            ("ks_capture_continue", [p, p])):
+            ("ks_capture_continue", [p, p]), ("ks_capture_begin", [p, p, p]),
+            ("ks_capture_end", [p, pp]), ("ks_empty", [p])):
         fn = getattr(dll, name)
         fn.argtypes = args
         fn.restype = i32
@@ -141,28 +152,41 @@ def _check(H, g, k_eff, vectors=()):
 # ---------------------------------------------------------------------------
 
 
-def givens_plain(hraw, j, H, cs, sn, g, done, k_eff, normr0, tol):
-    """:func:`givens` in torch operations, one per rounding step."""
-    h = list(hraw[: j + 2].unbind())
-    hj1 = h[j + 1]
-    for i in range(j):
+def givens_plain(hcol, hnorm, j, hraw, H, cs, sn, g, done, k_eff, go,
+                 normr0, tol):
+    """:func:`givens` in torch operations, one per rounding step, with
+    ``j`` read on the device: rotation i applies where ``i < j``."""
+    m = H.shape[1]
+    jl = j.reshape(1).long()
+    rows = torch.arange(m + 1, device=H.device)
+    col = torch.where(rows == jl + 1, hnorm, hcol)
+    hraw.index_copy_(0, jl, col[None])
+    h = list(col.unbind())
+    for i in range(m):
         a, b = h[i], h[i + 1]
-        h[i] = cs[i] * a + sn[i] * b
-        h[i + 1] = -sn[i] * a + cs[i] * b
-    denom = torch.sqrt(h[j] * h[j] + h[j + 1] * h[j + 1])
+        turn = j > i
+        h[i] = torch.where(turn, cs[i] * a + sn[i] * b, a)
+        h[i + 1] = torch.where(turn, -sn[i] * a + cs[i] * b, b)
+    h = torch.stack(h)
+    hj = h.index_select(0, jl)[0]
+    denom = torch.sqrt(hj * hj + hnorm * hnorm)
     big = denom > SMALLFLOAT
     dm = torch.where(big, denom, SMALLFLOAT)
-    c = torch.where(big, h[j] / dm, 1.0)
-    s = torch.where(big, h[j + 1] / dm, 0.0)
-    h[j] = c * h[j] + s * h[j + 1]
-    col = torch.zeros_like(H[:, j])
-    col[: j + 1] = torch.stack(h[: j + 1])
-    gj1 = -s * g[j]
-    gj = c * g[j]
-    for t, new in ((cs[j], c), (sn[j], s), (H[:, j], col), (g[j], gj),
-                   (g[j + 1], gj1), (k_eff, j + 1)):
-        t.copy_(torch.where(done, t, new))
-    done.copy_(done | (torch.abs(gj1) / normr0 < tol) | (hj1 <= SMALLFLOAT))
+    c = torch.where(big, hj / dm, 1.0)
+    s = torch.where(big, hnorm / dm, 0.0)
+    col = torch.where(rows == jl, c * hj + s * hnorm,
+                      torch.where(rows < jl, h, 0.0))
+    gj = g.index_select(0, jl)[0]
+    gj1 = -s * gj
+    for t, dim, at, new in ((cs, 0, jl, c), (sn, 0, jl, s),
+                            (H, 1, jl, col[:, None]), (g, 0, jl, c * gj),
+                            (g, 0, jl + 1, gj1)):
+        t.index_copy_(dim, at, torch.where(done, t.index_select(dim, at),
+                                           new))
+    k_eff.copy_(torch.where(done, k_eff, j + 1))
+    done.copy_(done | (torch.abs(gj1) / normr0 < tol) | (hnorm <= SMALLFLOAT))
+    j.add_(1)
+    go.copy_((j < m) & ~done)
 
 
 def backsub_plain(H, g, k_eff):
@@ -185,25 +209,29 @@ def backsub_plain(H, g, k_eff):
 # ---------------------------------------------------------------------------
 
 
-def givens(hraw, j: int, H, cs, sn, g, done, k_eff, normr0, tol: float):
-    """Step ``j`` of the Givens update, in place (kernel on CUDA tensors,
-    plain version on CPU tensors)."""
-    m = _check(H, g, k_eff, (("hraw", hraw, (H.shape[1] + 1,)),
+def givens(hcol, hnorm, j, hraw, H, cs, sn, g, done, k_eff, go, normr0,
+           tol: float):
+    """The scalar tail of Arnoldi step ``j``, in place (kernel on CUDA
+    tensors, plain version on CPU tensors)."""
+    m = _check(H, g, k_eff, (("hcol", hcol, (H.shape[1] + 1,)),
+                             ("hnorm", hnorm, ()),
+                             ("hraw", hraw, (H.shape[1], H.shape[1] + 1)),
                              ("cs", cs, (H.shape[1],)),
                              ("sn", sn, (H.shape[1],)),
                              ("normr0", normr0, ())))
-    if not 0 <= j < m:
-        raise ValueError(f"step {j} outside the restart of {m}")
-    if done.shape != () or done.dtype != torch.bool or \
-            done.device != H.device:
-        raise ValueError("done must be a 0-d bool tensor on H's device")
+    for name, t, dtype in (("j", j, torch.int32), ("done", done, torch.bool),
+                           ("go", go, torch.bool)):
+        if t.shape != () or t.dtype != dtype or t.device != H.device:
+            raise ValueError(f"{name} must be a 0-d {dtype} tensor on H's "
+                             f"device")
     if not H.is_cuda:
-        return givens_plain(hraw, j, H, cs, sn, g, done, k_eff, normr0, tol)
+        return givens_plain(hcol, hnorm, j, hraw, H, cs, sn, g, done, k_eff,
+                            go, normr0, tol)
     stream = torch.cuda.current_stream(H.device).cuda_stream
-    _call("ks_givens" + _SUFFIX[H.dtype], hraw.data_ptr(), j, m,
-          H.data_ptr(), cs.data_ptr(), sn.data_ptr(), g.data_ptr(),
-          done.data_ptr(), k_eff.data_ptr(), normr0.data_ptr(), tol,
-          SMALLFLOAT, stream)
+    _call("ks_givens" + _SUFFIX[H.dtype], hcol.data_ptr(), hnorm.data_ptr(),
+          j.data_ptr(), m, hraw.data_ptr(), H.data_ptr(), cs.data_ptr(),
+          sn.data_ptr(), g.data_ptr(), done.data_ptr(), k_eff.data_ptr(),
+          go.data_ptr(), normr0.data_ptr(), tol, SMALLFLOAT, stream)
     _count("givens", H.dtype, m)
 
 
@@ -219,6 +247,13 @@ def backsub(H, g, k_eff) -> torch.Tensor:
           k_eff.data_ptr(), m, y.data_ptr(), SMALLFLOAT, stream)
     _count("backsub", H.dtype, m)
     return y
+
+
+def launch_floor(device):
+    """Launch an empty kernel as :func:`givens` and :func:`backsub` are
+    launched (one warp, on the current stream): the latency floor they are
+    timed against.  Not counted."""
+    _call("ks_empty", torch.cuda.current_stream(device).cuda_stream)
 
 
 # ---------------------------------------------------------------------------
@@ -238,15 +273,16 @@ class Graph:
     node after the one added before it (``tail``).
 
     ``nodes`` counts the nodes added, those of child graphs and of
-    conditional bodies included.  The nodes read and write tensors by
-    address: the caller keeps them alive while the graph runs.
+    conditional bodies included; ``top`` those added at this graph's own
+    level.  The nodes read and write tensors by address: the caller keeps
+    them alive while the graph runs.
     """
 
     def __init__(self, raw: int, tail=None, owned: bool = False):
         self.raw = raw
         self.tail = tail
         self.owned = owned
-        self.nodes = 0
+        self.nodes = self.top = 0
 
     @classmethod
     def new(cls) -> "Graph":
@@ -272,6 +308,40 @@ class Graph:
     def _added(self, node, count=1):
         self.tail = node.value
         self.nodes += count
+        self.top += 1
+
+    def capture(self, fn, stream: torch.cuda.Stream, pool):
+        """Capture the work ``fn`` gives ``stream`` straight into this
+        graph after its tail (``cudaStreamBeginCaptureToGraph``), torch's
+        allocations of this thread served from graph pool ``pool`` (a
+        ``torch.cuda.graph_pool_handle()``).  Each call takes one hold on
+        the pool, whether or not it succeeds: the caller gives it back
+        (:func:`release_pool`) once the graph is gone.  Work captured
+        here may add conditional nodes of its own (``Graph.capturing``),
+        which a child graph may not hold."""
+        dev = stream.device.index
+        before = graph_nodes(self.raw)
+        sp = ctypes.c_void_p(stream.cuda_stream)
+        tail = ctypes.c_void_p()
+        # torch's routing of one thread's allocations to a graph pool, as
+        # torch.cuda.graph routes a capture's
+        torch._C._cuda_beginAllocateCurrentThreadToPool(dev, pool)
+        try:
+            _call("ks_capture_begin", sp, ctypes.c_void_p(self.raw),
+                  ctypes.c_void_p(self.tail))
+            try:
+                with torch.cuda.stream(stream):
+                    fn()
+            finally:
+                err = _LIB.load().ks_capture_end(sp, ctypes.byref(tail))
+        finally:
+            torch._C._cuda_endAllocateToPool(dev, pool)
+        if err != 0:
+            raise RuntimeError(f"ks_capture_end failed: CUDA error {err}")
+        self.tail = tail.value
+        added = graph_nodes(self.raw) - before
+        self.nodes += added
+        self.top += added
 
     def child(self, raw: int):
         """A child graph node running a copy of graph ``raw``."""
@@ -331,6 +401,12 @@ class Graph:
         if self.owned and self.raw:
             self.raw, raw = None, self.raw
             _call("ks_graph_destroy", ctypes.c_void_p(raw))
+
+
+def release_pool(device: torch.device, pool):
+    """Give back one hold on graph pool ``pool`` that
+    :meth:`Graph.capture` took."""
+    torch._C._cuda_releasePool(device.index, pool)
 
 
 class Exec:

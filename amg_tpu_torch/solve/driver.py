@@ -15,7 +15,8 @@ the solver's ``device`` (the card unless the caller asks for the CPU).
 ``pars.accel == "cg"`` it runs :meth:`AMGSolver.solve_pcg` (flexible CG
 preconditioned by one cycle, in f64 with ``pars.refine``), with
 ``pars.accel == "gmres"`` :meth:`AMGSolver.solve_pgmres` (GMRES right-
-preconditioned by one cycle, likewise), and with
+preconditioned by one cycle, likewise; on the card one CUDA graph, built
+on the first call and replayed), and with
 ``pars.refine`` and a float32 cycle otherwise
 :meth:`AMGSolver.solve_refined` (f32 cycles, f64 outer residual).
 Residual norms are fetched to the host in batches when the live table is
@@ -29,6 +30,7 @@ from __future__ import annotations
 
 import dataclasses
 import time
+import weakref
 
 import numpy as np
 import torch
@@ -40,7 +42,9 @@ from ..ops import launch_counts
 from ..ops.spmv import spmv
 from ..ops.blas import norm2
 from .cycle import cycle
-from .krylov import fcg_init, fcg_step, fcg_refresh, gmres_stepwise
+from . import krylov
+from .krylov import GMRESLoop, fcg_init, fcg_step, fcg_refresh
+from .loop_graph import LoopGraph, no_collector, run_plain, settle
 
 
 def print_itinfo(stop_type, it, relres, absres, factor, log=print):
@@ -236,7 +240,7 @@ class JitLoop:
             torch.cuda.current_stream().wait_stream(side)
             before = launch_counts.snapshot()
             graph = torch.cuda.CUDAGraph()
-            with torch.cuda.graph(graph):
+            with no_collector(), torch.cuda.graph(graph):
                 self.masked_step(step, *self.state)
             self.per_step = launch_counts.delta(before,
                                                 launch_counts.snapshot())
@@ -333,6 +337,11 @@ class AMGSolver:
         # solve_jit's loop, made on its first call
         self.jit_loop = None
         self._jit_key = None
+        # solve_pgmres's loop and, on the card, its graph (built on the
+        # first call, counted in pgmres_builds)
+        self.pgmres_loop = self.pgmres_graph = None
+        self._pgmres_key = None
+        self.pgmres_builds = 0
 
     def _share_level0_plane(self):
         """The df64 hi plane IS the f32 pack of level 0 (same packer, same
@@ -591,23 +600,30 @@ class AMGSolver:
             self.log(f"AMG solve time: {info.solve_seconds:g} s")
         return self._unpad_vec(xd), info
 
-    def solve_pgmres(self, b, x0=None) -> tuple[np.ndarray, SolveInfo]:
+    def solve_pgmres(self, b, x0=None, host_loops=False
+                     ) -> tuple[np.ndarray, SolveInfo]:
         """AMG-right-preconditioned restarted GMRES (``pars.accel ==
         "gmres"``), the Krylov wrap for nonsymmetric operators where CG's
         short recurrence does not apply (``amg_tpu``'s ``solve_pgmres``).
 
         One AMG cycle (in ``pars.dtype``) preconditions each Arnoldi step
         of GMRES(``min(MAX_RESTART, max_it)``), which runs in f64 when
-        ``pars.refine`` is set, else in ``pars.dtype``; the host reads each
-        step's ``done`` flag (:func:`~.krylov.gmres_stepwise`; the Givens
-        step and back-substitution run on the device), so the restart
-        stops at the step where the residual estimate passes ``tol``
-        instead of running the masked steps, a cycle each.  ``info.nits``
-        counts the
+        ``pars.refine`` is set, else in ``pars.dtype``.  The whole GMRES
+        is one program of device loops (:class:`~.krylov.GMRESLoop`: a
+        while loop over restarts, each a while loop over Arnoldi steps
+        that index the basis through a device step counter), which stops
+        a restart at the step where the residual estimate passes ``tol``.
+        On the card it is one CUDA graph (``pgmres_graph``), built on the
+        first call and replayed by later calls with the same device,
+        dtype, pad, ``max_it``, ``tol`` and restart, with no host read
+        from its start to its end; a KRYLOV coarsest solve inside the
+        cycle adds its own while and if nodes to the step.  On the CPU,
+        and on the card with ``host_loops``, the host runs the same
+        program (one read per loop test).  ``info.nits`` counts the
         Arnoldi steps (= cycles); ``info.ares``/``rres`` are the true
         residual ``b - A x`` of the returned solution.  As in ``amg_tpu``
-        the stop is taken on the Givens estimate, so an f32 cycle can stop
-        short of ``tol`` in the true residual.
+        the stop is taken on the Givens estimate, so an f32 cycle can
+        stop short of ``tol`` in the true residual.
         """
         pars = self.pars
         n = self.a.n_rows
@@ -621,14 +637,41 @@ class AMGSolver:
         t0 = time.perf_counter()
         if sumb == 0.0:
             return np.zeros(n), info
-        xd, _, nits = gmres_stepwise(self._amul, bd, xd, tol=pars.tol,
-                                     maxit=pars.max_it,
-                                     restart=min(MAX_RESTART, pars.max_it),
-                                     M=self._prec)
+        restart = min(MAX_RESTART, pars.max_it)
+        key = (self.device, adt, self.pad, pars.max_it, pars.tol, restart)
+        if self.pgmres_loop is None or self._pgmres_key != key:
+            # the loop reaches the solver through a weak reference: the
+            # solver holds the loop
+            solver = weakref.ref(self)
+            self.pgmres_loop = GMRESLoop(
+                lambda v: solver()._amul(v), bd, pars.tol, pars.max_it,
+                restart, M=lambda r: solver()._prec(r))
+            self.pgmres_graph, self._pgmres_key = None, key
+        loop = self.pgmres_loop
+        loop.b.copy_(bd)
+        loop.x0.copy_(xd)
+        if self.device.type == "cuda" and not host_loops:
+            if self.pgmres_graph is None:
+                graph = LoopGraph(loop.program, self.device,
+                                  restore=(loop.work,))
+                graph.build()
+                # the KRYLOV coarsest solves whose nodes the step holds
+                graph.embedded = tuple(self.mg.krylov.values())
+                self.pgmres_graph = graph
+                self.pgmres_builds += 1
+                if pars.verbose:
+                    self.log(f"AMG-GMRES graph: {graph.nodes} nodes, "
+                             f"{len(graph.direct)} segment(s) captured in "
+                             f"place, built in {graph.build_seconds:g} s")
+            self.pgmres_graph.launch()
+        else:
+            run_plain(loop.program, krylov._read)
+        xd = loop.x
+        info.nits = int(loop.it)
+        settle()
         absres = float(norm2(bd - self._amul(xd)))
         info.ares = absres
         info.rres = absres / sumb
-        info.nits = nits
         info.solve_seconds = time.perf_counter() - t0
         info.setup_seconds = self.host_hierarchy.setup_seconds
         if pars.verbose:

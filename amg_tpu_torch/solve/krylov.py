@@ -31,10 +31,15 @@ and semantics in the vectors' dtype:
   runs every column to its own stop, as ``vmap`` of ``amg_tpu``'s loop
   does, and the true residual ``b - A x`` is computed every iteration and
   selected with ``torch.where`` (the ``lax.cond`` of ``amg_tpu``);
-* a GMRES body is one restart: the m Arnoldi steps (steps past the stop
-  change nothing, as ``amg_tpu`` masks them), the Givens update of each
-  step and the back-substitution as the one-thread kernels of
-  :mod:`..ops.krylov_small`, and ``x += M(V y)``.
+* a GMRES restart is a program of its own: a begin, a while loop of
+  Arnoldi steps and an end.  A step reads its index ``j`` from the device
+  (the basis row ``V[j]`` by ``index_select``, the new one by
+  ``index_copy_``), runs modified Gram-Schmidt over every basis row with
+  the coefficients of rows past ``j`` set to 0, as ``amg_tpu`` does, and
+  ends in the Givens kernel of :mod:`..ops.krylov_small`, which advances
+  ``j`` and sets the loop's flag: the loop stops at the step that set
+  ``done`` (``amg_tpu``'s masked steps after it change nothing).  The end
+  is the back-substitution kernel and ``x += M(V y)``.
 
 ``counts`` holds the Krylov layer's host reads (``syncs``, a host integer)
 and its work, which the bodies add to on the device: CG and GMRES solves
@@ -403,13 +408,14 @@ class GMRESLoop:
     """Restarted GMRES(m) of :func:`gmres` on fixed buffers, for one
     vector.
 
-    The caller fills ``b`` and ``x0``; :meth:`start`, then :meth:`body`
-    (one restart) while ``go``, leave the solution in ``x``, the Arnoldi
-    steps kept in ``it`` and the verdict in ``conv``.  A restart is
-    :meth:`restart_begin`, :meth:`arnoldi` for j = 0 .. m-1 and
-    :meth:`restart_end`; a host loop may stop the restart after the step
-    that set ``done`` (the steps after it change nothing).  The basis
-    ``V`` is ``(m + 1, pad)``.  No method reads the host."""
+    The caller fills ``b`` and ``x0``; :attr:`program` (:meth:`start`,
+    then :attr:`restart` while ``go``) leaves the solution in ``x``, the
+    Arnoldi steps kept in ``it`` and the verdict in ``conv``.  A restart
+    is :meth:`restart_begin`, :meth:`step` while ``step_go`` (at most m
+    times), and :meth:`restart_end`.  The basis ``V`` is ``(m + 1, pad)``,
+    zeroed by each restart, so that the Gram-Schmidt terms of rows not
+    built yet subtract exact zeros, as ``amg_tpu``'s fresh basis does.
+    No method reads the host."""
 
     def __init__(self, a, like, tol, maxit, restart=30, M=None):
         self.amul = _as_op(a)
@@ -419,21 +425,29 @@ class GMRESLoop:
         n, m = like.shape[0], restart
         self.b, self.x0, self.x = (torch.zeros(n, **kw) for _ in range(3))
         self.V = torch.zeros((m + 1, n), **kw)
+        self.hcol = torch.zeros(m + 1, **kw)       # a step's MGS coefficients
         self.hraw = torch.zeros((m, m + 1), **kw)  # columns before rotation
         self.H = torch.zeros((m + 1, m), **kw)
         self.cs, self.sn = torch.zeros(m, **kw), torch.zeros(m, **kw)
         self.g = torch.zeros(m + 1, **kw)
-        self.normr0 = torch.zeros((), **kw)
+        self.normr0, self.zero = (torch.zeros((), **kw) for _ in range(2))
         flag = dict(dtype=torch.bool, device=like.device)
-        self.done, self.conv, self.go = (torch.zeros((), **flag)
-                                         for _ in range(3))
+        self.done, self.conv, self.go, self.step_go = (
+            torch.zeros((), **flag) for _ in range(4))
         i32 = dict(dtype=torch.int32, device=like.device)
-        self.k_eff, self.it = torch.zeros((), **i32), torch.zeros((), **i32)
+        self.k_eff, self.it, self.j = (torch.zeros((), **i32)
+                                       for _ in range(3))
+        self.rows = torch.arange(m + 1, device=like.device)
         self.work = counts.work(like.device)
 
     @property
+    def restart(self) -> tuple:
+        return (self.restart_begin, While(self.step_go, (self.step,)),
+                self.restart_end)
+
+    @property
     def program(self) -> tuple:
-        return (self.start, While(self.go, (self.body,)))
+        return (self.start, While(self.go, self.restart))
 
     def _set_go(self):
         self.go.copy_((self.it < self.maxit) & ~self.conv)
@@ -450,28 +464,32 @@ class GMRESLoop:
     def restart_begin(self):
         r = self.b - self.amul(self.x)
         beta = norm2(r)
+        self.V[1:].zero_()
         self.V[0].copy_(r / torch.clamp(beta, min=SMALLFLOAT))
-        for t in (self.H, self.cs, self.sn, self.g, self.done, self.k_eff):
+        for t in (self.H, self.cs, self.sn, self.g, self.done, self.k_eff,
+                  self.j):
             t.zero_()
         self.g[0].copy_(beta)
+        self.step_go.fill_(True)
 
-    def arnoldi(self, j: int):
-        """Arnoldi step ``j``: modified Gram-Schmidt against the vectors
-        built (``amg_tpu`` masks the rest to 0), then the Givens update."""
-        V = self.V
-        w = self.amul(self.prec(V[j]))
-        hs = []
-        for i in range(j + 1):
-            hij = dot(V[i], w)
-            w = w - hij * V[i]
-            hs.append(hij)
+    def step(self):
+        """Arnoldi step ``j`` (read on the device): modified Gram-Schmidt
+        against every basis row (coefficients past ``j`` are 0), ``V[j +
+        1]``, then the Givens kernel (``j += 1``, ``step_go``)."""
+        V, j = self.V, self.j
+        jl = j.reshape(1).long()
+        w = self.amul(self.prec(V.index_select(0, jl)[0]))
+        built = self.rows <= j
+        for i in range(self.m + 1):
+            torch.where(built[i], dot(V[i], w), self.zero,
+                        out=self.hcol[i])
+            w = w - self.hcol[i] * V[i]
         hj1 = norm2(w)
-        V[j + 1].copy_(torch.where(hj1 > SMALLFLOAT,
-                                   w / torch.clamp(hj1, min=SMALLFLOAT), w))
-        self.hraw[j, : j + 2].copy_(torch.stack(hs + [hj1]))
-        krylov_small.givens(self.hraw[j], j, self.H, self.cs, self.sn,
-                            self.g, self.done, self.k_eff, self.normr0,
-                            self.tol)
+        V.index_copy_(0, jl + 1, torch.where(
+            hj1 > SMALLFLOAT, w / torch.clamp(hj1, min=SMALLFLOAT), w)[None])
+        krylov_small.givens(self.hcol, hj1, j, self.hraw, self.H, self.cs,
+                            self.sn, self.g, self.done, self.k_eff,
+                            self.step_go, self.normr0, self.tol)
 
     def restart_end(self):
         y = krylov_small.backsub(self.H, self.g, self.k_eff)
@@ -482,13 +500,6 @@ class GMRESLoop:
         self.conv.copy_(res / self.normr0 < self.tol)
         self._set_go()
         self.work[_W["gmres_iters"]].add_(self.k_eff)
-
-    def body(self):
-        """One restart."""
-        self.restart_begin()
-        for j in range(self.m):
-            self.arnoldi(j)
-        self.restart_end()
 
 
 def _gmres(a, b, x0, tol, maxit, restart, M, return_iters, graph):
@@ -508,18 +519,20 @@ def gmres(a, b, x0, tol=1e-7, maxit=1000, restart=30, M=None,
     ``return_iters``; 0-d device tensors).  ``M`` is applied as a RIGHT
     preconditioner (e.g. one AMG cycle), so the residual being driven down
     is the true residual; as in ``amg_tpu``, convergence is accepted on
-    the Givens estimate ``|g|``, the step is ``x += M(V y)`` and every
-    restart runs its ``m`` Arnoldi steps, those after the stop masked.
+    the Givens estimate ``|g|`` and the step is ``x += M(V y)``; a
+    restart ends at the Arnoldi step that met the estimate (``amg_tpu``
+    runs its ``m`` steps, those after the stop masked to change nothing).
     ``iters`` counts the steps kept, summed over restarts.  ``b`` is one
-    vector.  On the card the restarts run in one CUDA graph (a while
-    node), built for the call: that build runs the start and one whole
-    restart twice eagerly (the second time under
-    ``torch.cuda.set_sync_debug_mode("error")``: 2 m + 4 applications of
-    ``a`` and 2 m + 2 of ``M``), captures and instantiates, so ``a`` and
-    ``M`` must run without a host read or synchronisation, and a single
-    call pays the build (PERF.md gives its cost against
-    :func:`gmres_plain`); on the CPU the host reads the flag once per
-    restart."""
+    vector.  On the card the restarts and their Arnoldi steps run in one
+    CUDA graph (a while node over restarts, each holding a while node over
+    one captured step), built for the call: that build runs the start, a
+    restart's begin, one step and its end twice eagerly (the second time
+    under ``torch.cuda.set_sync_debug_mode("error")``: 6 applications of
+    ``a`` and 4 of ``M``), captures and instantiates, so ``a`` and ``M``
+    must run without a host read or synchronisation, and a single call
+    pays the build (PERF.md gives its cost against :func:`gmres_plain`);
+    on the CPU the host reads a flag before each restart and each
+    step."""
     return _gmres(a, b, x0, tol, maxit, restart, M, return_iters, True)
 
 
@@ -528,28 +541,6 @@ def gmres_plain(a, b, x0, tol=1e-7, maxit=1000, restart=30, M=None,
     """:func:`gmres` with its host loop on any device (the plain version
     of the graph)."""
     return _gmres(a, b, x0, tol, maxit, restart, M, return_iters, False)
-
-
-def gmres_stepwise(a, b, x0, tol=1e-7, maxit=1000, restart=30, M=None):
-    """:func:`gmres` with the host reading ``done`` after every Arnoldi
-    step and ending the restart there, for a preconditioner that costs an
-    AMG cycle per step (``AMGSolver.solve_pgmres``; ``amg_tpu`` runs the
-    masked steps).  Returns ``(x, converged, iters)``, the last two on the
-    host."""
-    loop = GMRESLoop(a, b, tol, maxit, restart, M)
-    loop.b.copy_(b)
-    loop.x0.copy_(x0)
-    loop.start()
-    while _read(loop.go):
-        loop.restart_begin()
-        for j in range(loop.m):
-            loop.arnoldi(j)
-            if _read(loop.done):
-                break
-        loop.restart_end()
-    conv, its = torch.stack([loop.conv.to(torch.int32), loop.it]).tolist()
-    counts["syncs"] += 1
-    return loop.x, bool(conv), its
 
 
 class CoarsestKrylov:
@@ -578,20 +569,25 @@ class CoarsestKrylov:
                                   dtype=torch.bool, device=like.device)
         self.gm_its = torch.zeros(like.shape[0] if batch else 1,
                                   dtype=torch.int32, device=like.device)
-        gm = self.gm
-        prog = [*self.cg.program, self._mark_failed]
+        gm, status, failed, gm_its = self.gm, self.cg.status, self.failed, \
+            self.gm_its
+
+        def mark_failed():
+            # a closure, not a method: the program holds no reference back
+            # to the solve, which is then freed as soon as a cache drops it
+            # (not by the cyclic collector, whose frees may land inside a
+            # CUDA graph capture)
+            failed.copy_((status != _CONVERGED).reshape(failed.shape))
+            gm_its.fill_(-1)
+
+        prog = [*self.cg.program, mark_failed]
         for c in range(like.shape[0]) if batch else (None,):
             at = (lambda t: t) if c is None else (lambda t: t[c])
             prog.append(If(at(self.failed), (
-                Copy(gm.b, at(self.b)), gm.start, While(gm.go, (gm.body,)),
+                Copy(gm.b, at(self.b)), gm.start, While(gm.go, gm.restart),
                 Copy(at(self.x), gm.x), Copy(self.gm_its[c or 0], gm.it))))
         self.program = tuple(prog)
         self.graph = None
-
-    def _mark_failed(self):
-        self.failed.copy_((self.cg.status != _CONVERGED)
-                          .reshape(self.failed.shape))
-        self.gm_its.fill_(-1)
 
     def solve(self, b) -> torch.Tensor:
         if not b.is_cuda:

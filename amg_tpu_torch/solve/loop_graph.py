@@ -37,7 +37,9 @@ no fallback: a failure to build, capture or instantiate raises.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
+import gc
 import time
 import weakref
 
@@ -92,6 +94,23 @@ def segments(prog) -> list:
 
 # graphs whose captured segments launched counted kernels
 _pending: "weakref.WeakSet[LoopGraph]" = weakref.WeakSet()
+# launches of LoopGraphs, and the nodes that add_to_capture placed below
+# the top level of a graph being captured, over the process
+_tally = {"launches": 0, "nested_nodes": 0}
+
+
+@contextlib.contextmanager
+def no_collector():
+    """Keep Python's cyclic garbage collector from running inside: an
+    object it frees may destroy a CUDA graph, which invalidates a capture
+    in progress."""
+    enabled = gc.isenabled()
+    gc.disable()
+    try:
+        yield
+    finally:
+        if enabled:
+            gc.enable()
 
 
 def settle():
@@ -108,34 +127,44 @@ class LoopGraph:
     ``restore``: tensors whose values the eager warm-up of the segments
     must not change (the Krylov layer's device counters).  After
     :meth:`build`: ``nodes`` (the graph's nodes, child graphs' and
-    conditional bodies' included), ``captures`` (captured segments),
+    conditional bodies' included), ``captures`` (segments captured as
+    child graphs), ``direct`` (segments captured into their place),
     ``build_seconds`` (warm-up, captures and instantiation),
-    ``pool_bytes`` (device memory the captures took)."""
+    ``pool_bytes`` (device memory the captures took).  ``embedded``
+    holds what the caller must keep alive with the graph (the KRYLOV
+    coarsest solves whose nodes a captured cycle added)."""
 
     def __init__(self, prog, device, restore=()):
         self.prog = tuple(prog)
         self.device = torch.device(device)
         self.restore = tuple(restore)
         self.segs = segments(self.prog)
+        self.direct: set = set()      # segments that run device loops
         self.captured: dict = {}      # segment -> torch CUDAGraph
         self.counted: dict = {}       # segment -> (index, launch counts)
-        self.runs = None              # runs of counted segments (int64)
+        self.runs = None              # runs of each segment (int64)
         self.settled: list = []
         self.increments: dict = {}    # index -> CUDAGraph of runs[i] += 1
         self.root = self.exec = None
+        self.pool = self.pool_device = None
+        self.holds = 0                # holds on the pool of direct captures
+        self.embedded = ()
         self.nodes = self.captures = self.pool_bytes = 0
         self.build_seconds = 0.0
 
     def _warm_up(self, stream):
-        saved = [t.clone() for t in self.restore]
         with torch.cuda.stream(stream):
+            saved = [t.clone() for t in self.restore]
             for seg in self.segs:
                 seg()
             mode = torch.cuda.get_sync_debug_mode()
             torch.cuda.set_sync_debug_mode("error")
             try:
                 for seg in self.segs:
+                    launched = _tally["launches"]
                     seg()
+                    if _tally["launches"] != launched:
+                        self.direct.add(seg)
             finally:
                 torch.cuda.set_sync_debug_mode(mode)
             for t, v in zip(self.restore, saved):
@@ -156,6 +185,10 @@ class LoopGraph:
         if torch.cuda.is_current_stream_capturing():
             raise RuntimeError("a device loop's graph is built outside "
                                "captures: run its solve once eagerly first")
+        with no_collector():
+            self._build()
+
+    def _build(self):
         t0 = time.perf_counter()
         krylov_small.build()
         cur = torch.cuda.current_stream(self.device)
@@ -164,53 +197,80 @@ class LoopGraph:
         self._warm_up(side)
         side.synchronize()
         mem0 = torch.cuda.memory_reserved(self.device)
-        pool = None
-        counted = []
-        for seg in self.segs:
+        self.pool, self.pool_device = torch.cuda.graph_pool_handle(), \
+            side.device
+        self.runs = torch.zeros(len(self.segs), dtype=torch.int64,
+                                device=self.device)
+        self.settled = [0] * len(self.segs)
+        for i, seg in enumerate(self.segs):
+            if seg in self.direct:
+                continue
             before = launch_counts.snapshot()
-            g = self._capture(seg, side, pool)
-            pool = pool or g.pool()
-            d = launch_counts.delta(before, launch_counts.snapshot())
-            launch_counts.add(d, -1)
-            self.captured[seg] = g
-            if not launch_counts.empty(d):
-                self.counted[seg] = (len(counted), d)
-                counted.append(seg)
-        if counted:
-            self.runs = torch.zeros(len(counted), dtype=torch.int64,
-                                    device=self.device)
-            self.settled = [0] * len(counted)
-            for seg, (i, _) in self.counted.items():
-                self.increments[i] = self._capture(
-                    lambda i=i: self.runs[i: i + 1].add_(1), side, pool)
-            _pending.add(self)
+            self.captured[seg] = self._capture(seg, side, self.pool)
+            self._count(seg, i, before)
+        for seg, (i, _) in self.counted.items():
+            self.increments[i] = self._capture(
+                lambda i=i: self.runs[i: i + 1].add_(1), side, self.pool)
         self.captures = len(self.captured)
+        self.root = krylov_small.Graph.new()
+        self._emit(self.root, self.prog, side)
+        if self.counted:
+            _pending.add(self)
         side.synchronize()
         self.pool_bytes = torch.cuda.memory_reserved(self.device) - mem0
         cur.wait_stream(side)
-        self.root = krylov_small.Graph.new()
-        self._emit(self.root, self.prog)
         self.nodes = self.root.nodes
         self.exec = self.root.instantiate()
         self.build_seconds = time.perf_counter() - t0
 
-    def _emit(self, g, prog):
+    def _count(self, seg, i, before):
+        """Take back the launches counted since ``before`` (a capture of
+        segment ``seg``, index ``i``): the graph counts them per run."""
+        d = launch_counts.delta(before, launch_counts.snapshot())
+        launch_counts.add(d, -1)
+        if not launch_counts.empty(d):
+            self.counted[seg] = (i, d)
+
+    def _emit(self, g, prog, stream=None):
         for step in prog:
             if isinstance(step, (While, If)):
                 with g.conditional(step.flag, isinstance(step, While)) as b:
-                    self._emit(b, step.body)
+                    self._emit(b, step.body, stream)
             elif isinstance(step, Copy):
                 g.copy(step.dst, step.src)
+            elif step in self.direct:
+                if stream is None:
+                    raise RuntimeError("a device loop whose segments run "
+                                       "device loops themselves is not added "
+                                       "to another capture")
+                self._capture_into(g, step, stream)
             else:
                 g.child(self.captured[step].raw_cuda_graph())
                 if step in self.counted:
                     i = self.counted[step][0]
                     g.child(self.increments[i].raw_cuda_graph())
 
+    def _capture_into(self, g, seg, stream):
+        """Capture ``seg`` and its run count straight into graph ``g``;
+        the device loops it runs add their nodes there."""
+        i = self.segs.index(seg)
+        before = launch_counts.snapshot()
+        nested = _tally["nested_nodes"]
+
+        def run():
+            seg()
+            self.runs[i: i + 1].add_(1)
+
+        self.holds += 1
+        g.capture(run, stream, self.pool)
+        self._count(seg, i, before)
+        g.nodes += _tally["nested_nodes"] - nested
+
     def launch(self):
         """Run the graph on the current stream."""
         if self.exec is None:
             self.build()
+        _tally["launches"] += 1
         self.exec.launch(self.device)
 
     def add_to_capture(self):
@@ -222,11 +282,12 @@ class LoopGraph:
         g = krylov_small.Graph.capturing(stream)
         self._emit(g, self.prog)
         g.continue_capture(stream)
+        _tally["nested_nodes"] += g.nodes - g.top
 
     def settle(self):
         """Add this graph's kernel launches since its last settle to the
         counters (one host read)."""
-        if self.runs is None:
+        if not self.counted:
             return
         runs = self.runs.tolist()
         for seg, (i, d) in self.counted.items():
@@ -240,6 +301,9 @@ class LoopGraph:
         if self.root is not None:
             self.root.close()
         self.exec = self.root = None
+        for _ in range(self.holds):
+            krylov_small.release_pool(self.pool_device, self.pool)
+        self.holds = 0
 
     def __del__(self):
         try:

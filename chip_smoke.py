@@ -89,9 +89,15 @@ Phases (any failure raises and the script exits nonzero):
    rows, 4,996,000 nnz), ``AMGParams(accel="gmres", tol=1e-8)`` with the
    defaults otherwise (f64 cycles, "auto" formats), solved to a
    host-checked true residual below 1e-8 in at most 40 GMRES iterations,
-   with B1's three epilogues launched in f64; kernel against plain on
-   every launch shape of the solve; logs the Arnoldi steps, the host reads
-   per solve and the MiB of the GMRES basis;
+   with B1's three epilogues and the f64 Givens and back-substitution
+   kernels launched; the whole GMRES one CUDA graph (while nodes over
+   restarts and over Arnoldi steps, the step indexing the basis through a
+   device counter), built by the cold solve and replayed by the warm one,
+   0 host reads of its loops (gated), against the same program's host
+   loops on the card (equal its, x bit for bit); logs the graph's nodes,
+   build seconds and pool MiB, cold and warm seconds, the Arnoldi steps
+   and the MiB of the GMRES basis; kernel against plain on every launch
+   shape of the solve;
 17. the reference's coarsest solver: phase 13's parameters and host
    hierarchy with ``coarsest_solver=KRYLOV`` (CG to ctol = 1e-9, out of
    f32's reach, then GMRES), solved to 1e-8 (host-checked) through B1 and
@@ -106,10 +112,15 @@ Phases (any failure raises and the script exits nonzero):
    logged), the graph's nodes, build seconds and pool MiB, warm solve
    seconds against the host loops'; the public ``cg`` and ``gmres`` (one
    graph built per call) timed against their host loops on that
-   right-hand side; krylov_small.cu's Givens step and back-substitution
-   against their plain versions on 120 seeded Arnoldi columns in f32 and
-   f64 (within 4 ulp) and timed, the back-substitution also against
-   ``torch.linalg.solve_triangular``; then ``solve_batched`` of 16
+   right-hand side; ``solve_pgmres`` on the same hierarchy (f64 GMRES
+   around the f32 cycles: its Arnoldi step, holding the coarsest solve's
+   while and if nodes, is captured in place in the GMRES graph), 0 host
+   reads, graph = host loops bit for bit, cold and warm seconds;
+   krylov_small.cu's Givens step and back-substitution against their
+   plain versions on 120 seeded Arnoldi columns in f32 and f64 (within 4
+   ulp) and timed beside an empty one-warp launch (the latency floor),
+   the back-substitution also against ``torch.linalg.solve_triangular``
+   (gated: the kernel is faster); then ``solve_batched`` of 16
    seeded columns to 1e-6 through B4 in 6 cycles (within 1; one CG while
    node over the columns, then per column an if node around GMRES),
    gated the same way, every column checked on the host, per-column
@@ -202,7 +213,8 @@ of standard output are the card's name and power limit as nvidia-smi
 gives them, one JSON object describing the kernels (one entry per
 epilogue and operator of phases 6 and 9, per launch shape of phase 11,
 and per launch shape and operator of phases 13-20 and 22, and one per
-krylov_small.cu kernel of phase 17, each with its main-path launch count;
+krylov_small.cu kernel and dtype (f32 from phase 17, f64 from phase 16),
+each with its main-path launch count;
 phase 20's rows join those of phases 18 and 19) and one with the
 device.  Imports
 torch, numpy, scipy and amg_tpu_torch only.
@@ -1296,7 +1308,8 @@ def _auto_solver(a, pars, tag, b):
     cold and warm, verify the cold solution on the host in f64.  Returns
     the solver, the cold run's DIA and WEll launches by shape, and a
     summary."""
-    from amg_tpu_torch.ops import dia_kernel as D, well_kernel as W
+    from amg_tpu_torch.ops import (dia_kernel as D, krylov_small as KS,
+                                   well_kernel as W)
     from amg_tpu_torch.solve import krylov
     import amg_tpu_torch as amg
 
@@ -1310,6 +1323,7 @@ def _auto_solver(a, pars, tag, b):
     x, info = solver.solve(b)
     torch.cuda.synchronize()
     dia, well = dict(D.launches_by_shape), dict(W.launches_by_shape)
+    small = dict(KS.launches_by_shape)
     launches = (dict(D.launches), dict(W.launches))
     krylov_counts = dict(krylov.counts)
     true_rel = float(np.linalg.norm(b - a.matvec(x.astype(np.float64)))
@@ -1346,7 +1360,7 @@ def _auto_solver(a, pars, tag, b):
                                    nits=info.nits, true_rres=true_rel,
                                    setup_s=setup_s,
                                    solve_s=info.solve_seconds,
-                                   krylov=krylov_counts)
+                                   krylov=krylov_counts, krylov_small=small)
 
 
 def _product_ms(op, n_x, g, flush):
@@ -1564,12 +1578,62 @@ def convection_diffusion(n_side, vel=CD_VEL):
     return amg.CSR.from_scipy(m.tocsr())
 
 
+# phase 16 with a host read after every Arnoldi step (PERF.md): warm s
+HOST_LOOPS_PGMRES = dict(warm_s=(0.266, 0.381))
+
+
+def _pgmres_graph_vs_host(tag, solver, b, xg, info):
+    """solve_pgmres's graph route (``xg``, ``info``) against the same
+    program's host loops on the card: equal iterations and x bit for bit
+    (both run the same kernels in the same order); logs the host route's
+    reads and seconds."""
+    from amg_tpu_torch.solve import krylov as K
+
+    syncs = K.counts["syncs"]
+    t0 = time.perf_counter()
+    xp, ip = solver.solve_pgmres(b, host_loops=True)
+    torch.cuda.synchronize()
+    host_s = time.perf_counter() - t0
+    reads = K.counts["syncs"] - syncs
+    same = np.array_equal(xg, xp)
+    gap = float(np.abs(xg - xp).max() / max(np.abs(xp).max(), 1e-300))
+    log(f"[{tag}] graph against host loops on the card: its {info.nits} / "
+        f"{ip.nits}; x bit-identical: {same} (max gap {gap:.3e} of "
+        f"max|x|); host route {host_s:.4f} s, {reads} host reads of its "
+        f"loops")
+    check(info.nits == ip.nits and same,
+          f"{tag}: graph ({info.nits} its) and host loops ({ip.nits} its) "
+          f"differ, x gap {gap:.3e}")
+    return dict(host_s=host_s, host_reads=reads, same=same)
+
+
+def _log_pgmres_graph(tag, solver):
+    """The GMRES graph of ``solver``: nodes, segments captured as child
+    graphs and in place, build seconds, pool MiB, builds."""
+    g = solver.pgmres_graph
+    check(g is not None and g.exec is not None,
+          f"{tag}: solve_pgmres has no CUDA graph")
+    log(f"[{tag}] GMRES graph: {g.nodes} nodes ({g.captures} segments as "
+        f"child graphs, {len(g.direct)} captured in place), warm-up, "
+        f"capture and instantiate {g.build_seconds:.3f} s, graph pool "
+        f"{g.pool_bytes / 2**20:.1f} MiB; builds {solver.pgmres_builds}")
+    check(solver.pgmres_builds == 1,
+          f"{tag}: the GMRES graph was built {solver.pgmres_builds} times")
+    return dict(nodes=g.nodes, build_s=g.build_seconds,
+                pool_mib=g.pool_bytes / 2**20, direct=len(g.direct))
+
+
 def phase_gmres():
     """16. AMG-preconditioned GMRES on the 1M-row convection-diffusion
     operator, f64 cycles on the "auto" layout: true residual below 1e-8 in
-    at most 40 iterations through B1's f64 epilogues.  Returns the kernel
-    rows of every DIA and WEll launch shape of its solve (tags "g-")."""
+    at most 40 iterations through B1's f64 epilogues and the f64 Givens
+    and back-substitution kernels, the whole GMRES one CUDA graph (built
+    by the cold solve, replayed by the warm one) with 0 host reads of its
+    loops, equal to the same program's host loops bit for bit.  Returns
+    the kernel rows of every DIA and WEll launch shape of its solve (tags
+    "g-") and the krylov_small launches by shape."""
     import amg_tpu_torch as amg
+    from amg_tpu_torch.ops import krylov_small as KS
     from amg_tpu_torch.params import MAX_RESTART
 
     a = convection_diffusion(CD_SIDE)
@@ -1580,28 +1644,42 @@ def phase_gmres():
     pars = amg.AMGParams(accel="gmres", tol=1e-8, verbose=0)
     b = np.random.default_rng(16).standard_normal(a.n_rows)
     solver, dia, well, summary = _auto_solver(a, pars, "gmres", b)
+    small = summary.pop("krylov_small")
     kc = summary["krylov"]
     m = min(MAX_RESTART, pars.max_it)
     basis_mib = (m + 1) * solver.pad * 8 / 2 ** 20
     log(f"[gmres] formats {_formats(solver)}; GMRES its {summary['nits']} "
-        f"(Arnoldi steps {kc['gmres_iters']}, restart {m}); host reads "
-        f"per solve: {kc['syncs']} by GMRES + 2 by the driver; setup "
-        f"{summary['setup_s']:.2f} s, cold solve {summary['solve_s']:.4f} "
-        f"s, warm {summary['warm_solve_s']:.4f} s; device memory held "
-        f"after setup {summary['mib']:.1f} MiB, GMRES basis V "
-        f"({m + 1} x {solver.pad} f64) {basis_mib:.1f} MiB")
+        f"(Arnoldi steps {kc['gmres_iters']}, restart {m}); host reads of "
+        f"the GMRES loops per solve: {kc['syncs']} (+ 2 by the driver "
+        f"before and after); setup {summary['setup_s']:.2f} s, cold solve "
+        f"(graph built in it) {summary['solve_s']:.4f} s, warm (a replay) "
+        f"{summary['warm_solve_s']:.4f} s against the host-read steps' "
+        f"{HOST_LOOPS_PGMRES['warm_s']} s (PERF.md); device memory held "
+        f"after setup {summary['mib']:.1f} MiB, GMRES basis V ({m + 1} x "
+        f"{solver.pad} f64) {basis_mib:.1f} MiB; krylov_small launches "
+        f"{small}")
     check(summary["nits"] <= GMRES_MAX_ITS,
           f"GMRES took {summary['nits']} > {GMRES_MAX_ITS} iterations")
     check(kc["gmres_solves"] == 1 and kc["gmres_iters"] == summary["nits"],
           f"GMRES counts {kc}")
+    check(kc["syncs"] == 0, f"the GMRES loops read the host {kc['syncs']} "
+                            f"times on the graph route")
+    check(all(small.get((e, torch.float64, m), 0) > 0 for e in KS.ENTRIES),
+          f"the f64 Givens and back-substitution kernels were not "
+          f"launched: {small}")
     f64 = {k[0] for k in dia if k[1] == k[2] == torch.float64}
     check(f64 >= {"spmv", "resid", "update"},
           f"B1 did not run its three epilogues in f64: {sorted(dia, key=str)}")
+    summary["graph"] = _log_pgmres_graph("gmres", solver)
+    xg, info = solver.solve_pgmres(b)
+    torch.cuda.synchronize()
+    summary.update(_pgmres_graph_vs_host("gmres", solver, b, xg, info))
     rows = phase_main_shapes(solver, dia, prefix="g-")
     well_rows = (phase_unstructured_shapes(solver, well, prefix="g-")
                  if well else [])
+    log(f"[gmres] summary: {summary}")
     del solver
-    return rows, well_rows, summary
+    return rows, well_rows, small
 
 
 @contextlib.contextmanager
@@ -1757,18 +1835,22 @@ def phase_krylov_kernels(launches, m=30):
     """krylov_small.cu's two kernels against their plain versions on the
     card, f32 and f64: 4 seeded restarts of m Givens steps each (120
     columns; two restarts stop inside, so masked steps are included) fed
-    the same Arnoldi columns, rotations, g and H held within 4 ulp after
-    every step and done/k_eff equal; the back-substitution of each
-    restart within 4 ulp.  Times one Givens launch (averaged over a
-    restart's m steps) and one back-substitution, each against its plain
-    version (a chain of one-element torch operations), the back-
-    substitution also against ``torch.linalg.solve_triangular`` on the
-    restart's k_eff triangle (its library yardstick).  Returns the
-    kernel rows of the dtype the main path ran (f32), with ``launches``
-    from it."""
+    the same Arnoldi columns, the step index on the device; rotations, g,
+    H and the raw columns held within 4 ulp after every step, done, k_eff,
+    j and the step flag equal; the back-substitution of each restart
+    within 4 ulp.  Times, in each dtype, one Givens launch (averaged over
+    a restart's m steps and the reset of j before them) and one back-
+    substitution, each against its plain version (a chain of small torch
+    operations) and against an empty one-warp kernel launched the same
+    way (the launch's latency floor, ``floor_ms``), the back-substitution
+    also against ``torch.linalg.solve_triangular`` on the restart's k_eff
+    triangle (its library yardstick).  Returns the kernel rows, f32 (the
+    KRYLOV coarsest solve's) and f64 (phase 16's GMRES), with the main
+    paths' ``launches``."""
     from amg_tpu_torch.ops import krylov_small as KS
 
     flush = torch.empty(FLUSH_BYTES, dtype=torch.uint8, device="cuda")
+    dev = torch.device("cuda", torch.cuda.current_device())
     rows = []
     for dt in (torch.float32, torch.float64):
         worst = dict(givens=0, backsub=0)
@@ -1776,36 +1858,47 @@ def phase_krylov_kernels(launches, m=30):
         steps = 0
         for seed, tol in ((0, 1e-6), (1, 1e-12), (2, 1e-5), (3, 1e-12)):
             cols, beta = _arnoldi_columns(200, m, seed)
-            hraw = torch.tensor(cols, dtype=dt, device="cuda")
+            hcol = torch.tensor(cols, dtype=dt, device="cuda")
+            diag = (torch.arange(m), torch.arange(1, m + 1))
+            hnorm = hcol[diag].clone()
+            hcol[diag] = 0
 
             def fresh():
-                st = dict(H=torch.zeros((m + 1, m), dtype=dt, device="cuda"),
-                          cs=torch.zeros(m, dtype=dt, device="cuda"),
-                          sn=torch.zeros(m, dtype=dt, device="cuda"),
-                          g=torch.zeros(m + 1, dtype=dt, device="cuda"),
+                z = dict(dtype=dt, device="cuda")
+                st = dict(hraw=torch.zeros((m, m + 1), **z),
+                          H=torch.zeros((m + 1, m), **z),
+                          cs=torch.zeros(m, **z), sn=torch.zeros(m, **z),
+                          g=torch.zeros(m + 1, **z),
                           done=torch.zeros((), dtype=torch.bool,
                                            device="cuda"),
+                          go=torch.ones((), dtype=torch.bool, device="cuda"),
+                          j=torch.zeros((), dtype=torch.int32, device="cuda"),
                           k_eff=torch.zeros((), dtype=torch.int32,
                                             device="cuda"),
-                          normr0=torch.tensor(beta, dtype=dt, device="cuda"))
+                          normr0=torch.tensor(beta, **z))
                 st["g"][0] = beta
                 return st
 
+            def step(fn, st, j, tol):
+                fn(hcol[j], hnorm[j], st["j"], st["hraw"], st["H"], st["cs"],
+                   st["sn"], st["g"], st["done"], st["k_eff"], st["go"],
+                   st["normr0"], tol)
+
             kst, pst = fresh(), fresh()
             for j in range(m):
-                for fn, st in ((KS.givens, kst), (KS.givens_plain, pst)):
-                    fn(hraw[j], j, st["H"], st["cs"], st["sn"], st["g"],
-                       st["done"], st["k_eff"], st["normr0"], tol)
+                step(KS.givens, kst, j, tol)
+                step(KS.givens_plain, pst, j, tol)
                 torch.cuda.synchronize()
                 steps += 1
-                for k in ("H", "cs", "sn", "g"):
+                for k in ("hraw", "H", "cs", "sn", "g"):
                     worst["givens"] = max(worst["givens"],
                                           _ulps(kst[k], pst[k]))
                     err["givens"] = max(err["givens"], (kst[k] - pst[k])
                                         .abs().max().item())
-                check(bool(kst["done"]) == bool(pst["done"]) and
-                      int(kst["k_eff"]) == int(pst["k_eff"]),
-                      f"givens {dt} seed {seed} step {j}: done/k_eff differ")
+                check(all(torch.equal(kst[k], pst[k])
+                          for k in ("done", "go", "j", "k_eff")),
+                      f"givens {dt} seed {seed} step {j}: done/go/j/k_eff "
+                      f"differ")
             yk = KS.backsub(kst["H"], kst["g"], kst["k_eff"])
             yp = KS.backsub_plain(kst["H"], kst["g"], kst["k_eff"])
             worst["backsub"] = max(worst["backsub"], _ulps(yk, yp))
@@ -1819,14 +1912,17 @@ def phase_krylov_kernels(launches, m=30):
             f"{err['backsub']:.3e})")
         check(worst["givens"] <= 4 and worst["backsub"] <= 4,
               f"krylov_small {dt} kernel against plain: {worst} ulp")
-        if dt != torch.float32:
-            continue
         st = fresh()
 
         def restart(fn):
+            st["j"].zero_()
             for j in range(m):
-                fn(hraw[j], j, st["H"], st["cs"], st["sn"], st["g"],
-                   st["done"], st["k_eff"], st["normr0"], 1e-12)
+                step(fn, st, j, 1e-12)
+
+        def floor_restart():
+            st["j"].zero_()
+            for _ in range(m):
+                KS.launch_floor(dev)
 
         sz = torch.tensor([], dtype=dt).element_size()
         giv = (_time_ms(lambda: restart(KS.givens), flush) / m,
@@ -1843,18 +1939,30 @@ def phase_krylov_kernels(launches, m=30):
                          flush),
                 _time_ms(lambda: KS.backsub_plain(st["H"], st["g"],
                                                   st["k_eff"]), flush))
+        floor = dict(givens=_time_ms(floor_restart, flush) / m,
+                     backsub=_time_ms(lambda: KS.launch_floor(dev), flush))
+        # the back-substitution's staging alone: k_eff = 0 runs no row
+        no_rows = torch.zeros((), dtype=torch.int32, device="cuda")
+        stage_ms = _time_ms(lambda: KS.backsub(st["H"], st["g"], no_rows),
+                            flush)
         # the library yardstick of the back-substitution: one triangular
         # solve (cuBLAS) of the first k_eff rows; the Givens step has none
         lib = dict(givens=None, backsub=_time_ms(library, flush))
         lib_gap = (library()[:, 0] - KS.backsub(st["H"], st["g"],
                                                 st["k_eff"])[:k]).abs()
-        log(f"[krylov-small] torch.linalg.solve_triangular on the timed "
-            f"restart's {k} x {k} triangle: {lib['backsub']:.4f} ms, max "
-            f"|y - backsub| {lib_gap.max().item():.3e}")
+        log(f"[krylov-small] {str(dt)[6:]} torch.linalg.solve_triangular on "
+            f"the timed restart's {k} x {k} triangle: {lib['backsub']:.4f} "
+            f"ms, max |y - backsub| {lib_gap.max().item():.3e}; "
+            f"back-substitution {bsub[0]:.4f} ms "
+            f"({lib['backsub'] / bsub[0]:.2f}x faster; its launch and "
+            f"staging alone, k_eff = 0: {stage_ms:.4f} ms)")
+        check(bsub[0] < lib["backsub"],
+              f"{dt} back-substitution {bsub[0]:.4f} ms is not below "
+              f"solve_triangular's {lib['backsub']:.4f} ms")
         for entry, (ms, plain_ms), nbytes, nflops in (
-                # per step on average: hraw, cs, sn read, H column, cs,
-                # sn, g written
-                ("givens", giv, sz * (3 * (m - 1) / 2 + m + 8) + 6,
+                # per step on average: the column, its norm, j cs and sn
+                # read, hraw's row, H's column, cs, sn, g written
+                ("givens", giv, sz * (3 * (m + 1) + (m - 1) + 8) + 16,
                  6 * (m - 1) / 2 + 12),
                 # the k_eff triangle and g read, y written
                 ("backsub", bsub, sz * (k * (k + 1) / 2 + k + m) + 4,
@@ -1865,13 +1973,14 @@ def phase_krylov_kernels(launches, m=30):
                              launches=n, max_abs_err=err[entry],
                              ulps=worst[entry], ms=ms, plain_ms=plain_ms,
                              bound_ms=bound_ms, bound_by=bound_by,
-                             lib_ms=lib[entry]))
+                             floor_ms=floor[entry], lib_ms=lib[entry]))
             lib_s = ("none" if lib[entry] is None
                      else f"{lib[entry]:.4f} ms")
-            log(f"[krylov-small] {entry} f32 m={m}: kernel {ms:.4f} ms, "
+            log(f"[krylov-small] {entry} {str(dt)[6:]} m={m}: kernel "
+                f"{ms:.4f} ms, empty one-warp launch {floor[entry]:.4f} ms, "
                 f"plain {plain_ms:.4f} ms, library {lib_s}, bound "
-                f"{bound_ms:.2e} ms ({bound_by}; one thread: "
-                f"latency-bound); main-path launches {n}")
+                f"{bound_ms:.2e} ms ({bound_by}; latency-bound); main-path "
+                f"launches {n}")
     return rows
 
 
@@ -1910,12 +2019,52 @@ def _one_shot_vs_plain(tag, op, b, tol):
     return out
 
 
+def _krylov_pgmres(a, hh, pars):
+    """solve_pgmres on phase 17's KRYLOV hierarchy (f32 cycles, GMRES in
+    f64 around them): the Arnoldi step's cycle runs the coarsest solve's
+    while and if nodes, so the step is captured in place in the GMRES
+    graph; 0 host reads of the GMRES and coarsest loops, the graph built
+    once, the graph against the host loops (equal its, x bit for bit);
+    cold and warm seconds."""
+    import amg_tpu_torch as amg
+    from amg_tpu_torch.solve import krylov as K
+
+    solver = amg.AMGSolver(a, pars.replace(accel="gmres"), host_hierarchy=hh,
+                           device="cuda", log=lambda *_: None)
+    b = np.ones(a.n_rows)
+    syncs = K.counts["syncs"]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    x, info = solver.solve_pgmres(b)
+    torch.cuda.synchronize()
+    cold = time.perf_counter() - t0
+    reads = K.counts["syncs"] - syncs
+    out = _log_pgmres_graph("krylov-gmres", solver)
+    check(reads == 0, f"KRYLOV solve_pgmres read the host {reads} times")
+    check(out["direct"] == 2, f"KRYLOV GMRES graph: {out['direct']} "
+                              f"segments captured in place, not 2")
+    warm = _median_s(lambda: solver.solve_pgmres(b))
+    true_rel = float(np.linalg.norm(b - a.matvec(x)) / np.linalg.norm(b))
+    log(f"[krylov-gmres] solve_pgmres, KRYLOV coarsest: {info.nits} its, "
+        f"rres {info.rres:.3e}, true rres (host f64) {true_rel:.3e}; cold "
+        f"{cold:.4f} s (graph built in it), warm {warm:.4f} s (median of "
+        f"{JIT_REPS}); host reads {reads}")
+    check(np.all(np.isfinite(x)) and info.nits <= pars.max_it,
+          f"KRYLOV solve_pgmres: {info.nits} its, finite {np.isfinite(x).all()}")
+    out.update(its=info.nits, cold_s=cold, warm_s=warm, true_rres=true_rel)
+    xg, ig = solver.solve_pgmres(b)
+    torch.cuda.synchronize()
+    out.update(_pgmres_graph_vs_host("krylov-gmres", solver, b, xg, ig))
+    del solver
+    return out
+
+
 # phase 17 with the Krylov loops on the host (PERF.md): cycles and warm s
 HOST_LOOPS_KRYLOV = dict(cycles=8, batched_cycles=6, warm_s=3.13,
                          warm_batched_s=5.48)
 
 
-def phase_krylov_coarsest(a, hh, auto_summary):
+def phase_krylov_coarsest(a, hh, auto_summary, gmres_launches):
     """17. Phase 13's parameters and host hierarchy ``hh`` with the KRYLOV
     coarsest solver: the solve to 1e-8 through B1 and B2, each coarsest
     solve one CUDA graph of while and if nodes with no host read (its
@@ -2009,7 +2158,8 @@ def phase_krylov_coarsest(a, hh, auto_summary):
                                       calls[0]["first"][1], ctol))
     dia_rows = phase_main_shapes(solver, dia, prefix="k-")
     well_rows = phase_unstructured_shapes(solver, well, prefix="k-")
-    small_rows = phase_krylov_kernels(small)
+    summary["pgmres"] = _krylov_pgmres(a, hh, pars)
+    small_rows = phase_krylov_kernels({**small, **gmres_launches})
 
     # batched: one CG over the columns per coarsest solve, GMRES per
     # failed column
@@ -3144,8 +3294,9 @@ def _kernel_entries(dia_rows, well_rows, multi_rows=(), window_rows=(),
                      else "amg_tpu/solve/krylov.py:371"),
         "launches": r["launches"], "max_abs_err": r["max_abs_err"],
         "ms": r["ms"], "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
-        "bound_by": r["bound_by"], "library_ms": r["lib_ms"],
-        "lib_ms": r["lib_ms"]} for r in small_rows]
+        "bound_by": r["bound_by"], "floor_ms": r["floor_ms"],
+        "library_ms": r["lib_ms"], "lib_ms": r["lib_ms"]}
+        for r in small_rows]
     return out
 
 
@@ -3207,12 +3358,12 @@ def main() -> int:
     well_rows += fa_rows
     del fem
     stamp("unstructured auto")
-    g_dia, g_well, _ = phase_gmres()
+    g_dia, g_well, g_small = phase_gmres()
     dia_rows += g_dia
     well_rows += g_well
     stamp("gmres")
     k_dia, k_well, k_multi, small_rows = phase_krylov_coarsest(
-        p3d, auto_hh, auto_summary)
+        p3d, auto_hh, auto_summary, g_small)
     dia_rows += k_dia
     well_rows += k_well
     multi_rows += k_multi

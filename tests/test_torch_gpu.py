@@ -948,53 +948,69 @@ def _ulps(a, b):
     return int((line(a) - line(b)).abs().max())
 
 
+def _arnoldi_columns(m, seed):
+    """The raw Hessenberg columns (m, m + 1) and beta of m Arnoldi steps
+    (f64 numpy, modified Gram-Schmidt) on a seeded nonsymmetric 200 x 200
+    matrix near the identity."""
+    rng = np.random.default_rng(seed)
+    n = 200
+    mat = np.eye(n) + 0.4 * rng.standard_normal((n, n)) / np.sqrt(n)
+    r = rng.standard_normal(n)
+    beta = np.linalg.norm(r)
+    V, cols = [r / beta], np.zeros((m, m + 1))
+    for j in range(m):
+        w = mat @ V[j]
+        for i in range(j + 1):
+            cols[j, i] = V[i] @ w
+            w = w - cols[j, i] * V[i]
+        cols[j, j + 1] = np.linalg.norm(w)
+        V.append(w / cols[j, j + 1])
+    return cols, beta
+
+
 @pytest.mark.parametrize("dtype", ["float32", "float64"])
 def test_krylov_small_kernels_match_plain(dtype):
-    """krylov_small.cu's Givens step and back-substitution against their
-    plain versions on the card: 4 seeded restarts of 30 steps (120
-    columns, two restarts stopping inside), fed the columns of a real
-    Arnoldi process; rotations, g, H and y within 4 ulp, done and k_eff
-    equal; launches counted."""
+    """krylov_small.cu's Givens step and back-substitution (one warp each)
+    against their plain versions on the card: 4 seeded restarts of 30
+    steps (120 columns, two restarts stopping inside), fed the columns of
+    a real Arnoldi process, the step index on the device; rotations, g, H,
+    the stored raw columns and y within 4 ulp, done, k_eff, j and the
+    step flag equal; launches counted."""
     _needs_card()
     from amg_tpu_torch.ops import krylov_small as KS
 
     dt, m = getattr(torch, dtype), 30
     before = dict(KS.launches)
     for seed, tol in ((0, 1e-6), (1, 1e-12), (2, 1e-5), (3, 1e-12)):
-        rng = np.random.default_rng(seed)
-        n = 200
-        mat = np.eye(n) + 0.4 * rng.standard_normal((n, n)) / np.sqrt(n)
-        r = rng.standard_normal(n)
-        beta = np.linalg.norm(r)
-        V, cols = [r / beta], np.zeros((m, m + 1))
-        for j in range(m):
-            w = mat @ V[j]
-            for i in range(j + 1):
-                cols[j, i] = V[i] @ w
-                w = w - cols[j, i] * V[i]
-            cols[j, j + 1] = np.linalg.norm(w)
-            V.append(w / cols[j, j + 1])
-        hraw = torch.tensor(cols, dtype=dt, device="cuda")
+        cols, beta = _arnoldi_columns(m, seed)
+        hcol = torch.tensor(cols, dtype=dt, device="cuda")
+        hnorm = hcol[torch.arange(m), torch.arange(1, m + 1)].clone()
+        hcol[torch.arange(m), torch.arange(1, m + 1)] = 0
         st = []
         for _ in range(2):
-            t = dict(H=torch.zeros((m + 1, m), dtype=dt, device="cuda"),
+            t = dict(hraw=torch.zeros((m, m + 1), dtype=dt, device="cuda"),
+                     H=torch.zeros((m + 1, m), dtype=dt, device="cuda"),
                      cs=torch.zeros(m, dtype=dt, device="cuda"),
                      sn=torch.zeros(m, dtype=dt, device="cuda"),
                      g=torch.zeros(m + 1, dtype=dt, device="cuda"),
                      done=torch.zeros((), dtype=torch.bool, device="cuda"),
+                     go=torch.ones((), dtype=torch.bool, device="cuda"),
+                     j=torch.zeros((), dtype=torch.int32, device="cuda"),
                      k_eff=torch.zeros((), dtype=torch.int32, device="cuda"),
                      normr0=torch.tensor(beta, dtype=dt, device="cuda"))
             t["g"][0] = beta
             st.append(t)
         for j in range(m):
             for fn, t in ((KS.givens, st[0]), (KS.givens_plain, st[1])):
-                fn(hraw[j], j, t["H"], t["cs"], t["sn"], t["g"], t["done"],
-                   t["k_eff"], t["normr0"], tol)
+                fn(hcol[j], hnorm[j], t["j"], t["hraw"], t["H"], t["cs"],
+                   t["sn"], t["g"], t["done"], t["k_eff"], t["go"],
+                   t["normr0"], tol)
             torch.cuda.synchronize()
-            for k in ("H", "cs", "sn", "g"):
+            for k in ("hraw", "H", "cs", "sn", "g"):
                 assert _ulps(st[0][k], st[1][k]) <= 4, (seed, j, k)
-            assert bool(st[0]["done"]) == bool(st[1]["done"])
-            assert int(st[0]["k_eff"]) == int(st[1]["k_eff"])
+            for k in ("done", "go", "j", "k_eff"):
+                assert torch.equal(st[0][k], st[1][k]), (seed, j, k)
+            assert int(st[0]["j"]) == j + 1
         k, p = st
         if tol > 1e-8:
             assert int(k["k_eff"]) < m, seed
@@ -1039,10 +1055,11 @@ def test_cg_graph_equals_plain_on_card(dtype):
 
 
 def test_gmres_graph_equals_plain_on_card():
-    """gmres as one CUDA graph (a while node over restarts of 5 steps)
-    against its host loop on the card, on 2-D convection-diffusion
-    (poisson-like, nonsymmetric) in f64: equal verdict and steps, x within
-    1e-12 of ||x||; the Givens kernel ran 5 times per restart."""
+    """gmres as one CUDA graph (a while node over restarts of at most 5
+    steps, each a while node over one captured step) against its host
+    loops on the card, on an upper-triangular nonsymmetric 24 x 24 system
+    in f64: equal verdict and steps, x within 1e-12 of ||x||; the Givens
+    kernel ran once per step, plus the build's two eager steps."""
     _needs_card()
     from amg_tpu_torch.ops import krylov_small as KS
     from amg_tpu_torch.solve import krylov
@@ -1058,7 +1075,7 @@ def test_gmres_graph_equals_plain_on_card():
     xg, cg, ig = krylov.gmres(op, b, torch.zeros_like(b), tol=1e-10,
                               maxit=300, restart=5, return_iters=True)
     restarts = -(-int(ig) // 5)
-    assert KS.launches["givens"] - before >= 5 * restarts
+    assert KS.launches["givens"] - before == int(ig) + 2
     xp, cp, ip = krylov.gmres_plain(op, b, torch.zeros_like(b), tol=1e-10,
                                     maxit=300, restart=5, return_iters=True)
     assert bool(cg) and bool(cp) and int(ig) == int(ip) and restarts > 1
@@ -1145,3 +1162,93 @@ def test_krylov_graph_failures_raise_on_card(monkeypatch, tmp_path):
     with pytest.raises(RuntimeError, match="ks_handle"):
         cycle.krylov_solver(solver.mg, b, 1e-9).solve(b)
     assert krylov.counts["syncs"] == syncs
+
+
+def _convection_diffusion(n_side, vel=20.0):
+    """tests/test_torch_krylov.py's 2-D upwind convection-diffusion
+    operator (nonsymmetric), n_side x n_side."""
+    h = 1.0 / (n_side + 1)
+    i, j = np.divmod(np.arange(n_side ** 2), n_side)
+    rows, cols = [i * n_side + j], [i * n_side + j]
+    vals = [np.full(n_side ** 2, 4.0 / h ** 2 + vel / h)]
+    for di, dj, c in ((-1, 0, -1.0 / h ** 2 - vel / h), (1, 0, -1.0 / h ** 2),
+                      (0, -1, -1.0 / h ** 2), (0, 1, -1.0 / h ** 2)):
+        ok = (i + di >= 0) & (i + di < n_side) & (j + dj >= 0) & \
+            (j + dj < n_side)
+        rows.append((i * n_side + j)[ok])
+        cols.append(((i + di) * n_side + j + dj)[ok])
+        vals.append(np.full(int(ok.sum()), c))
+    return CSR.from_coo(np.concatenate(rows), np.concatenate(cols),
+                        np.concatenate(vals), (n_side ** 2,) * 2)
+
+
+def _pgmres_solver(coarsest):
+    """GMRES around f64 cycles on the 32 x 32 convection-diffusion system,
+    Dense or KRYLOV coarsest."""
+    a = _convection_diffusion(32)
+    pars = amg.AMGParams(accel="gmres", tol=1e-8, verbose=0,
+                         coarsest_solver=getattr(amg.CoarsestSolver,
+                                                 coarsest))
+    return a, amg.AMGSolver(a, pars, log=lambda *_: None)
+
+
+@pytest.mark.parametrize("coarsest", ["DENSE", "KRYLOV"])
+def test_pgmres_graph_equals_host_loops_on_card(coarsest):
+    """solve_pgmres as one CUDA graph against the same program's host
+    loops on the card (``host_loops=True``), Dense and KRYLOV coarsest
+    (whose while and if nodes the captured step holds): equal iterations,
+    x bit-identical, 0 GMRES host reads on the graph route; the graph is
+    built once and replayed by the second call, which gives the same x."""
+    _needs_card()
+    from amg_tpu_torch.solve import krylov
+
+    a, solver = _pgmres_solver(coarsest)
+    b = np.random.default_rng(17).standard_normal(a.n_rows)
+    syncs = krylov.counts["syncs"]
+    xg, ig = solver.solve_pgmres(b)
+    assert krylov.counts["syncs"] == syncs
+    graph = solver.pgmres_graph
+    assert solver.pgmres_builds == 1 and graph.exec is not None
+    assert bool(graph.direct) == (coarsest == "KRYLOV")
+    x2, i2 = solver.solve_pgmres(b)
+    assert solver.pgmres_graph is graph and solver.pgmres_builds == 1
+    assert krylov.counts["syncs"] == syncs
+    xp, ip = solver.solve_pgmres(b, host_loops=True)
+    assert krylov.counts["syncs"] > syncs
+    assert ig.nits == i2.nits == ip.nits
+    assert np.array_equal(xg, x2) and np.array_equal(xg, xp)
+    true_rel = np.linalg.norm(b - a.matvec(xg)) / np.linalg.norm(b)
+    assert true_rel < 1e-8
+
+
+def test_pgmres_graph_failure_raises_on_card(monkeypatch, tmp_path):
+    """No fallback to the host loops on the card: a krylov_small.cu that
+    does not build, and a capture the CUDA runtime refuses, make
+    solve_pgmres raise, with no host read of its loops."""
+    _needs_card()
+    from amg_tpu_torch.ops import cuda_build, krylov_small as KS
+    from amg_tpu_torch.solve import krylov
+
+    a, solver = _pgmres_solver("KRYLOV")
+    b = np.ones(a.n_rows)
+    lib = cuda_build.CudaLibrary("krylov_small.cu", KS._bind)
+    lib.so = str(tmp_path / "libkrylov_small.so")
+    monkeypatch.setattr(KS, "_LIB", lib)
+    monkeypatch.setattr(cuda_build, "nvcc", lambda: "false")
+    syncs = krylov.counts["syncs"]
+    with pytest.raises(RuntimeError, match="nvcc failed"):
+        solver.solve_pgmres(b)
+    monkeypatch.undo()
+    call = KS._call
+
+    def refuse(name, *args):
+        if name == "ks_capture_begin":
+            raise RuntimeError("ks_capture_begin failed: CUDA error 1")
+        return call(name, *args)
+
+    monkeypatch.setattr(KS, "_call", refuse)
+    _, solver = _pgmres_solver("KRYLOV")
+    with pytest.raises(RuntimeError, match="ks_capture_begin"):
+        solver.solve_pgmres(b)
+    assert krylov.counts["syncs"] == syncs
+    assert solver.pgmres_graph is None

@@ -183,10 +183,12 @@ def test_cg_body_batch_equals_columns():
 @pytest.mark.parametrize("restart", [20, 5])
 def test_gmres_body_matches_amg_tpu(restart):
     """GMRES on the nonsymmetric 24 x 24 operator of
-    tests/test_torch_krylov.py, in one restart (m = 20) and in several (m
-    = 5, every restart's steps past its stop masked): one restart per
-    body, one flag read per restart; equal verdict and steps, x to 1e-10
-    against amg_tpu."""
+    tests/test_torch_krylov.py, in two restarts (m = 20) and in several (m
+    = 5): the device-indexed Arnoldi step under the host driver reads
+    nothing but the loops' flags, one read per test (before each restart
+    and after the last, before each step and after a restart's last);
+    equal verdict and steps, x to 1e-10 against amg_tpu's masked
+    steps."""
     n = 24
     d = np.diag(np.arange(2.0, 2.0 + n)) + 0.3 * np.triu(np.ones((n, n)), 1)
     je, te, pad = _ells(d)
@@ -199,7 +201,9 @@ def test_gmres_body_matches_amg_tpu(restart):
     loop.b.copy_(tb)
     reads = run_loops(loop.program)
     assert bool(cj) and bool(loop.conv) and int(loop.it) == int(ij)
-    assert reads == -(-int(ij) // restart) + 1
+    restarts = -(-int(ij) // restart)
+    assert restarts > 1
+    assert reads == (restarts + 1) + (int(ij) + restarts)
     assert _rel(loop.x.numpy(), xj) < 1e-10
 
 
@@ -321,35 +325,75 @@ def test_coarsest_cache_keeps_one_solve_per_ndim():
                                 1e-10) is one
 
 
+def test_coarsest_solve_is_freed_without_the_collector():
+    """A KRYLOV coarsest solve that the hierarchy's cache drops is freed
+    at once, by reference counting: its program holds no reference back
+    to it, so on the card its CUDA graphs are never destroyed by the
+    cyclic collector in the middle of another graph's capture."""
+    import gc
+    import weakref
+
+    from amg_tpu_torch.solve import cycle as tcycle
+
+    _, _, tmg, pad = _indefinite_levels()
+    tp = tamg.AMGParams(coarsest_solver=tamg.CoarsestSolver.KRYLOV,
+                        verbose=0)
+    enabled = gc.isenabled()
+    gc.disable()
+    try:
+        for k in (3, 2):
+            b = torch.zeros((k, pad), dtype=torch.float64)
+            b[:, 0] = 1.0
+            tcycle.coarsest_solve(tmg, b, tp, ctol=1e-10)
+            if k == 3:
+                old = weakref.ref(next(ks for key, ks in tmg.krylov.items()
+                                       if len(key[0]) == 2))
+        assert old() is None
+    finally:
+        if enabled:
+            gc.enable()
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
 def test_givens_backsub_plain_against_numpy(dtype):
-    """The plain Givens step and back-substitution against a numpy
-    transcription of amg_tpu's loops (amg_tpu/solve/krylov.py:336-379) in
-    the same dtype, on a seeded (m + 1) x m Hessenberg matrix fed column
-    by column: rotations, g and y equal (each numpy scalar operation
-    rounds once, as each torch one does; numpy's dot in the back-
-    substitution sums in another order: y to 64 eps of max|y|); a step
-    after ``done`` changes nothing but recomputes ``done``."""
+    """The plain Givens step, with its step index ``j`` a 0-d int32 tensor
+    it reads and advances on the device, and the back-substitution
+    against a numpy transcription of amg_tpu's loops
+    (amg_tpu/solve/krylov.py:336-379) in the same dtype, on a seeded (m +
+    1) x m Hessenberg matrix fed column by column (the Gram-Schmidt
+    coefficients and the norm apart, as an Arnoldi step gives them):
+    rotations, g, H and the stored raw columns equal (each numpy scalar
+    operation rounds once, as each torch one does; numpy's dot in the
+    back-substitution sums in another order: y to 64 eps of max|y|); j
+    advances, ``go`` is ``j < m and not done``; a step after ``done``
+    changes nothing but recomputes ``done``; no host read."""
     m, tol = 8, 1e-3
     nd = np.float32 if dtype == torch.float32 else np.float64
     rng = np.random.default_rng(7)
     hess = np.triu(rng.standard_normal((m + 1, m)), -1).astype(nd)
     normr0 = nd(2.5)
     H = torch.zeros((m + 1, m), dtype=dtype)
+    hraw = torch.zeros((m, m + 1), dtype=dtype)
     cs, sn = torch.zeros(m, dtype=dtype), torch.zeros(m, dtype=dtype)
     g = torch.zeros(m + 1, dtype=dtype)
     g[0] = float(normr0)
-    done = torch.zeros((), dtype=torch.bool)
-    k_eff = torch.zeros((), dtype=torch.int32)
+    done, go = torch.zeros((), dtype=torch.bool), torch.ones((),
+                                                             dtype=torch.bool)
+    k_eff, j_dev = (torch.zeros((), dtype=torch.int32) for _ in range(2))
     Hn, csn, snn, gn = (np.zeros((m + 1, m), nd), np.zeros(m, nd),
                         np.zeros(m, nd), np.zeros(m + 1, nd))
     gn[0], tiny, done_n, k_n = normr0, nd(1e-20), False, 0
     for j in range(m):
-        hraw = np.zeros(m + 1, nd)
-        hraw[: j + 2] = hess[: j + 2, j]
-        krylov_small.givens_plain(torch.from_numpy(hraw), j, H, cs, sn, g,
-                                  done, k_eff, torch.tensor(normr0), tol)
-        h = hraw.copy()
+        col = np.zeros(m + 1, nd)
+        col[: j + 2] = hess[: j + 2, j]
+        hcol = col.copy()
+        hcol[j + 1] = 0
+        with no_host_reads():
+            krylov_small.givens_plain(
+                torch.from_numpy(hcol), torch.tensor(col[j + 1]), j_dev,
+                hraw, H, cs, sn, g, done, k_eff, go, torch.tensor(normr0),
+                tol)
+        h = col.copy()
         for i in range(j):
             h[i], h[i + 1] = (csn[i] * h[i] + snn[i] * h[i + 1],
                               -snn[i] * h[i] + csn[i] * h[i + 1])
@@ -362,8 +406,11 @@ def test_givens_backsub_plain_against_numpy(dtype):
         if not done_n:
             csn[j], snn[j], Hn[:, j], gn[j], gn[j + 1] = c, s, h, gj, gj1
             k_n = j + 1
-        done_n = done_n or abs(gj1) / normr0 < tol or hraw[j + 1] <= tiny
+        done_n = done_n or abs(gj1) / normr0 < tol or col[j + 1] <= tiny
         assert bool(done) == done_n and int(k_eff) == k_n
+        assert int(j_dev) == j + 1 and bool(go) == (j + 1 < m and
+                                                    not done_n)
+        np.testing.assert_array_equal(hraw[j].numpy(), col)
     assert 0 < k_n < m     # the stop fell inside the restart
     for t, ref in ((H, Hn), (cs, csn), (sn, snn), (g, gn)):
         np.testing.assert_array_equal(t.numpy(), ref)
@@ -371,8 +418,9 @@ def test_givens_backsub_plain_against_numpy(dtype):
     for jj in range(m - 1, -1, -1):
         y[jj] = ((gn[jj] - np.dot(Hn[jj], y)) / Hn[jj, jj]
                  if jj < k_n and abs(Hn[jj, jj]) > tiny else 0)
-    np.testing.assert_allclose(krylov_small.backsub_plain(H, g, k_eff),
-                               y, rtol=0,
+    with no_host_reads():
+        yt = krylov_small.backsub_plain(H, g, k_eff)
+    np.testing.assert_allclose(yt, y, rtol=0,
                                atol=64 * np.finfo(nd).eps * np.abs(y).max())
 
 
