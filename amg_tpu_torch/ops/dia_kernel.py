@@ -41,7 +41,7 @@ shared-memory windows laid out by :func:`plan`.  ``launches``
 counts kernel launches per B1 epilogue (:data:`EPILOGUES`) and per B4
 epilogue (:data:`MULTI`); a call made while a CUDA graph is captured is
 counted too, and the code that captures takes those counts back and adds
-them again at every replay (``solve.driver.JitLoop``).
+them again at every replay (``solve.loop_graph.StepGraph``).
 """
 
 from __future__ import annotations

@@ -1,10 +1,14 @@
-"""The kernel modules' launch counters, as a whole.
+"""The kernel modules' launch counters and the ring's host counters, as a
+whole.
 
-Each kernel wrapper counts a launch when it is called.  Called while a
-CUDA graph is captured, it launches nothing: the code that captures takes
-the capture's counts back (:func:`delta`, :func:`add` with ``times=-1``)
-and adds them again for every run of the graph (``solve.driver.JitLoop``
-per replay, ``solve.loop_graph.LoopGraph`` per run of a captured body).
+Each kernel wrapper counts a launch when it is called, and the ring
+counts its products and collectives (``parallel.halo.counts``,
+``parallel.dist.counts``, registered in :data:`COUNTERS` by their
+modules) when they are called.  Called while a CUDA graph is captured,
+they launch nothing: the code that captures takes the capture's counts
+back (:func:`delta`, :func:`add` with ``times=-1``) and adds them again
+for every run of the graph (``solve.loop_graph.StepGraph`` per replay,
+``solve.loop_graph.LoopGraph`` per run of a captured body).
 """
 
 from __future__ import annotations
@@ -12,13 +16,24 @@ from __future__ import annotations
 from . import dia_kernel, krylov_small, well_kernel
 
 MODULES = (dia_kernel, well_kernel, krylov_small)
+# host counters that code run inside a captured graph adds to: a key of
+# the counts below is the position of the counter here
+COUNTERS: list = []
+
+
+def _live(key) -> tuple:
+    """The live dicts behind ``key``: a kernel module's ``launches`` and
+    ``launches_by_shape``, or a registered counter."""
+    if key in MODULES:
+        return key.launches, key.launches_by_shape
+    return (COUNTERS[key],)
 
 
 def snapshot() -> dict:
-    """The counters (``launches``, ``launches_by_shape``) of every kernel
-    module, copied."""
-    return {K: (dict(K.launches), dict(K.launches_by_shape))
-            for K in MODULES}
+    """Every counter (per kernel module ``launches`` and
+    ``launches_by_shape``, per registered counter its dict), copied."""
+    keys = MODULES + tuple(range(len(COUNTERS)))
+    return {k: tuple(dict(d) for d in _live(k)) for k in keys}
 
 
 def delta(before: dict, after: dict) -> dict:
@@ -26,23 +41,24 @@ def delta(before: dict, after: dict) -> dict:
     counts only."""
     return {K: tuple({k: n - b.get(k, 0) for k, n in a.items()
                       if n != b.get(k, 0)}
-                     for a, b in zip(after[K], before[K]))
+                     for a, b in zip(after[K], before.get(K, ({},) * len(
+                         after[K]))))
             for K in after}
 
 
 def add(counts: dict, times: int):
-    """Add ``times`` x ``counts`` to the modules' counters; keys that fall
-    to 0 go."""
-    for K, (entries, shapes) in counts.items():
-        for e, n in entries.items():
-            K.launches[e] += n * times
-        for key, n in shapes.items():
-            v = K.launches_by_shape.get(key, 0) + n * times
-            if v:
-                K.launches_by_shape[key] = v
-            else:
-                K.launches_by_shape.pop(key, None)
+    """Add ``times`` x ``counts`` to the counters.  The keys of a module's
+    ``launches`` and of a registered counter stay; a ``launches_by_shape``
+    key that falls to 0 goes."""
+    for K, parts in counts.items():
+        for j, (live, part) in enumerate(zip(_live(K), parts)):
+            for key, n in part.items():
+                v = live.get(key, 0) + n * times
+                if v or j == 0:
+                    live[key] = v
+                else:
+                    live.pop(key, None)
 
 
 def empty(counts: dict) -> bool:
-    return not any(e or s for e, s in counts.values())
+    return not any(any(parts) for parts in counts.values())

@@ -41,7 +41,7 @@ Dispatch is by the tensors' device: CUDA tensors launch the kernels in
 bound with ctypes) or raise; CPU tensors take the plain versions
 (``*_plain``), which the tests and ``chip_smoke.py`` also use as the
 reference.  ``launches`` counts kernel launches per entry (a CUDA
-graph's replays as ``solve.driver.JitLoop`` adds them; the window
+graph's replays as ``solve.loop_graph.StepGraph`` adds them; the window
 entries as ``"window"`` and ``"df64_window"``), ``launches_by_shape`` per
 (entry, values dtype, rows, nnz); a block operator keeps its whole
 operator's rows and nnz.

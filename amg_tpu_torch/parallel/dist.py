@@ -41,15 +41,19 @@ import torch.distributed as dist
 
 from ..hierarchy import (Hierarchy, Level, _pick_format, resolve_device,
                          setup)
+from ..ops import launch_counts
 from ..ops.blas import norm2
 from ..ops.spmv import spmv
 from ..params import AMGParams, SolveInfo
 from ..solve.cycle import cycle
 from ..solve.driver import print_itinfo
+from ..solve.loop_graph import StepGraphs
 from ..sparse import BandedBlocks, Dense, Dia, Ell, WEll, torch_dtype
 
 # collectives over every call: psum calls, all_gather calls
 counts = {"psum": 0, "all_gather": 0}
+# a captured step's replays add its collectives to the counts
+launch_counts.COUNTERS.append(counts)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -384,7 +388,9 @@ class DistAMGSolver:
     Ell through the all-gather product).  Like ``amg_tpu``'s, this solver
     runs no Krylov acceleration: ``pars.accel`` is not read.  The mesh
     defaults to one shard per process on the card; pass
-    ``mesh=make_mesh(D, device="cpu")`` for the CPU.
+    ``mesh=make_mesh(D, device="cpu")`` for the CPU.  The steps' route
+    (``steps``) follows :class:`~.spmd_cycle.SpmdAMGSolver`'s: step graphs
+    on a mesh held by one process, eager steps in a process group.
     """
 
     def __init__(self, a, pars: AMGParams = AMGParams(),
@@ -419,14 +425,16 @@ class DistAMGSolver:
                 hi = Ell.from_csr(hh.a[0], **kw)
             self.a0_hi = hi if self.Es < 0 else shard_matrix(hi, self.mesh,
                                                              gspmd=True)
+        self.steps = StepGraphs(self.mesh.device,
+                                eager=self.mesh.group is not None)
         if pars.verbose:
             if self.Es < 0:
                 log(f"{self.mesh.describe()}; every level replicated "
-                    f"(GSPMD)")
+                    f"(GSPMD); steps: {self.steps.describe()}")
             else:
                 log(f"{self.mesh.describe()}; levels 0..{self.Es} "
                     f"row-sharded (GSPMD), {self.pad // self.ndev} rows "
-                    f"per shard")
+                    f"per shard; steps: {self.steps.describe()}")
 
     # -- device pieces ---------------------------------------------------
 
@@ -491,7 +499,7 @@ class DistAMGSolver:
 
     # -- solves ------------------------------------------------------------
 
-    def _loop(self, b, x0, dtype, step, k, refined):
+    def _loop(self, b, x0, dtype, name, fn, k, refined, eager):
         from .spmd_cycle import cycle_host_loop
 
         pars = self.pars
@@ -508,23 +516,27 @@ class DistAMGSolver:
             print_itinfo(pars.stop_type, 0, 1.0, sumb, 0.0, log=self.log)
         if refined:
             info.residuals.append(sumb)
+        step = self.steps.step(name, fn, 1, pars, eager)
         xd = cycle_host_loop(pars, sumb, xd, lambda x: step(x, bd), info,
                              k=k, log=self.log)
         info.solve_seconds = time.perf_counter() - t0
         info.setup_seconds = self.host_hierarchy.setup_seconds
         return self._unshard(xd), info
 
-    def solve_refined(self, b, x0=None):
+    def solve_refined(self, b, x0=None, eager=False):
         """Sharded mixed-precision defect correction (``dist.py:340-394``):
         ``refine_inner_cycles`` cycles in the solve dtype per f64 residual
         update until the f64 relative residual meets ``tol``;
-        ``info.nits`` counts cycles."""
-        return self._loop(b, x0, torch.float64, self._refine_step,
-                          max(self.pars.refine_inner_cycles, 1), True)
+        ``info.nits`` counts cycles.  ``eager`` runs the steps as they
+        are on any mesh."""
+        return self._loop(b, x0, torch.float64, "refine", self._refine_step,
+                          max(self.pars.refine_inner_cycles, 1), True, eager)
 
-    def solve(self, b, x0=None):
+    def solve(self, b, x0=None, eager=False):
         """Host loop over cycles (``dist.py:396-436``); runs
-        :meth:`solve_refined` when the solver holds ``a0_hi``."""
+        :meth:`solve_refined` when the solver holds ``a0_hi``.  ``eager``
+        runs the steps as they are on any mesh."""
         if self.a0_hi is not None:
-            return self.solve_refined(b, x0)
-        return self._loop(b, x0, self.dtype, self._step, 1, False)
+            return self.solve_refined(b, x0, eager)
+        return self._loop(b, x0, self.dtype, "cycle", self._step, 1, False,
+                          eager)

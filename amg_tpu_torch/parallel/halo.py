@@ -46,7 +46,8 @@ transfers).
 them ``well_products`` and ``banded_products``), all-gather products
 (``gather_products``), the x bytes that shard
 windows take from other shards (``halo_bytes``, 0 at the mesh edges) and
-the messages and bytes sent between processes (``p2p``, ``p2p_bytes``).
+the messages and bytes sent between processes (``p2p``, ``p2p_bytes``);
+a replayed CUDA graph adds those of its capture.
 """
 
 from __future__ import annotations
@@ -56,7 +57,7 @@ import dataclasses
 import torch
 import torch.distributed as dist
 
-from ..ops import dia_kernel, well_kernel
+from ..ops import dia_kernel, launch_counts, well_kernel
 from ..ops.spmv import banded_window_product, spmv
 from ..sparse import BandedBlocks, Dense, Dia, WEll
 from .dist import (Mesh, local_rows, shard_banded, shard_dia, shard_vector,
@@ -64,6 +65,8 @@ from .dist import (Mesh, local_rows, shard_banded, shard_dia, shard_vector,
 
 counts = {"products": 0, "well_products": 0, "banded_products": 0,
           "gather_products": 0, "halo_bytes": 0, "p2p": 0, "p2p_bytes": 0}
+# a captured step's replays add its products to the counts
+launch_counts.COUNTERS.append(counts)
 
 
 def dia_halo_widths(offsets) -> tuple[int, int]:

@@ -55,7 +55,7 @@ from ..ops.blas import norm2
 from ..ops.spmv import spmv
 from ..solve.cycle import _cycle_level
 from ..solve.driver import fcg_host_loop, print_itinfo
-from ..solve.krylov import fcg_init, fcg_step, fcg_refresh
+from ..solve.loop_graph import StepGraphs
 from ..solve.smoothers import _order, _cg_smooth
 from .dist import (Mesh, level0_perms, local_rows, make_mesh, shard_dia,
                    shard_hierarchy, shard_vector)
@@ -432,6 +432,13 @@ class SpmdAMGSolver:
     sharded).  The rest is replicated.  The mesh defaults to one shard per
     process on the card; pass ``mesh=make_mesh(D, device="cpu")`` for the
     CPU.
+
+    The route of the steps (``steps``) is fixed by the mesh: on a mesh
+    whose shards all sit in this process (no process group) each cycle
+    step and FCG step is a step graph (a CUDA graph replayed on the card:
+    its psums are local sums and its halos local slices, no collective);
+    in a process group the steps run eagerly, since their ``all_reduce``,
+    ``all_gather`` and halo messages are not captured.
     """
 
     def __init__(self, a, pars: AMGParams = AMGParams(),
@@ -484,15 +491,19 @@ class SpmdAMGSolver:
                     device=self.mesh.device), self.mesh)
         self._accel_dtype = torch.float64 if self.a0_hi is not None \
             else self.dtype
+        self.steps = StepGraphs(self.mesh.device,
+                                eager=self.mesh.group is not None)
         if pars.verbose:
             if self.E:
                 log(f"{self.mesh.describe()}; levels 0..{self.E} "
-                    f"row-sharded, {self.m_local} rows per shard")
+                    f"row-sharded, {self.m_local} rows per shard; steps: "
+                    f"{self.steps.describe()}")
             else:
                 log(f"{self.mesh.describe()}; levels 0..{self.Es} "
                     f"row-sharded (general mode, "
                     f"{'ring-R' if self.ring_r else 'all-gather'} "
-                    f"boundary), {self.m_local} rows per shard")
+                    f"boundary), {self.m_local} rows per shard; steps: "
+                    f"{self.steps.describe()}")
 
     def _init_general(self, mg, hh, hi: bool):
         """The general mode's placement (``spmd_cycle.py:635-750``): levels
@@ -585,12 +596,13 @@ class SpmdAMGSolver:
 
     # -- solves ------------------------------------------------------------
 
-    def solve(self, b, x0=None):
+    def solve(self, b, x0=None, eager=False):
         """Host loop over SPMD cycles (``AMGSolver.solve``'s stopping
-        rules); runs :meth:`solve_pcg` when ``pars.accel == "cg"``."""
+        rules); runs :meth:`solve_pcg` when ``pars.accel == "cg"``.
+        ``eager`` runs the steps as they are on any mesh."""
         pars = self.pars
         if pars.accel == "cg":
-            return self.solve_pcg(b, x0)
+            return self.solve_pcg(b, x0, eager)
         if pars.accel != "none":
             raise NotImplementedError(f"accel={pars.accel!r} on the SPMD "
                                       "solver (amg_tpu has none either)")
@@ -604,16 +616,18 @@ class SpmdAMGSolver:
             print_itinfo(pars.stop_type, 0, 1.0, sumb, 0.0, log=self.log)
         if sumb == 0.0:
             return np.zeros(n), info
-        xd = cycle_host_loop(pars, sumb, xd, lambda x: self._step(x, bd),
-                             info, log=self.log)
+        step = self.steps.step("cycle", self._step, 1, pars, eager)
+        xd = cycle_host_loop(pars, sumb, xd, lambda x: step(x, bd), info,
+                             log=self.log)
         info.solve_seconds = time.perf_counter() - t0
         info.setup_seconds = self.host_hierarchy.setup_seconds
         return self._unshard(xd), info
 
-    def solve_pcg(self, b, x0=None):
+    def solve_pcg(self, b, x0=None, eager=False):
         """Flexible CG preconditioned by one SPMD cycle: ``psum`` dots, and
         in f64 against the row-sharded f64 level-0 operator when
-        ``pars.refine`` (``amg_tpu``'s robust multi-chip mode)."""
+        ``pars.refine`` (``amg_tpu``'s robust multi-chip mode).  ``eager``
+        runs the steps as they are on any mesh."""
         pars = self.pars
         n = self.a.n_rows
         adt = self._accel_dtype
@@ -627,16 +641,8 @@ class SpmdAMGSolver:
             print_itinfo(pars.stop_type, 0, 1.0, sumb, 0.0, log=self.log)
         if sumb == 0.0:
             return np.zeros(n), info
-        st = fcg_init(self._amul, self._prec, bd, xd, psum)
-        absres0 = float(norm2(st[1], psum))
-        info.residuals.append(absres0)
-        xd = fcg_host_loop(
-            pars, sumb, st, absres0,
-            step=lambda s: fcg_step(self._amul, self._prec, s, psum),
-            refresh=lambda s: fcg_refresh(self._amul, self._prec, bd, s,
-                                          psum),
-            truenorm=lambda x: norm2(bd - self._amul(x), psum),
-            info=info, log=self.log)
+        xd = fcg_host_loop(pars, sumb, self._amul, self._prec, bd, xd, info,
+                           self.steps, psum, eager, log=self.log)
         info.solve_seconds = time.perf_counter() - t0
         info.setup_seconds = self.host_hierarchy.setup_seconds
         return self._unshard(xd), info

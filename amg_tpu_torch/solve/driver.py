@@ -9,8 +9,13 @@ Replicates the reference's two-layer driver:
   table (``SSS_print_itinfo``, amg/SSS_utils.c:104-133) with identical
   formatting.
 
-PyTorch runs eagerly, so the cycle is plain Python over device tensors on
-the solver's ``device`` (the card unless the caller asks for the CPU).
+The cycle is plain Python over device tensors on the solver's ``device``
+(the card unless the caller asks for the CPU).  ``amg_tpu`` compiles each
+step of a host loop (a cycle and its residual norm, a defect-correction
+step, an FCG iteration, a batched cycle) into one XLA program; here each
+is a :class:`~.loop_graph.StepGraph`, on the card a CUDA graph captured
+at an entry's first call and replayed by every step of later calls, on
+the CPU the same static buffers run eagerly.
 :meth:`AMGSolver.solve` is the host loop of the reference; with
 ``pars.accel == "cg"`` it runs :meth:`AMGSolver.solve_pcg` (flexible CG
 preconditioned by one cycle, in f64 with ``pars.refine``), with
@@ -38,13 +43,12 @@ import torch
 from ..params import AMGParams, SolveInfo, StopType, MAX_RESTART
 from ..sparse import CSR, Dia, Dense, Ell, WEll, torch_dtype
 from ..hierarchy import setup, _pick_format, resolve_device
-from ..ops import launch_counts
 from ..ops.spmv import spmv
 from ..ops.blas import norm2
 from .cycle import cycle
 from . import krylov
 from .krylov import GMRESLoop, fcg_init, fcg_step, fcg_refresh
-from .loop_graph import LoopGraph, no_collector, run_plain, settle
+from .loop_graph import LoopGraph, StepGraph, StepGraphs, run_plain, settle
 
 
 def print_itinfo(stop_type, it, relres, absres, factor, log=print):
@@ -64,18 +68,42 @@ def print_itinfo(stop_type, it, relres, absres, factor, log=print):
         log("%6d | %13.6e   | %13.6e  |     -.-- " % (it, relres, absres))
 
 
-def fcg_host_loop(pars, sumb, st, absres0, step, refresh, truenorm,
-                  info, log=print):
+def _flat(step_out):
+    """``(state, absres)`` -> ``(*state, absres)``."""
+    state, absres = step_out
+    return (*state, absres)
+
+
+def fcg_host_loop(pars, sumb, amul, prec, b, x0, info, steps, psum=None,
+                  eager=False, log=print):
     """FCG host loop: batched residual fetches, replacement of the
     recursive residual every 10 iterations, and a truth check on the exact
     stopping iterate before convergence is accepted (reference
     false-convergence Check III, amg/Solve/SSS_cycle.cu:311-355); the
     loop of ``amg_tpu.solve.driver.fcg_host_loop``.
 
-    ``step(st) -> (st, absres)``; ``refresh(st) -> (st, absres)`` replaces
-    the recursive residual with ``b - A x``; ``truenorm(x) -> absres``.
-    Mutates ``info``; returns the device solution.
+    FCG of ``amul`` preconditioned by ``prec`` on ``b`` from ``x0``
+    (``psum``: row-sharded vectors, every dot and norm the mesh's): the
+    initial state is made once, eagerly; the step, the residual
+    replacement (``r = b - A x``) and the true residual norm run as the
+    steps ``fcg``, ``fcg_refresh`` and ``fcg_true`` of ``steps`` (the
+    solver's :class:`~.loop_graph.StepGraphs`; ``eager``: as they are),
+    over the state ``(x, r, z, p, rho)``.  Appends ``||r0||`` to
+    ``info.residuals`` and fills ``info``; returns the device solution.
     """
+    st = fcg_init(amul, prec, b, x0, psum)
+    absres0 = float(norm2(st[1], psum))
+    info.residuals.append(absres0)
+    step = steps.step(
+        "fcg", lambda *s: _flat(fcg_step(amul, prec, s, psum)), 5, pars,
+        eager)
+    refresh = steps.step(
+        "fcg_refresh",
+        lambda *s: _flat(fcg_refresh(amul, prec, s[5], s[:5], psum)), 5,
+        pars, eager)
+    truenorm = steps.step(
+        "fcg_true", lambda x, bb: (norm2(bb - amul(x), psum),), 0, pars,
+        eager)
     check_every = 1 if pars.verbose else 4
     refresh_every = 10
     false_conv_left = 3
@@ -85,9 +113,9 @@ def fcg_host_loop(pars, sumb, st, absres0, step, refresh, truenorm,
     it = 0
     while it < pars.max_it:
         it += 1
-        st, absres_d = step(st)
+        *st, absres_d = step(*st)
         if it % refresh_every == 0:
-            st, absres_d = refresh(st)
+            *st, absres_d = refresh(*st, b)
         pending.append((it, st[0], absres_d))
         if len(pending) >= check_every or it == pars.max_it:
             # one device-to-host copy for the whole batch
@@ -117,7 +145,7 @@ def fcg_host_loop(pars, sumb, st, absres0, step, refresh, truenorm,
             if converged and not stop:
                 # verify on the exact stopping iterate: the recursive
                 # residual can flatter the truth by eps*kappa
-                true_abs = float(truenorm(xd))
+                true_abs = float(truenorm(xd, b)[0])
                 true_rel = true_abs / sumb
                 if true_rel < pars.tol or false_conv_left == 0:
                     info.ares, info.rres = true_abs, true_rel
@@ -128,7 +156,7 @@ def fcg_host_loop(pars, sumb, st, absres0, step, refresh, truenorm,
                     # before the next check
                     info.ares, info.rres = true_abs, true_rel
                     absres0 = true_abs
-                    st, _ = refresh(st)
+                    *st, _ = refresh(*st, b)
                     if pars.verbose:
                         log("### WARNING: false convergence "
                             f"(true relres {true_rel:.3e}); "
@@ -159,20 +187,14 @@ class JitLoop:
     in ``cont``.  The host runs steps in blocks of :data:`JIT_BLOCK` and
     reads ``cont`` once per block.
 
-    With ``graph`` (a CUDA device) the step is captured once in a
-    ``torch.cuda.CUDAGraph`` and every step is one replay; otherwise the
-    same masked step runs eagerly.  A capture runs two eager warm-up steps
-    on scratch copies of the state first, on a side stream: the first
-    builds the kernels and makes their first-use tensors (B1's read
-    plans), the second runs under ``torch.cuda.set_sync_debug_mode(
-    "error")``, so a step that reads the host raises.  The kernel wrappers
-    count a launch when they are called, which during a capture launches
-    nothing; the capture's counts are taken back and each replay adds
-    them (``per_step``).
+    With ``graph`` (a CUDA device) the masked step is a
+    :class:`~.loop_graph.StepGraph` on the loop's buffers (in ``pool``),
+    captured once, and every step is one replay; otherwise the same
+    masked step runs eagerly.
     """
 
     def __init__(self, device, dtype, pad: int, max_it: int, tol: float,
-                 graph: bool):
+                 graph: bool, pool=None):
         self.max_it = max_it
         self.tol = tol
         kw = dict(dtype=dtype, device=device)
@@ -183,11 +205,7 @@ class JitLoop:
         self.sumb = torch.zeros((), **kw)
         self.hist = torch.full((max_it + 1,), float("nan"), **kw)
         self.cont = torch.zeros((), dtype=torch.bool, device=device)
-        self.use_graph = graph
-        self.graph = None
-        self.per_step = None        # kernel launches of one replay
-        self.capture_seconds = 0.0
-        self.embedded = ()          # KRYLOV coarsest solves in the graph
+        self.step_graph = StepGraph(self.state, 0, pool) if graph else None
         self.blocks = 0             # of the last run
         self.host_reads = 0         # of the last run
 
@@ -195,6 +213,21 @@ class JitLoop:
     def state(self):
         return (self.x, self.b, self.it, self.absres, self.sumb, self.hist,
                 self.cont)
+
+    @property
+    def graph(self):
+        """The captured ``torch.cuda.CUDAGraph`` (None before the first
+        run, and on the eager route)."""
+        return self.step_graph.graph if self.step_graph else None
+
+    @property
+    def per_step(self):
+        """Kernel launches of one replay."""
+        return self.step_graph.per_step
+
+    @property
+    def capture_seconds(self) -> float:
+        return self.step_graph.build_seconds if self.step_graph else 0.0
 
     def _go_on(self, it, absres, sumb):
         return (it < self.max_it) & (absres / sumb >= self.tol)
@@ -222,50 +255,22 @@ class JitLoop:
         self.hist[:1].copy_(self.sumb.reshape(1))
         self.cont.copy_(self._go_on(self.it, self.absres, self.sumb))
 
-    def capture(self, step):
-        """Warm up and capture the masked step on the static buffers."""
-        t0 = time.perf_counter()
-        with torch.cuda.device(self.x.device):
-            scratch = [t.clone() for t in self.state]
-            side = torch.cuda.Stream()
-            side.wait_stream(torch.cuda.current_stream())
-            with torch.cuda.stream(side):
-                self.masked_step(step, *scratch)
-                mode = torch.cuda.get_sync_debug_mode()
-                torch.cuda.set_sync_debug_mode("error")
-                try:
-                    self.masked_step(step, *scratch)
-                finally:
-                    torch.cuda.set_sync_debug_mode(mode)
-            torch.cuda.current_stream().wait_stream(side)
-            before = launch_counts.snapshot()
-            graph = torch.cuda.CUDAGraph()
-            with no_collector(), torch.cuda.graph(graph):
-                self.masked_step(step, *self.state)
-            self.per_step = launch_counts.delta(before,
-                                                launch_counts.snapshot())
-            launch_counts.add(self.per_step, -1)
-            torch.cuda.synchronize()
-        self.graph = graph
-        self.capture_seconds = time.perf_counter() - t0
-
     def run(self, step):
         """Blocks of :data:`JIT_BLOCK` steps until the stop condition,
         one host read of ``cont`` before each block."""
-        if self.use_graph and self.graph is None:
-            self.capture(step)
+        def masked(*state):
+            self.masked_step(step, *state)
+
         self.blocks = self.host_reads = 0
         for _ in range(-(-self.max_it // JIT_BLOCK) + 1):
             self.host_reads += 1
             if not bool(self.cont):
                 break
             for _ in range(JIT_BLOCK):
-                if self.graph is not None:
-                    self.graph.replay()
+                if self.step_graph is not None:
+                    self.step_graph.run(masked, *self.state)
                 else:
-                    self.masked_step(step, *self.state)
-            if self.graph is not None:
-                launch_counts.add(self.per_step, JIT_BLOCK)
+                    masked(*self.state)
             self.blocks += 1
 
 
@@ -334,6 +339,9 @@ class AMGSolver:
         # FCG runs in f64 around the f32 cycle when refining
         self._accel_dtype = (torch.float64 if self.a0_hi is not None
                              else self.dtype)
+        # the step graphs of solve, solve_refined, solve_pcg and
+        # solve_batched, each made on its entry's first call
+        self.steps = StepGraphs(self.device)
         # solve_jit's loop, made on its first call
         self.jit_loop = None
         self._jit_key = None
@@ -420,14 +428,21 @@ class AMGSolver:
         x = xd[..., : self.a.n_rows].cpu().numpy().T
         return x[self._iperm0] if self._iperm0 is not None else x
 
-    def solve(self, b, x0=None) -> tuple[np.ndarray, SolveInfo]:
-        """Host-loop solve with live residual table (reference parity)."""
+    def solve(self, b, x0=None, eager=False) -> tuple[np.ndarray, SolveInfo]:
+        """Host-loop solve with live residual table (reference parity).
+
+        Each step (a cycle and its residual norm) is one replay of the
+        step's CUDA graph on the card, built on the first call and
+        replayed by later calls with the same ``pars`` and shapes; on the
+        CPU it runs eagerly on the same static buffers; ``eager`` runs it
+        as it is, on fresh tensors.  The three routes give the same
+        iterations, residuals and x bit for bit."""
         if self.pars.accel == "cg":
-            return self.solve_pcg(b, x0)
+            return self.solve_pcg(b, x0, eager)
         if self.pars.accel == "gmres":
             return self.solve_pgmres(b, x0)
         if self.a0_hi is not None:
-            return self.solve_refined(b, x0)
+            return self.solve_refined(b, x0, eager)
         pars = self.pars
         n = self.a.n_rows
         bd = self._pad_vec(b)
@@ -451,8 +466,9 @@ class AMGSolver:
         mod_rel = pars.stop_type == StopType.MOD_REL_RES
         pending: list = []  # (it, device x, device absres)
         stop = False
+        step = self.steps.step("cycle", self._step, 1, pars, eager)
         for it in range(1, pars.max_it + 1):
-            xd, absres_d = self._step(xd, bd)
+            xd, absres_d = step(xd, bd)
             pending.append((it, xd, absres_d))
             if len(pending) >= check_every or it == pars.max_it:
                 vals = torch.stack([r for _, _, r in pending]).cpu().numpy()
@@ -498,11 +514,13 @@ class AMGSolver:
             self.log(f"AMG solve time: {info.solve_seconds:g} s")
         return self._unpad_vec(xd), info
 
-    def solve_refined(self, b, x0=None) -> tuple[np.ndarray, SolveInfo]:
+    def solve_refined(self, b, x0=None, eager=False
+                      ) -> tuple[np.ndarray, SolveInfo]:
         """Mixed-precision defect correction: k low-precision cycles per
         f64 residual update, iterated until the f64 relative residual
         meets ``tol``.  ``info.nits`` counts cycles for comparability with
-        :meth:`solve`."""
+        :meth:`solve`.  Each outer step is a step graph on the card (see
+        :meth:`solve`; ``eager`` as there)."""
         pars = self.pars
         n = self.a.n_rows
         k = max(pars.refine_inner_cycles, 1)
@@ -527,8 +545,9 @@ class AMGSolver:
         check_every = 1 if pars.verbose else 2
         pending: list = []  # (outer, device x, device absres)
         stop = False
+        step = self.steps.step("refine", self._refine_step, 1, pars, eager)
         for outer in range(1, max_outer + 1):
-            x_hi, absres_d = self._refine_step(x_hi, b_hi)
+            x_hi, absres_d = step(x_hi, b_hi)
             pending.append((outer, x_hi, absres_d))
             if len(pending) < check_every and outer != max_outer:
                 continue
@@ -562,13 +581,16 @@ class AMGSolver:
             self.log(f"AMG solve time: {info.solve_seconds:g} s")
         return self._unpad_vec(x_hi), info
 
-    def solve_pcg(self, b, x0=None) -> tuple[np.ndarray, SolveInfo]:
+    def solve_pcg(self, b, x0=None, eager=False
+                  ) -> tuple[np.ndarray, SolveInfo]:
         """AMG-preconditioned flexible CG (``pars.accel == "cg"``).
 
         Each iteration applies one AMG cycle (in ``pars.dtype``) as the
         preconditioner inside an FCG iteration running in f64 when
         ``pars.refine`` is set (mixed precision), else in ``pars.dtype``.
-        ``info.nits`` counts FCG iterations (= cycles).
+        ``info.nits`` counts FCG iterations (= cycles).  The FCG step, the
+        residual replacement and the true residual norm are step graphs
+        on the card (:func:`fcg_host_loop`; ``eager`` as in :meth:`solve`).
         """
         pars = self.pars
         n = self.a.n_rows
@@ -585,15 +607,8 @@ class AMGSolver:
         if sumb == 0.0:
             return np.zeros(n), info
 
-        st = fcg_init(self._amul, self._prec, bd, xd)
-        absres0 = float(norm2(st[1]))
-        info.residuals.append(absres0)
-        xd = fcg_host_loop(
-            pars, sumb, st, absres0,
-            step=lambda s: fcg_step(self._amul, self._prec, s),
-            refresh=lambda s: fcg_refresh(self._amul, self._prec, bd, s),
-            truenorm=lambda x: norm2(bd - self._amul(x)),
-            info=info, log=self.log)
+        xd = fcg_host_loop(pars, sumb, self._amul, self._prec, bd, xd, info,
+                           self.steps, eager=eager, log=self.log)
         info.solve_seconds = time.perf_counter() - t0
         info.setup_seconds = self.host_hierarchy.setup_seconds
         if pars.verbose:
@@ -655,8 +670,6 @@ class AMGSolver:
                 graph = LoopGraph(loop.program, self.device,
                                   restore=(loop.work,))
                 graph.build()
-                # the KRYLOV coarsest solves whose nodes the step holds
-                graph.embedded = tuple(self.mg.krylov.values())
                 self.pgmres_graph = graph
                 self.pgmres_builds += 1
                 if pars.verbose:
@@ -679,7 +692,7 @@ class AMGSolver:
             self.log(f"AMG solve time: {info.solve_seconds:g} s")
         return self._unpad_vec(xd), info
 
-    def solve_batched(self, bs, x0s=None, tol=None
+    def solve_batched(self, bs, x0s=None, tol=None, eager=False
                       ) -> tuple[np.ndarray, SolveInfo]:
         """Solve ``A X = B`` for many right-hand sides with ONE hierarchy
         (``amg_tpu.solve.driver.AMGSolver.solve_batched``).
@@ -693,7 +706,9 @@ class AMGSolver:
         correction and no Krylov wrap (``pars.refine``/``accel`` are
         ignored, as in ``amg_tpu``).  Returns ``(X (n, k), SolveInfo)``
         with ``info.residuals`` the per-iteration worst column and
-        ``info.rres``/``ares`` the worst column at the end.
+        ``info.rres``/``ares`` the worst column at the end.  Each
+        iteration is a step graph on the card (see :meth:`solve`; ``eager``
+        as there), made anew for another k.
         """
         pars = self.pars
         tol = pars.tol if tol is None else tol
@@ -712,8 +727,9 @@ class AMGSolver:
                           .astype(np.float64), 1e-300)
         t0 = time.perf_counter()
         nits = 0
+        step = self.steps.step("batched", self._step, 1, pars, eager)
         for it in range(1, pars.max_it + 1):
-            xd, res_d = self._step(xd, bd)
+            xd, res_d = step(xd, bd)
             res = res_d.reshape(k).cpu().numpy().astype(np.float64)
             rel = res / sumb
             nits = it
@@ -744,27 +760,24 @@ class AMGSolver:
         ``info.residuals`` is ``||b||`` and then each cycle's residual.
 
         On the card the masked step is a CUDA graph, captured on the first
-        call and replayed by every later one (:class:`JitLoop`); a KRYLOV
-        coarsest solve is its own graph of while and if nodes, added to
-        the step's.  On the CPU the loop runs eagerly."""
+        call and replayed by every later one (:class:`JitLoop`), in the
+        pool of the solver's step graphs; a KRYLOV coarsest solve is its
+        own graph of while and if nodes, added to the step's.  On the CPU
+        the loop runs eagerly."""
         pars = self.pars
         n = self.a.n_rows
         key = (self.device, self.dtype, self.pad, pars.max_it, pars.tol)
         loop = self.jit_loop
         if loop is None or self._jit_key != key:
             loop = JitLoop(self.device, self.dtype, self.pad, pars.max_it,
-                           pars.tol, self.device.type == "cuda")
+                           pars.tol, self.device.type == "cuda",
+                           self.steps.memory_pool())
             self.jit_loop, self._jit_key = loop, key
         bd = self._pad_vec(b)
         xd = self._pad_vec(x0 if x0 is not None else np.zeros(n))
         t0 = time.perf_counter()
         loop.load(xd, bd)
-        captured = loop.graph is not None
         loop.run(self._step)
-        if loop.graph is not None and not captured:
-            # the step's graph holds the nodes of the KRYLOV coarsest
-            # graphs it captured, which run on their pools: keep them
-            loop.embedded = tuple(self.mg.krylov.values())
         info = SolveInfo()
         info.nits = int(loop.it)
         info.ares = float(loop.absres)

@@ -33,6 +33,12 @@ device.  :func:`settle` adds them, runs times, to the kernel modules'
 counters (one host read per graph): whoever reads the counters calls it
 just after the run it measures, and before setting them to 0.  There is
 no fallback: a failure to build, capture or instantiate raises.
+
+:class:`StepGraph` is the other kind of program here: one step of a host
+loop (a cycle and its residual norm, an FCG iteration), the counterpart
+of one ``jax.jit`` program of ``amg_tpu``, on static buffers, captured
+once on the card and replayed by every later step; :class:`StepGraphs`
+keeps a solver's step graphs, keyed, in one memory pool.
 """
 
 from __future__ import annotations
@@ -97,6 +103,22 @@ _pending: "weakref.WeakSet[LoopGraph]" = weakref.WeakSet()
 # launches of LoopGraphs, and the nodes that add_to_capture placed below
 # the top level of a graph being captured, over the process
 _tally = {"launches": 0, "nested_nodes": 0}
+# one list per capture in progress that keeps what its graph holds: the
+# LoopGraphs that add_to_capture placed in it
+_keepers: list = []
+
+
+@contextlib.contextmanager
+def keeping_added():
+    """Collect the LoopGraphs that :meth:`LoopGraph.add_to_capture` adds
+    inside (their nodes run on their pools and buffers: a graph holding
+    them keeps them alive)."""
+    kept: list = []
+    _keepers.append(kept)
+    try:
+        yield kept
+    finally:
+        _keepers.pop()
 
 
 @contextlib.contextmanager
@@ -111,6 +133,20 @@ def no_collector():
     finally:
         if enabled:
             gc.enable()
+
+
+@contextlib.contextmanager
+def host_syncs_raise():
+    """Inside, a call that synchronises with the host raises
+    (``torch.cuda.set_sync_debug_mode("error")``): an eager run of a
+    segment or step under it proves that it reads nothing from the host
+    before it is captured."""
+    mode = torch.cuda.get_sync_debug_mode()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        yield
+    finally:
+        torch.cuda.set_sync_debug_mode(mode)
 
 
 def settle():
@@ -131,8 +167,8 @@ class LoopGraph:
     child graphs), ``direct`` (segments captured into their place),
     ``build_seconds`` (warm-up, captures and instantiation),
     ``pool_bytes`` (device memory the captures took).  ``embedded``
-    holds what the caller must keep alive with the graph (the KRYLOV
-    coarsest solves whose nodes a captured cycle added)."""
+    holds the graphs whose nodes a segment captured in place added (the
+    KRYLOV coarsest solves of a captured cycle), kept alive with it."""
 
     def __init__(self, prog, device, restore=()):
         self.prog = tuple(prog)
@@ -157,16 +193,12 @@ class LoopGraph:
             saved = [t.clone() for t in self.restore]
             for seg in self.segs:
                 seg()
-            mode = torch.cuda.get_sync_debug_mode()
-            torch.cuda.set_sync_debug_mode("error")
-            try:
+            with host_syncs_raise():
                 for seg in self.segs:
                     launched = _tally["launches"]
                     seg()
                     if _tally["launches"] != launched:
                         self.direct.add(seg)
-            finally:
-                torch.cuda.set_sync_debug_mode(mode)
             for t, v in zip(self.restore, saved):
                 t.copy_(v)
 
@@ -262,7 +294,9 @@ class LoopGraph:
             self.runs[i: i + 1].add_(1)
 
         self.holds += 1
-        g.capture(run, stream, self.pool)
+        with keeping_added() as kept:
+            g.capture(run, stream, self.pool)
+        self.embedded += tuple(kept)
         self._count(seg, i, before)
         g.nodes += _tally["nested_nodes"] - nested
 
@@ -283,6 +317,8 @@ class LoopGraph:
         self._emit(g, self.prog)
         g.continue_capture(stream)
         _tally["nested_nodes"] += g.nodes - g.top
+        if _keepers:
+            _keepers[-1].append(self)
 
     def settle(self):
         """Add this graph's kernel launches since its last settle to the
@@ -310,3 +346,173 @@ class LoopGraph:
             self.close()
         except Exception:       # noqa: BLE001  (interpreter shutdown)
             pass
+
+
+class StepGraph:
+    """One step of a host loop on static buffers ``args``: on the card a
+    CUDA graph, captured at the first :meth:`run` and replayed by every
+    later one; on the CPU the same step, run eagerly on the same buffers.
+
+    A step ``fn(*args)`` returns ``(*state, *results)``: the first
+    ``n_state`` arguments are its state, which the new state replaces in
+    place (no new state aliases another state buffer), and the results go
+    to buffers of their own.  :meth:`run` copies its arguments into the
+    buffers, except those already there (the buffer itself, the state the
+    last run handed back, an argument given again: a right-hand side),
+    runs the step and hands back copies of the new state and the results,
+    so that a caller may keep the iterates of several steps.
+
+    The capture runs two eager steps on copies of the buffers first, on a
+    side stream: the first builds the kernels and makes their first-use
+    tensors (B1's read plans, the KRYLOV coarsest graphs), the second runs
+    under ``torch.cuda.set_sync_debug_mode("error")``, so a step that
+    reads the host raises.  The capture runs with the cyclic collector off
+    (:func:`no_collector`) into ``pool`` (shared by a solver's graphs,
+    which never run at once and keep nothing in it between steps); the
+    kernel launches and ring counts it made are taken back and added again
+    at every replay (``per_step``); the LoopGraphs whose nodes it added
+    are kept alive (``embedded``).  There is no fallback: a failed capture
+    raises.  After it: ``build_seconds`` (warm-ups, capture and
+    instantiation), ``pool_bytes`` (device memory the capture took from
+    the pool), ``nodes``; ``replays`` counts the replays.
+    """
+
+    def __init__(self, args, n_state: int, pool=None):
+        self.args = tuple(args)
+        self.n_state = n_state
+        self.pool = pool
+        self.results = None
+        self.graph = None
+        self.per_step = None        # kernel launches and ring counts
+        self.embedded = ()
+        self.build_seconds = 0.0
+        self.pool_bytes = 0
+        self.nested_nodes = 0
+        self.replays = 0
+        self._held = (None,) * len(self.args)
+
+    @property
+    def nodes(self) -> int:
+        """The graph's nodes, those that LoopGraphs added below its top
+        level included (``krylov_small.cu`` counts them)."""
+        return (krylov_small.graph_nodes(self.graph.raw_cuda_graph())
+                + self.nested_nodes)
+
+    def _apply(self, fn, args, results):
+        """One step on ``args`` in place; the results into ``results``
+        (made here when None).  Returns the results' buffers."""
+        outs = fn(*args) or ()
+        n = self.n_state
+        if results is None:
+            results = tuple(torch.empty_like(o) for o in outs[n:])
+        for t, o in zip(args[:n] + results, outs):
+            t.copy_(o)
+        return results
+
+    def run(self, fn, *args):
+        """One step of ``fn`` from ``args``: copies of the new state and of
+        the results."""
+        for buf, a, held in zip(self.args, args, self._held):
+            if a is not buf and a is not held:
+                buf.copy_(a)
+        if self.args[0].is_cuda:
+            if self.graph is None:
+                self._capture(fn)
+            self.graph.replay()
+            self.replays += 1
+            launch_counts.add(self.per_step, 1)
+        else:
+            self.results = self._apply(fn, self.args, self.results)
+        n = self.n_state
+        out = tuple(t.clone() for t in self.args[:n] + self.results)
+        self._held = out[:n] + args[n:]
+        return out
+
+    def _capture(self, fn):
+        t0 = time.perf_counter()
+        dev = self.args[0].device
+        with torch.cuda.device(dev), no_collector():
+            scratch = tuple(t.clone() for t in self.args)
+            cur = torch.cuda.current_stream()
+            side = torch.cuda.Stream()
+            side.wait_stream(cur)
+            with torch.cuda.stream(side):
+                res = self._apply(fn, scratch, None)
+                with host_syncs_raise():
+                    self._apply(fn, scratch, res)
+            cur.wait_stream(side)
+            self.results = tuple(torch.empty_like(t) for t in res)
+            del scratch, res
+            torch.cuda.synchronize()
+            torch.cuda.empty_cache()
+            mem0 = torch.cuda.memory_reserved(dev)
+            before = launch_counts.snapshot()
+            nested = _tally["nested_nodes"]
+            graph = torch.cuda.CUDAGraph(keep_graph=True)
+            with keeping_added() as kept, \
+                    torch.cuda.graph(graph, pool=self.pool):
+                self._apply(fn, self.args, self.results)
+            graph.instantiate()
+            self.per_step = launch_counts.delta(before,
+                                                launch_counts.snapshot())
+            launch_counts.add(self.per_step, -1)
+            self.nested_nodes = _tally["nested_nodes"] - nested
+            self.embedded = tuple(kept)
+            torch.cuda.synchronize()
+            self.pool_bytes = torch.cuda.memory_reserved(dev) - mem0
+        self.graph = graph
+        self.build_seconds = time.perf_counter() - t0
+
+
+class StepGraphs:
+    """A solver's step graphs, one per step name, in one memory pool.
+
+    The route is fixed when the solver is made: ``"graph"`` (one process
+    on the card: a :class:`StepGraph` replayed per step), ``"static"``
+    (the CPU: the same static buffers, the step run eagerly on them) or
+    ``"eager"`` (``eager``: the steps of a process group, whose
+    collectives are not captured, run as they are, on fresh tensors).
+    """
+
+    def __init__(self, device, eager: bool = False):
+        self.device = torch.device(device)
+        self.route = ("eager" if eager else
+                      "graph" if self.device.type == "cuda" else "static")
+        self.graphs: dict = {}
+        self.keys: dict = {}
+        self.builds = 0
+        self.pool = None
+
+    def describe(self) -> str:
+        return {"graph": "one CUDA graph per step, replayed",
+                "static": "static buffers, run eagerly",
+                "eager": "eager (a process group: collectives are not "
+                         "captured)"}[self.route]
+
+    def memory_pool(self):
+        """The pool of the solver's graphs (made at first use; None on the
+        CPU)."""
+        if self.pool is None and self.device.type == "cuda":
+            self.pool = torch.cuda.graph_pool_handle()
+        return self.pool
+
+    def get(self, name, args, n_state: int, key=()) -> StepGraph:
+        """The step graph ``name`` for ``args`` (made anew when ``key`` or
+        the arguments' shapes, dtypes or devices change)."""
+        key = (key, tuple((a.shape, a.dtype, a.device) for a in args))
+        if self.keys.get(name) != key:
+            self.graphs[name] = StepGraph(
+                [torch.empty_like(a) for a in args], n_state,
+                self.memory_pool())
+            self.keys[name] = key
+            self.builds += 1
+        return self.graphs[name]
+
+    def step(self, name, fn, n_state: int, key=(), eager=False):
+        """``fn`` as step ``name`` on this route (``eager``: this call's
+        steps run as they are): a callable taking ``fn``'s arguments and
+        returning ``(*state, *results)``.  The step graph is made when the
+        step first runs."""
+        if eager or self.route == "eager":
+            return fn
+        return lambda *a: self.get(name, a, n_state, key).run(fn, *a)

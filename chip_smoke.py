@@ -205,6 +205,19 @@ Phases (any failure raises and the script exits nonzero):
    the same gates: its step graph holds the coarsest solve's while and
    if nodes.
 
+The solves of phases 5, 8, 11-15, 17-20 and 22 run each step of their
+host loops (a cycle and its residual norm, a defect-correction step, an
+FCG iteration with its residual replacement and true norm, a batched
+cycle) as a CUDA graph captured at the entry's first call and replayed
+(``solver.steps``; the rings on the one card take this route, a process
+group the eager steps): each main path's launch counts hold the graphs'
+warm-up steps and their replays.  Phases 5, 8, 11, 13-15 and 18-20 gate
+the graph route against the same solve's eager steps (``eager=True``):
+equal iterations, histories and x bit for bit; they log each step
+graph's nodes, kernel launches per replay, replays, build seconds and
+pool MiB, and the warm seconds of both routes.  Phase 17 times its
+coarsest solves on the eager steps, gated equal to the graph route.
+
 Each kernel result carries its bound: the larger of the bytes it must
 move (each input read once, each output written once) over the H100's
 3.35 TB/s and its flops over the card's peak for their type (67 TFLOP/s
@@ -294,6 +307,76 @@ def _reset_counts():
         K.launches_by_shape.clear()
     for e in krylov.counts:
         krylov.counts[e] = 0
+
+
+# ---------------------------------------------------------------------------
+# step graphs: each step of a host loop one replayed CUDA graph
+# ---------------------------------------------------------------------------
+
+
+def _step_graphs(tag, solver, names=None):
+    """Log each step graph of ``solver`` (``solver.steps``; ``names``: those
+    steps only): nodes, kernel
+    launches per replay, replays, build seconds (two eager warm-ups, the
+    second under ``set_sync_debug_mode("error")``, capture and
+    instantiation) and the MiB the capture took from the solver's pool;
+    every step must have been captured (a step that read the host would
+    have raised in its second warm-up, and a replay reads nothing)."""
+    from amg_tpu_torch.ops import launch_counts
+
+    out = {}
+    for name, g in solver.steps.graphs.items():
+        if names is not None and name not in names:
+            continue
+        check(g.graph is not None and g.replays > 0,
+              f"{tag}: step {name} did not run as a replayed CUDA graph")
+        kernels = sum(sum(g.per_step.get(K, ({},))[0].values())
+                      for K in launch_counts.MODULES)
+        out[name] = dict(nodes=g.nodes, kernels=kernels, replays=g.replays,
+                         build_s=g.build_seconds,
+                         pool_mib=g.pool_bytes / 2**20)
+        log(f"[{tag}] step graph {name!r}: {g.nodes} nodes, {kernels} "
+            f"port kernel launches per replay, {g.replays} replays, built "
+            f"in {g.build_seconds:.3f} s, pool +{g.pool_bytes / 2**20:.1f} "
+            f"MiB; 0 host reads inside a step")
+    return out
+
+
+def _graph_vs_eager(tag, solver, solve, b, got, names=None, **kw):
+    """The graph route of ``solve`` (its cold result ``got = (x, info)``,
+    which built the step graphs) against the eager route on the card
+    (``eager=True``: the same steps on fresh tensors): equal iterations,
+    histories and x bit for bit (the same kernels in the same order);
+    logs the step graphs and the warm seconds of both routes (median of
+    JIT_REPS each).  The launches of these runs land after the main
+    path's counts were read."""
+    check(solver.steps.route == "graph",
+          f"{tag}: step route {solver.steps.route}")
+    eager = solve(b, eager=True, **kw)
+    torch.cuda.synchronize()
+    _same_solve(tag, got, eager)
+    graphs = _step_graphs(tag, solver, names)
+    warm_graph = _median_s(lambda: solve(b, **kw))
+    warm_eager = _median_s(lambda: solve(b, eager=True, **kw))
+    log(f"[{tag}] warm (median of {JIT_REPS}) graph {warm_graph:.4f} s, "
+        f"eager {warm_eager:.4f} s ({warm_eager / warm_graph:.2f}x); pool "
+        f"{sum(g['pool_mib'] for g in graphs.values()):.1f} MiB")
+    return dict(graphs=graphs, warm_graph_s=warm_graph,
+                warm_eager_s=warm_eager)
+
+
+def _same_solve(tag, got, eager):
+    """A graph-route solve ``got = (x, info)`` and an eager one of the
+    same right-hand side: equal iterations, histories and x bit for bit."""
+    (x, info), (xe, ie) = got, eager
+    same = (info.nits == ie.nits and info.residuals == ie.residuals
+            and np.array_equal(x, xe))
+    gap = float(np.abs(x - xe).max() / max(np.abs(xe).max(), 1e-300))
+    log(f"[{tag}] graph route against the eager steps on the card: its "
+        f"{info.nits} / {ie.nits}; histories and x bit-identical: {same} "
+        f"(max |dx| {gap:.3e} of max|x|)")
+    check(same, f"{tag}: graph route ({info.nits} its) and eager steps "
+                f"({ie.nits} its) differ, x gap {gap:.3e}")
 
 
 # ---------------------------------------------------------------------------
@@ -584,10 +667,11 @@ def phase_main_path():
     _, info2 = solver.solve(b)
     torch.cuda.synchronize()
     log(f"[main] warm solve {info2.solve_seconds:.4f} s, nits {info2.nits}")
+    steps = _graph_vs_eager("main", solver, solver.solve, b, (x, info))
     return solver, by_shape, dict(setup_s=setup_s, solve_s=info.solve_seconds,
                                   warm_solve_s=info2.solve_seconds,
                                   nits=info.nits, true_rres=true_rel,
-                                  mib=mem / 2**20)
+                                  mib=mem / 2**20, steps=steps)
 
 
 def _one_row(rows, launches):
@@ -944,8 +1028,10 @@ def phase_unstructured(a):
     torch.cuda.synchronize()
     log(f"[fem] warm solve {info2.solve_seconds:.4f} s, FCG its "
         f"{info2.nits}")
+    steps = _graph_vs_eager("fem", solver, solver.solve, b, (x, info))
     return solver, by_shape, dict(mib=mem / 2**20,
-                                  warm_solve_s=info2.solve_seconds)
+                                  warm_solve_s=info2.solve_seconds,
+                                  steps=steps)
 
 
 def phase_unstructured_shapes(solver, by_shape, prefix=""):
@@ -1230,8 +1316,10 @@ def phase_batched(solver, B):
     log(f"[batch] warm {warm_s:.4f} s (solve_seconds "
         f"{info2.solve_seconds:.4f}), its {info2.nits}; per right-hand "
         f"side {warm_s / B.shape[1]:.4f} s")
+    steps = _graph_vs_eager("batch", solver, solver.solve_batched, B,
+                            (x, info), names=("batched",), tol=BATCH_TOL)
     return by_shape, dict(cold_s=cold_s, warm_s=warm_s, nits=info.nits,
-                          true_rres=float(true_rel.max()))
+                          true_rres=float(true_rel.max()), steps=steps)
 
 
 def phase_batched_one_column(solver, b):
@@ -1356,11 +1444,14 @@ def _auto_solver(a, pars, tag, b):
           f"{tag}: solution not finite or wrong shape")
     check(true_rel < 1e-8 and info.nits <= pars.max_it,
           f"{tag}: did not reach 1e-8 (true rres {true_rel:.3e})")
+    steps = (_graph_vs_eager(tag, solver, solver.solve, b, (x, info))
+             if solver.steps.graphs else None)
     return solver, dia, well, dict(mib=mib, warm_solve_s=info2.solve_seconds,
                                    nits=info.nits, true_rres=true_rel,
                                    setup_s=setup_s,
                                    solve_s=info.solve_seconds,
-                                   krylov=krylov_counts, krylov_small=small)
+                                   krylov=krylov_counts, krylov_small=small,
+                                   steps=steps)
 
 
 def _product_ms(op, n_x, g, flush):
@@ -2134,8 +2225,12 @@ def phase_krylov_coarsest(a, hh, auto_summary, gmres_launches):
         for op in wells), "B1 or B2 (on the WEll level's A) was not launched")
     summary = dict(cycles=info.nits, true_rres=true_rel)
     summary["graph"] = _log_graph("krylov", _cached_krylov(solver, 1))
+    summary["steps"] = _step_graphs("krylov", solver)
+    # the coarsest solves timed one by one: the eager steps (a replayed
+    # step graph runs them inside), equal to the graph route bit for bit
     with _trace_coarsest() as calls:
-        solver.solve(b)
+        traced = solver.solve(b, eager=True)
+    _same_solve("krylov", (x, info), traced)
     summary["ms_per_solve"] = _log_coarsest("krylov", calls)
     bd = solver._pad_vec(b)
     torch.cuda.synchronize()
@@ -2178,8 +2273,11 @@ def phase_krylov_coarsest(a, hh, auto_summary, gmres_launches):
         X[:, c].astype(np.float64))) / nb[c] for c in range(N_RHS)])
     summary["batched_graph"] = _log_graph("krylov-batch",
                                           _cached_krylov(solver, 2))
+    summary["batched_steps"] = _step_graphs("krylov-batch", solver,
+                                            ("batched",))
     with _trace_coarsest() as calls:
-        solver.solve_batched(B, tol=BATCH_TOL)
+        traced = solver.solve_batched(B, tol=BATCH_TOL, eager=True)
+    _same_solve("krylov-batch", (X, binfo), traced)
     summary["batched_ms_per_solve"] = _log_coarsest("krylov-batch", calls)
     per_col = [{s: sum(c["status"][col] == s for c in calls)
                 for s in sorted({c["status"][col] for c in calls})}
@@ -2315,12 +2413,14 @@ def _compare_window(tag, op, mesh, g, flush):
     return row
 
 
-def _spmd_solver(a, pars, mesh, b, solver_cls=None):
+def _spmd_solver(a, pars, mesh, b, solver_cls=None, tag="ring"):
     """An SpmdAMGSolver (or ``solver_cls``) on ``mesh`` (counts reset just
-    before), solved cold and warm.  Returns the solver, the cold solution
-    and info, the cold run's DIA and WEll launches by shape, the ring and
-    collective counts, and the setup seconds, device MiB and warm solve
-    seconds."""
+    before), solved cold and warm; on a mesh of this process alone its
+    step graphs against its eager steps (:func:`_graph_vs_eager`), in a
+    process group the route logged (eager steps).  Returns the solver, the
+    cold solution and info, the cold run's DIA and WEll launches by shape,
+    the ring and collective counts, and the setup seconds, device MiB,
+    warm solve seconds and step graphs."""
     from amg_tpu_torch.ops import dia_kernel as D, well_kernel as W
     from amg_tpu_torch.parallel import SpmdAMGSolver, dist as pdist, halo
 
@@ -2341,8 +2441,15 @@ def _spmd_solver(a, pars, mesh, b, solver_cls=None):
     counts = dict(halo.counts, **pdist.counts)
     _, info2 = solver.solve(b)
     torch.cuda.synchronize()
+    log(f"[{tag}] {mesh.describe()}: steps {solver.steps.describe()} "
+        f"(route {solver.steps.route!r})")
+    check(solver.steps.route == ("graph" if mesh.group is None
+                                 else "eager"),
+          f"{tag}: route {solver.steps.route} on {mesh.describe()}")
+    steps = (_graph_vs_eager(tag, solver, solver.solve, b, (x, info))
+             if mesh.group is None else None)
     return solver, x, info, by_shape, counts, dict(
-        setup_s=setup_s, mib=mib, warm_s=info2.solve_seconds)
+        setup_s=setup_s, mib=mib, warm_s=info2.solve_seconds, steps=steps)
 
 
 def phase_spmd(a, emb_summary):
@@ -2379,8 +2486,8 @@ def phase_spmd(a, emb_summary):
     mesh = make_mesh(SPMD_SHARDS, device="cuda")
     check(mesh.device.type == "cuda" and mesh.world == 1
           and mesh.local == SPMD_SHARDS, f"mesh {mesh}")
-    solver, x, info, (by_shape, _), counts, summ = _spmd_solver(a, pars,
-                                                                 mesh, b)
+    solver, x, info, (by_shape, _), counts, summ = _spmd_solver(
+        a, pars, mesh, b, tag="spmd")
     log(f"[spmd] {mesh.describe()}; pad {solver.pad} = {SPMD_SHARDS} x "
         f"{solver.m_local} rows; E = {solver.E}")
     for l, lv in enumerate(solver.mg.levels):
@@ -2459,7 +2566,8 @@ def phase_spmd(a, emb_summary):
         check(tdist.get_backend() == "nccl", f"backend {tdist.get_backend()}")
         gmesh = make_mesh(SPMD_SHARDS, device="cuda")
         check(gmesh.group is not None, "mesh without its process group")
-        _, x2, info2, _, counts2, summ2 = _spmd_solver(a, pars, gmesh, b)
+        _, x2, info2, _, counts2, summ2 = _spmd_solver(a, pars, gmesh, b,
+                                                       tag="spmd-nccl")
         log(f"[spmd-nccl] one rank, {gmesh.describe()}: {info2.nits} FCG its, "
             f"cold {info2.solve_seconds:.4f} s, warm {summ2['warm_s']:.4f} s, "
             f"{counts2['psum']} psums through NCCL all_reduce; x equal bit "
@@ -2613,7 +2721,7 @@ def _general_run(a, pars, tag, b, mesh):
         f"{i1.solve_seconds:.4f} s, warm {i1w.solve_seconds:.4f} s")
 
     solver, x, info, (dia_shape, by_shape), counts, summ = _spmd_solver(
-        a, pars, mesh, b)
+        a, pars, mesh, b, tag=tag)
     launches = {e: sum(n for k, n in by_shape.items() if k[0] == e)
                 for e in W.ENTRIES}
     log(f"[{tag}] {mesh.describe()}; pad {solver.pad} = {mesh.n_shards} x "
@@ -2760,7 +2868,8 @@ def phase_general(a, fem_summary, fem_auto_summary):
         check(tdist.get_backend() == "nccl", f"backend {tdist.get_backend()}")
         gmesh = make_mesh(SPMD_SHARDS, device="cuda")
         check(gmesh.group is not None, "mesh without its process group")
-        _, x2, info2, _, counts2, summ2 = _spmd_solver(a, pars, gmesh, b)
+        _, x2, info2, _, counts2, summ2 = _spmd_solver(a, pars, gmesh, b,
+                                                       tag="general-nccl")
         log(f"[general-nccl] one rank, {gmesh.describe()}: {info2.nits} FCG "
             f"its, cold {info2.solve_seconds:.4f} s, warm "
             f"{summ2['warm_s']:.4f} s, {counts2['psum']} psums and "
@@ -2824,7 +2933,7 @@ def phase_gspmd(a):
     check(mesh.device.type == "cuda" and mesh.world == 1
           and mesh.local == SPMD_SHARDS, f"mesh {mesh}")
     solver, x, info, (dia_shape, well_shape), counts, summ = _spmd_solver(
-        a, pars, mesh, b, DistAMGSolver)
+        a, pars, mesh, b, DistAMGSolver, tag="gspmd")
     log(f"[gspmd] {mesh.describe()}; level-0 pad {solver.pad} = "
         f"{SPMD_SHARDS} x {solver.pad // SPMD_SHARDS} rows; Es = "
         f"{solver.Es}; a0_hi {type(solver.a0_hi).__name__}")
@@ -2941,7 +3050,8 @@ def phase_gspmd(a):
         gmesh = make_mesh(SPMD_SHARDS, device="cuda")
         check(gmesh.group is not None, "mesh without its process group")
         _, x2, info2, _, counts2, summ2 = _spmd_solver(a, pars, gmesh, b,
-                                                       DistAMGSolver)
+                                                       DistAMGSolver,
+                                                       tag="gspmd-nccl")
         log(f"[gspmd-nccl] one rank, {gmesh.describe()}: {info2.nits} "
             f"cycles, cold {info2.solve_seconds:.4f} s, warm "
             f"{summ2['warm_s']:.4f} s, {counts2['psum']} psums and "

@@ -13,6 +13,7 @@
     python3 profile_torch.py --gspmd 4 --single   # its one-device reference
     python3 profile_torch.py --structured --layout auto --jit   # phase 22
     python3 profile_torch.py --layout auto --jit   # phase 22's fem2d solve
+    python3 profile_torch.py --layout auto --eager     # the eager steps
 
 ``--layout`` picks the format flags: ``compact`` (default; chip_smoke.py
 phases 5 and 8), ``auto`` (``use_well`` and ``use_banded`` on "auto",
@@ -36,6 +37,9 @@ phase 22's parameters (``chip_smoke.jit_pars``: f32 cycles to 1e-6, no
 defect correction or Krylov acceleration) and right-hand side
 (``jit_rhs``) and profiles a warm ``solve`` and then a warm ``solve_jit``
 (the masked cycle step replayed as a CUDA graph) on the same solver.
+The solves run their steps as replayed CUDA graphs (the entries' default
+on the card; the graphs' nodes, build seconds and pool are printed after
+the profile); ``--eager`` runs the same steps eagerly (``eager=True``).
 
 Builds the main-path configuration of ``chip_smoke.py`` (phase 8, or
 phase 5 with ``--structured``; with ``--batched K`` phase 5's solver runs
@@ -124,6 +128,9 @@ def main() -> int:
     ap.add_argument("--jit", action="store_true",
                     help="phase 22: profile solve and then solve_jit on "
                          "the same solver")
+    ap.add_argument("--eager", action="store_true",
+                    help="run each step eagerly instead of replaying its "
+                         "CUDA graph")
     ap.add_argument("--matrix", choices=("poisson3d", "fem2d"),
                     default="poisson3d",
                     help="--spmd's matrix: poisson3d(100) (phase 18) or "
@@ -216,13 +223,16 @@ def main() -> int:
     print(f"{what}: setup {time.perf_counter() - t0:.2f} s, device memory "
           f"held after setup "
           f"{(torch.cuda.memory_allocated() - mem0) / 2**20:.1f} MiB")
+    kw = dict(eager=True) if args.eager else {}
+    if args.eager:
+        what += ", eager steps"
     if args.batched:
         what += f", solve_batched k={args.batched}"
         B = np.random.default_rng(6).standard_normal((a.n_rows, args.batched))
-        _report(what, lambda: solver.solve_batched(B, tol=BATCH_TOL))
+        _report(what, lambda: solver.solve_batched(B, tol=BATCH_TOL, **kw))
     elif args.jit:
         b = jit_rhs(a)
-        _report(what + ", solve", lambda: solver.solve(b))
+        _report(what + ", solve", lambda: solver.solve(b, **kw))
         _report(what + ", solve_jit", lambda: solver.solve_jit(b))
         loop = solver.jit_loop
         print(f"solve_jit: capture {loop.capture_seconds:.3f} s, "
@@ -233,7 +243,13 @@ def main() -> int:
     else:
         b = (np.random.default_rng(16).standard_normal(a.n_rows)
              if args.gmres else np.ones(a.n_rows))
-        _report(what, lambda: solver.solve(b))
+        _report(what, lambda: solver.solve(b, **kw))
+    for name, g in getattr(getattr(solver, "steps", None), "graphs",
+                           {}).items():
+        if g.graph is not None:
+            print(f"step graph {name!r}: {g.nodes} nodes, {g.replays} "
+                  f"replays, built in {g.build_seconds:.3f} s, pool "
+                  f"+{g.pool_bytes / 2**20:.1f} MiB")
     for key, ks in getattr(solver.mg, "krylov", {}).items():
         g = ks.graph
         if g is not None:

@@ -1,13 +1,14 @@
 """Worker of the port's multi-process tests (tests/test_torch_spmd.py,
-tests/test_torch_spmd_general.py, tests/test_torch_gspmd.py): one of N
+tests/test_torch_spmd_general.py, tests/test_torch_gspmd.py,
+tests/test_torch_step_graph.py): one of N
 gloo processes, each holding its run of the ring's shards on the CPU.
 
     python tests/_torch_mh_worker.py PORT RANK NPROC SHARDS OUT [MATRIX]
 
 Solves :func:`problem` ``MATRIX`` (default ``poisson3d``) on SHARDS shards,
 with ``SpmdAMGSolver`` or, for ``dist``, ``DistAMGSolver``, and writes the
-fetched solution, the iterations and the relative residual to
-``OUT.<rank>.npz``.
+fetched solution, the iterations, the relative residual and the route of
+the solver's steps to ``OUT.<rank>.npz``.
 """
 
 import sys
@@ -64,7 +65,8 @@ def main():
     solver = DistAMGSolver if kind == "dist" else SpmdAMGSolver
     s = solver(a, pars, mesh=mesh, log=lambda *x: None)
     x, info = s.solve(b)
-    np.savez(f"{out}.{rank}.npz", x=x, nits=info.nits, rres=info.rres)
+    np.savez(f"{out}.{rank}.npz", x=x, nits=info.nits, rres=info.rres,
+             route=s.steps.route)
     torch.distributed.destroy_process_group()
 
 

@@ -1252,3 +1252,145 @@ def test_pgmres_graph_failure_raises_on_card(monkeypatch, tmp_path):
         solver.solve_pgmres(b)
     assert krylov.counts["syncs"] == syncs
     assert solver.pgmres_graph is None
+
+
+# ---------------------------------------------------------------------------
+# step graphs: each step of the host loops one replayed CUDA graph
+# ---------------------------------------------------------------------------
+
+
+def _graphs_built(solver, names):
+    g = solver.steps.graphs
+    assert solver.steps.route == "graph" and set(g) == set(names)
+    assert all(s.graph is not None and s.replays > 0 for s in g.values())
+    return dict(g)
+
+
+@pytest.mark.parametrize("kind", ["solve", "mod_rel", "refined", "pcg",
+                                  "batched"])
+def test_step_graphs_equal_eager_steps_on_card(kind):
+    """tests/test_torch_step_graph.py's single-device cases on the card:
+    every step a replay of its CUDA graph, equal to the eager steps
+    (``eager=True``) bit for bit: iterations, histories and x; a second
+    solve replays the same graphs (built once) with the same result."""
+    _needs_card()
+    from test_torch_step_graph import _same, _single
+
+    solver, solve, b, names = _single(kind, "cuda")
+    got = solve(b)
+    graphs = _graphs_built(solver, names)
+    builds = solver.steps.builds
+    _same(got, solve(b, eager=True))
+    again = solve(b)
+    assert solver.steps.builds == builds
+    assert all(solver.steps.graphs[n] is g for n, g in graphs.items())
+    _same(again, got)
+
+
+@pytest.mark.parametrize("kind", ["embedded", "general", "general_cycle",
+                                  "gspmd", "gspmd_refined"])
+def test_ring_step_graphs_equal_eager_steps_on_card(kind):
+    """The ring solvers on 4 shards of one card (no process group): each
+    step a replayed CUDA graph, equal to the eager steps bit for bit."""
+    _needs_card()
+    from test_torch_step_graph import _ring, _same
+
+    solver, b, names = _ring(kind, "cuda")
+    got = solver.solve(b)
+    _graphs_built(solver, names)
+    _same(got, solver.solve(b, eager=True))
+
+
+def test_step_graph_launches_per_replay_equal_an_eager_step():
+    """The kernel launches a replay adds (``per_step``, taken back from
+    the capture) are those of one eager step, B1 and B2 both."""
+    _needs_card()
+    from amg_tpu_torch.ops import launch_counts
+
+    a, solver, b = _jit_solver("structured")
+    solver.solve(b)
+    per_step = solver.steps.graphs["cycle"].per_step
+    assert per_step[dia_kernel][0] and per_step[well_kernel][0]
+    xd, bd = solver._pad_vec(np.zeros(a.n_rows)), solver._pad_vec(b)
+    before = launch_counts.snapshot()
+    solver._step(xd, bd)
+    torch.cuda.synchronize()
+    eager = launch_counts.delta(before, launch_counts.snapshot())
+    for K in launch_counts.MODULES:
+        assert per_step[K] == eager[K]
+
+
+def test_krylov_coarsest_in_the_solve_refined_graph_on_card():
+    """A KRYLOV coarsest solve inside solve_refined's step graph: its
+    while and if nodes are added to the captured step (the step graph
+    keeps the coarsest LoopGraph alive), 0 host reads of the Krylov
+    loops, equal to the eager steps bit for bit."""
+    _needs_card()
+    from amg_tpu_torch.solve import krylov
+
+    a = amg.poisson3d(24)
+    solver = amg.AMGSolver(a, amg.AMGParams(
+        dtype="float32", refine=True, tol=1e-8,
+        coarsest_solver=amg.CoarsestSolver.KRYLOV, verbose=0),
+        log=lambda *_: None)
+    b = a.matvec(np.random.default_rng(33).standard_normal(a.n_rows))
+    syncs = krylov.counts["syncs"]
+    got = solver.solve(b)
+    assert krylov.counts["syncs"] == syncs
+    g = _graphs_built(solver, {"refine"})["refine"]
+    ks = list(solver.mg.krylov.values())
+    assert ks and all(k.graph in g.embedded for k in ks)
+    assert g.nested_nodes > 0
+    from test_torch_step_graph import _same
+
+    _same(got, solver.solve(b, eager=True))
+    r = b - a.matvec(got[0])
+    assert np.linalg.norm(r) / np.linalg.norm(b) < 1e-8
+
+
+def test_step_graph_capture_raises_on_a_host_read():
+    """A step that reads the host cannot be captured: the second warm-up
+    runs under torch.cuda.set_sync_debug_mode("error") and raises; no
+    eager fallback."""
+    _needs_card()
+    a, solver, b = _jit_solver("structured", refine=True, tol=1e-8)
+    step = solver._refine_step
+
+    def reading_step(x, b):
+        x, r = step(x, b)
+        float(r)    # a host read
+        return x, r
+
+    solver._refine_step = reading_step
+    with pytest.raises(RuntimeError):
+        solver.solve(b)
+    assert torch.cuda.get_sync_debug_mode() == 0
+    assert solver.steps.graphs["refine"].graph is None
+
+
+def test_cg_with_a_one_process_psum_is_a_graph_on_card():
+    """``krylov.cg`` with a one-process mesh's ``psum``: one CUDA graph (0
+    host reads), equal to ``cg_plain`` bit for bit."""
+    _needs_card()
+    from amg_tpu_torch.parallel import make_mesh
+    from amg_tpu_torch.parallel.dist import shard_matrix, shard_vector
+    from amg_tpu_torch.parallel.spmd_cycle import gspmd_spmv
+    from amg_tpu_torch.solve import krylov
+
+    mesh = make_mesh(8, device="cuda")
+    a = amg.poisson2d(16)
+    e = shard_matrix(amg.Ell.from_csr(a, device="cuda"), mesh, gspmd=True)
+    bs = shard_vector(a.matvec(np.random.default_rng(5).standard_normal(256)),
+                      mesh, pad_to=256)
+
+    def amul(v):
+        return gspmd_spmv(e, v, mesh)
+
+    syncs = krylov.counts["syncs"]
+    got, conv = krylov.cg(amul, bs, torch.zeros_like(bs), tol=1e-10,
+                          maxit=200, psum=mesh.psum)
+    assert krylov.counts["syncs"] == syncs and bool(conv)
+    want, _ = krylov.cg_plain(amul, bs, torch.zeros_like(bs), tol=1e-10,
+                              maxit=200, psum=mesh.psum)
+    assert krylov.counts["syncs"] > syncs
+    assert torch.equal(got, want)

@@ -282,7 +282,8 @@ def test_cli_devices_matches_amg_tpu():
     g = [ln for ln in got.stdout.splitlines() if not ln.startswith(skip)]
     mesh = [ln for ln in g if ln.startswith("mesh: ")]
     assert mesh == ["mesh: 4 shards, 1 process, cpu; levels 0..1 "
-                    "row-sharded, 1024 rows per shard"]
+                    "row-sharded, 1024 rows per shard; steps: static "
+                    "buffers, run eagerly"]
     _assert_cli_match([ln for ln in g if ln not in mesh], w)
     assert g[-1] == w[-1]
 
@@ -316,7 +317,8 @@ def test_cli_dist_paths_not_ported():
     assert fallback[0].endswith("; using the GSPMD solver")
     mesh = [ln for ln in g if ln.startswith("mesh: ")]
     assert mesh == ["mesh: 4 shards, 1 process, cpu; every level "
-                    "replicated (GSPMD)"]
+                    "replicated (GSPMD); steps: static buffers, run "
+                    "eagerly"]
     _assert_cli_match([ln for ln in g if ln not in mesh], w)
     out = _cli("amg_tpu_torch", "fem2d:3000", "--devices", "4", "--dist",
                "spmd", "--device", "cpu", "--quiet")
