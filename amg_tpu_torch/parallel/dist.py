@@ -26,8 +26,10 @@ on every device under ``amg_tpu``'s shard_map.
 The collectives treat the local shards in the process and the remote ones
 through ``torch.distributed``: :meth:`Mesh.psum` sums per-shard partials
 over axis 0 and then ``all_reduce``s across processes;
-:meth:`Mesh.all_gather` collects every process's shards; the ring's halo
-exchange is in :mod:`.halo`.  ``counts`` adds up the collectives.
+:meth:`Mesh.all_gather` collects every process's shards into one tensor;
+the ring's halo exchange is in :mod:`.halo`.  Neither reads the host, so
+on an NCCL group they are captured into the solvers' step graphs.
+``counts`` adds up the collectives.
 """
 
 from __future__ import annotations
@@ -54,19 +56,32 @@ from ..sparse import BandedBlocks, Dense, Dia, Ell, WEll, torch_dtype
 counts = {"psum": 0, "all_gather": 0}
 # a captured step's replays add its collectives to the counts
 launch_counts.COUNTERS.append(counts)
+# one tensor gathered from every process (torch 2.13 renames
+# all_gather_into_tensor and deprecates the old name)
+_gather_into = getattr(dist, "all_gather_single", None) \
+    or dist.all_gather_into_tensor
 
 
 @dataclasses.dataclass(frozen=True)
 class Mesh:
     """``n_shards`` row shards in ring order; this process (``rank`` of
     ``world``) holds shards ``[first, first + local)`` on ``device``.
-    ``group`` is the process group, None outside ``torch.distributed``."""
+    ``group`` is the process group, None outside ``torch.distributed``;
+    ``backend`` its backend (``"nccl"``, ``"gloo"``), None without one.
+    The solvers' step route follows the device and the backend
+    (:class:`~amg_tpu_torch.solve.loop_graph.StepGraphs`)."""
 
     n_shards: int
     device: torch.device
     rank: int = 0
     world: int = 1
     group: object = None
+    backend: str | None = None
+
+    def __post_init__(self):
+        if (self.group is None) != (self.backend is None):
+            raise ValueError("a mesh names its process group's backend, "
+                             "and only with a group")
 
     @property
     def local(self) -> int:
@@ -78,7 +93,8 @@ class Mesh:
 
     def describe(self) -> str:
         procs = f"{self.world} process" + ("es" if self.world > 1 else "")
-        return f"mesh: {self.n_shards} shards, {procs}, {self.device}"
+        group = "" if self.backend is None else f" ({self.backend})"
+        return f"mesh: {self.n_shards} shards, {procs}, {self.device}{group}"
 
     def psum(self, partials: torch.Tensor) -> torch.Tensor:
         """Sum of per-shard partials ``(S, ...)`` over every shard of the
@@ -91,13 +107,13 @@ class Mesh:
 
     def all_gather(self, x: torch.Tensor) -> torch.Tensor:
         """Every process's ``(S, ...)`` shards as ``(D, ...)``, in ring
-        order."""
+        order: one buffer that the collective writes in place."""
         counts["all_gather"] += 1
         if self.group is None:
             return x
-        parts = [torch.empty_like(x) for _ in range(self.world)]
-        dist.all_gather(parts, x.contiguous(), group=self.group)
-        return torch.cat(parts)
+        out = x.new_empty((self.world * x.shape[0],) + tuple(x.shape[1:]))
+        _gather_into(out, x.contiguous(), group=self.group)
+        return out
 
 
 def make_mesh(n_devices: int | None = None, device="cuda") -> Mesh:
@@ -107,10 +123,11 @@ def make_mesh(n_devices: int | None = None, device="cuda") -> Mesh:
     split evenly over its processes; a count that does not split raises
     (never fewer shards than asked)."""
     device = resolve_device(device)
-    world, rank, group = 1, 0, None
+    world, rank, group, backend = 1, 0, None, None
     if dist.is_initialized():
         world, rank, group = dist.get_world_size(), dist.get_rank(), \
             dist.group.WORLD
+        backend = str(dist.get_backend(group))
     n = world if n_devices is None else int(n_devices)
     if n < 1 or n % world:
         raise ValueError(f"{n} shards do not split over {world} processes")
@@ -118,7 +135,7 @@ def make_mesh(n_devices: int | None = None, device="cuda") -> Mesh:
         from .multihost import local_rank
 
         device = torch.device("cuda", local_rank())
-    return Mesh(n, device, rank, world, group)
+    return Mesh(n, device, rank, world, group, backend)
 
 
 def _round_up(n: int, k: int) -> int:
@@ -390,7 +407,7 @@ class DistAMGSolver:
     defaults to one shard per process on the card; pass
     ``mesh=make_mesh(D, device="cpu")`` for the CPU.  The steps' route
     (``steps``) follows :class:`~.spmd_cycle.SpmdAMGSolver`'s: step graphs
-    on a mesh held by one process, eager steps in a process group.
+    on the card, alone or in an NCCL group, static buffers on the CPU.
     """
 
     def __init__(self, a, pars: AMGParams = AMGParams(),
@@ -425,8 +442,7 @@ class DistAMGSolver:
                 hi = Ell.from_csr(hh.a[0], **kw)
             self.a0_hi = hi if self.Es < 0 else shard_matrix(hi, self.mesh,
                                                              gspmd=True)
-        self.steps = StepGraphs(self.mesh.device,
-                                eager=self.mesh.group is not None)
+        self.steps = StepGraphs(self.mesh.device, self.mesh.backend)
         if pars.verbose:
             if self.Es < 0:
                 log(f"{self.mesh.describe()}; every level replicated "

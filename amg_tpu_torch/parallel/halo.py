@@ -78,7 +78,14 @@ def dia_halo_widths(offsets) -> tuple[int, int]:
 def _remote_halos(flat: torch.Tensor, lo: int, hi: int, mesh: Mesh):
     """The ``lo`` entries before and the ``hi`` entries after this
     process's block of a row-sharded vector, from the neighbouring
-    processes (multi-hop; zeros beyond the mesh)."""
+    processes (multi-hop; zeros beyond the mesh).  One
+    ``batch_isend_irecv`` per call, and no host read: on an NCCL group a
+    step graph captures it (NCCL's batched p2p uses the group's
+    communicator, which the step's eager warm-up made), its receive
+    buffers come from the graph's pool, the send slabs are views of
+    ``flat``, and each ``wait`` makes the current stream wait for NCCL's.
+    The message counts are host counts of the call; a replayed graph adds
+    those of its capture."""
     M = flat.shape[0]
     left = flat.new_zeros(lo)
     right = flat.new_zeros(hi)
@@ -93,7 +100,7 @@ def _remote_halos(flat: torch.Tensor, lo: int, hi: int, mesh: Mesh):
                                                        lo - (j - 1) * M],
                                       mesh.rank - j, mesh.group))
             if mesh.rank + j < mesh.world:
-                ops.append(dist.P2POp(dist.isend, flat[M - nl:].contiguous(),
+                ops.append(dist.P2POp(dist.isend, flat[M - nl:],
                                       mesh.rank + j, mesh.group))
         if nr > 0:
             if mesh.rank + j < mesh.world:
@@ -101,7 +108,7 @@ def _remote_halos(flat: torch.Tensor, lo: int, hi: int, mesh: Mesh):
                                       right[(j - 1) * M:(j - 1) * M + nr],
                                       mesh.rank + j, mesh.group))
             if mesh.rank - j >= 0:
-                ops.append(dist.P2POp(dist.isend, flat[:nr].contiguous(),
+                ops.append(dist.P2POp(dist.isend, flat[:nr],
                                       mesh.rank - j, mesh.group))
     if ops:
         for w in dist.batch_isend_irecv(ops):

@@ -19,6 +19,14 @@ Two ways to start the processes:
 NCCL refuses two ranks of one communicator on one card, so on a machine
 with one card a multi-process run uses the CPU (gloo); one NCCL rank with
 all its shards on the card is the single-card form of the same code.
+
+The group's backend sets the route of the solvers' steps
+(:class:`~amg_tpu_torch.solve.loop_graph.StepGraphs`): in an NCCL group
+each step of a host loop is a CUDA graph, captured once with its
+``all_reduce``, all-gathers and halo messages and replayed, as on a mesh
+held by one process; a gloo group on the CPU runs the steps on static
+buffers, and one on the card (gloo on CUDA tensors) runs them eagerly.
+``krylov.cg`` with a process group's ``psum`` keeps its host loop.
 """
 
 from __future__ import annotations

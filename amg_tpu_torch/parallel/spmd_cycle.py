@@ -433,12 +433,13 @@ class SpmdAMGSolver:
     process on the card; pass ``mesh=make_mesh(D, device="cpu")`` for the
     CPU.
 
-    The route of the steps (``steps``) is fixed by the mesh: on a mesh
-    whose shards all sit in this process (no process group) each cycle
-    step and FCG step is a step graph (a CUDA graph replayed on the card:
-    its psums are local sums and its halos local slices, no collective);
-    in a process group the steps run eagerly, since their ``all_reduce``,
-    ``all_gather`` and halo messages are not captured.
+    The route of the steps (``steps``) is fixed by the mesh's device and
+    its group's backend (:class:`~amg_tpu_torch.solve.loop_graph.
+    StepGraphs`): on the card each cycle step and FCG step is a step graph
+    (a CUDA graph replayed), with its psums and halos local when every
+    shard sits in this process, and NCCL's ``all_reduce``, all-gather and
+    halo messages captured in it in an NCCL group; on the CPU the steps
+    run on static buffers; a gloo group on the card runs them eagerly.
     """
 
     def __init__(self, a, pars: AMGParams = AMGParams(),
@@ -491,8 +492,7 @@ class SpmdAMGSolver:
                     device=self.mesh.device), self.mesh)
         self._accel_dtype = torch.float64 if self.a0_hi is not None \
             else self.dtype
-        self.steps = StepGraphs(self.mesh.device,
-                                eager=self.mesh.group is not None)
+        self.steps = StepGraphs(self.mesh.device, self.mesh.backend)
         if pars.verbose:
             if self.E:
                 log(f"{self.mesh.describe()}; levels 0..{self.E} "

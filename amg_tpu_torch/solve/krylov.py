@@ -47,8 +47,7 @@ and iterations and the CG solves that did not converge (read once, when
 the caller reads them).  ``cg`` and the FCG steps take ``psum`` for
 row-sharded ``(S, m)`` vectors (``amg_tpu``'s ``axis_name``); ``cg`` with
 the ``psum`` of a mesh whose shards all sit in this process (a local sum)
-is one graph too, and with that of a process group runs its host loop on
-the card, since its collectives are not captured.
+is one graph too, and with that of a process group runs its host loop.
 """
 
 from __future__ import annotations
@@ -335,20 +334,23 @@ class CGLoop:
         w[_W["cg_failed"]].add_((self.status != _CONVERGED).sum())
 
 
-def _in_process(psum) -> bool:
-    """No ``psum``, or the ``psum`` of a mesh without a process group (its
-    sum over shards is a local sum; ``parallel.dist.Mesh.psum``)."""
+def _capturable(psum) -> bool:
+    """No ``psum``, or the ``psum`` of a mesh without a process group
+    (``parallel.dist.Mesh.psum``: a local sum).  A process group's psum
+    keeps the host loop, NCCL's too: on four H100s the while node whose
+    body held NCCL's ``all_reduce`` and the ring's ``batch_isend_irecv``
+    never finished (no CUDA error; ROADMAP, Krylov item 2)."""
     if psum is None:
         return True
     mesh = getattr(psum, "__self__", None)
-    return getattr(mesh, "group", True) is None
+    return getattr(mesh, "backend", "") is None
 
 
 def _cg(a, b, x0, tol, maxit, M, stop_type, return_info, psum, graph):
     loop = CGLoop(a, b, tol, maxit, M, stop_type, psum)
     loop.b.copy_(b)
     loop.x0.copy_(x0)
-    _run(loop.program, b.device, graph and _in_process(psum))
+    _run(loop.program, b.device, graph and _capturable(psum))
     status, it = loop.status, loop.it
     if b.dim() == 2 and psum is None:
         status, it = status.reshape(-1), it.reshape(-1)
@@ -398,8 +400,8 @@ def cg(a, b, x0, tol=1e-7, maxit=250, M=None, stop_type=None,
     without a host read or synchronisation, and a single call pays the
     build (PERF.md gives its cost against :func:`cg_plain`); so is a
     ``psum`` of a mesh held by this process alone; with the ``psum`` of a
-    process group, another callable, and on the CPU the host reads the
-    flag once per iteration.
+    process group (NCCL's too), another callable, and on the CPU the host
+    reads the flag once per iteration.
     Returns ``(x, converged)``, or ``(x, converged, info)`` with
     ``return_info`` where ``info = (status_code, iters)`` and
     ``status_code`` is 1 on convergence, ``ErrorCode.ERROR_SOLVER_*`` on a

@@ -364,9 +364,15 @@ class StepGraph:
 
     The capture runs two eager steps on copies of the buffers first, on a
     side stream: the first builds the kernels and makes their first-use
-    tensors (B1's read plans, the KRYLOV coarsest graphs), the second runs
-    under ``torch.cuda.set_sync_debug_mode("error")``, so a step that
-    reads the host raises.  The capture runs with the cyclic collector off
+    tensors (B1's read plans, the KRYLOV coarsest graphs) and, in an NCCL
+    group, the communicator of every collective and p2p message the step
+    sends (torch makes it at first use, which a capture cannot hold); the
+    second runs under ``torch.cuda.set_sync_debug_mode("error")``, so a
+    step that reads the host raises (an NCCL ``Work.wait()`` makes the
+    current stream wait for NCCL's and passes).  Inside the capture NCCL's
+    kernels join the graph and its waits become edges.  Every rank of a
+    group captures the same step at the same point of the same host loop
+    (:class:`StepGraphs`).  The capture runs with the cyclic collector off
     (:func:`no_collector`) into ``pool`` (shared by a solver's graphs,
     which never run at once and keep nothing in it between steps); the
     kernel launches and ring counts it made are taken back and added again
@@ -467,27 +473,42 @@ class StepGraph:
 class StepGraphs:
     """A solver's step graphs, one per step name, in one memory pool.
 
-    The route is fixed when the solver is made: ``"graph"`` (one process
-    on the card: a :class:`StepGraph` replayed per step), ``"static"``
-    (the CPU: the same static buffers, the step run eagerly on them) or
-    ``"eager"`` (``eager``: the steps of a process group, whose
-    collectives are not captured, run as they are, on fresh tensors).
+    The route is fixed when the solver is made, from the device and the
+    ``backend`` of the process group the steps' collectives go through
+    (None: no group, every shard in this process): ``"graph"`` (a
+    :class:`StepGraph` replayed per step) on the card alone or in an NCCL
+    group, whose collectives and p2p messages are captured; ``"static"``
+    (the same static buffers, the step run eagerly on them) on the CPU,
+    with no group or gloo; ``"eager"`` (the steps run as they are, on
+    fresh tensors) for any other group on the card (gloo on CUDA tensors:
+    its collectives cannot be captured).
+
+    In a process group every rank runs the same host loop: it captures
+    each step at the same step of the loop, and the loop's decisions
+    (stop, residual replacement, the truth check) read ``psum``-reduced
+    norms, the same numbers on every rank.  So every rank replays the
+    same graphs in the same order, and the collectives and p2p messages
+    captured in them meet their peers'; eager collectives between steps
+    (the norm of b, the gather of x) come in the same order on every rank
+    as well.
     """
 
-    def __init__(self, device, eager: bool = False):
+    def __init__(self, device, backend: str | None = None):
         self.device = torch.device(device)
-        self.route = ("eager" if eager else
-                      "graph" if self.device.type == "cuda" else "static")
+        self.backend = backend
+        self.route = ("static" if self.device.type != "cuda" else
+                      "graph" if backend in (None, "nccl") else "eager")
         self.graphs: dict = {}
         self.keys: dict = {}
         self.builds = 0
         self.pool = None
 
     def describe(self) -> str:
-        return {"graph": "one CUDA graph per step, replayed",
+        group = "" if self.backend is None else f" in a {self.backend} group"
+        return {"graph": f"one CUDA graph per step{group}, replayed",
                 "static": "static buffers, run eagerly",
-                "eager": "eager (a process group: collectives are not "
-                         "captured)"}[self.route]
+                "eager": f"eager (a {self.backend} group on the card: its "
+                         f"collectives are not captured)"}[self.route]
 
     def memory_pool(self):
         """The pool of the solver's graphs (made at first use; None on the

@@ -139,7 +139,10 @@ Phases (any failure raises and the script exits nonzero):
    launch shape, timed beside the whole ring product, the single-device
    B1 product of the same operator, the torch sparse CSR product and its
    bound; then the same solve inside a one-rank NCCL process group
-   (``multihost.initialize``): the same iterations and x bit for bit;
+   (``multihost.initialize``): its steps replayed CUDA graphs with the
+   NCCL ``all_reduce`` captured (route "graph"), equal to its eager steps
+   bit for bit, and the same iterations and x as the in-process run bit
+   for bit; nodes, build s, pool MiB and warm s of both routes logged;
 19. the general SPMD mode: fem2d(1,000,000) (phases 7-9's matrix) in
    bench_dist.py's fem2d parameters (f32 cycles, FCG in f64, Chebyshev
    below level 0, f32 coarse operators, WEll from 1,024 rows) with
@@ -158,8 +161,9 @@ Phases (any failure raises and the script exits nonzero):
    shape, timed beside the whole ring product, the single-device B2/B3 on
    the same operator, the fastest torch sparse CSR product of its rows
    and its bound (B2/B3's bytes with x as the haloed window); then the
-   "auto" solve inside a one-rank NCCL group: the same iterations and x
-   bit for bit;
+   "auto" solve inside a one-rank NCCL group, gated as phase 18's (route
+   "graph" with its ``all_reduce`` and all-gathers captured, graph =
+   eager steps, x = the in-process run's, bit for bit);
 20. the GSPMD solver: poisson3d(100) in bench_dist.py's gspmd parameters
    (f32 cycles with f64 defect correction, Chebyshev below level 0, bf16
    coarse operators, WEll on "auto" from 65,536 rows, no Krylov
@@ -175,7 +179,7 @@ Phases (any failure raises and the script exits nonzero):
    against its plain version at every launch shape, timed beside the
    single-device kernel on the same operator (``_compare_window``,
    ``_compare_well_window`` with the whole vector); then the same solve
-   in a one-rank NCCL group: x bit for bit;
+   in a one-rank NCCL group, gated as phase 18's;
 21. the device PMIS splitter: ``pmis_split_device`` on the strength graph
    of fem2d(1,000,000, seed=0)'s level 0 on the card and on the CPU
    (partitions equal bit for bit) beside the host ``pmis_split``, each
@@ -209,8 +213,8 @@ The solves of phases 5, 8, 11-15, 17-20 and 22 run each step of their
 host loops (a cycle and its residual norm, a defect-correction step, an
 FCG iteration with its residual replacement and true norm, a batched
 cycle) as a CUDA graph captured at the entry's first call and replayed
-(``solver.steps``; the rings on the one card take this route, a process
-group the eager steps): each main path's launch counts hold the graphs'
+(``solver.steps``; the rings on the one card take this route, alone and
+in an NCCL group): each main path's launch counts hold the graphs'
 warm-up steps and their replays.  Phases 5, 8, 11, 13-15 and 18-20 gate
 the graph route against the same solve's eager steps (``eager=True``):
 equal iterations, histories and x bit for bit; they log each step
@@ -2415,12 +2419,12 @@ def _compare_window(tag, op, mesh, g, flush):
 
 def _spmd_solver(a, pars, mesh, b, solver_cls=None, tag="ring"):
     """An SpmdAMGSolver (or ``solver_cls``) on ``mesh`` (counts reset just
-    before), solved cold and warm; on a mesh of this process alone its
-    step graphs against its eager steps (:func:`_graph_vs_eager`), in a
-    process group the route logged (eager steps).  Returns the solver, the
-    cold solution and info, the cold run's DIA and WEll launches by shape,
-    the ring and collective counts, and the setup seconds, device MiB,
-    warm solve seconds and step graphs."""
+    before), solved cold and warm; its step graphs against its eager steps
+    (:func:`_graph_vs_eager`) on a mesh of this process alone and in an
+    NCCL group alike (route "graph": the group's collectives are captured).
+    Returns the solver, the cold solution and info, the cold run's DIA and
+    WEll launches by shape, the ring and collective counts, and the setup
+    seconds, device MiB, warm solve seconds and step graphs."""
     from amg_tpu_torch.ops import dia_kernel as D, well_kernel as W
     from amg_tpu_torch.parallel import SpmdAMGSolver, dist as pdist, halo
 
@@ -2443,11 +2447,7 @@ def _spmd_solver(a, pars, mesh, b, solver_cls=None, tag="ring"):
     torch.cuda.synchronize()
     log(f"[{tag}] {mesh.describe()}: steps {solver.steps.describe()} "
         f"(route {solver.steps.route!r})")
-    check(solver.steps.route == ("graph" if mesh.group is None
-                                 else "eager"),
-          f"{tag}: route {solver.steps.route} on {mesh.describe()}")
-    steps = (_graph_vs_eager(tag, solver, solver.solve, b, (x, info))
-             if mesh.group is None else None)
+    steps = _graph_vs_eager(tag, solver, solver.solve, b, (x, info))
     return solver, x, info, by_shape, counts, dict(
         setup_s=setup_s, mib=mib, warm_s=info2.solve_seconds, steps=steps)
 
@@ -2568,10 +2568,12 @@ def phase_spmd(a, emb_summary):
         check(gmesh.group is not None, "mesh without its process group")
         _, x2, info2, _, counts2, summ2 = _spmd_solver(a, pars, gmesh, b,
                                                        tag="spmd-nccl")
+        st = summ2["steps"]
         log(f"[spmd-nccl] one rank, {gmesh.describe()}: {info2.nits} FCG its, "
-            f"cold {info2.solve_seconds:.4f} s, warm {summ2['warm_s']:.4f} s, "
+            f"cold {info2.solve_seconds:.4f} s, warm graph "
+            f"{st['warm_graph_s']:.4f} s / eager {st['warm_eager_s']:.4f} s, "
             f"{counts2['psum']} psums through NCCL all_reduce; x equal bit "
-            f"for bit: {np.array_equal(x2, x)}")
+            f"for bit to the in-process run: {np.array_equal(x2, x)}")
         check(info2.nits == info.nits and np.array_equal(x2, x),
               "spmd: the one-rank NCCL run differs from the in-process run")
     finally:
@@ -2870,11 +2872,13 @@ def phase_general(a, fem_summary, fem_auto_summary):
         check(gmesh.group is not None, "mesh without its process group")
         _, x2, info2, _, counts2, summ2 = _spmd_solver(a, pars, gmesh, b,
                                                        tag="general-nccl")
+        st = summ2["steps"]
         log(f"[general-nccl] one rank, {gmesh.describe()}: {info2.nits} FCG "
-            f"its, cold {info2.solve_seconds:.4f} s, warm "
-            f"{summ2['warm_s']:.4f} s, {counts2['psum']} psums and "
-            f"{counts2['all_gather']} all-gathers through NCCL; x equal bit "
-            f"for bit: {np.array_equal(x2, x)}")
+            f"its, cold {info2.solve_seconds:.4f} s, warm graph "
+            f"{st['warm_graph_s']:.4f} s / eager {st['warm_eager_s']:.4f} s, "
+            f"{counts2['psum']} psums and {counts2['all_gather']} "
+            f"all-gathers through NCCL; x equal bit for bit to the "
+            f"in-process run: {np.array_equal(x2, x)}")
         check(info2.nits == info.nits and np.array_equal(x2, x),
               "general: the one-rank NCCL run differs from the in-process "
               "run")
@@ -3052,11 +3056,13 @@ def phase_gspmd(a):
         _, x2, info2, _, counts2, summ2 = _spmd_solver(a, pars, gmesh, b,
                                                        DistAMGSolver,
                                                        tag="gspmd-nccl")
+        st = summ2["steps"]
         log(f"[gspmd-nccl] one rank, {gmesh.describe()}: {info2.nits} "
-            f"cycles, cold {info2.solve_seconds:.4f} s, warm "
-            f"{summ2['warm_s']:.4f} s, {counts2['psum']} psums and "
+            f"cycles, cold {info2.solve_seconds:.4f} s, warm graph "
+            f"{st['warm_graph_s']:.4f} s / eager {st['warm_eager_s']:.4f} s, "
+            f"{counts2['psum']} psums and "
             f"{counts2['all_gather']} all-gathers through NCCL; x equal bit "
-            f"for bit: {np.array_equal(x2, x)}")
+            f"for bit to the in-process run: {np.array_equal(x2, x)}")
         check(info2.nits == info.nits and np.array_equal(x2, x),
               "gspmd: the one-rank NCCL run differs from the in-process run")
     finally:

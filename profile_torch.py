@@ -11,6 +11,7 @@
     python3 profile_torch.py --spmd 4 --matrix fem2d   # phase 19
     python3 profile_torch.py --gspmd 4        # phase 20: GSPMD, 4 shards
     python3 profile_torch.py --gspmd 4 --single   # its one-device reference
+    python3 profile_torch.py --spmd 4 --matrix fem2d --layout auto --nccl
     python3 profile_torch.py --structured --layout auto --jit   # phase 22
     python3 profile_torch.py --layout auto --jit   # phase 22's fem2d solve
     python3 profile_torch.py --layout auto --eager     # the eager steps
@@ -32,7 +33,10 @@ mode (bench_dist.py's fem2d parameters; ``--layout compact`` turns
 poisson3d(100) in phase 20's mode (bench_dist.py's gspmd parameters) with
 ``DistAMGSolver`` on a ring of N row shards on the card; with
 ``--single`` the single-device ``AMGSolver`` of the same parameters and
-packing (``dist_devices=N``), phase 20's reference.  ``--jit`` takes
+packing (``dist_devices=N``), phase 20's reference.  ``--nccl`` runs the
+``--spmd``/``--gspmd`` solver inside a one-rank NCCL process group
+(phases 18-20's second solve: the group's collectives captured in the
+step graphs).  ``--jit`` takes
 phase 22's parameters (``chip_smoke.jit_pars``: f32 cycles to 1e-6, no
 defect correction or Krylov acceleration) and right-hand side
 (``jit_rhs``) and profiles a warm ``solve`` and then a warm ``solve_jit``
@@ -131,6 +135,9 @@ def main() -> int:
     ap.add_argument("--eager", action="store_true",
                     help="run each step eagerly instead of replaying its "
                          "CUDA graph")
+    ap.add_argument("--nccl", action="store_true",
+                    help="with --spmd/--gspmd: inside a one-rank NCCL "
+                         "process group")
     ap.add_argument("--matrix", choices=("poisson3d", "fem2d"),
                     default="poisson3d",
                     help="--spmd's matrix: poisson3d(100) (phase 18) or "
@@ -194,6 +201,16 @@ def main() -> int:
                      "fem2d")
         pars = jit_pars(pars)
         what += ", f32 cycles to 1e-6 (phase 22)"
+    if args.nccl:
+        if not (args.spmd or args.gspmd) or args.single:
+            ap.error("--nccl takes the --spmd or --gspmd solver")
+        import socket
+        from amg_tpu_torch.parallel import multihost
+
+        with socket.socket() as sock:
+            sock.bind(("localhost", 0))
+            port = sock.getsockname()[1]
+        multihost.initialize(f"localhost:{port}", 1, 0, device="cuda")
     mem0 = torch.cuda.memory_allocated()
     t0 = time.perf_counter()
     if args.spmd:
@@ -257,6 +274,8 @@ def main() -> int:
                   f"{g.captures} captured segments, built in "
                   f"{g.build_seconds:.3f} s, pool "
                   f"{g.pool_bytes / 2**20:.1f} MiB")
+    if args.nccl:
+        torch.distributed.destroy_process_group()
     return 0
 
 

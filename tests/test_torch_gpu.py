@@ -1394,3 +1394,76 @@ def test_cg_with_a_one_process_psum_is_a_graph_on_card():
                               maxit=200, psum=mesh.psum)
     assert krylov.counts["syncs"] > syncs
     assert torch.equal(got, want)
+
+
+# ---------------------------------------------------------------------------
+# a process group's steps: one-rank NCCL groups on the card
+# ---------------------------------------------------------------------------
+
+
+class _OneRankNccl:
+    """Within: this process is a one-rank NCCL process group
+    (``multihost.initialize``), destroyed on the way out."""
+
+    def __enter__(self):
+        import socket
+        import torch.distributed as tdist
+        from amg_tpu_torch.parallel import multihost
+
+        with socket.socket() as sock:
+            sock.bind(("localhost", 0))
+            port = sock.getsockname()[1]
+        assert multihost.initialize(f"localhost:{port}", 1, 0)
+        assert tdist.get_backend() == "nccl"
+
+    def __exit__(self, *exc):
+        import torch.distributed as tdist
+
+        tdist.destroy_process_group()
+
+
+@pytest.mark.parametrize("kind", ["embedded", "general", "gspmd"])
+def test_ring_steps_in_a_one_rank_nccl_group_on_card(kind):
+    """``SpmdAMGSolver`` (embedded and general modes) and
+    ``DistAMGSolver`` inside a one-rank NCCL group take the graph route
+    (NCCL's ``all_reduce`` and all-gathers captured in the step graphs),
+    equal to their eager steps and to the run without a group bit for bit
+    (a one-rank collective is the identity)."""
+    _needs_card()
+    from test_torch_step_graph import _ring, _same
+
+    solver, b, names = _ring(kind, "cuda")
+    want = solver.solve(b)
+    del solver
+    with _OneRankNccl():
+        solver, _, _ = _ring(kind, "cuda")
+        assert solver.mesh.backend == "nccl"
+        got = solver.solve(b)
+        _graphs_built(solver, names)
+        _same(got, solver.solve(b, eager=True))
+    _same(got, want)
+
+
+def test_cg_with_an_nccl_psum_keeps_its_host_loop_on_card():
+    """``krylov.cg`` with the ``psum`` of a one-rank NCCL group, on the
+    ring product of a row-sharded Dia operator: the documented host loop
+    (a process group's psum is not captured in a while node's body: on
+    four cards that graph never finished), one host read per iteration,
+    equal to ``cg_plain`` bit for bit and to the run without a group."""
+    _needs_card()
+    from amg_tpu_torch.parallel import make_mesh
+    from amg_tpu_torch.solve import krylov
+    from _torch_mh_worker import problem, ring_cg
+
+    a, b, _ = problem("cg")
+    want, _, want_its, want_reads = ring_cg(a, b, make_mesh(4), False, 400)
+    assert want_reads == 0
+    with _OneRankNccl():
+        mesh = make_mesh(4)
+        assert not krylov._capturable(mesh.psum)
+        x, status, its, reads = ring_cg(a, b, mesh, False, 400)
+        xp, status_p, its_p, _ = ring_cg(a, b, mesh, True, 400)
+    assert reads >= its > 0
+    assert status == status_p == 1 and its == its_p == want_its
+    np.testing.assert_array_equal(x, xp)
+    np.testing.assert_array_equal(x, want)

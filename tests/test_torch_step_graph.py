@@ -20,7 +20,11 @@ These tests hold, for every entry that runs one (``AMGSolver.solve``,
   under ``MOD_REL_RES``;
 * a solver makes each step graph once across solves and anew when its
   key (``pars``, the arguments' shapes) changes;
-* a process-group mesh keeps the eager route (2 gloo processes).
+* the route follows the mesh's device and its group's backend: the card
+  alone or in an NCCL group "graph", the CPU "static", gloo on the card
+  "eager"; 2 gloo processes take the static route and equal their eager
+  steps bit for bit, and ``krylov.cg`` with their ``psum`` (its host
+  loop) equals ``cg_plain``.
 
 Parity with ``amg_tpu`` is held by the other port tests, which run
 through the same route.
@@ -298,17 +302,18 @@ def test_step_graph_buffers():
 def test_cg_with_a_one_process_psum():
     """``krylov.cg`` with ``psum``: graphed on the card when the mesh's
     shards all sit in this process (no process group), host loop
-    otherwise; the loop bodies read nothing from the host and equal
-    ``cg_plain``'s result bit for bit (tests/test_dist.py:79-104's case,
-    a row-sharded Ell on 8 shards)."""
+    otherwise (NCCL groups too); the loop bodies read nothing from the host
+    and equal ``cg_plain``'s result bit for bit (tests/test_dist.py:79-104's
+    case, a row-sharded Ell on 8 shards)."""
     from amg_tpu_torch.parallel.dist import shard_matrix, shard_vector
     from amg_tpu_torch.parallel.spmd_cycle import gspmd_spmv
 
     mesh = make_mesh(8, device="cpu")
-    assert krylov._in_process(mesh.psum) and krylov._in_process(None)
-    group = Mesh(8, torch.device("cpu"), group=object())
-    assert not krylov._in_process(group.psum)
-    assert not krylov._in_process(lambda t: t.sum(0))
+    assert krylov._capturable(mesh.psum) and krylov._capturable(None)
+    for backend in ("nccl", "gloo"):
+        group = Mesh(8, torch.device("cpu"), group=object(), backend=backend)
+        assert not krylov._capturable(group.psum)
+    assert not krylov._capturable(lambda t: t.sum(0))
 
     a = tamg.poisson2d(16)
     e = shard_matrix(tamg.Ell.from_csr(a), mesh, gspmd=True)
@@ -331,28 +336,53 @@ def test_cg_with_a_one_process_psum():
     assert torch.equal(got, want)
 
 
-def test_process_group_meshes_keep_eager_steps():
-    """The route is fixed at setup from the mesh: a mesh with a process
-    group runs its steps eagerly (``all_reduce``, ``all_gather`` and halo
-    messages are not captured), and says so under ``verbose``."""
-    group = Mesh(4, torch.device("cpu"), group=object())
-    lines = []
-    s = SpmdAMGSolver(tamg.poisson3d(8), tamg.AMGParams(verbose=1),
-                      mesh=group, log=lines.append)
-    assert s.steps.route == "eager"
-    assert any(ln.startswith("mesh: ") and "steps: eager" in ln
-               for ln in lines)
-    d = DistAMGSolver(tamg.poisson2d(24), tamg.AMGParams(
-        verbose=0, coarse_replicate_nnz=200), mesh=group, **QUIET)
-    assert d.steps.route == "eager"
-    assert StepGraphs("cpu").route == "static"
+# the route table: (device, the group's backend or None, route)
+ROUTES = {"card": ("cuda", None, "graph"),
+          "nccl": ("cuda", "nccl", "graph"),
+          "cpu": ("cpu", "gloo", "static"),
+          "gloo_card": ("cuda", "gloo", "eager")}
 
 
-def test_two_gloo_processes_run_eager_steps(tmp_path):
-    """2 gloo processes of 2 shards each (tests/_torch_mh_worker.py): their
-    solvers take the eager route, and the solution equals the one-process
-    static route's within 1e-12 relative (the psums add the processes'
-    partial sums in another order)."""
+@pytest.mark.parametrize("row", list(ROUTES))
+def test_process_group_meshes_keep_eager_steps(row):
+    """The route is fixed at setup from the mesh's device and its group's
+    backend (meshes built with a stand-in group): the card alone or in an
+    NCCL group replays step graphs, the CPU (no group, or gloo) runs the
+    static buffers, and only gloo on the card keeps the eager steps; the
+    ``verbose`` mesh line names the backend and the route."""
+    device, backend, route = ROUTES[row]
+    group = None if backend is None else object()
+    mesh = Mesh(4, torch.device(device), group=group, backend=backend)
+    steps = StepGraphs(mesh.device, mesh.backend)
+    assert steps.route == route
+    assert mesh.describe() == f"mesh: 4 shards, 1 process, {device}" + (
+        "" if backend is None else f" ({backend})")
+    if route == "eager":
+        assert steps.describe() == ("eager (a gloo group on the card: its "
+                                    "collectives are not captured)")
+    if route == "graph":
+        assert steps.describe() == "one CUDA graph per step{}, replayed" \
+            .format("" if backend is None else " in a nccl group")
+    if device == "cpu":
+        # the CPU row: with a gloo group and without one
+        assert StepGraphs("cpu").route == "static"
+        lines = []
+        s = SpmdAMGSolver(tamg.poisson3d(8), tamg.AMGParams(verbose=1),
+                          mesh=mesh, log=lines.append)
+        assert s.steps.route == "static"
+        assert any(ln.startswith("mesh: 4 shards, 1 process, cpu (gloo); ")
+                   and ln.endswith("steps: static buffers, run eagerly")
+                   for ln in lines)
+        d = DistAMGSolver(tamg.poisson2d(24), tamg.AMGParams(
+            verbose=0, coarse_replicate_nnz=200), mesh=mesh, **QUIET)
+        assert d.steps.route == "static"
+    with pytest.raises(ValueError, match="backend"):
+        Mesh(4, torch.device(device), group=object())
+
+
+def _workers(tmp_path, kind, nproc=2, shards=4):
+    """Run tests/_torch_mh_worker.py's ``kind`` in ``nproc`` gloo processes
+    of ``shards / nproc`` shards each; their outputs, rank by rank."""
     with socket.socket() as sock:
         sock.bind(("localhost", 0))
         port = sock.getsockname()[1]
@@ -360,10 +390,10 @@ def test_two_gloo_processes_run_eager_steps(tmp_path):
     env = dict(os.environ, PYTHONPATH=REPO)
     worker = os.path.join(REPO, "tests", "_torch_mh_worker.py")
     procs = [subprocess.Popen([sys.executable, worker, str(port), str(r),
-                               "2", "4", out], env=env, cwd=REPO,
-                              stdout=subprocess.PIPE,
+                               str(nproc), str(shards), out, kind], env=env,
+                              cwd=REPO, stdout=subprocess.PIPE,
                               stderr=subprocess.STDOUT, text=True)
-             for r in range(2)]
+             for r in range(nproc)]
     try:
         logs = [p.communicate(timeout=240)[0] for p in procs]
     finally:
@@ -372,12 +402,50 @@ def test_two_gloo_processes_run_eager_steps(tmp_path):
                 p.kill()
     for p, log in zip(procs, logs):
         assert p.returncode == 0, log
-    got = [np.load(f"{out}.{r}.npz") for r in range(2)]
-    solver, b, _ = _ring("embedded")
-    x, info = solver.solve(b)
+    return [np.load(f"{out}.{r}.npz") for r in range(nproc)]
+
+
+@pytest.mark.parametrize("kind", ["poisson3d", "fem2d", "dist"])
+def test_two_gloo_processes_run_eager_steps(kind, tmp_path):
+    """2 gloo processes of 2 shards each (tests/_torch_mh_worker.py: the
+    embedded SPMD mode's FCG, the general mode's FCG, the GSPMD solver):
+    their solvers take the static route, each equal to its own eager steps
+    bit for bit (iterations, histories, x), and the solution equals the
+    one-process solve's in the same iterations, within 1e-12 relative (the
+    psums add the processes' partial sums in another order)."""
+    from _torch_mh_worker import problem, solver_class
+
+    got = _workers(tmp_path, kind)
+    a, b, pars = problem(kind)
+    x, info = solver_class(kind)(a, pars, mesh=make_mesh(4, device="cpu"),
+                                 **QUIET).solve(b)
     for g in got:
-        assert str(g["route"]) == "eager"
-        assert int(g["nits"]) == info.nits
+        assert str(g["route"]) == "static"
+        assert int(g["nits"]) == int(g["nits_eager"]) == info.nits
+        np.testing.assert_array_equal(g["residuals"], g["residuals_eager"])
+        np.testing.assert_array_equal(g["x"], g["x_eager"])
+        np.testing.assert_allclose(g["x"], x, rtol=0,
+                                   atol=1e-12 * np.abs(x).max())
+    np.testing.assert_array_equal(got[0]["x"], got[1]["x"])
+
+
+def test_cg_with_the_psum_of_two_gloo_processes(tmp_path):
+    """``krylov.cg`` with the ``psum`` of 2 gloo processes (its host loop:
+    gloo's collectives are not captured), on poisson3d(16)'s ring product
+    (B1's window entry over halo messages between the processes): the
+    status, iterations and x of ``cg_plain`` bit for bit, and the
+    one-process ``cg``'s iterations and x within 1e-12 relative."""
+    from _torch_mh_worker import problem, ring_cg
+
+    got = _workers(tmp_path, "cg")
+    a, b, _ = problem("cg")
+    x, status, its, _ = ring_cg(a, b, make_mesh(4, device="cpu"), False, 400)
+    assert status == 1
+    for g in got:
+        assert str(g["backend"]) == "gloo"
+        assert int(g["status"]) == int(g["status_plain"]) == status
+        assert int(g["its"]) == int(g["its_plain"]) == its
+        np.testing.assert_array_equal(g["x"], g["x_plain"])
         np.testing.assert_allclose(g["x"], x, rtol=0,
                                    atol=1e-12 * np.abs(x).max())
 
