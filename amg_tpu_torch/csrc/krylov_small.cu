@@ -56,8 +56,10 @@
 // on success); the kernel entries return cudaGetLastError() after the
 // launch.
 
+#include <algorithm>
 #include <cstddef>
 #include <cstdint>
+#include <vector>
 #include <cuda_runtime.h>
 
 namespace {
@@ -273,6 +275,19 @@ size_t deps(void* dep, cudaGraphNode_t* out) {
   return 1;
 }
 
+// the nodes `node` depends on (`in`), else the nodes that depend on it;
+// the list is only asked for when it is not empty
+cudaError_t node_edges(cudaGraphNode_t node, std::vector<cudaGraphNode_t>* v,
+                       bool in) {
+  size_t n = 0;
+  cudaError_t err = in ? cudaGraphNodeGetDependencies(node, nullptr, &n)
+                       : cudaGraphNodeGetDependentNodes(node, nullptr, &n);
+  v->assign(n, nullptr);
+  if (err != cudaSuccess || n == 0) return err;
+  return in ? cudaGraphNodeGetDependencies(node, v->data(), &n)
+            : cudaGraphNodeGetDependentNodes(node, v->data(), &n);
+}
+
 }  // namespace
 
 extern "C" {
@@ -445,6 +460,73 @@ int ks_capture_end(void* stream, void** dep) {
   cudaGraph_t g;
   const cudaError_t end = cudaStreamEndCapture((cudaStream_t)stream, &g);
   return err != 0 ? err : (int)end;
+}
+
+// counts[t] += the nodes of cudaGraphNodeType t (t < n_kinds) in `graph`,
+// child graphs' nodes included (a child graph node counts as well).
+int ks_graph_kinds(void* graph, size_t* counts, int n_kinds) {
+  size_t n = 0;
+  cudaError_t err = cudaGraphGetNodes((cudaGraph_t)graph, nullptr, &n);
+  if (err != cudaSuccess || n == 0) return (int)err;
+  std::vector<cudaGraphNode_t> nodes(n);
+  err = cudaGraphGetNodes((cudaGraph_t)graph, nodes.data(), &n);
+  for (size_t i = 0; i < n && err == cudaSuccess; ++i) {
+    cudaGraphNodeType t;
+    err = cudaGraphNodeGetType(nodes[i], &t);
+    if (err != cudaSuccess) break;
+    if ((int)t < n_kinds) ++counts[(int)t];
+    if (t == cudaGraphNodeTypeGraph) {
+      cudaGraph_t child;
+      err = cudaGraphChildGraphNodeGetGraph(nodes[i], &child);
+      if (err == cudaSuccess) err = (cudaError_t)ks_graph_kinds(
+          child, counts, n_kinds);
+    }
+  }
+  return (int)err;
+}
+
+// Remove the event record and event wait nodes of `graph` (child graphs'
+// included), each node's dependencies passed on to its dependents (an
+// edge that exists already is not added again); *removed counts them.
+// NCCL adds such nodes to a graph that captures one of its calls, to
+// order the graph's NCCL work against NCCL calls made outside it (its
+// "graph mixing" support); a conditional node's body may hold no event
+// node.  Inside one graph whose nodes run in one chain the order holds
+// without them.
+int ks_graph_strip_events(void* graph, size_t* removed) {
+  size_t n = 0;
+  cudaError_t err = cudaGraphGetNodes((cudaGraph_t)graph, nullptr, &n);
+  if (err != cudaSuccess || n == 0) return (int)err;
+  std::vector<cudaGraphNode_t> nodes(n);
+  err = cudaGraphGetNodes((cudaGraph_t)graph, nodes.data(), &n);
+  for (size_t i = 0; i < n && err == cudaSuccess; ++i) {
+    cudaGraphNodeType t;
+    err = cudaGraphNodeGetType(nodes[i], &t);
+    if (err != cudaSuccess) break;
+    if (t == cudaGraphNodeTypeGraph) {
+      cudaGraph_t child;
+      err = cudaGraphChildGraphNodeGetGraph(nodes[i], &child);
+      if (err == cudaSuccess) err = (cudaError_t)ks_graph_strip_events(
+          child, removed);
+      continue;
+    }
+    if (t != cudaGraphNodeTypeEventRecord && t != cudaGraphNodeTypeWaitEvent)
+      continue;
+    std::vector<cudaGraphNode_t> in, out;
+    err = node_edges(nodes[i], &in, true);
+    if (err == cudaSuccess) err = node_edges(nodes[i], &out, false);
+    for (size_t b = 0; b < out.size() && err == cudaSuccess; ++b) {
+      std::vector<cudaGraphNode_t> has;
+      err = node_edges(out[b], &has, true);
+      for (size_t a = 0; a < in.size() && err == cudaSuccess; ++a)
+        if (std::find(has.begin(), has.end(), in[a]) == has.end())
+          err = cudaGraphAddDependencies((cudaGraph_t)graph, &in[a],
+                                         &out[b], 1);
+    }
+    if (err == cudaSuccess) err = cudaGraphDestroyNode(nodes[i]);
+    if (err == cudaSuccess) ++*removed;
+  }
+  return (int)err;
 }
 
 }  // extern "C"

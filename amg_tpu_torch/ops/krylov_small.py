@@ -91,7 +91,9 @@ def _bind(dll):
             ("ks_instantiate", [p, pp]), ("ks_launch", [p, p]),
             ("ks_exec_destroy", [p]), ("ks_capture_tail", [p, pp, pp]),
             ("ks_capture_continue", [p, p]), ("ks_capture_begin", [p, p, p]),
-            ("ks_capture_end", [p, pp]), ("ks_empty", [p])):
+            ("ks_capture_end", [p, pp]), ("ks_empty", [p]),
+            ("ks_graph_kinds", [p, ctypes.POINTER(size), i32]),
+            ("ks_graph_strip_events", [p, ctypes.POINTER(size)])):
         fn = getattr(dll, name)
         fn.argtypes = args
         fn.restype = i32
@@ -265,6 +267,32 @@ def graph_nodes(raw: int) -> int:
     """The number of nodes at the top level of graph ``raw``."""
     n = ctypes.c_size_t()
     _call("ks_graph_nodes", ctypes.c_void_p(raw), ctypes.byref(n))
+    return n.value
+
+
+# cudaGraphNodeType's values (driver_types.h)
+NODE_KINDS = ("kernel", "memcpy", "memset", "host", "graph", "empty",
+              "event_wait", "event_record", "semaphore_signal",
+              "semaphore_wait", "mem_alloc", "mem_free", "batch_memop",
+              "conditional")
+
+
+def graph_kinds(raw: int) -> dict:
+    """The nodes of graph ``raw`` by kind (``NODE_KINDS``), those of child
+    graphs included; kinds with no node are left out."""
+    counts = (ctypes.c_size_t * len(NODE_KINDS))()
+    _call("ks_graph_kinds", ctypes.c_void_p(raw), counts, len(NODE_KINDS))
+    return {k: n for k, n in zip(NODE_KINDS, counts) if n}
+
+
+def strip_events(raw: int) -> int:
+    """Remove the event record and wait nodes of graph ``raw`` (child
+    graphs' included), passing each one's dependencies on to its
+    dependents: how many were removed.  NCCL adds them to a graph that
+    captures one of its calls, to order it against NCCL calls outside
+    the graph; a conditional node's body may hold none (``LoopGraph``)."""
+    n = ctypes.c_size_t()
+    _call("ks_graph_strip_events", ctypes.c_void_p(raw), ctypes.byref(n))
     return n.value
 
 

@@ -26,7 +26,9 @@ each step of a host loop is a CUDA graph, captured once with its
 ``all_reduce``, all-gathers and halo messages and replayed, as on a mesh
 held by one process; a gloo group on the CPU runs the steps on static
 buffers, and one on the card (gloo on CUDA tensors) runs them eagerly.
-``krylov.cg`` with a process group's ``psum`` keeps its host loop.
+``krylov.cg``, ``gmres`` and ``fcg`` with an NCCL group's ``psum`` run as
+one CUDA graph each, the group's collectives inside its while bodies
+(``krylov._route``); with a gloo group's, as host loops.
 """
 
 from __future__ import annotations

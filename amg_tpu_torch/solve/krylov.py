@@ -13,19 +13,20 @@ an uninitialized GPU buffer, amg/Solve/SSS_cycle.cu:373-374 — SURVEY.md
 * :class:`CoarsestKrylov` — the reference's coarsest solve: CG, then
   GMRES from zero where CG did not converge (amg/Solve/SSS_cycle.cu:
   819-846);
-* :func:`fcg` and its steps :func:`fcg_init`, :func:`fcg_step`,
-  :func:`fcg_refresh` — Notay's flexible CG, which the driver runs with
-  one AMG cycle as the preconditioner.
+* :func:`fcg` (:class:`FCGLoop`) and its steps :func:`fcg_init`,
+  :func:`fcg_step`, :func:`fcg_refresh` — Notay's flexible CG, which
+  ``AMGSolver.solve_pcg`` runs with one AMG cycle as the preconditioner.
 
-``amg_tpu`` runs ``cg`` and ``gmres`` under ``lax.while_loop`` and the
-coarsest solve's fallback under ``lax.cond``.  Here each loop is a body
-that updates fixed state tensors in place and leaves a device flag saying
-whether to go on (:class:`CGLoop`, :class:`GMRESLoop`), and the loops form
-a program of :mod:`.loop_graph`: on the card one CUDA graph of while and
-if nodes, built at first use, with no host read inside; on the CPU the
-same bodies under a host ``while`` (one read of the flag per iteration,
-counted in ``counts["syncs"]``).  The bodies follow ``amg_tpu``'s order
-and semantics in the vectors' dtype:
+``amg_tpu`` runs ``cg``, ``gmres`` and ``fcg`` under ``lax.while_loop``
+and the coarsest solve's fallback and FCG's residual replacement under
+``lax.cond``.  Here each loop is a body that updates fixed state tensors
+in place and leaves a device flag saying whether to go on
+(:class:`CGLoop`, :class:`GMRESLoop`, :class:`FCGLoop`), and the loops
+form a program of :mod:`.loop_graph`: on the card one CUDA graph of while
+and if nodes, built at first use, with no host read inside; on the CPU
+the same bodies under a host ``while`` (one read of the flag per
+iteration, counted in ``counts["syncs"]``).  The bodies follow
+``amg_tpu``'s order and semantics in the vectors' dtype:
 
 * a CG iteration is masked by a ``running`` flag, so a batch ``(k, pad)``
   runs every column to its own stop, as ``vmap`` of ``amg_tpu``'s loop
@@ -39,15 +40,26 @@ and semantics in the vectors' dtype:
   ends in the Givens kernel of :mod:`..ops.krylov_small`, which advances
   ``j`` and sets the loop's flag: the loop stops at the step that set
   ``done`` (``amg_tpu``'s masked steps after it change nothing).  The end
-  is the back-substitution kernel and ``x += M(V y)``.
+  is the back-substitution kernel and ``x += M(V y)``;
+* an FCG iteration is a step, then an if node that replaces the residual
+  every 10 iterations, then the test of ``||r|| / ||b||``.
+
+``cg``, ``gmres``, ``fcg`` and the FCG steps take ``psum`` for one
+row-sharded ``(S, m)`` vector (``amg_tpu``'s ``axis_name``): every dot and
+norm is the global one, so the loops' flags hold the same value on every
+shard and process, and every process runs the same iterations.  The route
+(:func:`_route`) follows the ``psum``'s process group, never its size:
+one CUDA graph with no psum, with that of a mesh whose shards all sit in
+this process (a local sum) and with that of an NCCL group (its
+``all_reduce`` and the ring's ``batch_isend_irecv`` captured inside the
+while bodies, NCCL's event nodes taken out of them:
+:meth:`.loop_graph.LoopGraph`); the host loop with a gloo group, whose
+collectives cannot be captured, and with any other callable.
 
 ``counts`` holds the Krylov layer's host reads (``syncs``, a host integer)
 and its work, which the bodies add to on the device: CG and GMRES solves
 and iterations and the CG solves that did not converge (read once, when
-the caller reads them).  ``cg`` and the FCG steps take ``psum`` for
-row-sharded ``(S, m)`` vectors (``amg_tpu``'s ``axis_name``); ``cg`` with
-the ``psum`` of a mesh whose shards all sit in this process (a local sum)
-is one graph too, and with that of a process group runs its host loop.
+the caller reads them).
 """
 
 from __future__ import annotations
@@ -124,6 +136,9 @@ class _Counts(MutableMapping):
 # callers)
 counts = _Counts()
 _W = {k: i for i, k in enumerate(_Counts.WORK)}
+# the graph of the last loop run on the graph route: its nodes, build
+# seconds and the NCCL event nodes taken out of its loop bodies
+last_graph: dict = {}
 
 
 def _read(flag) -> bool:
@@ -132,16 +147,18 @@ def _read(flag) -> bool:
     return bool(flag)
 
 
-def _run(prog, device, graph: bool = True):
-    """Run a program: one CUDA graph on the card (with ``graph``), built
-    for this call and closed after it, its kernel launches added to the
-    counters (one host read); the host loop otherwise."""
-    if device.type == "cuda" and graph:
+def _run(prog, device, psum=None, graph: bool = True):
+    """Run a program on :func:`_route`'s route: one CUDA graph built for
+    this call and closed after it, its kernel launches added to the
+    counters (one host read), or the host loop."""
+    if _route(device, psum, graph) == "graph":
         g = LoopGraph(prog, device, restore=(counts.work(device),))
         try:
             g.launch()
             g.settle()
         finally:
+            last_graph.update(nodes=g.nodes, build_s=g.build_seconds,
+                              events=g.events)
             g.close()
     else:
         run_plain(prog, _read)
@@ -334,23 +351,30 @@ class CGLoop:
         w[_W["cg_failed"]].add_((self.status != _CONVERGED).sum())
 
 
-def _capturable(psum) -> bool:
-    """No ``psum``, or the ``psum`` of a mesh without a process group
-    (``parallel.dist.Mesh.psum``: a local sum).  A process group's psum
-    keeps the host loop, NCCL's too: on four H100s the while node whose
-    body held NCCL's ``all_reduce`` and the ring's ``batch_isend_irecv``
-    never finished (no CUDA error; ROADMAP, Krylov item 2)."""
+def _route(device, psum=None, graph: bool = True) -> str:
+    """The route of a Krylov loop on ``device`` with ``psum``: ``"graph"``
+    (one :class:`~.loop_graph.LoopGraph`, no host read inside) on the card
+    with no ``psum``, the ``psum`` of a mesh without a process group
+    (``parallel.dist.Mesh.psum``: a local sum) or that of an NCCL group,
+    whose ``all_reduce`` and halo messages the graph captures; ``"host"``
+    (the host reads each loop flag) on the CPU, for a gloo group (its
+    collectives are not captured), any other callable, and the plain
+    versions (``graph`` False).  The route follows the backend, never the
+    number of processes."""
+    if device.type != "cuda" or not graph:
+        return "host"
     if psum is None:
-        return True
+        return "graph"
     mesh = getattr(psum, "__self__", None)
-    return getattr(mesh, "backend", "") is None
+    return ("graph" if getattr(mesh, "backend", "") in (None, "nccl")
+            else "host")
 
 
 def _cg(a, b, x0, tol, maxit, M, stop_type, return_info, psum, graph):
     loop = CGLoop(a, b, tol, maxit, M, stop_type, psum)
     loop.b.copy_(b)
     loop.x0.copy_(x0)
-    _run(loop.program, b.device, graph and _capturable(psum))
+    _run(loop.program, b.device, psum, graph)
     status, it = loop.status, loop.it
     if b.dim() == 2 and psum is None:
         status, it = status.reshape(-1), it.reshape(-1)
@@ -398,10 +422,10 @@ def cg(a, b, x0, tol=1e-7, maxit=250, M=None, stop_type=None,
     eagerly (the second time under ``torch.cuda.set_sync_debug_mode(
     "error")``), captures and instantiates, so ``a`` and ``M`` must run
     without a host read or synchronisation, and a single call pays the
-    build (PERF.md gives its cost against :func:`cg_plain`); so is a
-    ``psum`` of a mesh held by this process alone; with the ``psum`` of a
-    process group (NCCL's too), another callable, and on the CPU the host
-    reads the flag once per iteration.
+    build (PERF.md gives its cost against :func:`cg_plain`); the route of
+    a ``psum`` is :func:`_route`'s (one graph for a mesh of this process
+    or an NCCL group).  On the CPU, and with a gloo group's ``psum`` or
+    another callable, the host reads the flag once per iteration.
     Returns ``(x, converged)``, or ``(x, converged, info)`` with
     ``return_info`` where ``info = (status_code, iters)`` and
     ``status_code`` is 1 on convergence, ``ErrorCode.ERROR_SOLVER_*`` on a
@@ -420,25 +444,28 @@ def cg_plain(a, b, x0, tol=1e-7, maxit=250, M=None, stop_type=None,
 
 class GMRESLoop:
     """Restarted GMRES(m) of :func:`gmres` on fixed buffers, for one
-    vector.
+    vector or, with ``psum``, one row-sharded ``(S, m)`` vector.
 
     The caller fills ``b`` and ``x0``; :attr:`program` (:meth:`start`,
     then :attr:`restart` while ``go``) leaves the solution in ``x``, the
     Arnoldi steps kept in ``it`` and the verdict in ``conv``.  A restart
     is :meth:`restart_begin`, :meth:`step` while ``step_go`` (at most m
-    times), and :meth:`restart_end`.  The basis ``V`` is ``(m + 1, pad)``,
-    zeroed by each restart, so that the Gram-Schmidt terms of rows not
-    built yet subtract exact zeros, as ``amg_tpu``'s fresh basis does.
-    No method reads the host."""
+    times), and :meth:`restart_end`.  The basis ``V`` is ``(m + 1,
+    *like.shape)``, zeroed by each restart, so that the Gram-Schmidt terms
+    of rows not built yet subtract exact zeros, as ``amg_tpu``'s fresh
+    basis does.  With ``psum`` every dot and norm is the global one
+    (``amg_tpu``'s ``axis_name``), so ``H``, ``g``, the rotations and the
+    flags hold the same numbers on every shard and process.  No method
+    reads the host."""
 
-    def __init__(self, a, like, tol, maxit, restart=30, M=None):
+    def __init__(self, a, like, tol, maxit, restart=30, M=None, psum=None):
         self.amul = _as_op(a)
         self.prec = M if M is not None else _identity
-        self.tol, self.maxit, self.m = tol, maxit, restart
+        self.tol, self.maxit, self.m, self.psum = tol, maxit, restart, psum
         kw = dict(dtype=like.dtype, device=like.device)
-        n, m = like.shape[0], restart
-        self.b, self.x0, self.x = (torch.zeros(n, **kw) for _ in range(3))
-        self.V = torch.zeros((m + 1, n), **kw)
+        shape, m = tuple(like.shape), restart
+        self.b, self.x0, self.x = (torch.zeros(shape, **kw) for _ in range(3))
+        self.V = torch.zeros((m + 1, *shape), **kw)
         self.hcol = torch.zeros(m + 1, **kw)       # a step's MGS coefficients
         self.hraw = torch.zeros((m, m + 1), **kw)  # columns before rotation
         self.H = torch.zeros((m + 1, m), **kw)
@@ -468,7 +495,7 @@ class GMRESLoop:
 
     def start(self):
         self.x.copy_(self.x0)
-        beta0 = norm2(self.b - self.amul(self.x0))
+        beta0 = norm2(self.b - self.amul(self.x0), self.psum)
         self.normr0.copy_(torch.clamp(beta0, min=SMALLFLOAT))
         self.it.zero_()
         self.conv.copy_(beta0 / self.normr0 < self.tol)
@@ -477,7 +504,7 @@ class GMRESLoop:
 
     def restart_begin(self):
         r = self.b - self.amul(self.x)
-        beta = norm2(r)
+        beta = norm2(r, self.psum)
         self.V[1:].zero_()
         self.V[0].copy_(r / torch.clamp(beta, min=SMALLFLOAT))
         for t in (self.H, self.cs, self.sn, self.g, self.done, self.k_eff,
@@ -490,15 +517,15 @@ class GMRESLoop:
         """Arnoldi step ``j`` (read on the device): modified Gram-Schmidt
         against every basis row (coefficients past ``j`` are 0), ``V[j +
         1]``, then the Givens kernel (``j += 1``, ``step_go``)."""
-        V, j = self.V, self.j
+        V, j, psum = self.V, self.j, self.psum
         jl = j.reshape(1).long()
         w = self.amul(self.prec(V.index_select(0, jl)[0]))
         built = self.rows <= j
         for i in range(self.m + 1):
-            torch.where(built[i], dot(V[i], w), self.zero,
+            torch.where(built[i], dot(V[i], w, psum), self.zero,
                         out=self.hcol[i])
             w = w - self.hcol[i] * V[i]
-        hj1 = norm2(w)
+        hj1 = norm2(w, psum)
         V.index_copy_(0, jl + 1, torch.where(
             hj1 > SMALLFLOAT, w / torch.clamp(hj1, min=SMALLFLOAT), w)[None])
         krylov_small.givens(self.hcol, hj1, j, self.hraw, self.H, self.cs,
@@ -507,7 +534,11 @@ class GMRESLoop:
 
     def restart_end(self):
         y = krylov_small.backsub(self.H, self.g, self.k_eff)
-        self.x.copy_(self.x + self.prec(self.V[: self.m].T @ y))
+        # V y: a contraction over the basis rows, each shard's rows as
+        # amg_tpu's V[:m].T @ y runs per shard
+        vy = (self.V[: self.m].reshape(self.m, -1).T @ y).reshape(
+            self.x.shape)
+        self.x.copy_(self.x + self.prec(vy))
         self.it.add_(self.k_eff)
         res = torch.abs(self.g.index_select(
             0, torch.clamp(self.k_eff, max=self.m).reshape(1).long()))[0]
@@ -516,18 +547,18 @@ class GMRESLoop:
         self.work[_W["gmres_iters"]].add_(self.k_eff)
 
 
-def _gmres(a, b, x0, tol, maxit, restart, M, return_iters, graph):
-    loop = GMRESLoop(a, b, tol, maxit, restart, M)
+def _gmres(a, b, x0, tol, maxit, restart, M, return_iters, psum, graph):
+    loop = GMRESLoop(a, b, tol, maxit, restart, M, psum)
     loop.b.copy_(b)
     loop.x0.copy_(x0)
-    _run(loop.program, b.device, graph)
+    _run(loop.program, b.device, psum, graph)
     if return_iters:
         return loop.x, loop.conv, loop.it
     return loop.x, loop.conv
 
 
 def gmres(a, b, x0, tol=1e-7, maxit=1000, restart=30, M=None,
-          return_iters=False):
+          return_iters=False, psum=None):
     """Restarted GMRES(m) with MGS + Givens (``amg_tpu.solve.krylov.gmres``).
     Returns ``(x, converged)`` (or ``(x, converged, iters)`` with
     ``return_iters``; 0-d device tensors).  ``M`` is applied as a RIGHT
@@ -537,24 +568,29 @@ def gmres(a, b, x0, tol=1e-7, maxit=1000, restart=30, M=None,
     restart ends at the Arnoldi step that met the estimate (``amg_tpu``
     runs its ``m`` steps, those after the stop masked to change nothing).
     ``iters`` counts the steps kept, summed over restarts.  ``b`` is one
-    vector.  On the card the restarts and their Arnoldi steps run in one
-    CUDA graph (a while node over restarts, each holding a while node over
-    one captured step), built for the call: that build runs the start, a
-    restart's begin, one step and its end twice eagerly (the second time
-    under ``torch.cuda.set_sync_debug_mode("error")``: 6 applications of
-    ``a`` and 4 of ``M``), captures and instantiates, so ``a`` and ``M``
-    must run without a host read or synchronisation, and a single call
-    pays the build (PERF.md gives its cost against :func:`gmres_plain`);
-    on the CPU the host reads a flag before each restart and each
-    step."""
-    return _gmres(a, b, x0, tol, maxit, restart, M, return_iters, True)
+    vector or, with ``psum`` (:meth:`~amg_tpu_torch.parallel.dist.Mesh.
+    psum`), one row-sharded vector's ``(S, m)`` block with ``a`` its
+    row-sharded product (a callable): every dot and norm is the global one
+    (``m + 2`` psums per Arnoldi step, as ``amg_tpu``'s).  On the card
+    the restarts and their Arnoldi steps run in one CUDA graph (a while
+    node over restarts, each holding a while node over one captured
+    step), built for the call: that build runs the start, a restart's
+    begin, one step and its end twice eagerly (the second time under
+    ``torch.cuda.set_sync_debug_mode("error")``: 6 applications of ``a``
+    and 4 of ``M``), captures and instantiates, so ``a`` and ``M`` must
+    run without a host read or synchronisation, and a single call pays
+    the build (PERF.md gives its cost against :func:`gmres_plain`); the
+    route of a ``psum`` is :func:`_route`'s.  On the CPU the host reads a
+    flag before each restart and each step."""
+    return _gmres(a, b, x0, tol, maxit, restart, M, return_iters, psum, True)
 
 
 def gmres_plain(a, b, x0, tol=1e-7, maxit=1000, restart=30, M=None,
-                return_iters=False):
+                return_iters=False, psum=None):
     """:func:`gmres` with its host loop on any device (the plain version
     of the graph)."""
-    return _gmres(a, b, x0, tol, maxit, restart, M, return_iters, False)
+    return _gmres(a, b, x0, tol, maxit, restart, M, return_iters, psum,
+                  False)
 
 
 class CoarsestKrylov:
@@ -670,24 +706,95 @@ def fcg_refresh(amul, prec, b, state, psum=None):
     return (x, r, z, p, rho), norm2(r, psum)
 
 
-def fcg(a, b, x0, tol=1e-7, maxit=100, M=None):
+class FCGLoop:
+    """Flexible CG of :func:`fcg` on fixed buffers: one vector or, with
+    ``psum``, one row-sharded ``(S, m)`` vector.
+
+    The caller fills ``b`` and ``x0``; :attr:`program` (:meth:`start`,
+    then :meth:`step`, the residual replacement :meth:`refresh` where
+    ``refresh_due``, and :meth:`set_go` while ``go``) leaves the state
+    ``(x, r, z, p, rho)`` in ``state``, the iterations in ``it`` and the
+    last residual norm in ``absres``: ``amg_tpu``'s ``lax.while_loop``,
+    its ``lax.cond`` every 10 iterations an if node.  No method reads the
+    host."""
+
+    def __init__(self, a, like, tol, maxit, M=None, psum=None):
+        self.amul = _as_op(a)
+        self.prec = M if M is not None else _identity
+        self.tol, self.maxit, self.psum = tol, maxit, psum
+        kw = dict(dtype=like.dtype, device=like.device)
+        self.b, self.x0 = torch.zeros_like(like), torch.zeros_like(like)
+        self.state = (*(torch.zeros_like(like) for _ in range(4)),
+                      torch.zeros((), **kw))
+        self.absres, self.sumb = (torch.zeros((), **kw) for _ in range(2))
+        self.it = torch.zeros((), dtype=torch.int32, device=like.device)
+        self.go, self.refresh_due = (torch.zeros((), dtype=torch.bool,
+                                                 device=like.device)
+                                     for _ in range(2))
+
+    @property
+    def program(self) -> tuple:
+        return (self.start, While(self.go, (
+            self.step, If(self.refresh_due, (self.refresh,)), self.set_go)))
+
+    def _keep(self, st, absres):
+        for t, v in zip(self.state, st):
+            t.copy_(v)
+        self.absres.copy_(absres)
+
+    def start(self):
+        psum = self.psum
+        self.sumb.copy_(torch.clamp(norm2(self.b, psum), min=SMALLFLOAT))
+        st = fcg_init(self.amul, self.prec, self.b, self.x0, psum)
+        self._keep(st, norm2(st[1], psum))
+        self.it.zero_()
+        self._set_go()
+
+    def step(self):
+        self._keep(*fcg_step(self.amul, self.prec, self.state, self.psum))
+        self.refresh_due.copy_((self.it + 1) % 10 == 0)
+
+    def refresh(self):
+        self._keep(*fcg_refresh(self.amul, self.prec, self.b, self.state,
+                                self.psum))
+
+    def _set_go(self):
+        self.go.copy_((self.it < self.maxit)
+                      & (self.absres / self.sumb >= self.tol))
+
+    def set_go(self):
+        self.it.add_(1)
+        self._set_go()
+
+
+def _fcg(a, b, x0, tol, maxit, M, psum, graph):
+    loop = FCGLoop(a, b, tol, maxit, M, psum)
+    loop.b.copy_(b)
+    loop.x0.copy_(x0)
+    _run(loop.program, b.device, psum, graph)
+    return loop.state[0], loop.it, loop.absres
+
+
+def fcg(a, b, x0, tol=1e-7, maxit=100, M=None, psum=None):
     """Flexible preconditioned CG in one loop (``amg_tpu``'s
     ``lax.while_loop`` version), with the residual replaced every 10
     iterations.
 
-    Returns ``(x, nits, absres)``.  Stopping: ``||r|| / ||b|| < tol``
-    (the AMG outer-loop criterion, amg/Solve/SSS_SOLVE.c:64-79, not the
-    coarsest-CG criterion); the host reads the residual every iteration.
-    """
-    amul = _as_op(a)
-    prec = M if M is not None else _identity
-    sumb = torch.clamp(norm2(b), min=SMALLFLOAT)
-    st = fcg_init(amul, prec, b, x0)
-    absres = norm2(st[1])
-    it = 0
-    while it < maxit and float(absres / sumb) >= tol:
-        st, absres = fcg_step(amul, prec, st)
-        if (it + 1) % 10 == 0:
-            st, absres = fcg_refresh(amul, prec, b, st)
-        it += 1
-    return st[0], it, absres
+    Returns ``(x, nits, absres)`` (``nits`` and ``absres`` 0-d device
+    tensors).  Stopping: ``||r|| / ||b|| < tol`` (the AMG outer-loop
+    criterion, amg/Solve/SSS_SOLVE.c:64-79, not the coarsest-CG
+    criterion).  With ``psum`` ``b`` and ``x0`` are one row-sharded
+    vector's ``(S, m)`` block and ``a`` its row-sharded product, as for
+    :func:`cg`.  On the card the loop is one CUDA graph (a while node
+    whose body holds the iteration and an if node around the residual
+    replacement), built for the call as :func:`cg`'s is, so ``a`` and
+    ``M`` must run without a host read; the route of a ``psum`` is
+    :func:`_route`'s.  On the CPU the host reads two flags per
+    iteration."""
+    return _fcg(a, b, x0, tol, maxit, M, psum, True)
+
+
+def fcg_plain(a, b, x0, tol=1e-7, maxit=100, M=None, psum=None):
+    """:func:`fcg` with its host loop on any device (the plain version of
+    the graph)."""
+    return _fcg(a, b, x0, tol, maxit, M, psum, False)

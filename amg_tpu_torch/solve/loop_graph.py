@@ -27,6 +27,17 @@ once and launched on the current stream; inside another capture
 (``torch.cuda.is_current_stream_capturing()``) the same nodes are added to
 the graph being captured instead (:meth:`LoopGraph.add_to_capture`).
 
+A segment may hold a process group's NCCL collectives and p2p messages
+(the Krylov loops with an NCCL group's ``psum``): NCCL adds an event wait
+node and an event record node to a graph that captures one of its calls,
+to order the graph's NCCL work against NCCL calls made outside it, and a
+conditional node's body may hold no event node.  So a captured segment
+placed inside a while or if node is stripped of them first
+(``krylov_small.strip_events``: each one's dependencies pass to its
+dependents); within one graph the nodes run in one chain, and the
+segments at the top level keep theirs, which order the whole graph
+against the group's calls before and after it.
+
 A kernel wrapper counts its launch when a segment is captured; the graph
 takes those counts back and counts each captured segment's runs on the
 device.  :func:`settle` adds them, runs times, to the kernel modules'
@@ -166,9 +177,11 @@ class LoopGraph:
     conditional bodies' included), ``captures`` (segments captured as
     child graphs), ``direct`` (segments captured into their place),
     ``build_seconds`` (warm-up, captures and instantiation),
-    ``pool_bytes`` (device memory the captures took).  ``embedded``
-    holds the graphs whose nodes a segment captured in place added (the
-    KRYLOV coarsest solves of a captured cycle), kept alive with it."""
+    ``pool_bytes`` (device memory the captures took), ``events`` (the
+    event nodes taken out of segments inside conditional bodies).
+    ``embedded`` holds the graphs whose nodes a segment captured in place
+    added (the KRYLOV coarsest solves of a captured cycle), kept alive
+    with it."""
 
     def __init__(self, prog, device, restore=()):
         self.prog = tuple(prog)
@@ -185,7 +198,8 @@ class LoopGraph:
         self.pool = self.pool_device = None
         self.holds = 0                # holds on the pool of direct captures
         self.embedded = ()
-        self.nodes = self.captures = self.pool_bytes = 0
+        self.stripped: set = set()    # segments stripped of event nodes
+        self.nodes = self.captures = self.pool_bytes = self.events = 0
         self.build_seconds = 0.0
 
     def _warm_up(self, stream):
@@ -263,11 +277,11 @@ class LoopGraph:
         if not launch_counts.empty(d):
             self.counted[seg] = (i, d)
 
-    def _emit(self, g, prog, stream=None):
+    def _emit(self, g, prog, stream=None, nested=False):
         for step in prog:
             if isinstance(step, (While, If)):
                 with g.conditional(step.flag, isinstance(step, While)) as b:
-                    self._emit(b, step.body, stream)
+                    self._emit(b, step.body, stream, True)
             elif isinstance(step, Copy):
                 g.copy(step.dst, step.src)
             elif step in self.direct:
@@ -277,7 +291,11 @@ class LoopGraph:
                                        "to another capture")
                 self._capture_into(g, step, stream)
             else:
-                g.child(self.captured[step].raw_cuda_graph())
+                raw = self.captured[step].raw_cuda_graph()
+                if nested and step not in self.stripped:
+                    self.events += krylov_small.strip_events(raw)
+                    self.stripped.add(step)
+                g.child(raw)
                 if step in self.counted:
                     i = self.counted[step][0]
                     g.child(self.increments[i].raw_cuda_graph())

@@ -110,9 +110,10 @@ Phases (any failure raises and the script exits nonzero):
    plain host loops on the card on one coarsest right-hand side (equal
    statuses and iterations, x within 1e-6 of ||x||, bit identity
    logged), the graph's nodes, build seconds and pool MiB, warm solve
-   seconds against the host loops'; the public ``cg`` and ``gmres`` (one
-   graph built per call) timed against their host loops on that
-   right-hand side; ``solve_pgmres`` on the same hierarchy (f64 GMRES
+   seconds against the host loops'; the public ``cg``, ``gmres`` and
+   ``fcg`` (one graph built per call, no host read) timed against their
+   host loops on that right-hand side (``fcg`` gated bit for bit);
+   ``solve_pgmres`` on the same hierarchy (f64 GMRES
    around the f32 cycles: its Arnoldi step, holding the coarsest solve's
    while and if nodes, is captured in place in the GMRES graph), 0 host
    reads, graph = host loops bit for bit, cold and warm seconds;
@@ -142,7 +143,20 @@ Phases (any failure raises and the script exits nonzero):
    (``multihost.initialize``): its steps replayed CUDA graphs with the
    NCCL ``all_reduce`` captured (route "graph"), equal to its eager steps
    bit for bit, and the same iterations and x as the in-process run bit
-   for bit; nodes, build s, pool MiB and warm s of both routes logged;
+   for bit; nodes, build s, pool MiB and warm s of both routes logged.
+   Then the sharded Krylov path on the same ring (``ring_krylov``): the
+   public ``cg``, ``gmres`` (GMRES(30), Jacobi-preconditioned) and
+   ``fcg`` with the mesh's ``psum`` on poisson3d(100)'s f64 ring product
+   at full width (B1's window entry), each one CUDA graph built by its
+   call, gated against its host loop (``*_plain``): route "graph", 0
+   host reads, status, iterations and x bit for bit, a host f64 true
+   rres below 1e-8; the counts set to 0 before the three graph solves
+   and read after (the window entry on the f64 operator,
+   K1 and K2 on gmres's steps and restart ends); the window entry
+   against plain on that operator; the same three in the one-rank NCCL
+   group (its ``all_reduce`` inside the while bodies), bit for bit with
+   the in-process run; route, host reads, nodes, build s and seconds of
+   both routes logged;
 19. the general SPMD mode: fem2d(1,000,000) (phases 7-9's matrix) in
    bench_dist.py's fem2d parameters (f32 cycles, FCG in f64, Chebyshev
    below level 0, f32 coarse operators, WEll from 1,024 rows) with
@@ -230,8 +244,8 @@ of standard output are the card's name and power limit as nvidia-smi
 gives them, one JSON object describing the kernels (one entry per
 epilogue and operator of phases 6 and 9, per launch shape of phase 11,
 and per launch shape and operator of phases 13-20 and 22, and one per
-krylov_small.cu kernel and dtype (f32 from phase 17, f64 from phase 16),
-each with its main-path launch count;
+krylov_small.cu kernel and dtype (f32 from phase 17, f64 from phases 16
+and 18), each with its main-path launch count;
 phase 20's rows join those of phases 18 and 19) and one with the
 device.  Imports
 torch, numpy, scipy and amg_tpu_torch only.
@@ -2080,12 +2094,14 @@ def phase_krylov_kernels(launches, m=30):
 
 
 def _one_shot_vs_plain(tag, op, b, tol):
-    """The public ``cg`` and ``gmres`` on the card, each call one CUDA
-    graph built, launched and closed, against ``cg_plain`` and
-    ``gmres_plain`` (the host loops) on the coarsest operator ``op`` and
-    one coarsest right-hand side ``b`` from zero at ``tol``: wall seconds
-    per call (median of JIT_REPS, synchronised on both sides), the same
-    statuses and iterations, x within 1e-6 of ||x||."""
+    """The public ``cg``, ``gmres`` and ``fcg`` on the card, each call one
+    CUDA graph built, launched and closed, against ``cg_plain``,
+    ``gmres_plain`` and ``fcg_plain`` (the host loops) on the coarsest
+    operator ``op`` and one coarsest right-hand side ``b`` from zero at
+    ``tol``: wall seconds per call (median of JIT_REPS, synchronised on
+    both sides), the same statuses and iterations, x within 1e-6 of
+    ||x|| (``fcg``: x, iterations and residual norm bit for bit), no host
+    read on the graph route."""
     from amg_tpu_torch.solve import krylov as K
 
     x0 = torch.zeros_like(b)
@@ -2093,23 +2109,34 @@ def _one_shot_vs_plain(tag, op, b, tol):
     for name, graph, plain, kw in (
             ("cg", K.cg, K.cg_plain, dict(maxit=1000, return_info=True)),
             ("gmres", K.gmres, K.gmres_plain,
-             dict(maxit=1000, restart=30, return_iters=True))):
-        res = {}
-        times = {f: _median_s(lambda f=f: res.__setitem__(f, f(
-            op, b, x0, tol=tol, **kw))) for f in (graph, plain)}
+             dict(maxit=1000, restart=30, return_iters=True)),
+            ("fcg", K.fcg, K.fcg_plain, dict(maxit=1000))):
+        res, reads = {}, {}
+
+        def call(f):
+            syncs = K.counts["syncs"]
+            res[f] = f(op, b, x0, tol=tol, **kw)
+            reads[f] = K.counts["syncs"] - syncs
+
+        times = {f: _median_s(lambda f=f: call(f)) for f in (graph, plain)}
         xg, xp = res[graph][0], res[plain][0]
         if name == "cg":
             its = [tuple(int(v) for v in res[f][2]) for f in (graph, plain)]
-        else:
+        elif name == "gmres":
             its = [(bool(res[f][1]), int(res[f][2])) for f in (graph, plain)]
+        else:
+            its = [(int(res[f][1]), float(res[f][2])) for f in (graph, plain)]
         gap = ((xg - xp).norm() / xp.norm()).item()
+        same = torch.equal(xg, xp)
         log(f"[{tag}] public {name} (one graph per call) {times[graph]:.4f} "
             f"s against {name}_plain (host loop) {times[plain]:.4f} s per "
             f"call (median of {JIT_REPS}); status/its {its[0]} / {its[1]}; "
-            f"x gap {gap:.3e} of ||x||")
-        check(its[0] == its[1] and gap <= 1e-6,
+            f"x gap {gap:.3e} of ||x||, bit-identical: {same}; host reads "
+            f"{reads[graph]} / {reads[plain]}")
+        check(its[0] == its[1] and gap <= 1e-6 and reads[graph] == 0,
               f"{tag}: public {name} {its[0]} against plain {its[1]}, x "
-              f"gap {gap:.3e}")
+              f"gap {gap:.3e}, {reads[graph]} host reads")
+        check(name != "fcg" or same, f"{tag}: fcg differs from fcg_plain")
         out[f"{name}_s"], out[f"{name}_plain_s"] = times[graph], times[plain]
     return out
 
@@ -2417,6 +2444,119 @@ def _compare_window(tag, op, mesh, g, flush):
     return row
 
 
+# the sharded Krylov solves of phase 18 and of tests/_torch_mh_worker.py:
+# the f64 ring product of poisson3d from zero, GMRES right-preconditioned
+# by Jacobi
+RING_KRYLOV = {"cg": dict(tol=1e-10, maxit=1000),
+               "gmres": dict(tol=1e-10, maxit=1000, restart=30),
+               "fcg": dict(tol=1e-10, maxit=1000)}
+
+
+def ring_krylov(kind, a, b, mesh, plain=False):
+    """``krylov.<kind>`` (``plain``: ``<kind>_plain``, its host loop) of
+    ``a`` row-sharded as f64 Dia on ``mesh``, the product the ring's (B1's
+    window entry and the halo messages), every dot and norm the mesh's
+    ``psum``, from zero at ``RING_KRYLOV[kind]``.  Returns a dict: ``x`` (fetched, the same on every
+    process), ``status`` (cg: its status code; gmres: converged; fcg:
+    ||r|| / ||b|| below tol), ``its``, ``reads`` (host reads of the Krylov
+    loops), ``s`` (wall seconds to a synchronised end; a graph is built by
+    its call) and the route's graph (``krylov.last_graph``: nodes, build
+    seconds, NCCL event nodes taken out of its loop bodies) or None."""
+    from amg_tpu_torch.parallel import halo, multihost
+    from amg_tpu_torch.parallel.dist import shard_dia, shard_vector
+    from amg_tpu_torch.solve import krylov
+    from amg_tpu_torch.sparse import Dia
+
+    kw = dict(RING_KRYLOV[kind])
+    d = shard_dia(Dia.from_csr(a, dtype=torch.float64, device=mesh.device),
+                  mesh)
+    bs = shard_vector(b, mesh, pad_to=d.padded_rows)
+    x0 = torch.zeros_like(bs)
+
+    def amul(v):
+        return halo.dia_spmv_ring_local(d, v, mesh)
+
+    if kind == "gmres":
+        diag = d.vals[list(d.offsets).index(0)].reshape(bs.shape)
+        dinv = torch.where(diag != 0, 1 / diag, torch.zeros_like(diag))
+        kw["M"] = lambda r: dinv * r
+        kw["return_iters"] = True
+    elif kind == "cg":
+        kw["return_info"] = True
+    fn = getattr(krylov, kind + ("_plain" if plain else ""))
+    route = krylov._route(bs.device, mesh.psum, not plain)
+    krylov.last_graph.clear()
+    syncs = krylov.counts["syncs"]
+    t0 = time.perf_counter()
+    out = fn(amul, bs, x0, psum=mesh.psum, **kw)
+    if bs.is_cuda:
+        torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    reads = krylov.counts["syncs"] - syncs
+    if kind == "cg":
+        x, _, (status, its) = out
+    elif kind == "gmres":
+        x, status, its = out
+    else:
+        x, its, absres = out
+        normb = krylov.norm2(bs, mesh.psum)
+        status = absres / normb < kw["tol"]
+    return dict(x=multihost.fetch(x, mesh)[: a.n_rows], status=int(status),
+                its=int(its), reads=reads, s=seconds, route=route,
+                graph=dict(krylov.last_graph) if route == "graph" else None)
+
+
+def _sharded_krylov(a, mesh, tag, ref=None):
+    """The sharded Krylov path: ``cg``, ``gmres`` and ``fcg`` with the
+    mesh's ``psum`` on ``a``'s f64 ring product at full width
+    (:func:`ring_krylov`, b = A x of a seeded x), the counts set to 0
+    just before the three graph-route solves and read just after; then
+    each again (warm) and on its host loop (``<kind>_plain``).  Gates:
+    route "graph", 0 host reads, equal to the host loop bit for bit
+    (status, iterations, x), the host f64 true relative residual below
+    1e-8 and, with ``ref`` (the in-process run's results), x equal to it
+    bit for bit.  Returns the results by kind and the cold
+    runs' launches of B1 and of the Krylov kernels by shape."""
+    from amg_tpu_torch.ops import dia_kernel as D, krylov_small as KS
+
+    b = a.matvec(np.random.default_rng(23).standard_normal(a.n_rows))
+    _reset_counts()
+    cold = {k: ring_krylov(k, a, b, mesh) for k in RING_KRYLOV}
+    _settle_counts()
+    launches = (dict(D.launches_by_shape), dict(KS.launches_by_shape))
+    out = {}
+    for kind, g in cold.items():
+        warm = ring_krylov(kind, a, b, mesh)
+        p = ring_krylov(kind, a, b, mesh, plain=True)
+        same = (g["status"], g["its"]) == (p["status"], p["its"]) and \
+            np.array_equal(g["x"], p["x"]) and np.array_equal(warm["x"],
+                                                              g["x"])
+        rres = float(np.linalg.norm(b - a.matvec(g["x"]))
+                     / np.linalg.norm(b))
+        gr = g["graph"] or {}
+        log(f"[{tag}] {kind} ({mesh.describe()}): route {g['route']!r}, "
+            f"status {g['status']}, {g['its']} its, host reads {g['reads']} "
+            f"(host loop {p['reads']}); graph {gr.get('nodes')} nodes, "
+            f"built in {gr.get('build_s', 0):.3f} s, {gr.get('events')} "
+            f"NCCL event nodes taken out of its loop bodies; cold "
+            f"{g['s']:.4f} s, warm {warm['s']:.4f} s (each call builds "
+            f"its graph), host loop {p['s']:.4f} s; true rres {rres:.3e}; "
+            f"= host loop bit for bit: {same}")
+        check(g["route"] == "graph" and g["reads"] == 0 and warm["reads"]
+              == 0, f"{tag} {kind}: route {g['route']}, {g['reads']} reads")
+        check(same, f"{tag} {kind}: graph ({g['status']}, {g['its']}) and "
+                    f"host loop ({p['status']}, {p['its']}) differ")
+        check(g["status"] == 1 and rres < 1e-8,
+              f"{tag} {kind}: status {g['status']}, true rres {rres:.3e}")
+        if ref is not None:
+            check(g["its"] == ref[kind]["its"]
+                  and np.array_equal(g["x"], ref[kind]["x"]),
+                  f"{tag} {kind}: differs from the in-process run")
+        out[kind] = dict(g, warm_s=warm["s"], plain_s=p["s"],
+                         plain_reads=p["reads"], true_rres=rres)
+    return out, launches
+
+
 def _spmd_solver(a, pars, mesh, b, solver_cls=None, tag="ring"):
     """An SpmdAMGSolver (or ``solver_cls``) on ``mesh`` (counts reset just
     before), solved cold and warm; its step graphs against its eager steps
@@ -2454,13 +2594,16 @@ def _spmd_solver(a, pars, mesh, b, solver_cls=None, tag="ring"):
 
 def phase_spmd(a, emb_summary):
     """18. poisson3d(100) in bench_dist.py's spmd-cg mode on a ring of 4
-    row shards on the card, then inside a one-rank NCCL process group.
-    Returns the window entry's rows."""
+    row shards on the card, then inside a one-rank NCCL process group; the
+    sharded Krylov path on both.  Returns the window entry's rows and the
+    Krylov kernels' launches of the sharded Krylov path."""
     import socket
     import torch.distributed as tdist
     import amg_tpu_torch as amg
     from amg_tpu_torch.ops import dia_kernel as D
     from amg_tpu_torch.parallel import halo, make_mesh, multihost
+    from amg_tpu_torch.parallel.dist import shard_dia
+    from amg_tpu_torch.sparse import Dia
 
     pars = spmd_pars(amg)
     b = np.ones(a.n_rows)
@@ -2551,12 +2694,32 @@ def phase_spmd(a, emb_summary):
         check(match, f"no sharded operator has the window shape {key}")
         rows.append(_one_row([_compare_window("s-" + tag, op, mesh, g, flush)
                               for tag, op in match], n))
-    del flush
+
+    # the sharded Krylov path on the same ring: cg, gmres and fcg with the
+    # mesh's psum, each one CUDA graph; B1's window entry on poisson3d's
+    # f64 operator, K1 and K2 on every Arnoldi step and restart end of
+    # gmres
+    del solver
+    kry, (kdia, ksmall) = _sharded_krylov(a, mesh, "spmd-krylov")
+    kd = shard_dia(Dia.from_csr(a, dtype=torch.float64, device="cuda"),
+                   mesh)
+    key = (D.WINDOW, torch.float64, torch.float64, kd.n_diags,
+           kd.vals.shape[1] // SPMD_SHARDS, SPMD_SHARDS)
+    check(kdia.get(key, 0) > 0 and set(kdia) == {key},
+          f"spmd-krylov: window launches {kdia}, expected only {key}")
+    for entry in ("givens", "backsub"):
+        check(ksmall.get((entry, torch.float64,
+                          RING_KRYLOV["gmres"]["restart"]), 0) > 0,
+              f"spmd-krylov: {entry} not launched: {ksmall}")
+    log(f"[spmd-krylov] launches of the three solves: window {kdia[key]}, "
+        f"Krylov kernels {ksmall}")
+    rows.append(_one_row([_compare_window("k-A0f64", kd, mesh, g, flush)],
+                         kdia[key]))
+    del kd, flush
     bad = [r for r in rows if not r["ok"]]
     check(not bad, f"window entry disagrees with its plain version: {bad}")
 
-    # the same solve inside a one-rank NCCL process group
-    del solver
+    # the same solve and Krylov path inside a one-rank NCCL process group
     with socket.socket() as sock:
         sock.bind(("localhost", 0))
         port = sock.getsockname()[1]
@@ -2576,9 +2739,10 @@ def phase_spmd(a, emb_summary):
             f"for bit to the in-process run: {np.array_equal(x2, x)}")
         check(info2.nits == info.nits and np.array_equal(x2, x),
               "spmd: the one-rank NCCL run differs from the in-process run")
+        _sharded_krylov(a, gmesh, "spmd-nccl-krylov", ref=kry)
     finally:
         tdist.destroy_process_group()
-    return rows
+    return rows, ksmall
 
 
 # ---------------------------------------------------------------------------
@@ -3042,8 +3206,7 @@ def phase_gspmd(a):
     check(not bad, f"gspmd: a window entry disagrees with its plain "
                    f"version: {bad}")
 
-    # the same solve inside a one-rank NCCL process group
-    del solver
+    # the same solve and Krylov path inside a one-rank NCCL process group
     with socket.socket() as sock:
         sock.bind(("localhost", 0))
         port = sock.getsockname()[1]
@@ -3484,7 +3647,10 @@ def main() -> int:
     well_rows += k_well
     multi_rows += k_multi
     stamp("krylov coarsest")
-    window_rows = phase_spmd(p3d, emb_summary)
+    window_rows, ring_small = phase_spmd(p3d, emb_summary)
+    for r in small_rows:    # the sharded Krylov path's K1 and K2 launches
+        r["launches"] += ring_small.get(
+            (r["entry"], getattr(torch, r["dtype"]), r["m"]), 0)
     stamp("spmd ring")
     well_window_rows = phase_general(a, fem_summary, fem_auto_summary)
     stamp("general spmd")

@@ -12,27 +12,35 @@ holding its run of the ring's SHARDS shards.  It solves :func:`problem`
 ``KIND`` (default ``poisson3d``) with ``SpmdAMGSolver`` or, for ``dist``,
 ``DistAMGSolver``, on the solver's route and again on its eager steps
 (``eager=True``), and writes the fetched solutions, iterations, residual
-histories and the route to ``OUT.<rank>.npz``; for ``cg`` it runs
-``krylov.cg`` and ``krylov.cg_plain`` with the mesh's ``psum`` instead.
+histories and the route to ``OUT.<rank>.npz``; for the Krylov kinds
+``cg``, ``gmres`` and ``fcg`` it runs ``krylov.<kind>`` and
+``krylov.<kind>_plain`` with the mesh's ``psum`` instead
+(``chip_smoke.ring_krylov``).
 
 With ``--device cuda`` the process is one of NPROC NCCL processes, one
 card each (``cuda:RANK``), and ``KINDS`` a comma list of
-``poisson3d,fem2d,dist,cg`` (the default: all) at chip_smoke.py's sizes:
-poisson3d(100) in phase 18's embedded SPMD mode, fem2d(1,000,000) in
-phase 19's general mode on "auto", poisson3d(100) with phase 20's
-``DistAMGSolver``, and ``krylov.cg`` with the ``psum`` of the group (its
-host loop) on poisson3d(100)'s ring product (B1's window entry and the
-halo messages) against ``cg_plain``.
+``poisson3d,fem2d,dist,cg,gmres,fcg`` (the default: all) at
+chip_smoke.py's sizes: poisson3d(100) in phase 18's embedded SPMD mode,
+fem2d(1,000,000) in phase 19's general mode on "auto", poisson3d(100)
+with phase 20's ``DistAMGSolver``, and ``krylov.cg``, ``gmres`` and
+``fcg`` with the ``psum`` of the group (one CUDA graph each, the group's
+``all_reduce`` and halo messages inside its while bodies) on
+poisson3d(100)'s ring product (B1's window entry and the halo messages)
+against their host loops (``*_plain``).
 Rank 0 first solves each kind on SHARDS shards of its card alone (no
-group), the reference.  Per kind each rank checks its route ("graph")
-and the graph route against its eager steps bit for bit (iterations,
-histories, x); rank 0 checks iterations within 1 of the reference and a
-host f64 true relative residual below 1e-8, logs each step graph (nodes,
-build seconds, pool MiB, p2p messages and bytes per replay) and the warm
-seconds of both routes (median of 3), and writes every number to
-``OUT.json``.  RANK ``all`` starts ranks 0 to NPROC - 1 of the same
-command, each logging to ``OUT.rank<r>.log``, stops them all when one
-fails, and prints rank 0's log.  Exit status 0 when every check passed.
+group), the reference.  Per solver kind each rank checks its route
+("graph") and the graph route against its eager steps bit for bit
+(iterations, histories, x); per Krylov kind each rank checks the graph
+route with no host read against its host loop bit for bit (status,
+iterations, x).  Rank 0 checks iterations within 1 of the reference and
+a host f64 true relative residual below 1e-8, logs each step graph
+(nodes, build seconds, pool MiB, p2p messages and bytes per replay),
+each Krylov graph (nodes, build seconds, event nodes removed) and the
+seconds of both routes (the graph's cold and warm call, each building
+its graph), and writes every number to ``OUT.json``.  RANK
+``all`` starts ranks 0 to NPROC - 1 of the same command, each logging
+to ``OUT.rank<r>.log``, stops them all when one fails, and prints rank
+0's log.  Exit status 0 when every check passed.
 """
 
 import functools
@@ -45,7 +53,8 @@ import numpy as np
 import torch
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-CUDA_KINDS = ("poisson3d", "fem2d", "dist", "cg")
+KRYLOV_KINDS = ("cg", "gmres", "fcg")
+CUDA_KINDS = ("poisson3d", "fem2d", "dist") + KRYLOV_KINDS
 
 
 def problem(kind="poisson3d"):
@@ -56,7 +65,8 @@ def problem(kind="poisson3d"):
     that the small problem keeps WEll levels; ``dist``, the GSPMD solver's
     GS cycles in f64 on poisson2d(24) with ``coarse_replicate_nnz`` low
     enough that levels 0-1 shard (Ell P and R: all-gather products);
-    ``cg``, poisson3d(16) and a seeded b = A x (``pars`` None)."""
+    the Krylov kinds, poisson3d(16) and a seeded b = A x (``pars``
+    None)."""
     import amg_tpu_torch as amg
 
     if kind == "dist":
@@ -71,7 +81,7 @@ def problem(kind="poisson3d"):
             coarse_op_dtype="float32", use_well="on", well_min_rows=1024,
             dense_level_bytes=1 << 20)
         seed = 17
-    elif kind == "cg":
+    elif kind in KRYLOV_KINDS:
         a = amg.poisson3d(16)
         b = a.matvec(np.random.default_rng(23).standard_normal(a.n_rows))
         return a, b, None
@@ -87,7 +97,8 @@ def problem(kind="poisson3d"):
 @functools.cache
 def problem_full(kind):
     """``(a, b, pars)`` of a kind at chip_smoke.py's size (b = ones, as
-    phases 18-20 solve; ``cg``: a seeded b = A x, ``pars`` None)."""
+    phases 18-20 solve; the Krylov kinds: a seeded b = A x, ``pars``
+    None)."""
     import amg_tpu_torch as amg
     import chip_smoke as cs
 
@@ -96,7 +107,7 @@ def problem_full(kind):
         return a, np.ones(a.n_rows), cs.general_pars(amg).replace(
             use_banded="auto")
     a = amg.poisson3d(cs.N_SIDE)
-    if kind == "cg":
+    if kind in KRYLOV_KINDS:
         return a, a.matvec(np.random.default_rng(23).standard_normal(
             a.n_rows)), None
     pars = cs.gspmd_pars(amg) if kind == "dist" else cs.spmd_pars(amg)
@@ -109,43 +120,18 @@ def solver_class(kind):
     return DistAMGSolver if kind == "dist" else SpmdAMGSolver
 
 
-def ring_cg(a, b, mesh, plain, maxit):
-    """``krylov.cg`` (``plain``: ``cg_plain``) of ``a`` row-sharded as Dia
-    on ``mesh``, the product the ring's (B1's window entry and the halo
-    messages), every dot the mesh's ``psum``: ``(x fetched, status, its,
-    host reads)``."""
-    from amg_tpu_torch.parallel import halo, multihost
-    from amg_tpu_torch.parallel.dist import shard_dia, shard_vector
-    from amg_tpu_torch.solve import krylov
-    from amg_tpu_torch.sparse import Dia
-
-    d = shard_dia(Dia.from_csr(a, dtype=torch.float64, device=mesh.device),
-                  mesh)
-    bs = shard_vector(b, mesh, pad_to=d.padded_rows)
-
-    def amul(v):
-        return halo.dia_spmv_ring_local(d, v, mesh)
-
-    syncs = krylov.counts["syncs"]
-    cg = krylov.cg_plain if plain else krylov.cg
-    x, _, (status, its) = cg(amul, bs, torch.zeros_like(bs), tol=1e-10,
-                             maxit=maxit, psum=mesh.psum, return_info=True)
-    reads = krylov.counts["syncs"] - syncs
-    return (multihost.fetch(x, mesh)[: a.n_rows], int(status), int(its),
-            reads)
-
-
 def run_cpu(kind, shards, out, rank):
     from amg_tpu_torch.parallel import make_mesh
 
+    from chip_smoke import ring_krylov
+
     a, b, pars = problem(kind)
     mesh = make_mesh(shards, device="cpu")
-    if kind == "cg":
-        x, status, its, _ = ring_cg(a, b, mesh, False, 400)
-        xp, status_p, its_p, _ = ring_cg(a, b, mesh, True, 400)
-        np.savez(f"{out}.{rank}.npz", x=x, status=status, its=its,
-                 x_plain=xp, status_plain=status_p, its_plain=its_p,
-                 backend=mesh.backend)
+    if kind in KRYLOV_KINDS:
+        g, p = (ring_krylov(kind, a, b, mesh, plain) for plain in (0, 1))
+        np.savez(f"{out}.{rank}.npz", x=g["x"], status=g["status"],
+                 its=g["its"], x_plain=p["x"], status_plain=p["status"],
+                 its_plain=p["its"], backend=mesh.backend)
         return
     s = solver_class(kind)(a, pars, mesh=mesh, log=lambda *x: None)
     x, info = s.solve(b)
@@ -177,8 +163,11 @@ def reference(kind, shards):
     a, b, pars = problem_full(kind)
     mesh = make_mesh(shards, device="cuda")
     t0 = time.perf_counter()
-    if kind == "cg":
-        x, _, its, _ = ring_cg(a, b, mesh, False, 1000)
+    if kind in KRYLOV_KINDS:
+        import chip_smoke as cs
+
+        r = cs.ring_krylov(kind, a, b, mesh)
+        x, its = r["x"], r["its"]
     else:
         s = solver_class(kind)(a, pars, mesh=mesh, log=lambda *_: None)
         x, info = s.solve(b)
@@ -202,15 +191,21 @@ def run_cuda_kind(kind, shards, ref):
     a, b, pars = problem_full(kind)
     mesh = make_mesh(shards, device="cuda")
     res = dict(kind=kind, mesh=mesh.describe())
-    if kind == "cg":
-        x, status, its, reads = ring_cg(a, b, mesh, False, 1000)
-        xp, status_p, its_p, reads_p = ring_cg(a, b, mesh, True, 1000)
-        same = (status, its) == (status_p, its_p) and np.array_equal(x, xp)
-        res.update(status=status, its=its, host_reads=reads,
-                   plain_host_reads=reads_p, equals_plain=same,
-                   true_rres=_true_rres(a, b, x))
-        cs.check(same, f"cg: cg ({status}, {its}) and cg_plain "
-                       f"({status_p}, {its_p}) differ")
+    if kind in KRYLOV_KINDS:
+        g, warm = (cs.ring_krylov(kind, a, b, mesh) for _ in range(2))
+        p = cs.ring_krylov(kind, a, b, mesh, plain=True)
+        x, its = g["x"], g["its"]
+        same = (g["status"], its) == (p["status"], p["its"]) and \
+            np.array_equal(x, p["x"]) and np.array_equal(x, warm["x"])
+        res.update(route=g["route"], status=g["status"], its=its,
+                   host_reads=g["reads"], plain_host_reads=p["reads"],
+                   graph=g["graph"], graph_s=g["s"], warm_s=warm["s"],
+                   warm_build_s=warm["graph"]["build_s"], plain_s=p["s"],
+                   equals_plain=same, true_rres=_true_rres(a, b, x))
+        cs.check(g["route"] == "graph" and g["reads"] == warm["reads"] == 0,
+                 f"{kind}: route {g['route']}, {g['reads']} host reads")
+        cs.check(same, f"{kind}: {kind} ({g['status']}, {its}) and "
+                       f"{kind}_plain ({p['status']}, {p['its']}) differ")
     else:
         h = launch_counts.COUNTERS.index(halo.counts)
         t0 = time.perf_counter()
@@ -265,7 +260,8 @@ def run_cuda(port, rank, nproc, shards, out, kinds):
             if rank == 0:
                 _log(f"[mh4 {kind}] " + json.dumps(every[0], default=str))
                 routes = [r.get("route", "graph") for r in every]
-                _log(f"[mh4 {kind}] routes {routes}; graph = eager on "
+                _log(f"[mh4 {kind}] routes {routes}; graph = "
+                     f"{'plain' if kind in KRYLOV_KINDS else 'eager'} on "
                      f"every rank")
         if rank == 0:
             with open(f"{out}.json", "w") as f:

@@ -1446,24 +1446,114 @@ def test_ring_steps_in_a_one_rank_nccl_group_on_card(kind):
 
 def test_cg_with_an_nccl_psum_keeps_its_host_loop_on_card():
     """``krylov.cg`` with the ``psum`` of a one-rank NCCL group, on the
-    ring product of a row-sharded Dia operator: the documented host loop
-    (a process group's psum is not captured in a while node's body: on
-    four cards that graph never finished), one host read per iteration,
-    equal to ``cg_plain`` bit for bit and to the run without a group."""
+    ring product of a row-sharded Dia operator: the route follows the
+    backend, so the group's loop is one CUDA graph as on four cards (its
+    ``all_reduce`` and halo messages inside the while body, NCCL's event
+    nodes taken out of it), 0 host reads, equal to ``cg_plain`` (the host
+    loop, one read per iteration) bit for bit and to the run without a
+    group."""
     _needs_card()
     from amg_tpu_torch.parallel import make_mesh
     from amg_tpu_torch.solve import krylov
-    from _torch_mh_worker import problem, ring_cg
+    from chip_smoke import ring_krylov
+    from _torch_mh_worker import problem
 
     a, b, _ = problem("cg")
-    want, _, want_its, want_reads = ring_cg(a, b, make_mesh(4), False, 400)
-    assert want_reads == 0
+    want = ring_krylov("cg", a, b, make_mesh(4))
+    assert want["reads"] == 0
     with _OneRankNccl():
         mesh = make_mesh(4)
-        assert not krylov._capturable(mesh.psum)
-        x, status, its, reads = ring_cg(a, b, mesh, False, 400)
-        xp, status_p, its_p, _ = ring_cg(a, b, mesh, True, 400)
-    assert reads >= its > 0
-    assert status == status_p == 1 and its == its_p == want_its
-    np.testing.assert_array_equal(x, xp)
-    np.testing.assert_array_equal(x, want)
+        assert krylov._route(mesh.device, mesh.psum) == "graph"
+        got = ring_krylov("cg", a, b, mesh)
+        plain = ring_krylov("cg", a, b, mesh, plain=True)
+    assert got["reads"] == 0 and plain["reads"] >= plain["its"] > 0
+    assert got["status"] == plain["status"] == want["status"] == 1
+    assert got["its"] == plain["its"] == want["its"]
+    np.testing.assert_array_equal(got["x"], plain["x"])
+    np.testing.assert_array_equal(got["x"], want["x"])
+
+
+@pytest.mark.parametrize("kind", ["cg", "gmres", "fcg"])
+@pytest.mark.parametrize("group", [None, "nccl"])
+def test_sharded_krylov_is_one_graph_on_card(kind, group):
+    """``krylov.<kind>`` with the ``psum`` of 4 in-process shards (and of
+    a one-rank NCCL group) on poisson3d(16)'s ring product: one CUDA
+    graph, 0 host reads, equal to ``<kind>_plain`` bit for bit (status,
+    iterations, x); gmres right-preconditioned by Jacobi."""
+    _needs_card()
+    import contextlib
+    from amg_tpu_torch.parallel import make_mesh
+    from chip_smoke import ring_krylov
+    from _torch_mh_worker import problem
+
+    a, b, _ = problem(kind)
+    with _OneRankNccl() if group else contextlib.nullcontext():
+        mesh = make_mesh(4)
+        assert mesh.backend == group
+        got = ring_krylov(kind, a, b, mesh)
+        plain = ring_krylov(kind, a, b, mesh, plain=True)
+    assert got["route"] == "graph" and got["graph"]["nodes"] > 0
+    assert got["reads"] == 0 and plain["reads"] > plain["its"] > 0
+    assert got["status"] == plain["status"] == 1
+    assert got["its"] == plain["its"]
+    np.testing.assert_array_equal(got["x"], plain["x"])
+
+
+def test_fcg_graph_equals_plain_on_card():
+    """``krylov.fcg`` on one vector as one CUDA graph (a while node whose
+    body holds the iteration and an if node around the residual
+    replacement every 10 iterations): 0 host reads, equal to
+    ``fcg_plain`` bit for bit (x, iterations, residual norm)."""
+    _needs_card()
+    from amg_tpu_torch.solve import krylov
+
+    a = amg.poisson3d(16)
+    op = Dia.from_csr(a, dtype=torch.float64, device="cuda")
+    b = torch.zeros(op.padded_rows, dtype=torch.float64)
+    b[: a.n_rows] = torch.from_numpy(a.matvec(
+        np.random.default_rng(3).standard_normal(a.n_rows)))
+    b = b.cuda()
+    syncs = krylov.counts["syncs"]
+    xg, ig, rg = krylov.fcg(op, b, torch.zeros_like(b), tol=1e-10,
+                            maxit=500)
+    assert krylov.counts["syncs"] == syncs
+    xp, ip, rp = krylov.fcg_plain(op, b, torch.zeros_like(b), tol=1e-10,
+                                  maxit=500)
+    assert krylov.counts["syncs"] > syncs
+    assert 10 < int(ig) == int(ip) < 500
+    assert torch.equal(xg, xp) and torch.equal(rg, rp)
+
+
+def test_loop_graph_takes_event_nodes_out_of_loop_bodies_on_card():
+    """A segment that waits on and records an external event (the nodes
+    NCCL adds to a graph that captures one of its calls): captured at a
+    program's top level it keeps both nodes; inside a while body the
+    LoopGraph takes them out (``events`` 2) and the loop runs its 10
+    trips."""
+    _needs_card()
+    from amg_tpu_torch.ops import krylov_small as KS
+    from amg_tpu_torch.solve.loop_graph import LoopGraph, While
+
+    ev = torch.cuda.Event(external=True)
+    n = torch.zeros((), dtype=torch.int32, device="cuda")
+    go = torch.ones((), dtype=torch.bool, device="cuda")
+
+    def body():
+        torch.cuda.current_stream().wait_event(ev)
+        n.add_(1)
+        go.copy_(n < 10)
+        ev.record()
+
+    top = LoopGraph((body,), "cuda", restore=(n, go))
+    top.build()
+    kinds = KS.graph_kinds(top.captured[body].raw_cuda_graph())
+    assert kinds.get("event_wait") == kinds.get("event_record") == 1
+    assert top.events == 0
+    top.close()
+    loop = LoopGraph((While(go, (body,)),), "cuda", restore=(n, go))
+    loop.launch()
+    torch.cuda.synchronize()
+    assert loop.events == 2 and int(n) == 10
+    assert not {"event_wait", "event_record"} & set(
+        KS.graph_kinds(loop.captured[body].raw_cuda_graph()))
+    loop.close()

@@ -13,7 +13,7 @@ These tests hold, for every entry that runs one (``AMGSolver.solve``,
   ``torch.Tensor.__bool__``, ``item``, ``cpu``, ``tolist``, ``numpy``,
   ``__int__`` and ``__float__`` patched to raise (and so does the CG loop
   of ``krylov.cg`` with a one-process mesh's ``psum``, which is graphed on
-  the card);
+  the card, as it is with an NCCL group's);
 * the static-buffer route equals the eager route (``eager=True``: the
   steps on fresh tensors) bit for bit: iterations, residual histories and
   x, also where the stop falls inside a batch of 4 pending iterates and
@@ -300,20 +300,25 @@ def test_step_graph_buffers():
 
 
 def test_cg_with_a_one_process_psum():
-    """``krylov.cg`` with ``psum``: graphed on the card when the mesh's
-    shards all sit in this process (no process group), host loop
-    otherwise (NCCL groups too); the loop bodies read nothing from the host
-    and equal ``cg_plain``'s result bit for bit (tests/test_dist.py:79-104's
-    case, a row-sharded Ell on 8 shards)."""
+    """``krylov.cg`` with ``psum``: the route table (``krylov._route``: one
+    CUDA graph on the card with no psum, a mesh held by this process or
+    an NCCL group; the host loop on the CPU, for gloo groups, other
+    callables and the plain entries); the loop bodies read nothing from
+    the host and equal ``cg_plain``'s result bit for bit
+    (tests/test_dist.py:79-104's case, a row-sharded Ell on 8 shards)."""
     from amg_tpu_torch.parallel.dist import shard_matrix, shard_vector
     from amg_tpu_torch.parallel.spmd_cycle import gspmd_spmv
 
     mesh = make_mesh(8, device="cpu")
-    assert krylov._capturable(mesh.psum) and krylov._capturable(None)
-    for backend in ("nccl", "gloo"):
-        group = Mesh(8, torch.device("cpu"), group=object(), backend=backend)
-        assert not krylov._capturable(group.psum)
-    assert not krylov._capturable(lambda t: t.sum(0))
+    card, cpu = torch.device("cuda"), torch.device("cpu")
+    for psum in (None, mesh.psum):
+        assert krylov._route(card, psum) == "graph"
+        assert krylov._route(card, psum, graph=False) == "host"
+        assert krylov._route(cpu, psum) == "host"
+    for backend, route in (("nccl", "graph"), ("gloo", "host")):
+        group = Mesh(8, card, group=object(), backend=backend)
+        assert krylov._route(card, group.psum) == route
+    assert krylov._route(card, lambda t: t.sum(0)) == "host"
 
     a = tamg.poisson2d(16)
     e = shard_matrix(tamg.Ell.from_csr(a), mesh, gspmd=True)
@@ -380,9 +385,10 @@ def test_process_group_meshes_keep_eager_steps(row):
         Mesh(4, torch.device(device), group=object())
 
 
-def _workers(tmp_path, kind, nproc=2, shards=4):
+def _workers(tmp_path, kind, nproc=2, shards=4, timeout=240):
     """Run tests/_torch_mh_worker.py's ``kind`` in ``nproc`` gloo processes
-    of ``shards / nproc`` shards each; their outputs, rank by rank."""
+    of ``shards / nproc`` shards each (stopped after ``timeout`` seconds);
+    their outputs, rank by rank."""
     with socket.socket() as sock:
         sock.bind(("localhost", 0))
         port = sock.getsockname()[1]
@@ -395,7 +401,7 @@ def _workers(tmp_path, kind, nproc=2, shards=4):
                               stderr=subprocess.STDOUT, text=True)
              for r in range(nproc)]
     try:
-        logs = [p.communicate(timeout=240)[0] for p in procs]
+        logs = [p.communicate(timeout=timeout)[0] for p in procs]
     finally:
         for p in procs:
             if p.poll() is None:
@@ -435,11 +441,13 @@ def test_cg_with_the_psum_of_two_gloo_processes(tmp_path):
     (B1's window entry over halo messages between the processes): the
     status, iterations and x of ``cg_plain`` bit for bit, and the
     one-process ``cg``'s iterations and x within 1e-12 relative."""
-    from _torch_mh_worker import problem, ring_cg
+    from chip_smoke import ring_krylov
+    from _torch_mh_worker import problem
 
     got = _workers(tmp_path, "cg")
     a, b, _ = problem("cg")
-    x, status, its, _ = ring_cg(a, b, make_mesh(4, device="cpu"), False, 400)
+    one = ring_krylov("cg", a, b, make_mesh(4, device="cpu"))
+    x, status, its = one["x"], one["status"], one["its"]
     assert status == 1
     for g in got:
         assert str(g["backend"]) == "gloo"
