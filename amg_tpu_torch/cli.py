@@ -13,7 +13,9 @@ and ``--accel gmres`` GMRES, each preconditioned by one cycle;
 and GMRES fallback; ``--use-well on`` packs large unstructured levels as
 WEll, e.g. ``python -m amg_tpu_torch fem2d:1000000 --use-well on --accel
 cg --refine --dtype float32``.  ``--profile DIR`` writes a
-``torch.profiler`` trace of the solve to ``DIR/trace.json``.
+``torch.profiler`` trace of the solve to ``DIR/trace.json`` and prints
+the program's spans recorded under it (``amg_tpu_torch.tracing``: name,
+count, host seconds, MiB).
 
 ``--devices N`` solves on a ring of N row shards: all N on the one device
 of a single process, or split over the processes of a ``torchrun`` launch
@@ -140,7 +142,7 @@ def build_argparser() -> argparse.ArgumentParser:
                          "(bfloat16 halves them)")
     ap.add_argument("--profile", type=str, default=None, metavar="DIR",
                     help="write a torch.profiler trace of the solve to "
-                         "DIR/trace.json")
+                         "DIR/trace.json and print its span table")
     ap.add_argument("--quiet", action="store_true")
     return ap
 
@@ -282,6 +284,10 @@ def _main(args, out) -> int:
             result = run()
         os.makedirs(args.profile, exist_ok=True)
         prof.export_chrome_trace(os.path.join(args.profile, "trace.json"))
+        from .tracing import profiled, table_lines
+
+        for line in table_lines(profiled()):
+            out(line)
     else:
         result = run()
     x, info = result

@@ -23,6 +23,7 @@ level 0's pad; ``embed_levels=-1`` resolves to 0 (no embedding), as in
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import os
 import sys
@@ -32,6 +33,7 @@ from typing import Optional, Tuple
 import numpy as np
 import torch
 
+from . import tracing
 from .params import AMGParams, CoarsenType, InterpType, MIN_CDOF, SMALLFLOAT
 from .params import SmootherType
 from .sparse import (CSR, Ell, Dia, Dense, BandedBlocks, WEll, _round_up,
@@ -1129,65 +1131,68 @@ def to_device(hh: HostHierarchy, pars: AMGParams, device="cuda",
     timers = _setup_timers()
     levels = []
     for l in range(nl):
-        t_l = time.perf_counter()
-        if E >= 1 and l <= E:
-            pad_next = pads[l + 1] if l < nl - 1 else None
-            levels.append(_embedded_level(hh, l, E, emb, pad0, pad_next,
-                                          dtype, pars, device,
-                                          boundary=boundary))
-        else:
-            p = hh.p[l] if l < nl - 1 else None
-            r = hh.r[l] if l < nl - 1 else None
-            cf = hh.cfmark[l] if l < len(hh.cfmark) else None
-            pad_coarse = pads[l + 1] if l < nl - 1 else None
-            gs_key = hh.gs_key[l] if hh.gs_key is not None else None
-            levels.append(
-                _level_from_csr(hh.a[l], p, r, cf, pads[l], pad_coarse,
-                                dtype, pars, device, gs_key=gs_key,
-                                is_coarse=l >= 1,
-                                banded_nb=(hh.banded_nb[l]
-                                           if hh.banded_nb is not None
-                                           else None))
-            )
+        with _phase("amg.setup.pack_level", timers, device) as sp:
+            if E >= 1 and l <= E:
+                pad_next = pads[l + 1] if l < nl - 1 else None
+                levels.append(_embedded_level(hh, l, E, emb, pad0, pad_next,
+                                              dtype, pars, device,
+                                              boundary=boundary))
+            else:
+                p = hh.p[l] if l < nl - 1 else None
+                r = hh.r[l] if l < nl - 1 else None
+                cf = hh.cfmark[l] if l < len(hh.cfmark) else None
+                pad_coarse = pads[l + 1] if l < nl - 1 else None
+                gs_key = hh.gs_key[l] if hh.gs_key is not None else None
+                levels.append(
+                    _level_from_csr(hh.a[l], p, r, cf, pads[l], pad_coarse,
+                                    dtype, pars, device, gs_key=gs_key,
+                                    is_coarse=l >= 1,
+                                    banded_nb=(hh.banded_nb[l]
+                                               if hh.banded_nb is not None
+                                               else None))
+                )
         if timers:
-            _timer_line(f"  pack level {l}", t_l, device)
+            _timer_line(f"  pack level {l}", sp)
 
     # dense inverse of the coarsest operator, by host LAPACK in the solve
     # dtype, stored and applied in the solve dtype
     ac = hh.a[-1]
     pad_c = pads[-1]
     inv_dtype = np.dtype(pars.dtype)
-    t_inv = time.perf_counter()
-    try:
-        inv = np.linalg.inv(ac.to_dense(inv_dtype))
-    except np.linalg.LinAlgError:
-        inv = np.linalg.pinv(ac.to_dense(inv_dtype))
-    if not np.all(np.isfinite(inv)):
-        inv = np.linalg.pinv(ac.to_dense(inv_dtype))
-    full = np.zeros((pad_c, pad_c), dtype=inv_dtype)
-    full[: ac.n_rows, : ac.n_cols] = inv
-    coarse_inv = _to_device(full, dtype, device)
+    with _phase("amg.setup.coarse_inv", timers, device) as sp:
+        try:
+            inv = np.linalg.inv(ac.to_dense(inv_dtype))
+        except np.linalg.LinAlgError:
+            inv = np.linalg.pinv(ac.to_dense(inv_dtype))
+        if not np.all(np.isfinite(inv)):
+            inv = np.linalg.pinv(ac.to_dense(inv_dtype))
+        full = np.zeros((pad_c, pad_c), dtype=inv_dtype)
+        full[: ac.n_rows, : ac.n_cols] = inv
+        coarse_inv = _to_device(full, dtype, device)
     if timers:
-        _timer_line("  pack coarse inverse", t_inv, device)
+        _timer_line("  pack coarse inverse", sp)
     return Hierarchy(levels=tuple(levels), coarse_inv=coarse_inv)
 
 
 def _setup_timers() -> bool:
     """``AMG_SETUP_TIMERS=1``: the pack prints each level's seconds to
-    stderr and :func:`setup` logs its phases (``amg_tpu``'s labels)."""
+    stderr and :func:`setup` logs its phases (``amg_tpu``'s labels), each
+    read from its set-up span after the card's queued work is done."""
     return os.environ.get("AMG_SETUP_TIMERS", "0") == "1"
 
 
-def _sync(device):
-    """Wait for the card's queued work before a timer reading."""
-    if device.type == "cuda":
-        torch.cuda.synchronize(device)
+@contextlib.contextmanager
+def _phase(name, timers: bool, device):
+    """A set-up span; with ``timers`` it ends once the card's queued work
+    is done, so that its reading holds that work."""
+    with tracing.span(name) as sp:
+        yield sp
+        if timers and device.type == "cuda":
+            torch.cuda.synchronize(device)
 
 
-def _timer_line(label, t0, device):
-    _sync(device)
-    print(f"{label}: {time.perf_counter() - t0:.2f}s", file=sys.stderr,
-          flush=True)
+def _timer_line(label, sp):
+    print(f"{label}: {sp.seconds:.2f}s", file=sys.stderr, flush=True)
 
 
 def setup(a: CSR, pars: AMGParams, log=print,
@@ -1203,37 +1208,30 @@ def setup(a: CSR, pars: AMGParams, log=print,
     check_supported(pars)
     device = resolve_device(device)
     timers = _setup_timers()
-    marks = [time.perf_counter()]
-
-    def lap():
-        if timers:
-            _sync(device)
-        marks.append(time.perf_counter())
-
-    if hh is None:
-        hh = setup_host(a, pars, log=log, device=device)
-    lap()
+    with _phase("amg.setup.host", timers, device) as host:
+        if hh is None:
+            hh = setup_host(a, pars, log=log, device=device)
     # amg_tpu's order: the embedding plan on the unpermuted hierarchy, the
     # reordering of the levels below the embedded ones, then the pack
-    plan = embedding_plan(hh, pars)
-    lap()
-    # hh.perms set => reorder_for_gs already ran on this hierarchy (e.g. a
-    # checkpoint-restored one, saved post-reorder)
-    if pars.reorder_gs and hh.perms is None:
-        reorder_for_gs(hh, pars, skip_levels=plan[0])
-    elif pars.reorder_gs and hh.perms is not None and hh.perms[0] is None \
-            and plan[0] == 0:
-        # a restored hierarchy written before level-0 reordering existed:
-        # the coarse permutations are baked in, but a WEll level 0 still
-        # needs its RCM pass
-        reorder_l0_for_well(hh, pars)
-    lap()
-    mg = to_device(hh, pars, device=device, plan=plan)
-    lap()
+    with _phase("amg.setup.plan", timers, device) as plan_s:
+        plan = embedding_plan(hh, pars)
+    with _phase("amg.setup.reorder", timers, device) as reorder:
+        # hh.perms set => reorder_for_gs already ran on this hierarchy
+        # (e.g. a checkpoint-restored one, saved post-reorder)
+        if pars.reorder_gs and hh.perms is None:
+            reorder_for_gs(hh, pars, skip_levels=plan[0])
+        elif pars.reorder_gs and hh.perms is not None \
+                and hh.perms[0] is None and plan[0] == 0:
+            # a restored hierarchy written before level-0 reordering
+            # existed: the coarse permutations are baked in, but a WEll
+            # level 0 still needs its RCM pass
+            reorder_l0_for_well(hh, pars)
+    with _phase("amg.setup.pack", timers, device) as pack:
+        mg = to_device(hh, pars, device=device, plan=plan)
     if timers:
-        host, plan_s, reorder, pack = np.diff(marks)
-        log(f"setup phases: host {host:.2f}s, plan {plan_s:.2f}s, "
-            f"reorder {reorder:.2f}s, pack {pack:.2f}s")
+        log(f"setup phases: host {host.seconds:.2f}s, "
+            f"plan {plan_s.seconds:.2f}s, reorder {reorder.seconds:.2f}s, "
+            f"pack {pack.seconds:.2f}s")
     if pars.verbose:
         log(complexity_print(hh))
         log(f"AMG setup time: {hh.setup_seconds:g} s")

@@ -17,6 +17,8 @@ import shutil
 import subprocess
 import threading
 
+from .. import tracing
+
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(_PKG, "csrc")
 BUILD = os.path.join(_PKG, "build")
@@ -63,7 +65,8 @@ class CudaLibrary:
         os.makedirs(BUILD, exist_ok=True)
         tmp = f"{self.so}.{os.getpid()}.tmp"
         cmd = [nvcc(), *NVCC_FLAGS, "-o", tmp, self.source]
-        proc = subprocess.run(cmd, capture_output=True, text=True)
+        with tracing.span("amg.kernels.build"):
+            proc = subprocess.run(cmd, capture_output=True, text=True)
         if proc.returncode != 0:
             raise RuntimeError(f"nvcc failed ({proc.returncode}):\n"
                                f"{' '.join(cmd)}\n{proc.stderr}")

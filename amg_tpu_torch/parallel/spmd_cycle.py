@@ -48,6 +48,7 @@ import time
 import numpy as np
 import torch
 
+from .. import tracing
 from ..hierarchy import Hierarchy, setup
 from ..params import AMGParams, SmootherType, SolveInfo
 from ..sparse import BandedBlocks, Dia, WEll, torch_dtype
@@ -399,7 +400,8 @@ def cycle_host_loop(pars, sumb, x, step, info, k: int = 1, log=print):
         pending.append((outer, xd, absres_d))
         if len(pending) < check_every and outer != max_outer:
             continue
-        vals = torch.stack([r for _, _, r in pending]).cpu().numpy()
+        with tracing.span("amg.read"):
+            vals = torch.stack([r for _, _, r in pending]).cpu().numpy()
         for (outer_i, x_i, _), absres in zip(pending, vals):
             absres = float(absres)
             relres = absres / sumb
@@ -585,14 +587,20 @@ class SpmdAMGSolver:
         """A host vector in the caller's ordering -> this process's padded
         ``(S, m)`` block."""
         n = self.a.n_rows
-        v = np.asarray(v, dtype=np.float64)[:n]
-        if self._perm0 is not None:
-            v = v[self._perm0]
-        return shard_vector(v, self.mesh, pad_to=self.pad, dtype=dtype)
+        with tracing.span("amg.upload") as sp:
+            v = np.asarray(v, dtype=np.float64)[:n]
+            if self._perm0 is not None:
+                v = v[self._perm0]
+            vd = shard_vector(v, self.mesh, pad_to=self.pad, dtype=dtype)
+            sp.nbytes = vd.numel() * vd.element_size()
+        return vd
 
     def _unshard(self, xd):
-        x = fetch(xd, self.mesh)[: self.a.n_rows]
-        return x[self._iperm0] if self._iperm0 is not None else x
+        with tracing.span("amg.download") as sp:
+            x = fetch(xd, self.mesh)
+            sp.nbytes = x.nbytes
+            x = x[: self.a.n_rows]
+            return x[self._iperm0] if self._iperm0 is not None else x
 
     # -- solves ------------------------------------------------------------
 
@@ -606,11 +614,18 @@ class SpmdAMGSolver:
         if pars.accel != "none":
             raise NotImplementedError(f"accel={pars.accel!r} on the SPMD "
                                       "solver (amg_tpu has none either)")
+        return self._solve_cycles(b, x0, eager)
+
+    @tracing.spanned("amg.solve")
+    def _solve_cycles(self, b, x0, eager):
+        """:meth:`solve`'s host loop of cycles."""
+        pars = self.pars
         n = self.a.n_rows
         bd = self._shard(b, self.dtype)
         xd = self._shard(x0 if x0 is not None else np.zeros(n), self.dtype)
         info = SolveInfo()
-        sumb = float(norm2(bd, self.mesh.psum))
+        with tracing.span("amg.read"):
+            sumb = float(norm2(bd, self.mesh.psum))
         t0 = time.perf_counter()
         if pars.verbose:
             print_itinfo(pars.stop_type, 0, 1.0, sumb, 0.0, log=self.log)
@@ -623,6 +638,7 @@ class SpmdAMGSolver:
         info.setup_seconds = self.host_hierarchy.setup_seconds
         return self._unshard(xd), info
 
+    @tracing.spanned("amg.solve")
     def solve_pcg(self, b, x0=None, eager=False):
         """Flexible CG preconditioned by one SPMD cycle: ``psum`` dots, and
         in f64 against the row-sharded f64 level-0 operator when
@@ -635,7 +651,8 @@ class SpmdAMGSolver:
         xd = self._shard(x0 if x0 is not None else np.zeros(n), adt)
         psum = self.mesh.psum
         info = SolveInfo()
-        sumb = float(norm2(bd, psum))
+        with tracing.span("amg.read"):
+            sumb = float(norm2(bd, psum))
         t0 = time.perf_counter()
         if pars.verbose:
             print_itinfo(pars.stop_type, 0, 1.0, sumb, 0.0, log=self.log)

@@ -40,6 +40,7 @@ import weakref
 import numpy as np
 import torch
 
+from .. import tracing
 from ..params import AMGParams, SolveInfo, StopType, MAX_RESTART
 from ..sparse import CSR, Dia, Dense, Ell, WEll, torch_dtype
 from ..hierarchy import setup, _pick_format, resolve_device
@@ -92,7 +93,8 @@ def fcg_host_loop(pars, sumb, amul, prec, b, x0, info, steps, psum=None,
     ``info.residuals`` and fills ``info``; returns the device solution.
     """
     st = fcg_init(amul, prec, b, x0, psum)
-    absres0 = float(norm2(st[1], psum))
+    with tracing.span("amg.read"):
+        absres0 = float(norm2(st[1], psum))
     info.residuals.append(absres0)
     step = steps.step(
         "fcg", lambda *s: _flat(fcg_step(amul, prec, s, psum)), 5, pars,
@@ -119,7 +121,8 @@ def fcg_host_loop(pars, sumb, amul, prec, b, x0, info, steps, psum=None,
         pending.append((it, st[0], absres_d))
         if len(pending) >= check_every or it == pars.max_it:
             # one device-to-host copy for the whole batch
-            vals = torch.stack([r for _, _, r in pending]).cpu().numpy()
+            with tracing.span("amg.read"):
+                vals = torch.stack([r for _, _, r in pending]).cpu().numpy()
             converged = False
             for (it_i, x_i, _), absres in zip(pending, vals):
                 absres = float(absres)
@@ -145,7 +148,8 @@ def fcg_host_loop(pars, sumb, amul, prec, b, x0, info, steps, psum=None,
             if converged and not stop:
                 # verify on the exact stopping iterate: the recursive
                 # residual can flatter the truth by eps*kappa
-                true_abs = float(truenorm(xd, b)[0])
+                with tracing.span("amg.read"):
+                    true_abs = float(truenorm(xd, b)[0])
                 true_rel = true_abs / sumb
                 if true_rel < pars.tol or false_conv_left == 0:
                     info.ares, info.rres = true_abs, true_rel
@@ -264,7 +268,9 @@ class JitLoop:
         self.blocks = self.host_reads = 0
         for _ in range(-(-self.max_it // JIT_BLOCK) + 1):
             self.host_reads += 1
-            if not bool(self.cont):
+            with tracing.span("amg.read"):
+                cont = bool(self.cont)
+            if not cont:
                 break
             for _ in range(JIT_BLOCK):
                 if self.step_graph is not None:
@@ -317,25 +323,8 @@ class AMGSolver:
         # -- mixed-precision defect correction: the f64 level-0 operator
         self.a0_hi = None
         if pars.refine and self.dtype != torch.float64:
-            # the internal (possibly level-0-permuted) operator — device
-            # vectors live in that ordering, so the f64 operator must too
-            a_int = self.host_hierarchy.a[0]
-            fmt = _pick_format(a_int, pars)
-            kw = dict(dtype=torch.float64, pad_rows_to=self.pad,
-                      device=self.device)
-            if fmt == "dia":
-                self.a0_hi = Dia.from_csr(a_int, **kw)
-            elif fmt == "dense":
-                self.a0_hi = Dense.from_csr(a_int, pad_cols_to=self.pad, **kw)
-            elif fmt == "well":
-                # two f32 planes whose sum is the f64 operator (kernel B3),
-                # rows grouped by level 0's GS classes as level 0's are
-                self.a0_hi = WEll.from_csr_df64(
-                    a_int, pad_rows_to=self.pad, pad_cols_to=self.pad,
-                    device=self.device, classes=self.mg.levels[0].gid)
-                self._share_level0_plane()
-            else:
-                self.a0_hi = Ell.from_csr(a_int, **kw)
+            with tracing.span("amg.setup.refine_op"):
+                self._make_a0_hi()
         # FCG runs in f64 around the f32 cycle when refining
         self._accel_dtype = (torch.float64 if self.a0_hi is not None
                              else self.dtype)
@@ -350,6 +339,28 @@ class AMGSolver:
         self.pgmres_loop = self.pgmres_graph = None
         self._pgmres_key = None
         self.pgmres_builds = 0
+
+    def _make_a0_hi(self):
+        """The f64 level-0 operator of defect correction, on the internal
+        (possibly level-0-permuted) operator: device vectors live in that
+        ordering, so the f64 operator must too."""
+        a_int = self.host_hierarchy.a[0]
+        fmt = _pick_format(a_int, self.pars)
+        kw = dict(dtype=torch.float64, pad_rows_to=self.pad,
+                  device=self.device)
+        if fmt == "dia":
+            self.a0_hi = Dia.from_csr(a_int, **kw)
+        elif fmt == "dense":
+            self.a0_hi = Dense.from_csr(a_int, pad_cols_to=self.pad, **kw)
+        elif fmt == "well":
+            # two f32 planes whose sum is the f64 operator (kernel B3),
+            # rows grouped by level 0's GS classes as level 0's are
+            self.a0_hi = WEll.from_csr_df64(
+                a_int, pad_rows_to=self.pad, pad_cols_to=self.pad,
+                device=self.device, classes=self.mg.levels[0].gid)
+            self._share_level0_plane()
+        else:
+            self.a0_hi = Ell.from_csr(a_int, **kw)
 
     def _share_level0_plane(self):
         """The df64 hi plane IS the f32 pack of level 0 (same packer, same
@@ -412,21 +423,27 @@ class AMGSolver:
         One upload as given; permutation, cast and padding run on the
         device (on the host they cost ~0.4 s at 1M rows x 16)."""
         n = self.a.n_rows
-        vt = torch.from_numpy(np.ascontiguousarray(
-            np.asarray(v)[:n])).to(self.device)
-        if self._perm0 is not None:
-            vt = vt[torch.from_numpy(self._perm0).to(self.device)]
-        vt = vt.movedim(0, -1)
-        out = torch.zeros((*vt.shape[:-1], self.pad),
-                          dtype=dtype or self.dtype, device=self.device)
-        out[..., :n] = vt
+        with tracing.span("amg.upload") as sp:
+            host = np.ascontiguousarray(np.asarray(v)[:n])
+            sp.nbytes = host.nbytes
+            vt = torch.from_numpy(host).to(self.device)
+            if self._perm0 is not None:
+                sp.nbytes += self._perm0.nbytes
+                vt = vt[torch.from_numpy(self._perm0).to(self.device)]
+            vt = vt.movedim(0, -1)
+            out = torch.zeros((*vt.shape[:-1], self.pad),
+                              dtype=dtype or self.dtype, device=self.device)
+            out[..., :n] = vt
         return out
 
     def _unpad_vec(self, xd) -> np.ndarray:
         """Device solution ``(pad,)`` or ``(k, pad)`` -> host ``(n,)`` or
         ``(n, k)`` in the caller's ordering."""
-        x = xd[..., : self.a.n_rows].cpu().numpy().T
-        return x[self._iperm0] if self._iperm0 is not None else x
+        with tracing.span("amg.download") as sp:
+            x = xd[..., : self.a.n_rows].cpu().numpy()
+            sp.nbytes = x.nbytes
+            x = x.T
+            return x[self._iperm0] if self._iperm0 is not None else x
 
     def solve(self, b, x0=None, eager=False) -> tuple[np.ndarray, SolveInfo]:
         """Host-loop solve with live residual table (reference parity).
@@ -443,13 +460,19 @@ class AMGSolver:
             return self.solve_pgmres(b, x0)
         if self.a0_hi is not None:
             return self.solve_refined(b, x0, eager)
+        return self._solve_cycles(b, x0, eager)
+
+    @tracing.spanned("amg.solve")
+    def _solve_cycles(self, b, x0, eager):
+        """:meth:`solve`'s host loop of plain cycles."""
         pars = self.pars
         n = self.a.n_rows
         bd = self._pad_vec(b)
         xd = self._pad_vec(x0 if x0 is not None else np.zeros(n))
 
         info = SolveInfo()
-        sumb = float(norm2(bd))
+        with tracing.span("amg.read"):
+            sumb = float(norm2(bd))
         t0 = time.perf_counter()
         if pars.verbose:
             print_itinfo(pars.stop_type, 0, 1.0, sumb, 0.0, log=self.log)
@@ -471,11 +494,14 @@ class AMGSolver:
             xd, absres_d = step(xd, bd)
             pending.append((it, xd, absres_d))
             if len(pending) >= check_every or it == pars.max_it:
-                vals = torch.stack([r for _, _, r in pending]).cpu().numpy()
-                xnorms = (
-                    torch.stack([norm2(xv) for _, xv, _ in pending])
-                    .cpu().numpy() if mod_rel else None
-                )
+                with tracing.span("amg.read"):
+                    vals = torch.stack([r for _, _, r in pending]).cpu() \
+                        .numpy()
+                xnorms = None
+                if mod_rel:
+                    with tracing.span("amg.read"):
+                        xnorms = torch.stack(
+                            [norm2(xv) for _, xv, _ in pending]).cpu().numpy()
                 for j, ((it_i, x_i, _), absres) in enumerate(
                         zip(pending, vals)):
                     absres = float(absres)
@@ -514,6 +540,7 @@ class AMGSolver:
             self.log(f"AMG solve time: {info.solve_seconds:g} s")
         return self._unpad_vec(xd), info
 
+    @tracing.spanned("amg.solve")
     def solve_refined(self, b, x0=None, eager=False
                       ) -> tuple[np.ndarray, SolveInfo]:
         """Mixed-precision defect correction: k low-precision cycles per
@@ -530,7 +557,8 @@ class AMGSolver:
                              dtype=torch.float64)
 
         info = SolveInfo()
-        sumb = float(norm2(b_hi))
+        with tracing.span("amg.read"):
+            sumb = float(norm2(b_hi))
         t0 = time.perf_counter()
         if pars.verbose:
             print_itinfo(pars.stop_type, 0, 1.0, sumb, 0.0, log=self.log)
@@ -551,7 +579,8 @@ class AMGSolver:
             pending.append((outer, x_hi, absres_d))
             if len(pending) < check_every and outer != max_outer:
                 continue
-            vals = torch.stack([r for _, _, r in pending]).cpu().numpy()
+            with tracing.span("amg.read"):
+                vals = torch.stack([r for _, _, r in pending]).cpu().numpy()
             for (outer_i, x_i, _), absres in zip(pending, vals):
                 absres = float(absres)
                 relres = absres / sumb
@@ -581,6 +610,7 @@ class AMGSolver:
             self.log(f"AMG solve time: {info.solve_seconds:g} s")
         return self._unpad_vec(x_hi), info
 
+    @tracing.spanned("amg.solve")
     def solve_pcg(self, b, x0=None, eager=False
                   ) -> tuple[np.ndarray, SolveInfo]:
         """AMG-preconditioned flexible CG (``pars.accel == "cg"``).
@@ -600,7 +630,8 @@ class AMGSolver:
         xd = self._pad_vec(x0 if x0 is not None else np.zeros(n), dtype=adt)
 
         info = SolveInfo()
-        sumb = float(norm2(bd))
+        with tracing.span("amg.read"):
+            sumb = float(norm2(bd))
         t0 = time.perf_counter()
         if pars.verbose:
             print_itinfo(pars.stop_type, 0, 1.0, sumb, 0.0, log=self.log)
@@ -615,6 +646,7 @@ class AMGSolver:
             self.log(f"AMG solve time: {info.solve_seconds:g} s")
         return self._unpad_vec(xd), info
 
+    @tracing.spanned("amg.solve")
     def solve_pgmres(self, b, x0=None, host_loops=False
                      ) -> tuple[np.ndarray, SolveInfo]:
         """AMG-right-preconditioned restarted GMRES (``pars.accel ==
@@ -648,7 +680,8 @@ class AMGSolver:
         xd = self._pad_vec(x0 if x0 is not None else np.zeros(n), dtype=adt)
 
         info = SolveInfo()
-        sumb = float(norm2(bd))
+        with tracing.span("amg.read"):
+            sumb = float(norm2(bd))
         t0 = time.perf_counter()
         if sumb == 0.0:
             return np.zeros(n), info
@@ -680,9 +713,11 @@ class AMGSolver:
         else:
             run_plain(loop.program, krylov._read)
         xd = loop.x
-        info.nits = int(loop.it)
+        with tracing.span("amg.read"):
+            info.nits = int(loop.it)
         settle()
-        absres = float(norm2(bd - self._amul(xd)))
+        with tracing.span("amg.read"):
+            absres = float(norm2(bd - self._amul(xd)))
         info.ares = absres
         info.rres = absres / sumb
         info.solve_seconds = time.perf_counter() - t0
@@ -692,6 +727,7 @@ class AMGSolver:
             self.log(f"AMG solve time: {info.solve_seconds:g} s")
         return self._unpad_vec(xd), info
 
+    @tracing.spanned("amg.solve")
     def solve_batched(self, bs, x0s=None, tol=None, eager=False
                       ) -> tuple[np.ndarray, SolveInfo]:
         """Solve ``A X = B`` for many right-hand sides with ONE hierarchy
@@ -723,14 +759,16 @@ class AMGSolver:
 
         info = SolveInfo()
         # ||b_c|| in pars.dtype, as amg_tpu takes it from the cast columns
-        sumb = np.maximum(norm2(bd).reshape(k).cpu().numpy()
-                          .astype(np.float64), 1e-300)
+        with tracing.span("amg.read"):
+            sumb = np.maximum(norm2(bd).reshape(k).cpu().numpy()
+                              .astype(np.float64), 1e-300)
         t0 = time.perf_counter()
         nits = 0
         step = self.steps.step("batched", self._step, 1, pars, eager)
         for it in range(1, pars.max_it + 1):
             xd, res_d = step(xd, bd)
-            res = res_d.reshape(k).cpu().numpy().astype(np.float64)
+            with tracing.span("amg.read"):
+                res = res_d.reshape(k).cpu().numpy().astype(np.float64)
             rel = res / sumb
             nits = it
             info.residuals.append(float(res.max()))
@@ -751,6 +789,7 @@ class AMGSolver:
                      f"relres {info.rres:g}, {info.solve_seconds:g} s")
         return self._unpad_vec(xd), info
 
+    @tracing.spanned("amg.solve")
     def solve_jit(self, b, x0=None) -> tuple[np.ndarray, SolveInfo]:
         """The solve with its loop on the device (``amg_tpu``'s
         ``solve_jit``, ``amg_tpu/solve/driver.py:621-641``): cycles while
@@ -779,11 +818,12 @@ class AMGSolver:
         loop.load(xd, bd)
         loop.run(self._step)
         info = SolveInfo()
-        info.nits = int(loop.it)
-        info.ares = float(loop.absres)
-        sumb = float(loop.sumb)
+        with tracing.span("amg.read"):   # the loop's final state
+            info.nits = int(loop.it)
+            info.ares = float(loop.absres)
+            sumb = float(loop.sumb)
+            h = loop.hist.cpu().numpy()
         info.rres = info.ares / max(sumb, 1e-300)
-        h = loop.hist.cpu().numpy()
         info.residuals = [float(v) for v in h[~np.isnan(h)]]
         x = self._unpad_vec(loop.x)
         info.solve_seconds = time.perf_counter() - t0

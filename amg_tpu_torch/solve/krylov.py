@@ -68,6 +68,7 @@ from collections.abc import MutableMapping
 
 import torch
 
+from .. import tracing
 from ..params import SMALLFLOAT, MAX_STAG, MAX_RESTART, ErrorCode, StopType
 from ..sparse import Ell, Dia, Dense, BandedBlocks
 from ..ops import krylov_small
@@ -144,7 +145,8 @@ last_graph: dict = {}
 def _read(flag) -> bool:
     """One host read of a loop flag."""
     counts["syncs"] += 1
-    return bool(flag)
+    with tracing.span("amg.read"):
+        return bool(flag)
 
 
 def _run(prog, device, psum=None, graph: bool = True):

@@ -57,11 +57,11 @@ from __future__ import annotations
 import contextlib
 import dataclasses
 import gc
-import time
 import weakref
 
 import torch
 
+from .. import tracing
 from ..ops import launch_counts, krylov_small
 
 
@@ -231,11 +231,11 @@ class LoopGraph:
         if torch.cuda.is_current_stream_capturing():
             raise RuntimeError("a device loop's graph is built outside "
                                "captures: run its solve once eagerly first")
-        with no_collector():
+        with no_collector(), tracing.span("amg.capture") as sp:
             self._build()
+        self.build_seconds = sp.seconds
 
     def _build(self):
-        t0 = time.perf_counter()
         krylov_small.build()
         cur = torch.cuda.current_stream(self.device)
         side = torch.cuda.Stream(self.device)
@@ -267,7 +267,6 @@ class LoopGraph:
         cur.wait_stream(side)
         self.nodes = self.root.nodes
         self.exec = self.root.instantiate()
-        self.build_seconds = time.perf_counter() - t0
 
     def _count(self, seg, i, before):
         """Take back the launches counted since ``before`` (a capture of
@@ -433,6 +432,7 @@ class StepGraph:
             t.copy_(o)
         return results
 
+    @tracing.spanned("amg.step")
     def run(self, fn, *args):
         """One step of ``fn`` from ``args``: copies of the new state and of
         the results."""
@@ -441,7 +441,9 @@ class StepGraph:
                 buf.copy_(a)
         if self.args[0].is_cuda:
             if self.graph is None:
-                self._capture(fn)
+                with tracing.span("amg.capture") as sp:
+                    self._capture(fn)
+                self.build_seconds = sp.seconds
             self.graph.replay()
             self.replays += 1
             launch_counts.add(self.per_step, 1)
@@ -453,7 +455,6 @@ class StepGraph:
         return out
 
     def _capture(self, fn):
-        t0 = time.perf_counter()
         dev = self.args[0].device
         with torch.cuda.device(dev), no_collector():
             scratch = tuple(t.clone() for t in self.args)
@@ -485,7 +486,6 @@ class StepGraph:
             torch.cuda.synchronize()
             self.pool_bytes = torch.cuda.memory_reserved(dev) - mem0
         self.graph = graph
-        self.build_seconds = time.perf_counter() - t0
 
 
 class StepGraphs:
