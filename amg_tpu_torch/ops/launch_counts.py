@@ -13,9 +13,9 @@ for every run of the graph (``solve.loop_graph.StepGraph`` per replay,
 
 from __future__ import annotations
 
-from . import dia_kernel, krylov_small, well_kernel
+from . import dense_kernel, dia_kernel, krylov_small, well_kernel
 
-MODULES = (dia_kernel, well_kernel, krylov_small)
+MODULES = (dia_kernel, well_kernel, krylov_small, dense_kernel)
 # host counters that code run inside a captured graph adds to: a key of
 # the counts below is the position of the counter here
 COUNTERS: list = []

@@ -7,9 +7,11 @@ thread-per-row CUDA kernel (``spmv_kernel``, amg/Solve/SSS_cuda.cu:77-96).
 Here each device format has its product: :class:`Dia` goes through the
 hand-written DIA kernel (``ops/dia_kernel.py``) and :class:`WEll` through
 the hand-written WEll kernels (``ops/well_kernel.py``) for every dtype
-they support; :class:`Ell` (gather + row sum), :class:`Dense` (one
-matmul) and :class:`BandedBlocks` (one batched block matmul) are plain
-torch and cuBLAS, as they are XLA in ``amg_tpu``.
+they support; a :class:`Dense` operator stored in bf16 times one f32
+vector goes through the hand-written Dense kernel (``ops/dense_kernel.py``,
+D1); :class:`Ell` (gather + row sum), every other :class:`Dense` product
+(one matmul) and :class:`BandedBlocks` (one batched block matmul) are
+plain torch and cuBLAS, as they are XLA in ``amg_tpu``.
 
 Every product takes one vector ``(pad,)`` or a batch ``(k, pad)`` of k
 right-hand sides, rows on the last axis (the batched solve): a batch on a
@@ -25,7 +27,7 @@ import torch
 import torch.nn.functional as F
 
 from ..sparse import Ell, Dia, Dense, BandedBlocks, WEll
-from . import dia_kernel, well_kernel
+from . import dense_kernel, dia_kernel, well_kernel
 
 
 def spmv_ell(a: Ell, x: torch.Tensor) -> torch.Tensor:
@@ -42,9 +44,13 @@ def spmv_dia(a: Dia, x: torch.Tensor) -> torch.Tensor:
 
 
 def spmv_dense(a: Dense, x: torch.Tensor) -> torch.Tensor:
-    """Dense matvec (small deep levels; no gathers).  Values stored in a
-    narrower dtype (bf16 coarse operators) are widened to the vector's
-    dtype first, as JAX's type promotion does implicitly."""
+    """Dense matvec (small deep levels; no gathers).  bf16 values times
+    one f32 vector go to D1 (``dense_kernel.spmv``), which reads each value
+    as stored, as XLA's fused convert + dot does.  Otherwise values stored
+    in a narrower dtype are widened to the vector's dtype first, as JAX's
+    type promotion does implicitly."""
+    if dense_kernel.takes(a, x):
+        return dense_kernel.spmv(a, x)
     v = a.vals if a.vals.dtype == x.dtype else a.vals.to(x.dtype)
     if x.dim() == 2:
         return x[..., : a.padded_cols] @ v.T

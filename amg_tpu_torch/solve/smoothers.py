@@ -35,7 +35,7 @@ import torch
 
 from ..params import SmootherType
 from ..sparse import Dia, Dense, BandedBlocks, WEll
-from ..ops import dia_kernel, well_kernel
+from ..ops import dense_kernel, dia_kernel, well_kernel
 from ..ops.spmv import spmv
 from ..ops.blas import dot
 
@@ -143,16 +143,21 @@ def _range_update_dense_(level, x, b, start: int, size: int, relax=None):
 
     Within a color class A has no intra-class couplings, so the full-row
     product plus add-back of the diagonal term is the exact GS update.
+    bf16 values times one f32 vector take D1 on the row range
+    (``dense_kernel.spmv``); otherwise the rows are widened to x's dtype.
     """
     a = level.a
     end = start + size
-    sub = a.vals[start:end]
-    if sub.dtype != x.dtype:
-        sub = sub.to(x.dtype)
-    if x.dim() == 2:
-        ax = x[..., : a.padded_cols] @ sub.T
+    if dense_kernel.takes(a, x):
+        ax = dense_kernel.spmv(a, x, start, size)
     else:
-        ax = sub @ x[: a.padded_cols]
+        sub = a.vals[start:end]
+        if sub.dtype != x.dtype:
+            sub = sub.to(x.dtype)
+        if x.dim() == 2:
+            ax = x[..., : a.padded_cols] @ sub.T
+        else:
+            ax = sub @ x[: a.padded_cols]
     ds = level.diag[start:end]
     invd = level.inv_diag[start:end]
     old = x[..., start:end]

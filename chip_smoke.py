@@ -9,7 +9,8 @@ Phases (any failure raises and the script exits nonzero):
 2. build: compiles the DIA kernel (amg_tpu_torch/csrc/dia_spmv.cu), the
    WEll kernels (amg_tpu_torch/csrc/well_spmv.cu) and the Krylov layer's
    scalar kernels and graph assembly (amg_tpu_torch/csrc/krylov_small.cu)
-   with nvcc, in parallel;
+   and the bf16 Dense kernel D1 (amg_tpu_torch/csrc/dense_gemv.cu) with
+   nvcc, in parallel;
 3. kernel against plain: every epilogue (spmv, resid, update) of B1 and
    dtype pair on the 1,000,000-row poisson3d(100) level-0 operator (7
    diagonals) and a random 40-diagonal band of 1,000,000 rows, held to the
@@ -222,6 +223,16 @@ Phases (any failure raises and the script exits nonzero):
    capture's times the replays).  Then phase 17's KRYLOV hierarchy with
    the same gates: its step graph holds the coarsest solve's while and
    if nodes.
+23. the bf16 Dense kernel D1, run just after phase 13 on its solver: one
+   warm solve with the counts reset gives D1's main-path launches, on
+   the bf16 Dense levels that are not the coarsest only, 7 per cycle
+   (Chebyshev of degree 3 before and after the coarse correction, and
+   the residual); then at every bf16 Dense level's shape, D1 against its
+   plain version (values widened to f32, cuBLAS's f32 gemv) within the
+   f32 summation bound (2 n 2^-24 sum_c |a_rc x_c| per row, n columns),
+   timed beside its bound, the plain version and one PyTorch call, the
+   f32 gemv on an f32 copy made beforehand (the library yardstick, which
+   reads twice D1's bytes);
 
 The solves of phases 5, 8, 11-15, 17-20 and 22 run each step of their
 host loops (a cycle and its residual norm, a defect-correction step, an
@@ -1540,6 +1551,69 @@ def phase_structured_auto(old, old_summary):
     rows = (phase_main_shapes(solver, dia, prefix="a-"),
             phase_unstructured_shapes(solver, well, prefix="a-"))
     return solver, rows, summary
+
+
+def phase_dense_kernel(solver):
+    """23. D1 on phase 13's solver: its main-path launches in one warm
+    solve, then D1 against its plain version and timed at every bf16
+    Dense level's shape.  Returns one kernel row per level."""
+    import amg_tpu_torch as amg
+    from amg_tpu_torch.ops import dense_kernel as DK
+
+    levels = solver.mg.levels
+    dense = [(l, lv.a) for l, lv in enumerate(levels)
+             if isinstance(lv.a, amg.Dense)
+             and lv.a.vals.dtype == torch.bfloat16]
+    check(dense, "no bf16 Dense level")
+    b = np.ones(solver.a.n_rows)
+    _reset_counts()
+    _, info = solver.solve(b)
+    torch.cuda.synchronize()
+    _settle_counts()
+    by_shape = dict(DK.launches_by_shape)
+    cycled = {("spmv", op.padded_rows, op.padded_cols)
+              for l, op in dense if l < len(levels) - 1}
+    log(f"[dense] D1 launches in one warm solve ({info.nits} cycles): "
+        f"{by_shape}")
+    check(by_shape and set(by_shape) <= cycled
+          and sum(by_shape.values()) == 7 * info.nits * len(cycled),
+          f"D1 launches {by_shape}: expected 7 per cycle on each of "
+          f"{sorted(cycled)}")
+    g = torch.Generator().manual_seed(23)
+    flush = torch.empty(FLUSH_BYTES, dtype=torch.uint8, device="cuda")
+    rows = []
+    for l, op in dense:
+        pr, pc = op.vals.shape
+        x = torch.randn(pc, generator=g, dtype=torch.float32).cuda()
+        got, want = DK.spmv(op, x), DK.spmv_plain(op, x)
+        torch.cuda.synchronize()
+        s = op.vals.double().abs() @ x.double().abs()
+        diff = (got.double() - want.double()).abs()
+        err = diff.max().item()
+        ok = bool(torch.all(diff <= 2 * pc * 2.0 ** -24 * s))
+        check(ok, f"D1 level {l}: max error {err:.3e} above the f32 "
+              f"summation bound")
+        ms = _time_ms(lambda: DK.spmv(op, x), flush)
+        plain_ms = _time_ms(lambda: DK.spmv_plain(op, x), flush)
+        v32 = op.vals.float()
+        lib_ms = _time_ms(lambda: v32 @ x, flush)
+        del v32
+        # each value read once, x read and y written once
+        nbytes = pr * pc * 2 + (pr + pc) * 4
+        bound_ms, bound_by = _bound(nbytes, 2 * pr * pc, torch.float32)
+        launches = by_shape.get(("spmv", pr, pc), 0)
+        log(f"[dense] level {l} bf16 {pr} x {pc} [{launches}]: err "
+            f"{err:.3e} (ok {ok})  D1 {ms:.4f} ms "
+            f"{nbytes / ms / 1e6:.1f} GB/s  bound {bound_ms:.4f} ms "
+            f"({bound_by}, {nbytes / 1e6:.1f} MB) "
+            f"[{100 * bound_ms / ms:.1f}%]  plain (widen + gemv) "
+            f"{plain_ms:.4f} ms  f32 gemv on a widened copy {lib_ms:.4f} ms")
+        rows.append(dict(op=f"L{l}", rows=pr, cols=pc, launches=launches,
+                         max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                         lib_ms=lib_ms, bound_ms=bound_ms,
+                         bound_by=bound_by))
+    del flush
+    return rows
 
 
 def _embedded_depth(solver):
@@ -3510,7 +3584,7 @@ def phase_jit(p3d, auto_hh, fem, fem_hh):
 
 
 def _kernel_entries(dia_rows, well_rows, multi_rows=(), window_rows=(),
-                    well_window_rows=(), small_rows=()):
+                    well_window_rows=(), small_rows=(), dense_rows=()):
     """The ``kernels`` JSON entries: one per (epilogue, launch shape) of
     phases 6, 13, 14, 16, 17 and 22, per (entry, operator) of phases 9,
     13, 15, 17 and 22 (per GS class for the ``gs`` entry), per launch
@@ -3576,6 +3650,16 @@ def _kernel_entries(dia_rows, well_rows, multi_rows=(), window_rows=(),
         "bound_by": r["bound_by"], "floor_ms": r["floor_ms"],
         "library_ms": r["lib_ms"], "lib_ms": r["lib_ms"]}
         for r in small_rows]
+    # no TPU kernel: XLA's convert + dot of amg_tpu's spmv_dense
+    out += [{
+        "name": f"dense_gemv.spmv[{r['op']} bf16/f32 rows={r['rows']} "
+                f"cols={r['cols']}]",
+        "route": "cuda", "source": "amg_tpu_torch/csrc/dense_gemv.cu",
+        "replaces": "amg_tpu/ops/spmv.py:134",
+        "launches": r["launches"], "max_abs_err": r["max_abs_err"],
+        "ms": r["ms"], "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
+        "bound_by": r["bound_by"], "library_ms": r["lib_ms"],
+        "lib_ms": r["lib_ms"]} for r in dense_rows]
     return out
 
 
@@ -3624,10 +3708,12 @@ def main() -> int:
         solver, summary)
     dia_rows += auto_dia
     well_rows += auto_well
+    stamp("structured auto")
+    dense_rows = phase_dense_kernel(auto)
     p3d = solver.a
     auto_hh = auto.host_hierarchy
     del solver, auto
-    stamp("structured auto")
+    stamp("dense kernel")
     emb_dia, emb_multi, emb_summary = phase_embedded(p3d)
     dia_rows += emb_dia
     multi_rows += emb_multi
@@ -3676,7 +3762,7 @@ def main() -> int:
     log(json.dumps({"kernels": _kernel_entries(dia_rows, well_rows,
                                                multi_rows, window_rows,
                                                well_window_rows,
-                                               small_rows)}))
+                                               small_rows, dense_rows)}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,
         "count": torch.cuda.device_count()}}))

@@ -18,8 +18,8 @@ import pytest
 import torch
 
 import amg_tpu_torch as amg
-from amg_tpu_torch.ops import dia_kernel, well_kernel
-from amg_tpu_torch.sparse import CSR, Dia, WEll
+from amg_tpu_torch.ops import dense_kernel, dia_kernel, well_kernel
+from amg_tpu_torch.sparse import CSR, Dense, Dia, WEll
 
 pytestmark = pytest.mark.gpu
 
@@ -1267,18 +1267,22 @@ def _graphs_built(solver, names):
 
 
 @pytest.mark.parametrize("kind", ["solve", "mod_rel", "refined", "pcg",
-                                  "batched"])
+                                  "batched", "refined_dense",
+                                  "refined_dense_gs"])
 def test_step_graphs_equal_eager_steps_on_card(kind):
     """tests/test_torch_step_graph.py's single-device cases on the card:
     every step a replay of its CUDA graph, equal to the eager steps
     (``eager=True``) bit for bit: iterations, histories and x; a second
-    solve replays the same graphs (built once) with the same result."""
+    solve replays the same graphs (built once) with the same result.  The
+    bf16 Dense cases' step holds D1 launches."""
     _needs_card()
     from test_torch_step_graph import _same, _single
 
     solver, solve, b, names = _single(kind, "cuda")
     got = solve(b)
     graphs = _graphs_built(solver, names)
+    if kind.startswith("refined_dense"):
+        assert graphs["refine"].per_step[dense_kernel][0]["spmv"] > 0
     builds = solver.steps.builds
     _same(got, solve(b, eager=True))
     again = solve(b)
@@ -1557,3 +1561,126 @@ def test_loop_graph_takes_event_nodes_out_of_loop_bodies_on_card():
     assert not {"event_wait", "event_record"} & set(
         KS.graph_kinds(loop.captured[body].raw_cuda_graph()))
     loop.close()
+
+
+# ---------------------------------------------------------------------------
+# D1: a bf16 Dense operator times one f32 vector
+# ---------------------------------------------------------------------------
+
+# (logical rows, padded size, first row, rows launched, columns cut): the
+# Dense levels 4 and 5 of poisson3d(100) in the structured cell, a row
+# range of level 4 (a GS class), a logical size inside its padding, and
+# columns cut to a width that is not a multiple of 8 (a row view: the
+# kernel's value-by-value path)
+DENSE_CASES = {"L4": (6400, 6400, 0, None, 0),
+               "L5": (3328, 3328, 0, None, 0),
+               "L4_rows": (6400, 6400, 1234, 777, 0),
+               "ragged": (6389, 6400, 0, None, 0),
+               "cut_cols": (3000, 3072, 5, 2900, 3)}
+
+
+def _dense_bf16(n, pad, seed):
+    """A random n x n operator, ~30% filled, packed as a bf16 Dense level
+    of pad rows and columns on the card, and an f32 x of pad entries."""
+    rng = np.random.default_rng(seed)
+    dense = rng.standard_normal((n, n)) * (rng.random((n, n)) < 0.3)
+    rr, cc = np.nonzero(dense)
+    csr = CSR.from_coo(rr, cc, dense[rr, cc], (n, n))
+    a = Dense.from_csr(csr, dtype=torch.bfloat16, pad_rows_to=pad,
+                       pad_cols_to=pad, device="cuda")
+    x = torch.from_numpy(rng.standard_normal(pad)).float().cuda()
+    return a, x
+
+
+@pytest.mark.parametrize("case", list(DENSE_CASES))
+def test_dense_kernel_matches_plain(case):
+    """D1 against its plain version (the values widened to f32, then
+    cuBLAS's f32 gemv) and against an f64 product of the same values.
+
+    Tolerances, per row, with s = sum_c |a_rc x_c|: two f32 sums of the
+    same n products in any two orders differ by at most 2 n 2^-24 s (n up
+    to 6,400 columns); D1 alone sums each of a row's 256 threads' at most
+    8 ceil(n / 2048) products in order, then the 32 lanes of a warp in 5
+    shuffle levels and the 8 warps' sums in order, so it lies within
+    (8 ceil(n / 2048) + 13) 2^-24 s of the f64 product, which catches a
+    dropped term (about s / n).  A row range gives the rows of the whole
+    product bit for bit: the summation order depends on the columns
+    only."""
+    _needs_card()
+    n, pad, start, size, cut = DENSE_CASES[case]
+    a, x = _dense_bf16(n, pad, seed=len(case))
+    if cut:
+        a = Dense(a.vals[:, : pad - cut], a.shape, a.nnz)
+        x = x[: pad - cut]
+    counts = dense_kernel.launches["spmv"]
+    got = dense_kernel.spmv(a, x, start, size)
+    want = dense_kernel.spmv_plain(a, x, start, size)
+    torch.cuda.synchronize()
+    assert dense_kernel.launches["spmv"] == counts + 1
+    rows = a.vals[start: start + got.shape[0]].double()
+    xd = x[: a.padded_cols].double()
+    s = rows.abs() @ xd.abs()
+    exact = rows @ xd
+    cols = a.padded_cols
+    assert got.shape == want.shape
+    assert torch.all((got.double() - want.double()).abs()
+                     <= 2 * cols * 2.0 ** -24 * s)
+    depth = 8 * -(-cols // 2048) + 13
+    assert torch.all((got.double() - exact).abs() <= depth * 2.0 ** -24 * s)
+    if size is not None:
+        assert torch.equal(got, dense_kernel.spmv(a, x)[start: start + size])
+    if case == "ragged":   # the padding rows are 0
+        assert torch.all(dense_kernel.spmv(a, x)[n:] == 0)
+
+
+def test_dense_cuda_tensor_never_falls_back(monkeypatch):
+    """A CUDA tensor reaches D1 or raises; the plain version is not
+    called."""
+    _needs_card()
+    a, x = _dense_bf16(300, 384, seed=3)
+
+    def refuse(*args, **kw):
+        raise AssertionError("plain version called on CUDA tensors")
+
+    monkeypatch.setattr(dense_kernel, "spmv_plain", refuse)
+    dense_kernel.spmv(a, x)
+    with pytest.raises(TypeError):
+        dense_kernel.spmv(a, x.double())
+    with pytest.raises(ValueError):
+        dense_kernel.spmv(a, x.cpu())                     # CPU x
+    with pytest.raises(ValueError):
+        dense_kernel.spmv(a, x[:-8])                      # short x
+    with pytest.raises(ValueError, match="contiguous"):
+        dense_kernel.spmv(a, torch.stack([x, x], 1)[:, 0])
+
+
+def test_dense_kernel_launches_in_a_structured_solve_call():
+    """One solve call of the structured cell (poisson3d(100), the
+    parameters of benchmark/configs/p3d7_1m.json) launches D1 7 times per
+    cycle on its bf16 Dense level 4 (Chebyshev of degree 3 before and after
+    the coarse correction, and the residual): 56 launches in 8 cycles,
+    through the replayed step graph."""
+    _needs_card()
+    a = amg.poisson3d(100)
+    pars = amg.AMGParams(
+        dtype="float32", refine=True, accel="none",
+        smoother=amg.SmootherType.GS,
+        coarse_smoother=amg.SmootherType.CHEBYSHEV,
+        coarse_op_dtype="bfloat16", coarse_sparsify=0.005,
+        sparsify_from_level=2, coarse_stop_rows=3500, tol=1e-8, max_it=60,
+        verbose=0, embed_levels=0, use_well="auto", use_banded="auto")
+    solver = amg.AMGSolver(a, pars, log=lambda *_: None)
+    levels = solver.mg.levels
+    dense = [i for i, lv in enumerate(levels[:-1])
+             if isinstance(lv.a, Dense) and lv.a.vals.dtype == torch.bfloat16]
+    assert dense == [4] and levels[4].a.vals.shape == (6400, 6400)
+    b = np.random.default_rng(5).uniform(-1.0, 1.0, a.n_rows)
+    solver.solve(b)                      # builds the step graph
+    for e in dense_kernel.launches:
+        dense_kernel.launches[e] = 0
+    dense_kernel.launches_by_shape.clear()
+    x, info = solver.solve(b)
+    torch.cuda.synchronize()
+    assert info.nits == 8 and info.rres < 1e-8
+    assert dense_kernel.launches == {"spmv": 56}
+    assert dense_kernel.launches_by_shape == {("spmv", 6400, 6400): 56}

@@ -138,6 +138,18 @@ def _single(kind, device="cpu"):
         pars = tamg.AMGParams(verbose=0, dtype="float32", refine=True,
                               refine_inner_cycles=2, tol=1e-9)
         names = {"refine"}
+    elif kind in ("refined_dense", "refined_dense_gs"):
+        # the structured cell's parameters at test size: bf16 Dense levels
+        # 2 (512 rows, not the coarsest) and 3, their products through the
+        # Dense kernel's module; Chebyshev on them, or GS class ranges
+        a = tamg.poisson3d(16)
+        cs = (tamg.SmootherType.GS if kind == "refined_dense_gs"
+              else tamg.SmootherType.CHEBYSHEV)
+        pars = tamg.AMGParams(verbose=0, dtype="float32", refine=True,
+                              tol=1e-8, coarse_smoother=cs,
+                              coarse_op_dtype="bfloat16", embed_levels=0,
+                              dense_level_bytes=4e6)
+        names = {"refine"}
     elif kind == "pcg":
         # Jacobi everywhere: more than 10 FCG iterations, so the residual
         # replacement of iteration 10 runs
@@ -159,7 +171,8 @@ def _single(kind, device="cpu"):
 
 
 @pytest.mark.parametrize("kind", ["solve", "mod_rel", "refined", "pcg",
-                                  "batched"])
+                                  "batched", "refined_dense",
+                                  "refined_dense_gs"])
 def test_single_device_steps(kind, guarded_steps):
     """Each step of the single-device entries runs on the static buffers
     without a host read, and the route equals the eager one bit for bit;
