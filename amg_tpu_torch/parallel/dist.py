@@ -29,7 +29,9 @@ over axis 0 and then ``all_reduce``s across processes;
 :meth:`Mesh.all_gather` collects every process's shards into one tensor;
 the ring's halo exchange is in :mod:`.halo`.  Neither reads the host, so
 on an NCCL group they are captured into the solvers' step graphs.
-``counts`` adds up the collectives.
+``counts`` adds up the collectives; those that cross processes also go to
+the span table's ``amg.ring.all_reduce`` and ``amg.ring.all_gather``
+rows.
 """
 
 from __future__ import annotations
@@ -41,6 +43,7 @@ import numpy as np
 import torch
 import torch.distributed as dist
 
+from .. import tracing
 from ..hierarchy import (Hierarchy, Level, _pick_format, resolve_device,
                          setup)
 from ..ops import launch_counts
@@ -103,6 +106,9 @@ class Mesh:
         total = partials.sum(0)
         if self.group is not None:
             dist.all_reduce(total, group=self.group)
+            if self.world > 1:
+                tracing.count("amg.ring.all_reduce",
+                              total.numel() * total.element_size())
         return total
 
     def all_gather(self, x: torch.Tensor) -> torch.Tensor:
@@ -113,6 +119,8 @@ class Mesh:
             return x
         out = x.new_empty((self.world * x.shape[0],) + tuple(x.shape[1:]))
         _gather_into(out, x.contiguous(), group=self.group)
+        if self.world > 1:
+            tracing.count("amg.ring.all_gather", x.numel() * x.element_size())
         return out
 
 
@@ -172,14 +180,22 @@ def shard_vector(v, mesh: Mesh, pad_to: int | None = None,
                  dtype=None) -> torch.Tensor:
     """A global vector (numpy or torch) as this process's ``(S, m)`` block
     on the mesh's device, zero-padded to ``pad_to`` and to a multiple of
-    the shard count."""
-    v = torch.as_tensor(np.asarray(v) if not torch.is_tensor(v) else v)
+    the shard count.  Only this process's rows are read, converted and
+    copied: on a ring of processes each one moves its ``1 / world`` of
+    the vector, never a padded copy of all of it."""
+    if not torch.is_tensor(v):
+        v = np.asarray(v)
+    n = v.shape[0]
+    m = _round_up(max(n, pad_to or 0), mesh.n_shards) // mesh.n_shards
+    lo = mesh.first * m
+    hi = lo + mesh.local * m
+    v = torch.as_tensor(v[lo:min(hi, n)])
     if dtype is not None:
         v = v.to(dtype)
-    if pad_to is not None and v.shape[0] < pad_to:
-        v = _pad_vec_multiple(v, pad_to)
-    v = _pad_vec_multiple(v, mesh.n_shards)
-    return local_rows(v, mesh).to(mesh.device).contiguous()
+    if v.shape[0] < hi - lo:
+        v = torch.cat([v, v.new_zeros((hi - lo - v.shape[0],)
+                                      + tuple(v.shape[1:]))])
+    return v.view(mesh.local, m, *v.shape[1:]).to(mesh.device).contiguous()
 
 
 def shard_dia(d: Dia, mesh: Mesh) -> Dia:

@@ -46,8 +46,9 @@ transfers).
 them ``well_products`` and ``banded_products``), all-gather products
 (``gather_products``), the x bytes that shard
 windows take from other shards (``halo_bytes``, 0 at the mesh edges) and
-the messages and bytes sent between processes (``p2p``, ``p2p_bytes``);
-a replayed CUDA graph adds those of its capture.
+the messages and bytes sent between processes (``p2p``, ``p2p_bytes``;
+also the span table's ``amg.ring.send`` row); a replayed CUDA graph adds
+those of its capture.
 """
 
 from __future__ import annotations
@@ -57,6 +58,7 @@ import dataclasses
 import torch
 import torch.distributed as dist
 
+from .. import tracing
 from ..ops import dia_kernel, launch_counts, well_kernel
 from ..ops.spmv import banded_window_product, spmv
 from ..sparse import BandedBlocks, Dense, Dia, WEll
@@ -84,8 +86,9 @@ def _remote_halos(flat: torch.Tensor, lo: int, hi: int, mesh: Mesh):
     communicator, which the step's eager warm-up made), its receive
     buffers come from the graph's pool, the send slabs are views of
     ``flat``, and each ``wait`` makes the current stream wait for NCCL's.
-    The message counts are host counts of the call; a replayed graph adds
-    those of its capture."""
+    The message counts (``counts``, and the span table's ``amg.ring.send``
+    row) are host counts of the call; a replayed graph adds those of its
+    capture."""
     M = flat.shape[0]
     left = flat.new_zeros(lo)
     right = flat.new_zeros(hi)
@@ -114,9 +117,10 @@ def _remote_halos(flat: torch.Tensor, lo: int, hi: int, mesh: Mesh):
         for w in dist.batch_isend_irecv(ops):
             w.wait()
         sent = [op for op in ops if op.op is dist.isend]
+        nbytes = sum(op.tensor.numel() for op in sent) * flat.element_size()
         counts["p2p"] += len(sent)
-        counts["p2p_bytes"] += sum(op.tensor.numel() for op in sent) \
-            * flat.element_size()
+        counts["p2p_bytes"] += nbytes
+        tracing.count("amg.ring.send", nbytes, len(sent))
     return left, right
 
 

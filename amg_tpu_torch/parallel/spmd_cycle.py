@@ -431,9 +431,10 @@ class SpmdAMGSolver:
     embedded mode, levels ``0..E`` row-sharded; one without embedding the
     general mode, levels ``0..Es`` row-sharded (``Es`` from
     :func:`general_shard_depth`; ``ValueError`` when level 0 cannot be
-    sharded).  The rest is replicated.  The mesh defaults to one shard per
-    process on the card; pass ``mesh=make_mesh(D, device="cpu")`` for the
-    CPU.
+    sharded).  The rest is replicated.  The sharding of the packed
+    hierarchy and of the f64 level-0 operator is one ``amg.setup.shard``
+    span.  The mesh defaults to one shard per process on the card; pass
+    ``mesh=make_mesh(D, device="cpu")`` for the CPU.
 
     The route of the steps (``steps``) is fixed by the mesh's device and
     its group's backend (:class:`~amg_tpu_torch.solve.loop_graph.
@@ -481,17 +482,18 @@ class SpmdAMGSolver:
         hi = pars.accel == "cg" and pars.refine \
             and self.dtype != torch.float64
         self.a0_hi = None
-        if self.E == 0:
-            self._init_general(mg, hh, hi)
-        else:
-            self.mg = shard_hierarchy(mg, self.mesh, pars,
-                                      replicate_from_level=self.E + 1)
-            # FCG (accel "cg"): f64 outer iteration against the exact
-            # row-sharded level-0 operator when refining
-            if hi:
-                self.a0_hi = shard_dia(Dia.from_csr(
-                    hh.a[0], dtype=torch.float64, pad_rows_to=self.pad,
-                    device=self.mesh.device), self.mesh)
+        with tracing.span("amg.setup.shard"):
+            if self.E == 0:
+                self._init_general(mg, hh, hi)
+            else:
+                self.mg = shard_hierarchy(mg, self.mesh, pars,
+                                          replicate_from_level=self.E + 1)
+                # FCG (accel "cg"): f64 outer iteration against the exact
+                # row-sharded level-0 operator when refining
+                if hi:
+                    self.a0_hi = shard_dia(Dia.from_csr(
+                        hh.a[0], dtype=torch.float64, pad_rows_to=self.pad,
+                        device=self.mesh.device), self.mesh)
         self._accel_dtype = torch.float64 if self.a0_hi is not None \
             else self.dtype
         self.steps = StepGraphs(self.mesh.device, self.mesh.backend)
@@ -585,7 +587,8 @@ class SpmdAMGSolver:
 
     def _shard(self, v, dtype):
         """A host vector in the caller's ordering -> this process's padded
-        ``(S, m)`` block."""
+        ``(S, m)`` block (only its rows are copied; a zero x0 is made on
+        the device by the callers, with no upload)."""
         n = self.a.n_rows
         with tracing.span("amg.upload") as sp:
             v = np.asarray(v, dtype=np.float64)[:n]
@@ -622,7 +625,8 @@ class SpmdAMGSolver:
         pars = self.pars
         n = self.a.n_rows
         bd = self._shard(b, self.dtype)
-        xd = self._shard(x0 if x0 is not None else np.zeros(n), self.dtype)
+        xd = self._shard(x0, self.dtype) if x0 is not None \
+            else torch.zeros_like(bd)
         info = SolveInfo()
         with tracing.span("amg.read"):
             sumb = float(norm2(bd, self.mesh.psum))
@@ -648,7 +652,7 @@ class SpmdAMGSolver:
         n = self.a.n_rows
         adt = self._accel_dtype
         bd = self._shard(b, adt)
-        xd = self._shard(x0 if x0 is not None else np.zeros(n), adt)
+        xd = self._shard(x0, adt) if x0 is not None else torch.zeros_like(bd)
         psum = self.mesh.psum
         info = SolveInfo()
         with tracing.span("amg.read"):

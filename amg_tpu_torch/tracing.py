@@ -34,7 +34,24 @@ The names, a closed list (:data:`NAMES`; another name raises
   ``amg.setup.coarse_inv`` (the coarse inverse) inside the pack;
 - ``amg.setup.refine_op``: ``AMGSolver``'s f64 level-0 operator of
   defect correction (``a0_hi``);
+- ``amg.setup.shard``: ``SpmdAMGSolver``'s sharding of the packed
+  hierarchy and of its f64 level-0 operator (``shard_hierarchy``, the
+  general mode's placement, ``a0_hi``);
 - ``amg.kernels.build``: one ``nvcc`` build of a CUDA source.
+
+The ring's work that crosses processes is counted in three counter rows
+(:data:`COUNTERS`), a count and bytes with no host seconds, added by
+:func:`count` (never a span: they sit in code that a CUDA graph captures,
+and a replay adds its capture's counts through ``ops.launch_counts``):
+
+- ``amg.ring.send``: one point-to-point message this process sends to
+  another process (``parallel.halo._remote_halos``); bytes: its payload;
+- ``amg.ring.all_reduce``: one ``Mesh.psum`` that reduces across
+  processes; bytes: the reduced tensor;
+- ``amg.ring.all_gather``: one ``Mesh.all_gather`` across processes;
+  bytes: this process's contribution.
+
+A mesh held by one process adds nothing to them.
 
 :func:`totals` holds every span since the process started or since
 :func:`reset`; :func:`profiled` only the spans entered while a
@@ -71,8 +88,14 @@ NAMES = (
     "amg.setup.pack_level",
     "amg.setup.coarse_inv",
     "amg.setup.refine_op",
+    "amg.setup.shard",
     "amg.kernels.build",
+    "amg.ring.send",
+    "amg.ring.all_reduce",
+    "amg.ring.all_gather",
 )
+# the rows that :func:`count` adds to, and no span
+COUNTERS = ("amg.ring.send", "amg.ring.all_reduce", "amg.ring.all_gather")
 
 _profiling = torch._C._autograd._profiler_enabled
 _Region = torch._C._profiler._RecordFunctionFast
@@ -133,6 +156,33 @@ def spanned(name: str):
                 return fn(*args, **kwargs)
         return inner
     return wrap
+
+
+def count(name: str, nbytes: int, n: int = 1) -> None:
+    """Add ``n`` counts and ``nbytes`` to the counter row ``name`` (one of
+    :data:`COUNTERS`), in :func:`profiled` too while a ``torch.profiler``
+    records.  ``n`` and ``nbytes`` may be negative: a capture takes back
+    what the captured code counted while it was captured."""
+    if name not in COUNTERS:
+        raise KeyError(name)
+    row = _totals[name]
+    row[0] += n
+    row[2] += nbytes
+    if _profiling():
+        p = _profiled[name]
+        p[0] += n
+        p[2] += nbytes
+
+
+def counters() -> dict:
+    """The counter rows' counts and bytes, as ``{(name, "n"): count,
+    (name, "bytes"): bytes}`` (the form ``ops.launch_counts`` takes
+    differences of)."""
+    out = {}
+    for name in COUNTERS:
+        r = _totals[name]
+        out[(name, "n")], out[(name, "bytes")] = r[0], r[2]
+    return out
 
 
 def _table(rows: dict) -> dict:

@@ -66,16 +66,17 @@ def _rows(table):
 
 
 def test_span_names_are_the_closed_list(clean):
-    """Every span the package opens is one of ``NAMES``, every name is
-    opened somewhere, and another name raises."""
+    """Every span the package opens and every counter row it adds to is
+    one of ``NAMES``, every name is used somewhere, and another name
+    raises."""
     used = set()
     for root, _, files in os.walk(PKG):
         for f in files:
             if f.endswith(".py") and f != "tracing.py":
                 with open(os.path.join(root, f)) as fh:
                     used |= set(re.findall(
-                        r"(?:span|spanned|_phase)\(\s*\"(amg\.[a-z_.]+)\"",
-                        fh.read()))
+                        r"(?:span|spanned|_phase|count)\(\s*"
+                        r"\"(amg\.[a-z_.]+)\"", fh.read()))
     assert used == set(tracing.NAMES)
     with pytest.raises(KeyError):
         tracing.span("amg.other")
@@ -99,6 +100,30 @@ def test_table_arithmetic(clean):
     tracing.reset()
     assert all(r == {"n": 0, "s": 0.0, "bytes": 0}
                for r in tracing.totals().values())
+
+
+def test_counter_rows(clean):
+    """``count`` adds counts and bytes (negative ones too: a capture takes
+    its counts back) to a counter row, with no seconds, in ``profiled()``
+    only while a profiler records; a span's name is no counter row."""
+    tracing.count("amg.ring.send", 40)
+    tracing.count("amg.ring.send", 24, 2)
+    with profile(activities=[ProfilerActivity.CPU]):
+        tracing.count("amg.ring.all_reduce", 8)
+    tracing.count("amg.ring.all_gather", 100)
+    tracing.count("amg.ring.all_gather", -100, -1)
+    t, p = tracing.totals(), tracing.profiled()
+    assert t["amg.ring.send"] == {"n": 3, "s": 0.0, "bytes": 64}
+    assert t["amg.ring.all_reduce"] == p["amg.ring.all_reduce"] == {
+        "n": 1, "s": 0.0, "bytes": 8}
+    assert t["amg.ring.all_gather"]["n"] == 0
+    assert p["amg.ring.send"]["n"] == 0
+    assert tracing.counters() == {
+        ("amg.ring.send", "n"): 3, ("amg.ring.send", "bytes"): 64,
+        ("amg.ring.all_reduce", "n"): 1, ("amg.ring.all_reduce", "bytes"): 8,
+        ("amg.ring.all_gather", "n"): 0, ("amg.ring.all_gather", "bytes"): 0}
+    with pytest.raises(KeyError):
+        tracing.count("amg.solve", 8)
 
 
 @pytest.fixture(scope="module")
@@ -135,7 +160,9 @@ def test_without_a_profiler_only_totals_move(solvers, clean, case):
     assert info.rres < 1e-6
     t = tracing.totals()
     assert t["amg.solve"]["n"] == 1
-    assert t["amg.upload"]["n"] == (1 if entry == "solve_batched" else 2)
+    # b, and x0 unless it is made on the device (the ring's zero x0)
+    assert t["amg.upload"]["n"] == (
+        1 if entry == "solve_batched" or kind == "spmd" else 2)
     assert t["amg.download"]["n"] == 1
     assert t["amg.read"]["n"] >= 2
     assert _rows(tracing.profiled()) == before
