@@ -13,12 +13,15 @@ Formats: ``Dia`` for banded levels, ``Dense`` for small ones, ``WEll``
 for large unstructured levels (level 0 then RCM-ordered, coarse WEll
 levels in barycentric order, P/R packed as WEll too), ``BandedBlocks``
 for coarse levels whose RCM band fits the byte budget, ``Ell`` otherwise.
-``use_well`` and ``use_banded`` on ``"auto"`` follow ``amg_tpu``'s rule for
-one device, which is what the port solves on: both are on
-(:func:`format_on`).  Fine-grid embedding (:func:`embedding_plan`) keeps
-coarse levels ``1..E`` at their level-0 positions as Dia operators over
-level 0's pad; ``embed_levels=-1`` resolves to 0 (no embedding), as in
-``amg_tpu`` off a TPU.
+``use_well`` and ``use_banded`` on ``"auto"`` are on, as in ``amg_tpu``
+on one device, which is what the port solves on (:func:`format_on`);
+``use_banded="auto"`` then declines a band that reads at least the bytes
+of the level's sparse pack, on rows short enough for kernel B2, and,
+with ``use_well`` on, sends the level to WEll (:func:`reorder_for_gs`;
+``"on"`` is ``amg_tpu``'s rule).  Fine-grid embedding
+(:func:`embedding_plan`) keeps coarse levels ``1..E`` at their level-0
+positions as Dia operators over level 0's pad; ``embed_levels=-1``
+resolves to 0 (no embedding), as in ``amg_tpu`` off a TPU.
 """
 
 from __future__ import annotations
@@ -36,8 +39,9 @@ import torch
 from . import tracing
 from .params import AMGParams, CoarsenType, InterpType, MIN_CDOF, SMALLFLOAT
 from .params import SmootherType
-from .sparse import (CSR, Ell, Dia, Dense, BandedBlocks, WEll, _round_up,
-                     _to_device, torch_dtype)
+from .sparse import (CSR, Ell, Dia, Dense, BandedBlocks, WEll,
+                     ROW_THREAD_MAX, SLICE_ROWS, _round_up, _to_device,
+                     row_slices_bytes, torch_dtype)
 from .setup_phase.strength import strength_matrix
 from .setup_phase.cf_split import rs_split, pmis_split, clean_ff_couplings
 from .setup_phase.interp import build_interpolation
@@ -142,6 +146,11 @@ class HostHierarchy:
     # per level: block half-bandwidth when the level was RCM-ordered for
     # the BandedBlocks format (None -> not banded)
     banded_nb: Optional[list] = None
+    # per level: the device format reorder_for_gs chose ("dia", "dense",
+    # "well", "ell" or "banded"); None -> :func:`level_formats` derives
+    # it (a hierarchy not reordered, or one restored from a checkpoint
+    # written without it)
+    formats: Optional[list] = None
 
     @property
     def num_levels(self) -> int:
@@ -310,6 +319,35 @@ def _coarse_itemsize(pars: AMGParams) -> int:
                        else pars.coarse_op_dtype).itemsize
 
 
+def _sparse_bytes(al: CSR, pars: AMGParams, well: bool) -> int:
+    """Bytes one product of coarse level ``al`` reads on the sparse pack
+    it takes without a band: kernel B2's count (:func:`~.sparse.
+    row_slices_bytes`) on a WEll pack (``well``; one slot row per row, as
+    no pack exists yet), else the gather product's on an Ell pack (int64
+    columns and values in the solve dtype over ``width`` slots a row, x
+    and y once)."""
+    n = al.n_rows
+    xb = np.dtype(pars.dtype).itemsize
+    if well:
+        return row_slices_bytes(al.nnz, _coarse_itemsize(pars),
+                                -(-n // SLICE_ROWS), al.n_cols, n, xb)
+    width = max(int(al.row_degrees.max()) if n else 1, 1)
+    return _round_up(max(n, 1), 8) * width * (xb + 8) + (al.n_cols + n) * xb
+
+
+def _declines_band(al: CSR, pars: AMGParams, band_bytes: int,
+                   well: bool) -> bool:
+    """Whether ``use_banded="auto"`` turns down a band of ``band_bytes``
+    on coarse level ``al`` for the sparse pack the level takes without
+    one (WEll where ``well``, else Ell): where the band reads at least the
+    pack's bytes (:func:`_sparse_bytes`), and, for WEll, the level's
+    longest row is one that B2's one thread a row reads at the pace of
+    its bytes (:data:`~.sparse.ROW_THREAD_MAX`)."""
+    if well and al.n_rows and int(al.row_degrees.max()) > ROW_THREAD_MAX:
+        return False
+    return band_bytes >= _sparse_bytes(al, pars, well)
+
+
 def reorder_for_gs(hh: HostHierarchy, pars: AMGParams,
                    skip_levels: int = 0) -> HostHierarchy:
     """Reorder levels for the device formats (in place).
@@ -327,7 +365,15 @@ def reorder_for_gs(hh: HostHierarchy, pars: AMGParams,
       per nonzero; against Dense, at most half the square); an Ell level
       whose band overshoots is clipped to the widest band that fits
       (:func:`clip_to_band`) when at most ``banded_clip_frac`` of its
-      entries fall outside;
+      entries fall outside.  That is ``amg_tpu``'s rule, and ``"on"``'s.
+      ``"auto"`` keeps such a band unless it reads at least the bytes of
+      the sparse pack the level takes without one (:func:`_declines_band`:
+      WEll with ``use_well`` on, where the level's rows are short enough
+      for B2, else Ell; a Dense level keeps the rule of "on" when
+      ``use_well`` is off), and counts each band it declines in
+      ``amg.setup.banded_declined`` (bytes: the band's); with
+      ``use_well`` on, a declined Ell or Dense level packs as WEll.
+      ``hh.formats`` keeps each level's format;
     * otherwise a WEll level into barycentric order
       (:func:`_barycentric_order`), which keeps its slot windows local;
       its GS runs masked;
@@ -342,17 +388,20 @@ def reorder_for_gs(hh: HostHierarchy, pars: AMGParams,
     from .setup_phase.coloring import color_graph
 
     banded_on = format_on(pars.use_banded)
+    by_bytes = pars.use_banded == "auto"
+    well_on = format_on(pars.use_well)
     op_itemsize = _coarse_itemsize(pars)
 
     nl = hh.num_levels
     hh.gs_key = [None] * nl
     hh.perms = [None] * nl
     hh.banded_nb = [None] * nl
+    hh.formats = [_pick_format(al, pars) for al in hh.a]
     if skip_levels == 0:
         reorder_l0_for_well(hh, pars)
     for l in range(max(1, skip_levels + 1), nl):
         al = hh.a[l]
-        fmt_l = _pick_format(al, pars)
+        fmt_l = hh.formats[l]
         if fmt_l == "dia":
             continue
         n = al.n_rows
@@ -372,21 +421,20 @@ def reorder_for_gs(hh: HostHierarchy, pars: AMGParams,
             al_rcm = al.permute(rcm)
             nb = BandedBlocks.block_bandwidth(al_rcm)
             nbr = _round_up(max(n, 1), 128) // 128
-            band_bytes = nbr * (2 * nb + 1) * 128 * 128 * op_itemsize
+            per_w = nbr * 128 * 128 * op_itemsize   # one block diagonal
+            band_bytes = per_w * (2 * nb + 1)
             dense_bytes = (nbr * 128) ** 2 * op_itemsize
-            fits = band_bytes <= pars.banded_level_bytes and (
+            keep_nb = None
+            if band_bytes <= pars.banded_level_bytes and (
                 fmt_l == "ell"
                 or (fmt_l == "well" and band_bytes <= 40 * al.nnz)
                 or (fmt_l == "dense" and 2 * band_bytes <= dense_bytes)
-            )
-            if fits:
-                perm = rcm
-                hh.banded_nb[l] = nb
+            ):
+                keep_nb = nb
             elif pars.banded_clip_frac > 0 and fmt_l == "ell":
                 # the band overshoots the budget: clip at the largest nb
                 # that fits and lump the out-of-band tail into the
                 # diagonal, if that tail is a small fraction of nnz
-                per_w = nbr * 128 * 128 * op_itemsize
                 nb_fit = int((pars.banded_level_bytes / per_w - 1) // 2)
                 if nb_fit >= 1:
                     bd = np.abs((al_rcm.indices.astype(np.int64) >> 7)
@@ -394,9 +442,20 @@ def reorder_for_gs(hh: HostHierarchy, pars: AMGParams,
                     frac = float(np.count_nonzero(bd > nb_fit)) \
                         / max(al_rcm.nnz, 1)
                     if frac <= pars.banded_clip_frac:
-                        perm = rcm
-                        hh.banded_nb[l] = nb_fit
-                        clip_nb = nb_fit
+                        keep_nb = clip_nb = nb_fit
+            if keep_nb is not None and by_bytes and (fmt_l != "dense"
+                                                     or well_on):
+                kept = per_w * (2 * keep_nb + 1)
+                if _declines_band(al, pars, kept,
+                                  well_on or fmt_l == "well"):
+                    tracing.count("amg.setup.banded_declined", kept)
+                    keep_nb = clip_nb = None
+                    if well_on:
+                        fmt_l = hh.formats[l] = "well"
+            if keep_nb is not None:
+                perm = rcm
+                hh.banded_nb[l] = keep_nb
+                hh.formats[l] = "banded"
 
         if perm is None and fmt_l == "well":
             # order rows for slot-window locality (not by color): each
@@ -447,6 +506,8 @@ def reorder_l0_for_well(hh: HostHierarchy, pars: AMGParams) -> None:
     a0 = hh.a[0]
     if _pick_format(a0, pars) != "well":
         return
+    if hh.formats is not None:
+        hh.formats[0] = "well"
     import scipy.sparse as sp
     from scipy.sparse.csgraph import reverse_cuthill_mckee
 
@@ -617,7 +678,7 @@ def _pick_format(al: CSR, pars: AMGParams) -> str:
     levels are small but nearly dense; WEll for large unstructured levels
     when ``use_well`` is on (:func:`format_on`); padded-ELL gathers
     otherwise.  (``reorder_for_gs`` may then turn an Ell, Dense or WEll
-    level into BandedBlocks.)
+    level into BandedBlocks, or an Ell or Dense level into WEll.)
     """
     if _use_dia(al, pars):
         return "dia"
@@ -917,6 +978,17 @@ def _embedded_level(hh: HostHierarchy, l: int, E: int, emb: list,
     )
 
 
+def level_formats(hh: HostHierarchy, pars: AMGParams) -> list:
+    """The device format each host level packs as: ``hh.formats``, which
+    :func:`reorder_for_gs` chose, else ``"banded"`` where a band was kept
+    and :func:`_pick_format`'s elsewhere."""
+    if hh.formats is not None:
+        return list(hh.formats)
+    return ["banded" if hh.banded_nb is not None
+            and hh.banded_nb[l] is not None else _pick_format(m, pars)
+            for l, m in enumerate(hh.a)]
+
+
 def _level_from_csr(
     al: CSR,
     p: Optional[CSR],
@@ -927,13 +999,11 @@ def _level_from_csr(
     dtype: torch.dtype,
     pars: AMGParams,
     device,
+    fmt: str,
     gs_key: Optional[np.ndarray] = None,
     is_coarse: bool = False,
     banded_nb: Optional[int] = None,
 ) -> Level:
-    fmt = _pick_format(al, pars)
-    if banded_nb is not None and fmt in ("ell", "dense", "well"):
-        fmt = "banded"
     op_dtype = dtype if (not is_coarse or pars.coarse_op_dtype == "same") \
         else torch_dtype(pars.coarse_op_dtype)
     # per-row vectors are rounded to the solve dtype on the host, as in
@@ -1104,12 +1174,7 @@ def to_device(hh: HostHierarchy, pars: AMGParams, device="cuda",
     # the same pads as amg_tpu so vectors compare entry for entry.  For a
     # ring of D = dist_devices > 1 shards every pad splits into D equal
     # shards of whole granules (amg_tpu/hierarchy.py:1319-1347)
-    fmts = [
-        "banded" if (hh.banded_nb is not None
-                     and hh.banded_nb[l] is not None)
-        else _pick_format(m, pars)
-        for l, m in enumerate(hh.a)
-    ]
+    fmts = level_formats(hh, pars)
     D = max(pars.dist_devices, 1)
     pads = [
         _round_up(max(m.n_rows, 1), D * {"well": 1024, "dense": 128,
@@ -1145,8 +1210,8 @@ def to_device(hh: HostHierarchy, pars: AMGParams, device="cuda",
                 gs_key = hh.gs_key[l] if hh.gs_key is not None else None
                 levels.append(
                     _level_from_csr(hh.a[l], p, r, cf, pads[l], pad_coarse,
-                                    dtype, pars, device, gs_key=gs_key,
-                                    is_coarse=l >= 1,
+                                    dtype, pars, device, fmts[l],
+                                    gs_key=gs_key, is_coarse=l >= 1,
                                     banded_nb=(hh.banded_nb[l]
                                                if hh.banded_nb is not None
                                                else None))

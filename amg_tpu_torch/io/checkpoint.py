@@ -65,8 +65,8 @@ def save_hierarchy(path, hh: HostHierarchy, compress: bool = True) -> None:
                 out[f"gs_key{l}"] = np.asarray(key, dtype=np.int64)
     # v3: reorder_for_gs metadata, so a restored hierarchy skips the
     # (expensive) re-permutation pass entirely — the matrices are saved
-    # already-permuted, and perms/banded_nb are what downstream packing
-    # (fine-grid embedding, BandedBlocks) consumes
+    # already-permuted, and perms/banded_nb/formats are what downstream
+    # packing (fine-grid embedding, each level's format) consumes
     if hh.perms is not None:
         out["has_reorder"] = np.asarray(1)
         for l, p in enumerate(hh.perms):
@@ -76,6 +76,9 @@ def save_hierarchy(path, hh: HostHierarchy, compress: bool = True) -> None:
         for l, nb in enumerate(hh.banded_nb):
             if nb is not None:
                 out[f"banded_nb{l}"] = np.asarray(nb, dtype=np.int64)
+    if hh.formats is not None:
+        for l, fmt in enumerate(hh.formats):
+            out[f"format{l}"] = np.asarray(fmt)
     (np.savez_compressed if compress else np.savez)(path, **out)
 
 
@@ -93,7 +96,7 @@ def load_hierarchy(path) -> HostHierarchy:
             z[f"gs_key{l}"] if f"gs_key{l}" in z.files else None
             for l in range(nl)
         ]
-    perms = banded_nb = None
+    perms = banded_nb = formats = None
     if version >= 3:
         if "has_reorder" in z.files:
             perms = [
@@ -105,6 +108,10 @@ def load_hierarchy(path) -> HostHierarchy:
                 else None
                 for l in range(nl)
             ]
+            # none in a checkpoint written before the formats were kept:
+            # its levels pack as they did (hierarchy.level_formats)
+            if "format0" in z.files:
+                formats = [str(z[f"format{l}"]) for l in range(nl)]
     return HostHierarchy(
         a=[_get_csr(z, f"a{l}") for l in range(nl)],
         p=[_get_csr(z, f"p{l}") for l in range(nl - 1)],
@@ -117,4 +124,5 @@ def load_hierarchy(path) -> HostHierarchy:
         gs_key=gs_key,
         perms=perms,
         banded_nb=banded_nb,
+        formats=formats,
     )

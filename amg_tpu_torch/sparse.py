@@ -571,6 +571,12 @@ class Dia:
 
 
 SLICE_ROWS = 32   # rows per slice of the RowSlices layout (one warp)
+# the longest row that kernel B2 (one thread a row) reads at the pace of
+# its bytes on a coarse level of few rows: past it the level waits on its
+# longest rows' chains of loads (on an H100, bf16 levels of ~10-20 k rows
+# against their RCM bands: 64 entries a row 0.029 ms against 0.089 ms,
+# 168 entries 0.073 against 0.080, 328 entries 0.170 against 0.055)
+ROW_THREAD_MAX = 128
 
 
 def _slot_columns(loc: torch.Tensor, base: torch.Tensor) -> torch.Tensor:
@@ -737,6 +743,18 @@ class RowSlices:
         rows = self.row_idx[slot].cpu().numpy().astype(np.int64)
         cols = self.cols[place].cpu().numpy().astype(np.int64)
         return CSR.from_coo(rows, cols, vals, shape)
+
+
+def row_slices_bytes(nnz: int, value_bytes: int, n_slices: int, x_len: int,
+                     y_rows: int, x_bytes: int) -> int:
+    """Bytes one product of kernel B2 (``ops/well_kernel.py``) moves over
+    a row-slice layout of ``n_slices`` slices: per nonzero its value and
+    4 B column, per slot row its length and output row (4 B each), the
+    slices' 8 B pointers, x once (``x_len`` entries) and y once
+    (``y_rows`` rows).  The count behind the kernel table's bound and
+    behind ``hierarchy.reorder_for_gs``'s choice of a band over WEll."""
+    return (nnz * (value_bytes + 4) + n_slices * SLICE_ROWS * 8
+            + (n_slices + 1) * 8 + (x_len + y_rows) * x_bytes)
 
 
 @dataclasses.dataclass

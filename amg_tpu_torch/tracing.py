@@ -53,6 +53,13 @@ and a replay adds its capture's counts through ``ops.launch_counts``):
 
 A mesh held by one process adds nothing to them.
 
+One more counter row is the set-up's:
+
+- ``amg.setup.banded_declined``: one coarse level whose RCM band
+  ``use_banded="on"`` would store and ``"auto"`` does not, as it reads
+  at least the bytes of the level's sparse pack, on rows short enough
+  for kernel B2 (``hierarchy.reorder_for_gs``); bytes: the band's.
+
 :func:`totals` holds every span since the process started or since
 :func:`reset`; :func:`profiled` only the spans entered while a
 ``torch.profiler`` records.  Those spans also go into the profiler's
@@ -93,9 +100,12 @@ NAMES = (
     "amg.ring.send",
     "amg.ring.all_reduce",
     "amg.ring.all_gather",
+    "amg.setup.banded_declined",
 )
-# the rows that :func:`count` adds to, and no span
+# the rows that :func:`count` adds to, and no span: the ring's (which a
+# captured graph's replays add again, :func:`counters`) and the set-up's
 COUNTERS = ("amg.ring.send", "amg.ring.all_reduce", "amg.ring.all_gather")
+SETUP_COUNTERS = ("amg.setup.banded_declined",)
 
 _profiling = torch._C._autograd._profiler_enabled
 _Region = torch._C._profiler._RecordFunctionFast
@@ -160,10 +170,11 @@ def spanned(name: str):
 
 def count(name: str, nbytes: int, n: int = 1) -> None:
     """Add ``n`` counts and ``nbytes`` to the counter row ``name`` (one of
-    :data:`COUNTERS`), in :func:`profiled` too while a ``torch.profiler``
-    records.  ``n`` and ``nbytes`` may be negative: a capture takes back
-    what the captured code counted while it was captured."""
-    if name not in COUNTERS:
+    :data:`COUNTERS` or :data:`SETUP_COUNTERS`), in :func:`profiled` too
+    while a ``torch.profiler`` records.  ``n`` and ``nbytes`` may be
+    negative: a capture takes back what the captured code counted while
+    it was captured."""
+    if name not in COUNTERS and name not in SETUP_COUNTERS:
         raise KeyError(name)
     row = _totals[name]
     row[0] += n
@@ -175,8 +186,8 @@ def count(name: str, nbytes: int, n: int = 1) -> None:
 
 
 def counters() -> dict:
-    """The counter rows' counts and bytes, as ``{(name, "n"): count,
-    (name, "bytes"): bytes}`` (the form ``ops.launch_counts`` takes
+    """The ring's counter rows' counts and bytes, as ``{(name, "n"):
+    count, (name, "bytes"): bytes}`` (the form ``ops.launch_counts`` takes
     differences of)."""
     out = {}
     for name in COUNTERS:

@@ -64,15 +64,17 @@ Phases (any failure raises and the script exits nonzero):
    update, so the gap left comes from the Ell and Dense levels, which sum
    a batch in another order than one vector;
 13. structured "auto": phase 5's parameters with ``use_well`` and
-   ``use_banded`` on "auto", amg_tpu's one-device layout (Dia, Dia, WEll,
-   BandedBlocks with nb 17, Dense, Dense), solved to 1e-8 (host-verified)
-   through B1 and B2; level 2's product (WEll) and level 3's
-   (BandedBlocks, a cuBLAS batched product) timed beside phase 5's Ell and
-   Dense products on the same levels; device memory and warm solve beside
-   phase 5's; kernel against plain on every DIA and WEll launch shape of
-   its solve;
+   ``use_banded`` on "auto", the port's layout of the benchmark's
+   ``p3d7_1m`` (Dia, Dia, WEll, WEll, Dense at 7,168 x 7,168, Dense:
+   level 3's band of nb 17, which amg_tpu keeps, declined and counted in
+   ``amg.setup.banded_declined``), solved to 1e-8 (host-verified) through
+   B1 and B2; levels 2-3's products (WEll) timed beside phase 5's Ell and
+   Dense products on the same levels, and level 3's B2 beside the cuBLAS
+   product of the band "on" keeps there; device memory and warm solve
+   beside phase 5's; kernel against plain on every DIA and WEll launch
+   shape of its solve;
 14. structured embedded: phase 13's parameters with ``embed_levels=8``
-   (levels 0-2 as Dia over one pad of 1,024,000 rows, bf16 embedded
+   and ``use_banded`` on "on", amg_tpu's layout (levels 0-2 as Dia over one pad of 1,024,000 rows, bf16 embedded
    operators of 19 and 199 diagonals, P/R of 7, 19 and 156, then
    BandedBlocks, Dense, Dense) solved to 1e-8, B1 against plain on every
    embedded operator and epilogue the solve launched (timed beside the
@@ -80,11 +82,14 @@ Phases (any failure raises and the script exits nonzero):
    through B4 alone, B4 against plain at its launch shapes (the torch
    CSR yardstick holds the embedded operators' nonzero entries); one solve with
    ``embed_boundary="compact"`` (the member_idx gather and scatter);
-15. unstructured "auto": phase 8's parameters with both flags on "auto"
-   (WEll levels 0-3, BandedBlocks levels 4-7 with nb 9, 7, 5, 3, Dense),
-   FCG to 1e-8; each BandedBlocks level's product timed beside phase 8's
-   Ell or Dense product on the same level; kernel against plain on every
-   WEll launch shape of its solve;
+15. unstructured "auto": phase 8's parameters with ``use_well`` and
+   ``use_banded`` on "auto", the port's layout of the benchmark's
+   ``fem2d_1m`` (WEll levels 0-7, Dense: the bands of levels 4-7, nb 9,
+   7, 5, 3, which amg_tpu keeps, declined and counted), FCG to 1e-8;
+   each of levels 4-7's B2 product timed beside phase 8's Ell or Dense
+   product on the same level and beside the cuBLAS product of the band
+   "on" keeps there; kernel against plain on every WEll launch shape of
+   its solve;
 16. nonsymmetric GMRES: the 2-D upwind convection-diffusion operator of
    tests/test_solve.py:618-636 (vel 20) on a 1000 x 1000 grid (1,000,000
    rows, 4,996,000 nnz), ``AMGParams(accel="gmres", tol=1e-8)`` with the
@@ -161,9 +166,10 @@ Phases (any failure raises and the script exits nonzero):
 19. the general SPMD mode: fem2d(1,000,000) (phases 7-9's matrix) in
    bench_dist.py's fem2d parameters (f32 cycles, FCG in f64, Chebyshev
    below level 0, f32 coarse operators, WEll from 1,024 rows) with
-   ``SpmdAMGSolver`` on ``make_mesh(4)``, twice: ``use_banded`` on "auto"
+   ``SpmdAMGSolver`` on ``make_mesh(4)``, twice: ``use_banded`` on "on"
    (WEll levels 0-5, BandedBlocks 6 with Ell transfers: Es = 6 and the
-   all-gather boundary) and "off" (Es = 5, the ring-R boundary); each
+   all-gather boundary, which only a band below the sharded levels
+   gives; "auto" declines that band) and "off" (Es = 5, the ring-R boundary); each
    solved to a host-checked 1e-8 in FCG iterations within 1 of the
    single-device ``solve_pcg`` with ``dist_devices=4`` packing, with B2's
    window entry launched on every sharded WEll operator (A, P, R of levels
@@ -176,7 +182,7 @@ Phases (any failure raises and the script exits nonzero):
    shape, timed beside the whole ring product, the single-device B2/B3 on
    the same operator, the fastest torch sparse CSR product of its rows
    and its bound (B2/B3's bytes with x as the haloed window); then the
-   "auto" solve inside a one-rank NCCL group, gated as phase 18's (route
+   "on" solve inside a one-rank NCCL group, gated as phase 18's (route
    "graph" with its ``all_reduce`` and all-gathers captured, graph =
    eager steps, x = the in-process run's, bit for bit);
 20. the GSPMD solver: poisson3d(100) in bench_dist.py's gspmd parameters
@@ -205,9 +211,8 @@ Phases (any failure raises and the script exits nonzero):
    solved with FCG beside the same setup on the host splitter: both
    converged, iterations within 20%;
 22. ``solve_jit``, the solve whose loop stays on the card: phase 13's
-   host hierarchy (poisson3d(100), "auto": Dia, Dia, WEll, BandedBlocks,
-   Dense, Dense) and phase 15's (fem2d(1,000,000), WEll 0-3,
-   BandedBlocks 4-7, Dense) with f32 cycles to 1e-6 and no defect
+   host hierarchy (poisson3d(100), "auto": Dia, Dia, WEll, WEll, Dense,
+   Dense) and phase 15's (fem2d(1,000,000), WEll 0-7, Dense) with f32 cycles to 1e-6 and no defect
    correction or Krylov acceleration (``jit_pars``; b = A x for a seeded
    x, ``jit_rhs``), each ``solve_jit`` a CUDA graph of one masked cycle
    step replayed in blocks (B1's update, resid and spmv and B2's spmv in
@@ -225,7 +230,8 @@ Phases (any failure raises and the script exits nonzero):
    if nodes.
 23. the bf16 Dense kernel D1, run just after phase 13 on its solver: one
    warm solve with the counts reset gives D1's main-path launches, on
-   the bf16 Dense levels that are not the coarsest only, 7 per cycle
+   the bf16 Dense levels that are not the coarsest only (level 4, padded
+   to 7,168 x 7,168 below the WEll level 3), 7 per cycle
    (Chebyshev of degree 3 before and after the coarse correction, and
    the residual); then at every bf16 Dense level's shape, D1 against its
    plain version (values widened to f32, cuBLAS's f32 gemv) within the
@@ -806,13 +812,14 @@ def _layout_bytes(op, df64, n_x, xb, first=0, n=None):
     n)`` (default all): per nonzero its value(s) and 4 B column, per slot
     row its length and output row (4 B each), the slices' pointers, x
     once (``n_x`` entries) and y once (one per slot row with a row)."""
+    from amg_tpu_torch.sparse import row_slices_bytes
+
     s = op.rows
     n = s.n_slices - first if n is None else n
     nnz = int(s.row_len[first * 32:(first + n) * 32].sum())
     vb = 8 if df64 else s.vals.element_size()
     rows = int((s.row_idx[first * 32:(first + n) * 32] >= 0).sum())
-    return (nnz * (vb + 4) + n * 32 * 8 + (n + 1) * 8 + n_x * xb
-            + rows * xb), nnz
+    return row_slices_bytes(nnz, vb, n, n_x, rows, xb), nnz
 
 
 def _compare_well(tag, op, entry, n_x, csr, g, flush):
@@ -1398,22 +1405,25 @@ def phase_batched_one_column(solver, b):
 
 
 # ---------------------------------------------------------------------------
-# 13-15. amg_tpu's one-device layouts: "auto" (WEll and BandedBlocks) and
-# fine-grid embedding
+# 13-15. the port's "auto" layouts (WEll where amg_tpu keeps a band the
+# port declines) and amg_tpu's fine-grid embedding
 # ---------------------------------------------------------------------------
 
 
-# what amg_tpu's own host code packs on one device (its setup_host,
-# embedding_plan and reorder_for_gs run on the same matrices and flags)
-STRUCTURED_AUTO = ["Dia", "Dia", "WEll", "BandedBlocks", "Dense", "Dense"]
-STRUCTURED_AUTO_NB = 17            # level 3's block half-bandwidth
+# what the port packs on "auto": amg_tpu's one-device layout (its
+# setup_host, embedding_plan and reorder_for_gs on the same matrices with
+# both flags on), but WEll on the levels whose band "auto" declines;
+# *_DECLINED: those levels and the nb of the band amg_tpu keeps there
+STRUCTURED_AUTO = ["Dia", "Dia", "WEll", "WEll", "Dense", "Dense"]
+STRUCTURED_DECLINED = {3: 17}
+STRUCTURED_DENSE_PAD = 7168        # level 4 (6,396 rows) below WEll level 3
 EMBEDDED = ["Dia", "Dia", "Dia", "BandedBlocks", "Dense", "Dense"]
 EMBEDDED_PAD = 1_024_000           # good_pad(1,000,000), shared by levels 0-2
 # diagonals of the embedded operators: (level, operator) -> nd
 EMBEDDED_NDS = {(1, "a"): 19, (2, "a"): 199, (0, "p"): 7, (0, "r"): 7,
                 (1, "p"): 19, (1, "r"): 19, (2, "p"): 156, (2, "r"): 156}
-FEM_AUTO = ["WEll"] * 4 + ["BandedBlocks"] * 4 + ["Dense"]
-FEM_AUTO_NB = [9, 7, 5, 3]         # levels 4-7
+FEM_AUTO = ["WEll"] * 8 + ["Dense"]
+FEM_DECLINED = {4: 9, 5: 7, 6: 5, 7: 3}
 
 
 def _formats(solver):
@@ -1428,14 +1438,18 @@ def _auto_solver(a, pars, tag, b):
     from amg_tpu_torch.ops import (dia_kernel as D, krylov_small as KS,
                                    well_kernel as W)
     from amg_tpu_torch.solve import krylov
+    from amg_tpu_torch import tracing
     import amg_tpu_torch as amg
 
     _reset_counts()
     mem0 = torch.cuda.memory_allocated()
+    row0 = tracing.totals()["amg.setup.banded_declined"]
     t0 = time.perf_counter()
     solver = amg.AMGSolver(a, pars, device="cuda", log=lambda *_: None)
     torch.cuda.synchronize()
     setup_s = time.perf_counter() - t0
+    row = tracing.totals()["amg.setup.banded_declined"]
+    declined = (row["n"] - row0["n"], row["bytes"] - row0["bytes"])
     mib = (torch.cuda.memory_allocated() - mem0) / 2**20
     x, info = solver.solve(b)
     torch.cuda.synchronize()
@@ -1468,7 +1482,9 @@ def _auto_solver(a, pars, tag, b):
         f"{mib:.1f} MiB, cold solve {info.solve_seconds:.4f} s, warm "
         f"{info2.solve_seconds:.4f} s, its {info.nits}, rres "
         f"{info.rres:.3e}, true rres (host f64) {true_rel:.3e}")
-    log(f"[{tag}] launches: DIA {launches[0]}, WEll {launches[1]}")
+    log(f"[{tag}] launches: DIA {launches[0]}, WEll {launches[1]}; "
+        f"amg.setup.banded_declined {declined[0]} levels, "
+        f"{declined[1] / 1e6:.1f} MB")
     check(np.all(np.isfinite(x)) and x.shape == (a.n_rows,),
           f"{tag}: solution not finite or wrong shape")
     check(true_rel < 1e-8 and info.nits <= pars.max_it,
@@ -1477,7 +1493,7 @@ def _auto_solver(a, pars, tag, b):
              if solver.steps.graphs else None)
     return solver, dia, well, dict(mib=mib, warm_solve_s=info2.solve_seconds,
                                    nits=info.nits, true_rres=true_rel,
-                                   setup_s=setup_s,
+                                   setup_s=setup_s, declined=declined,
                                    solve_s=info.solve_seconds,
                                    krylov=krylov_counts, krylov_small=small,
                                    steps=steps)
@@ -1523,12 +1539,91 @@ def _compare_products(tag, levels, new, old):
     return out
 
 
+def _declined_bands(tag, solver, declined):
+    """B2 on each level that "auto" sent to WEll (``declined``: level ->
+    the nb of the band amg_tpu keeps there) beside the cuBLAS product of
+    that band, rebuilt from the level's host operator in RCM order (its
+    nb logged beside amg_tpu's); bytes and share of the bound of each,
+    B2 against its plain version.  Returns one row per level."""
+    import scipy.sparse as sp
+    from scipy.sparse.csgraph import reverse_cuthill_mckee
+    from amg_tpu_torch.ops import well_kernel as W
+    from amg_tpu_torch.ops.spmv import spmv
+    from amg_tpu_torch.sparse import BandedBlocks
+
+    g = torch.Generator().manual_seed(22)
+    flush = torch.empty(FLUSH_BYTES, dtype=torch.uint8, device="cuda")
+    rows = []
+    for l, nb_on in declined.items():
+        well = solver.mg.levels[l].a
+        al = solver.host_hierarchy.a[l]
+        m = sp.csr_matrix((al.data, al.indices, al.indptr), shape=al.shape)
+        rcm = np.asarray(reverse_cuthill_mckee(m, symmetric_mode=True),
+                         dtype=np.int64)
+        al_rcm = al.permute(rcm)
+        nb = BandedBlocks.block_bandwidth(al_rcm)
+        band = BandedBlocks.from_csr(al_rcm, dtype=well.rows.vals.dtype,
+                                     nb=nb, device="cuda")
+        xb = torch.randn(band.padded_rows, generator=g).cuda()
+        band_bytes = (band.vals.numel() * band.vals.element_size()
+                      + 2 * band.padded_rows * 4)
+        band_ms = _time_ms(lambda: spmv(band, xb), flush)
+        del band, xb
+        n_x = min(well.padded_rows, well.pad_cols)
+        xw = torch.randn(well.padded_rows, generator=g).cuda()
+        got, want = W.spmv(well, xw), W.spmv_plain(well, xw)
+        err = ((got - want).abs().max() / want.abs().max()).item()
+        check(err <= TOL[well.rows.vals.dtype],
+              f"{tag}: B2 on declined level {l} disagrees with its plain "
+              f"version, rel err {err:.3e}")
+        well_bytes, nnz = _layout_bytes(well, False, n_x, 4)
+        well_ms = _time_ms(lambda: W.spmv(well, xw), flush)
+        row = dict(level=l, rows=well.n_rows, nnz=nnz,
+                   max_row=int(np.diff(al.indptr).max()),
+                   dtype=str(well.rows.vals.dtype)[6:], nb=nb, nb_on=nb_on,
+                   band_bytes=band_bytes, band_ms=band_ms,
+                   band_bound_ms=band_bytes / HBM_BYTES_PER_S * 1e3,
+                   well_bytes=well_bytes, well_ms=well_ms,
+                   well_bound_ms=well_bytes / HBM_BYTES_PER_S * 1e3,
+                   rel_err=err)
+        rows.append(row)
+        log(f"[{tag}] declined level {l} {row['dtype']} rows={well.n_rows} "
+            f"nnz={nnz} max row {row['max_row']}: B2 "
+            f"{well_bytes / 1e6:.2f} MB {well_ms:.4f} ms (bound "
+            f"{row['well_bound_ms']:.4f}, "
+            f"{100 * row['well_bound_ms'] / well_ms:.0f}%), rel err "
+            f"{err:.2e}; band nb {nb} (amg_tpu's {nb_on}) "
+            f"{band_bytes / 1e6:.1f} MB {band_ms:.4f} ms (bound "
+            f"{row['band_bound_ms']:.4f}, "
+            f"{100 * row['band_bound_ms'] / band_ms:.0f}%); band / B2 "
+            f"{band_ms / well_ms:.2f}x")
+    del flush
+    return rows
+
+
+def _check_declined(tag, solver, summary, declined):
+    """No level of ``solver`` is BandedBlocks, the levels "auto" declined
+    are ``declined``'s, packed as WEll, and ``amg.setup.banded_declined``
+    counted each of them."""
+    import amg_tpu_torch as amg
+
+    check(not any(isinstance(lv.a, amg.BandedBlocks)
+                  for lv in solver.mg.levels),
+          f"{tag}: a band was kept")
+    check(summary["declined"][0] == len(declined)
+          and all(isinstance(solver.mg.levels[l].a, amg.WEll)
+                  for l in declined),
+          f"{tag}: amg.setup.banded_declined {summary['declined']}, "
+          f"expected levels {sorted(declined)} as WEll")
+
+
 def phase_structured_auto(old, old_summary):
     """13. poisson3d(100) with phase 5's parameters and ``use_well`` and
-    ``use_banded`` on "auto": amg_tpu's one-device layout, solved to 1e-8
-    through B1 and B2; products per level beside phase 5's (``old``).
-    Returns the kernel rows of every DIA and WEll launch shape of its
-    solve (tags "a-")."""
+    ``use_banded`` on "auto": the port's layout of ``p3d7_1m``, solved to
+    1e-8 through B1 and B2; products per level beside phase 5's
+    (``old``), level 3's B2 beside the band amg_tpu keeps there.  Returns
+    the kernel rows of every DIA and WEll launch shape of its solve (tags
+    "a-")."""
     import amg_tpu_torch as amg
 
     pars = structured_pars(amg).replace(use_well="auto", use_banded="auto")
@@ -1536,9 +1631,11 @@ def phase_structured_auto(old, old_summary):
     solver, dia, well, summary = _auto_solver(old.a, pars, "auto", b)
     fmts = _formats(solver)
     check(fmts == STRUCTURED_AUTO, f"auto formats {fmts}")
-    nbs = [lv.a.nb for lv in solver.mg.levels
-           if isinstance(lv.a, amg.BandedBlocks)]
-    check(nbs == [STRUCTURED_AUTO_NB], f"BandedBlocks nb {nbs}")
+    _check_declined("auto", solver, summary, STRUCTURED_DECLINED)
+    dense = solver.mg.levels[4].a
+    check(tuple(dense.vals.shape) == (STRUCTURED_DENSE_PAD,) * 2,
+          f"auto level 4 Dense {tuple(dense.vals.shape)}, expected "
+          f"{STRUCTURED_DENSE_PAD} x {STRUCTURED_DENSE_PAD}")
     wells = [lv.a for lv in solver.mg.levels if isinstance(lv.a, amg.WEll)]
     check(sum(dia.values()) > 0 and wells and all(
         well.get(("spmv", op.vals.dtype, op.n_rows, op.nnz), 0) > 0
@@ -1548,6 +1645,7 @@ def phase_structured_auto(old, old_summary):
         f"s (phase 5: {old_summary['warm_solve_s']:.4f})")
     _compare_products("auto", [l for l, f in enumerate(fmts)
                                if f in ("WEll", "BandedBlocks")], solver, old)
+    summary["bands"] = _declined_bands("auto", solver, STRUCTURED_DECLINED)
     rows = (phase_main_shapes(solver, dia, prefix="a-"),
             phase_unstructured_shapes(solver, well, prefix="a-"))
     return solver, rows, summary
@@ -1628,17 +1726,18 @@ def _embedded_depth(solver):
 
 
 def phase_embedded(a):
-    """14. poisson3d(100) with phase 13's parameters and ``embed_levels=8``:
-    levels 0-2 as Dia over one pad (bf16 embedded operators), B1 checked
-    against plain on every embedded operator and epilogue the solve
-    launched; ``solve_batched`` on 16 columns through B4 (checked against
+    """14. poisson3d(100) with phase 13's parameters, ``embed_levels=8``
+    and ``use_banded`` on "on" (amg_tpu's embedded layout, with level 3's
+    band): levels 0-2 as Dia over one pad (bf16 embedded operators), B1
+    checked against plain on every embedded operator and epilogue the
+    solve launched; ``solve_batched`` on 16 columns through B4 (checked against
     plain at those shapes); one solve with ``embed_boundary="compact"``
     (the member_idx path).  Returns the B1 and B4 rows and the solve's B1
     launches and cycles."""
     import amg_tpu_torch as amg
     from amg_tpu_torch.ops import dia_kernel as D, well_kernel as W
 
-    pars = structured_pars(amg).replace(use_well="auto", use_banded="auto",
+    pars = structured_pars(amg).replace(use_well="auto", use_banded="on",
                                         embed_levels=8)
     b = np.ones(a.n_rows)
     solver, dia, well, summary = _auto_solver(a, pars, "embed", b)
@@ -1699,26 +1798,27 @@ def phase_embedded(a):
 
 def phase_fem_auto(a, old, old_summary):
     """15. fem2d(1,000,000) with phase 8's parameters and ``use_well`` and
-    ``use_banded`` on "auto": WEll levels 0-3, BandedBlocks levels 4-7, FCG
-    to 1e-8; each BandedBlocks level's product beside phase 8's (``old``)
-    Ell or Dense on the same level.  Returns the kernel rows of every WEll
-    launch shape of its solve (tags "fa-": level 4's RCM ordering rewrites
-    P3 and R3, so their layouts are not phase 9's), its summary and its
-    host hierarchy (phase 22's)."""
+    ``use_banded`` on "auto": the port's layout of ``fem2d_1m``, WEll
+    levels 0-7, FCG to 1e-8; levels 4-7's B2 products beside phase 8's
+    (``old``) Ell or Dense on the same level and beside the bands amg_tpu
+    keeps there.  Returns the kernel rows of every WEll launch shape of
+    its solve (tags "fa-": level 4's barycentric ordering rewrites P3 and
+    R3, so their layouts are not phase 9's), its summary and its host
+    hierarchy (phase 22's)."""
     import amg_tpu_torch as amg
 
-    pars = unstructured_pars(amg).replace(use_well="auto", use_banded="auto")
+    pars = unstructured_pars(amg).replace(use_well="auto",
+                                          use_banded="auto")
     b = np.ones(a.n_rows)
     solver, _, well, summary = _auto_solver(a, pars, "fem-auto", b)
     fmts = _formats(solver)
     check(fmts == FEM_AUTO, f"fem2d auto formats {fmts}")
-    banded = [l for l, f in enumerate(fmts) if f == "BandedBlocks"]
-    nbs = [solver.mg.levels[l].a.nb for l in banded]
-    check(nbs == FEM_AUTO_NB, f"fem2d BandedBlocks nb {nbs}")
+    _check_declined("fem-auto", solver, summary, FEM_DECLINED)
     log(f"[fem-auto] device memory {summary['mib']:.1f} MiB (phase 8: "
         f"{old_summary['mib']:.1f}), warm solve {summary['warm_solve_s']:.4f} "
         f"s (phase 8: {old_summary['warm_solve_s']:.4f})")
-    _compare_products("fem-auto", banded, solver, old)
+    _compare_products("fem-auto", sorted(FEM_DECLINED), solver, old)
+    summary["bands"] = _declined_bands("fem-auto", solver, FEM_DECLINED)
     rows = phase_unstructured_shapes(solver, well, prefix="fa-")
     hh = solver.host_hierarchy
     del solver
@@ -3048,7 +3148,7 @@ def _general_run(a, pars, tag, b, mesh):
 
 def phase_general(a, fem_summary, fem_auto_summary):
     """19. fem2d(1,000,000) in bench_dist.py's fem2d mode on a ring of 4
-    row shards on the card: ``use_banded`` on "auto" (the all-gather
+    row shards on the card: ``use_banded`` on "on" (the all-gather
     boundary) and "off" (the ring-R boundary), then the first inside a
     one-rank NCCL process group.  Returns the window entries' rows."""
     import socket
@@ -3063,7 +3163,7 @@ def phase_general(a, fem_summary, fem_auto_summary):
     g = torch.Generator().manual_seed(19)
     rows, kinds = [], []
     first = None
-    for banded in ("auto", "off"):
+    for banded in ("on", "off"):
         pars = general_pars(amg).replace(use_banded=banded)
         tag = f"general-{banded}"
         solver, x, info, by_shape, summ = _general_run(a, pars, tag, b,
@@ -3084,14 +3184,14 @@ def phase_general(a, fem_summary, fem_auto_summary):
                 check(match, f"{tag}: no sharded operator has the launch "
                              f"shape {key}")
                 rows.append(_one_row([
-                    _compare_well_window(f"g{banded[0]}-{t}", op, entry,
+                    _compare_well_window(f"g{banded[1]}-{t}", op, entry,
                                          mode, mesh, g, flush)
                     for t, op, mode in match], n))
         del flush
         if first is None:
             first = (pars, x, info)
         del solver
-    check(kinds == [False, True], f"boundaries {kinds}: the auto layout "
+    check(kinds == [False, True], f"boundaries {kinds}: use_banded on "
           "should take the all-gather boundary, use_banded off the ring-R")
     bad = [r for r in rows if not r["ok"]]
     check(not bad, f"WEll window entry disagrees with its plain version: "
@@ -3759,6 +3859,8 @@ def main() -> int:
     log(f"[done] {time.perf_counter() - t_start:.1f} s in all; "
         f"card: {smi}")
     log(smi)
+    log(json.dumps({"declined": auto_summary["bands"]
+                    + fem_auto_summary["bands"]}))
     log(json.dumps({"kernels": _kernel_entries(dia_rows, well_rows,
                                                multi_rows, window_rows,
                                                well_window_rows,

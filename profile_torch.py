@@ -18,8 +18,8 @@
 
 ``--layout`` picks the format flags: ``compact`` (default; chip_smoke.py
 phases 5 and 8), ``auto`` (``use_well`` and ``use_banded`` on "auto",
-phases 13 and 15) or ``embedded`` (auto plus ``embed_levels=8``, phase
-14; poisson3d only).  ``--gmres`` solves phase 16's 1000 x 1000
+phases 13 and 15) or ``embedded`` (auto plus ``embed_levels=8``, with
+``use_banded`` on "on" as in phase 14; poisson3d only).  ``--gmres`` solves phase 16's 1000 x 1000
 convection-diffusion operator with ``accel="gmres"`` (f64 cycles, "auto"
 formats); ``--coarsest KRYLOV`` takes the reference's CG -> GMRES
 coarsest solver (phase 17 with ``--structured --layout auto``), each
@@ -188,7 +188,7 @@ def main() -> int:
     if args.layout == "embedded":
         if not (args.structured or args.batched):
             ap.error("--layout embedded needs --structured or --batched")
-        pars = pars.replace(embed_levels=8)
+        pars = pars.replace(embed_levels=8, use_banded="on")
         what += ", embedded"
     elif args.layout == "auto":
         what += ", auto formats"

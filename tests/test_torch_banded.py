@@ -1,12 +1,14 @@
 """The port's BandedBlocks format against amg_tpu's: the pack, the block
 product, the RCM branch of ``reorder_for_gs`` (with and without clipping),
 the device pack, solves on BandedBlocks levels, and the one-device
-resolution of ``use_well`` / ``use_banded`` on "auto".
+resolution of ``use_well`` / ``use_banded`` on "auto": "on" is amg_tpu's
+rule, and "auto" keeps a band only where it reads fewer bytes than the
+level's sparse pack, sending the declined levels to WEll.
 
 amg_tpu runs here under the repo's conftest with 8 virtual devices, where
 its "auto" resolves to off, so amg_tpu is always given the flags
-explicitly ("on" where the port runs "auto").  Inputs are made from seeds
-with numpy and handed to both packages.  Tolerances, and why they are not
+explicitly ("on" where the port runs "on" or "auto").  Inputs are made
+from seeds with numpy and handed to both packages.  Tolerances, and why they are not
 zero:
 
 * packs: none (``array_equal``).  amg_tpu rounds f64 -> bf16 directly, the
@@ -31,9 +33,10 @@ from amg_tpu.ops.spmv import spmv_banded as jax_spmv_banded
 from amg_tpu.sparse import BandedBlocks as JBanded
 
 import amg_tpu_torch as tamg
-from amg_tpu_torch import hierarchy as th
+from amg_tpu_torch import hierarchy as th, tracing
+from amg_tpu_torch.io import checkpoint as tck
 from amg_tpu_torch.ops import spmv as tspmv
-from amg_tpu_torch.sparse import BandedBlocks as TBanded
+from amg_tpu_torch.sparse import BandedBlocks as TBanded, WEll as TWEll
 
 from _torch_threads import one_torch_thread  # noqa: F401  (autouse)
 
@@ -231,11 +234,10 @@ def test_banded_level_solve_matches_ell():
 
 def test_banded_solve_matches_amg_tpu():
     """f64 solves and batched solves (k = 3) on the BandedBlocks layout,
-    the port on "auto": equal iterations, X to 1e-10 relative."""
+    both packages on "on": equal iterations, X to 1e-10 relative."""
     b = np.random.default_rng(5).standard_normal((1728, 3))
-    kw = dict(tol=1e-10, **ELL)
-    sj = jamg.AMGSolver(jamg.poisson3d(12), jamg.AMGParams(
-        use_banded="on", use_well="on", **kw), **QUIET)
+    kw = dict(tol=1e-10, use_banded="on", use_well="on", **ELL)
+    sj = jamg.AMGSolver(jamg.poisson3d(12), jamg.AMGParams(**kw), **QUIET)
     st = tamg.AMGSolver(tamg.poisson3d(12), tamg.AMGParams(**kw), **QUIET,
                         **CPU)
     assert [type(l.a).__name__ for l in st.mg.levels] == \
@@ -264,11 +266,42 @@ def _fem_pars(pkg, **kw):
         dense_level_bytes=2e6, verbose=0, **kw)
 
 
+VALUE_BYTES = {"bfloat16": 2, "float32": 4, "float64": 8}
+
+
+def _well_bytes(a, value_bytes):
+    """Bytes of one B2 product on ``a``'s WEll pack, counted here: per
+    nonzero its value and 4 B column, 8 B per row of whole 32-row slices,
+    an 8 B pointer per slice and one more, x and y once in f32."""
+    n, slices = a.n_rows, -(-a.n_rows // 32)
+    return (a.nnz * (value_bytes + 4) + slices * 32 * 8 + (slices + 1) * 8
+            + (a.n_cols + n) * 4)
+
+
+def _declined(ht_on, pars):
+    """Levels of a hierarchy reordered under "on" that "auto" sends to
+    WEll (``use_well`` on), with their band's bytes: the band reads at
+    least the bytes of the level's WEll pack, and no row of the level
+    holds more than 128 entries (B2 reads a row with one thread)."""
+    vb = VALUE_BYTES[pars.coarse_op_dtype]
+    out = {}
+    for l, nb in enumerate(ht_on.banded_nb):
+        if nb is None:
+            continue
+        a = ht_on.a[l]
+        band = -(-a.n_rows // 128) * (2 * nb + 1) * 128 * 128 * vb
+        if band >= _well_bytes(a, vb) and np.diff(a.indptr).max() <= 128:
+            out[l] = band
+    return out
+
+
 @pytest.mark.parametrize("case", ["structured", "unstructured"])
 def test_auto_formats_match_amg_tpu_on(case):
-    """On one device "auto" means "on" for both flags: the port's formats,
-    ``banded_nb`` and pads under "auto" equal amg_tpu's under "on", and
-    differ from the port's own under "off"."""
+    """The port's "on" is amg_tpu's "on": equal formats, ``banded_nb`` and
+    pads.  The port's "auto" equals it on every level but those whose band
+    reads at least the bytes of the level's WEll pack, on rows of at most
+    128 entries: those pack as WEll (``formats``), each counted with its
+    band's bytes in ``amg.setup.banded_declined``; "off" keeps no band."""
     if case == "structured":
         mk = lambda p: p.poisson3d(14)   # noqa: E731
         kw = dict(verbose=0, embed_levels=0, dense_level_bytes=1e5,
@@ -277,25 +310,146 @@ def test_auto_formats_match_amg_tpu_on(case):
     else:
         mk = lambda p: p.fem2d(20000, seed=17)   # noqa: E731
         pj, pt = _fem_pars(jamg), _fem_pars(tamg)
-    pj = pj.replace(use_well="on", use_banded="on")
     assert (pt.use_well, pt.use_banded) == ("auto", "auto")
+    pj = pj.replace(use_well="on", use_banded="on")
     mj, hj = jh.setup(mk(jamg), pj, **QUIET)
-    mt, ht = th.setup(mk(tamg), pt, **QUIET, **CPU)
-    kinds = [type(l.a).__name__ for l in mt.levels]
+    on, h_on = th.setup(mk(tamg), pt.replace(use_banded="on"), **QUIET,
+                        **CPU)
+    kinds = [type(l.a).__name__ for l in on.levels]
     assert kinds == [type(l.a).__name__ for l in mj.levels]
-    assert ht.banded_nb == hj.banded_nb
-    assert [l.pad for l in mt.levels] == [l.pad for l in mj.levels]
+    assert h_on.banded_nb == hj.banded_nb
+    assert [l.pad for l in on.levels] == [l.pad for l in mj.levels]
     assert "BandedBlocks" in kinds
     if case == "unstructured":
         assert "WEll" in kinds
+    declined = _declined(h_on, pt)
+    tracing.reset()
+    auto, h_auto = th.setup(mk(tamg), pt, **QUIET, **CPU)
+    row = tracing.totals()["amg.setup.banded_declined"]
+    assert (row["n"], row["bytes"]) == (len(declined),
+                                        sum(declined.values()))
+    for l, lt in enumerate(auto.levels):
+        if l in declined:
+            assert isinstance(lt.a, TWEll), l
+            assert h_auto.banded_nb[l] is None
+            assert h_auto.formats[l] == "well"
+        else:
+            assert type(lt.a).__name__ == kinds[l], l
+            assert h_auto.banded_nb[l] == h_on.banded_nb[l]
+            assert h_auto.formats[l] == h_on.formats[l]
+    if case == "unstructured":
+        assert len(declined) >= 1
     off, _ = th.setup(mk(tamg), pt.replace(use_well="off", use_banded="off"),
                       **QUIET, **CPU)
     assert "BandedBlocks" not in [type(l.a).__name__ for l in off.levels]
 
 
+def _block_diagonal_hierarchy(density, blk=128, seed=0):
+    """A three-level host hierarchy whose level 1 is 2,048 rows in
+    symmetric ``blk`` x ``blk`` blocks on the diagonal, each holding
+    ``density`` of its entries (RCM keeps each block whole, so the band
+    is the blocks' diagonal), below a level 0 of 8,192 rows, with
+    aggregation transfers of 4 and 8 rows per coarse row."""
+    from amg_tpu_torch.sparse import CSR
+
+    rng = np.random.default_rng(seed)
+    n1 = 2048
+    rows, cols = [], []
+    for b in range(n1 // blk):
+        m = np.triu(rng.random((blk, blk)) < density, 1)
+        m = m | m.T | np.eye(blk, dtype=bool)
+        r, c = np.nonzero(m)
+        rows.append(r + b * blk)
+        cols.append(c + b * blk)
+    r, c = np.concatenate(rows), np.concatenate(cols)
+    deg = np.bincount(r, minlength=n1)
+    v = np.where(r == c, deg[r] + 1.0, -1.0)
+    a1 = CSR.from_coo(r, c, v, (n1, n1))
+
+    def agg(n_fine, k):
+        i = np.arange(n_fine)
+        return CSR.from_coo(i, i // k, np.ones(n_fine), (n_fine, n_fine // k))
+
+    p0, p1 = agg(4 * n1, 4), agg(n1, 8)
+    a0 = tamg.poisson2d(64, 128)
+    a2 = p1.transpose().to_scipy() @ a1.to_scipy() @ p1.to_scipy()
+    return th.HostHierarchy(a=[a0, a1, CSR.from_scipy(a2.tocsr())],
+                            p=[p0, p1], r=[p0.transpose(), p1.transpose()],
+                            cfmark=[])
+
+
+@pytest.mark.parametrize("fmt", ["ell", "dense"])
+@pytest.mark.parametrize("density,blk,banded", [
+    (0.9, 128, True), (0.3, 128, False), (0.6, 256, True)],
+    ids=["full-blocks", "sparse-blocks", "long-rows"])
+def test_auto_keeps_a_band_that_reads_fewer_bytes(density, blk, banded,
+                                                  fmt):
+    """A level of nearly full 128 x 128 blocks keeps its band under
+    "auto" (f32: 4 B a stored entry against WEll's 8 B a nonzero), one
+    of blocks 30% full goes to WEll, whether the level would be Ell or
+    Dense without a band, and one of 256 x 256 blocks 60% full (~150
+    entries a row, past the 128 that B2's one thread a row reads at the
+    pace of its bytes) keeps a band that reads more bytes than its WEll
+    pack would; "on" keeps every band."""
+    pars = tamg.AMGParams(verbose=0, dtype="float32", max_diags=0,
+                          dense_level_bytes=0 if fmt == "ell" else 2e8,
+                          embed_levels=0)
+    hh = _block_diagonal_hierarchy(density, blk)
+    a1 = hh.a[1]
+    assert th._pick_format(a1, pars) == fmt
+    tracing.reset()
+    th.reorder_for_gs(hh, pars)
+    row = tracing.totals()["amg.setup.banded_declined"]
+    nb = 0 if blk == 128 else hh.banded_nb[1]
+    band = 16 * (2 * nb + 1) * 128 * 128 * 4
+    assert (row["n"], row["bytes"]) == ((0, 0) if banded else (1, band))
+    assert (hh.banded_nb[1] == nb) == banded
+    assert hh.formats[1] == ("banded" if banded else "well")
+    if blk == 256:
+        assert np.diff(a1.indptr).max() > 128
+        assert band > _well_bytes(a1, 4)
+    mg = th.to_device(hh, pars, **CPU)
+    assert isinstance(mg.levels[1].a, TBanded if banded else TWEll)
+    on = _block_diagonal_hierarchy(density, blk)
+    th.reorder_for_gs(on, pars.replace(use_banded="on"))
+    assert on.banded_nb[1] is not None and on.formats[1] == "banded"
+
+
+@pytest.mark.parametrize("written", ["before", "round-trip"])
+def test_checkpoint_packs_as_written(tmp_path, written):
+    """``before``: a hierarchy that carries no formats (as written before
+    they were kept, here by amg_tpu's writer, with "on"'s bands) restores
+    and packs under "auto" as it did: its bands stay BandedBlocks.
+    ``round-trip``: the port's "auto" hierarchy saved and restored keeps
+    its formats and packs its WEll levels again."""
+    pt = _fem_pars(tamg)
+    a = tamg.fem2d(20000, seed=17)
+    path = tmp_path / "hh.npz"
+    if written == "before":
+        pj = _fem_pars(jamg, use_well="on", use_banded="on")
+        hj = jh.setup_host(jamg.fem2d(20000, seed=17), pj)
+        jh.reorder_for_gs(hj, pj)
+        from amg_tpu.io import checkpoint as jck
+
+        jck.save_hierarchy(path, hj)
+        want = [type(l.a).__name__ for l in jh.to_device(hj, pj).levels]
+    else:
+        want_mg, hw = th.setup(a, pt, **QUIET, **CPU)
+        assert "well" in hw.formats[1:]
+        tck.save_hierarchy(path, hw)
+        want = [type(l.a).__name__ for l in want_mg.levels]
+    ht = tck.load_hierarchy(path)
+    assert any(nb is not None for nb in ht.banded_nb) == (written
+                                                          == "before")
+    assert ht.formats == (None if written == "before" else hw.formats)
+    mg, _ = th.setup(None, pt, hh=ht, **QUIET, **CPU)
+    assert [type(l.a).__name__ for l in mg.levels] == want
+
+
 def test_unstructured_auto_solve_matches_amg_tpu():
-    """fem2d(20000) with FCG on the auto layout (WEll and BandedBlocks):
-    FCG iterations within 1, residual histories at rtol 1e-3 plus atol
+    """fem2d(20000) with FCG, the port on its "auto" layout (WEll where
+    amg_tpu's "on" keeps BandedBlocks) against amg_tpu on "on": FCG
+    iterations within 1, residual histories at rtol 1e-3 plus atol
     1e-6 * ||b|| (the f32 rounding floor of ROADMAP queue C item 3), both
     true residuals below 1e-8."""
     b = np.random.default_rng(23).standard_normal(20000)
@@ -303,7 +457,9 @@ def test_unstructured_auto_solve_matches_amg_tpu():
     sj = jamg.AMGSolver(ja, _fem_pars(jamg, use_well="on", use_banded="on"),
                         **QUIET)
     st = tamg.AMGSolver(ta, _fem_pars(tamg), **QUIET, **CPU)
-    assert any(isinstance(l.a, TBanded) for l in st.mg.levels)
+    kinds = [(type(lj.a).__name__, type(lt.a).__name__)
+             for lj, lt in zip(sj.mg.levels, st.mg.levels)]
+    assert ("BandedBlocks", "WEll") in kinds
     xj, ij = sj.solve(b)
     xt, it = st.solve(b)
     assert abs(it.nits - ij.nits) <= 1

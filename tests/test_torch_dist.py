@@ -129,10 +129,12 @@ def _assert_op_equal(oj, ot, what):
 def test_setup_with_shards_matches_amg_tpu(name, D):
     """``dist_devices = D``: the same host hierarchy, level pads that
     split into D shards (amg_tpu/hierarchy.py:1319-1347), formats,
-    embedded offsets and values, and WEll packs with their ring plans."""
+    embedded offsets and values, and WEll packs with their ring plans.
+    amg_tpu's "auto" is "on" here (``dist_devices > 1``): the port gets
+    "on" for BandedBlocks, as its own "auto" keeps fewer bands."""
     mk, kw = SETUP_CASES[name]
     pj = jamg.AMGParams(verbose=0, dist_devices=D, **kw)
-    pt = tamg.AMGParams(verbose=0, dist_devices=D, **kw)
+    pt = tamg.AMGParams(verbose=0, dist_devices=D, use_banded="on", **kw)
     mj, hj = jh.setup(mk(jamg), pj, **QUIET)
     mt, ht = th.setup(mk(tamg), pt, **QUIET, **CPU)
     assert hj.num_levels == ht.num_levels

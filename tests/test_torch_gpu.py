@@ -536,6 +536,52 @@ def test_spmv_banded_on_card(dtype):
         assert (got.cpu() - want).abs().max().item() <= TOL[vdt] * scale
 
 
+@pytest.mark.parametrize("coarse", ["float32", "bfloat16"])
+def test_auto_declined_levels_on_card(coarse):
+    """``use_banded="auto"`` on the card: fem2d(20000) at the unstructured
+    main path's parameters (well_min_rows and the Dense budget lowered,
+    as tests/test_torch_banded.py's ``_fem_pars``), f32 or bf16 coarse
+    operators.  Every level that "on" stores as BandedBlocks and "auto"
+    declines packs as WEll, B2 on it matches its plain version (f32
+    ``2e-6``, bf16 ``1e-5`` of max|Ax|), and the FCG solve on "auto" takes
+    the iterations of "on" within 1, to a true residual below 1e-8."""
+    _needs_card()
+    from amg_tpu_torch import tracing
+
+    a = amg.fem2d(20000, seed=17)
+    pars = amg.AMGParams(
+        dtype="float32", refine=True, accel="cg",
+        smoother=amg.SmootherType.GS,
+        coarse_smoother=amg.SmootherType.CHEBYSHEV, coarse_op_dtype=coarse,
+        coarse_sparsify=0, coarse_stop_rows=500, tol=1e-8, max_it=60,
+        embed_levels=0, well_min_rows=4096, dense_level_bytes=2e6,
+        verbose=0)
+    quiet = dict(log=lambda *_: None)
+    on = amg.AMGSolver(a, pars.replace(use_banded="on"), **quiet)
+    tracing.reset()
+    auto = amg.AMGSolver(a, pars, **quiet)
+    declined = [l for l, (lo, la) in enumerate(zip(on.mg.levels,
+                                                   auto.mg.levels))
+                if isinstance(lo.a, amg.BandedBlocks)
+                and not isinstance(la.a, amg.BandedBlocks)]
+    assert declined and \
+        tracing.totals()["amg.setup.banded_declined"]["n"] == len(declined)
+    g = torch.Generator().manual_seed(4)
+    for l in declined:
+        op = auto.mg.levels[l].a
+        assert isinstance(op, WEll) and op.rows.vals.is_cuda
+        x = torch.randn(op.padded_rows, generator=g).cuda()
+        got, want = well_kernel.spmv(op, x), well_kernel.spmv_plain(op, x)
+        scale = want.abs().max().item()
+        assert (got - want).abs().max().item() <= \
+            TOL[op.rows.vals.dtype] * scale, l
+    b = np.random.default_rng(23).standard_normal(a.n_rows)
+    (_, i_on), (x, i_auto) = on.solve(b), auto.solve(b)
+    assert abs(i_auto.nits - i_on.nits) <= 1
+    assert np.linalg.norm(b - a.matvec(np.asarray(x, dtype=np.float64))) \
+        / np.linalg.norm(b) < 1e-8
+
+
 @pytest.mark.parametrize("boundary", ["embedded", "compact"])
 def test_embedded_solve_on_card(boundary):
     """A small embedded solve on the card with "auto" formats, for one
@@ -1659,7 +1705,9 @@ def test_dense_kernel_launches_in_a_structured_solve_call():
     parameters of benchmark/configs/p3d7_1m.json) launches D1 7 times per
     cycle on its bf16 Dense level 4 (Chebyshev of degree 3 before and after
     the coarse correction, and the residual): 56 launches in 8 cycles,
-    through the replayed step graph."""
+    through the replayed step graph.  Level 3 above it packs as WEll
+    (its band declined by "auto"), so level 4's 6,396 rows pad to the
+    WEll granule: 7,168 x 7,168."""
     _needs_card()
     a = amg.poisson3d(100)
     pars = amg.AMGParams(
@@ -1673,7 +1721,9 @@ def test_dense_kernel_launches_in_a_structured_solve_call():
     levels = solver.mg.levels
     dense = [i for i, lv in enumerate(levels[:-1])
              if isinstance(lv.a, Dense) and lv.a.vals.dtype == torch.bfloat16]
-    assert dense == [4] and levels[4].a.vals.shape == (6400, 6400)
+    assert isinstance(levels[3].a, WEll)
+    assert dense == [4] and levels[4].n == 6396
+    assert levels[4].a.vals.shape == (7168, 7168)
     b = np.random.default_rng(5).uniform(-1.0, 1.0, a.n_rows)
     solver.solve(b)                      # builds the step graph
     for e in dense_kernel.launches:
@@ -1683,4 +1733,4 @@ def test_dense_kernel_launches_in_a_structured_solve_call():
     torch.cuda.synchronize()
     assert info.nits == 8 and info.rres < 1e-8
     assert dense_kernel.launches == {"spmv": 56}
-    assert dense_kernel.launches_by_shape == {("spmv", 6400, 6400): 56}
+    assert dense_kernel.launches_by_shape == {("spmv", 7168, 7168): 56}

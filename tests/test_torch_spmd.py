@@ -258,13 +258,30 @@ def test_fetch_in_one_process():
 
 
 def _cli(module, *flags, devices=1):
+    return _python("-m", module, *flags, devices=devices)
+
+
+def _python(*args, devices=1):
     # one OpenMP thread: the suite's workers share the machine's cores
     # (tests/_torch_threads.py)
     env = dict(os.environ, JAX_PLATFORMS="cpu", OMP_NUM_THREADS="1",
                XLA_FLAGS=f"--xla_force_host_platform_device_count={devices}")
-    out = subprocess.run([sys.executable, "-m", module, *flags], cwd=REPO,
+    out = subprocess.run([sys.executable, *args], cwd=REPO,
                          env=env, capture_output=True, text=True, timeout=300)
     return out
+
+
+# the port's CLI with use_banded="on" (amg_tpu's band rule), set through
+# its Python API: the CLI has no flag for it
+_CLI_BANDED_ON = (
+    "import sys; from amg_tpu_torch import cli; "
+    "f = cli.params_from_args; "
+    "cli.params_from_args = lambda a: f(a).replace(use_banded='on'); "
+    "sys.exit(cli.main(sys.argv[1:]))")
+
+
+def _cli_banded_on(*flags):
+    return _python("-c", _CLI_BANDED_ON, *flags)
 
 
 def test_cli_devices_matches_amg_tpu():
@@ -294,18 +311,19 @@ def test_cli_dist_paths_not_ported():
     fem2d:3000 (Dense level 0, which the SPMD solver cannot shard) prints
     amg_tpu's fallback line and solves with it, printing amg_tpu's lines
     under the rule of test_torch_solve.py::test_cli_matches_amg_tpu
-    (amg_tpu on one virtual device, where its "auto" packs what the port's
-    does: on four it resolves BandedBlocks off and its table drifts 3e-3
-    from the port's); ``--dist spmd`` there raises SpmdAMGSolver's
-    ValueError; fem2d:70000 (WEll level 0) with ``--dist auto`` solves in
-    the general mode."""
+    (amg_tpu on one virtual device, where its "auto" packs what the port
+    packs with ``use_banded="on"``, set through the port's Python API: on
+    four it resolves BandedBlocks off and its table drifts 3e-3 from the
+    port's, as the port's "auto", which keeps fewer bands, drifts
+    1.7e-3); ``--dist spmd`` there raises
+    SpmdAMGSolver's ValueError; fem2d:70000 (WEll level 0) with ``--dist
+    auto`` solves in the general mode."""
     out = _cli("amg_tpu_torch", "poisson2d:16", "--dist", "gspmd",
                "--devices", "4", "--device", "cpu", "--quiet")
     assert out.returncode == 0, out.stderr
     assert "AMG iterations" in out.stdout
     want = _cli("amg_tpu", "fem2d:3000", "--devices", "4", devices=1)
-    got = _cli("amg_tpu_torch", "fem2d:3000", "--devices", "4", "--device",
-               "cpu")
+    got = _cli_banded_on("fem2d:3000", "--devices", "4", "--device", "cpu")
     assert want.returncode == 0, want.stderr
     assert got.returncode == 0, got.stderr
     skip = ("AMG setup time", "AMG solve time", "AMG totally time")

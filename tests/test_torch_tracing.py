@@ -105,7 +105,9 @@ def test_table_arithmetic(clean):
 def test_counter_rows(clean):
     """``count`` adds counts and bytes (negative ones too: a capture takes
     its counts back) to a counter row, with no seconds, in ``profiled()``
-    only while a profiler records; a span's name is no counter row."""
+    only while a profiler records; ``counters()`` holds the ring's rows,
+    not the set-up's; a span's name is no counter row."""
+    tracing.count("amg.setup.banded_declined", 1 << 20)
     tracing.count("amg.ring.send", 40)
     tracing.count("amg.ring.send", 24, 2)
     with profile(activities=[ProfilerActivity.CPU]):
@@ -118,6 +120,8 @@ def test_counter_rows(clean):
         "n": 1, "s": 0.0, "bytes": 8}
     assert t["amg.ring.all_gather"]["n"] == 0
     assert p["amg.ring.send"]["n"] == 0
+    assert t["amg.setup.banded_declined"] == {"n": 1, "s": 0.0,
+                                              "bytes": 1 << 20}
     assert tracing.counters() == {
         ("amg.ring.send", "n"): 3, ("amg.ring.send", "bytes"): 64,
         ("amg.ring.all_reduce", "n"): 1, ("amg.ring.all_reduce", "bytes"): 8,
