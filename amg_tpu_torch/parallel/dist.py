@@ -37,7 +37,6 @@ rows.
 from __future__ import annotations
 
 import dataclasses
-import time
 
 import numpy as np
 import torch
@@ -47,13 +46,13 @@ from .. import tracing
 from ..hierarchy import (Hierarchy, Level, _pick_format, resolve_device,
                          setup)
 from ..ops import launch_counts
-from ..ops.blas import norm2
 from ..ops.spmv import spmv
-from ..params import AMGParams, SolveInfo
+from ..params import AMGParams
 from ..solve.cycle import cycle
-from ..solve.driver import print_itinfo
+from ..solve.entry import EntryFrame, Staging, level0_perm
 from ..solve.loop_graph import StepGraphs
 from ..sparse import BandedBlocks, Dense, Dia, Ell, WEll, torch_dtype
+from .multihost import fetch
 
 # collectives over every call: psum calls, all_gather calls
 counts = {"psum": 0, "all_gather": 0}
@@ -365,16 +364,29 @@ def shard_hierarchy(mg: Hierarchy, mesh: Mesh, pars: AMGParams | None = None,
     return Hierarchy(levels=tuple(levels), coarse_inv=mg.coarse_inv)
 
 
-def level0_perms(hh):
-    """``(perm, inverse)`` of a host hierarchy's level-0 similarity
-    permutation (an RCM-ordered WEll level 0), or ``(None, None)``: b and
-    x0 map in through ``perm``, the solution out through ``inverse``."""
-    perm = hh.perms[0] if hh.perms is not None else None
-    if perm is None:
-        return None, None
-    inv = np.empty_like(perm)
-    inv[perm] = np.arange(len(perm))
-    return perm, inv
+class RowStaging(Staging):
+    """The entry frame's staging (:class:`~amg_tpu_torch.solve.entry.
+    Staging`) of a row-sharded level 0: a host vector is permuted on the
+    host, where level 0 has a permutation, and only this process's rows
+    are converted and copied (:func:`shard_vector`); a solution comes back
+    through :func:`~.multihost.fetch`, every process's rows."""
+
+    def __init__(self, n: int, pad: int, mesh: Mesh, perm=None):
+        self.mesh = mesh
+        super().__init__(n, pad, mesh.device, perm)
+
+    def _device_perm(self):
+        return None
+
+    def _put(self, v, dtype):
+        v = np.asarray(v, dtype=np.float64)[: self.n]
+        if self.perm is not None:
+            v = v[self.perm]
+        vd = shard_vector(v, self.mesh, pad_to=self.pad, dtype=dtype)
+        return vd, vd.numel() * vd.element_size()
+
+    def _fetch(self, xd) -> np.ndarray:
+        return fetch(xd, self.mesh)
 
 
 def gspmd_depth(mg: Hierarchy, mesh: Mesh, pars: AMGParams | None) -> int:
@@ -398,7 +410,7 @@ def gspmd_depth(mg: Hierarchy, mesh: Mesh, pars: AMGParams | None) -> int:
     return last - 1
 
 
-class DistAMGSolver:
+class DistAMGSolver(EntryFrame):
     """AMG on a ring of row shards with ``amg_tpu``'s GSPMD placement
     (``amg_tpu``'s ``DistAMGSolver``, ``dist.py:273-436``).
 
@@ -424,7 +436,12 @@ class DistAMGSolver:
     ``mesh=make_mesh(D, device="cpu")`` for the CPU.  The steps' route
     (``steps``) follows :class:`~.spmd_cycle.SpmdAMGSolver`'s: step graphs
     on the card, alone or in an NCCL group, static buffers on the CPU.
+    The entries are the entry frame's (:class:`~amg_tpu_torch.solve.
+    entry.EntryFrame`); a row-sharded level 0 stages its vectors through
+    :class:`RowStaging`, a replicated one whole.
     """
+
+    _ring_loop = True
 
     def __init__(self, a, pars: AMGParams = AMGParams(),
                  mesh: Mesh | None = None, log=print):
@@ -439,7 +456,6 @@ class DistAMGSolver:
             torch.backends.cuda.matmul.allow_tf32 = False
         mg, hh = setup(a, pars, log=log, device=self.mesh.device)
         self.host_hierarchy = hh
-        self._perm0, self._iperm0 = level0_perms(hh)
         self.Es = gspmd_depth(mg, self.mesh, pars)
         self.mg = shard_hierarchy(mg, self.mesh, pars,
                                   replicate_from_level=self.Es + 1,
@@ -447,6 +463,13 @@ class DistAMGSolver:
         # level-0 vectors: (S, m) blocks of pad rows when sharded
         self.pad = _round_up(mg.levels[0].pad, self.ndev) \
             if self.Es >= 0 else mg.levels[0].pad
+        perm = level0_perm(hh)
+        if self.Es >= 0:
+            self.staging = RowStaging(a.n_rows, self.pad, self.mesh, perm)
+            self._psum = self.mesh.psum
+        else:
+            self.staging = Staging(a.n_rows, self.pad, self.mesh.device,
+                                   perm)
         self.dtype = torch_dtype(pars.dtype)
         self.a0_hi = None
         if pars.refine and self.dtype != torch.float64:
@@ -468,19 +491,16 @@ class DistAMGSolver:
                     f"row-sharded (GSPMD), {self.pad // self.ndev} rows "
                     f"per shard; steps: {self.steps.describe()}")
 
-    # -- device pieces ---------------------------------------------------
+    # -- the frame's placement: the cycle and the level-0 product ---------
 
     # the sharded pieces come from .spmd_cycle, which imports this module
 
     def _spmv(self, a, x):
         if self.Es < 0:
-            return spmv(a, x)[: x.shape[0]]
+            return spmv(a, x)[..., : x.shape[-1]]
         from .spmd_cycle import gspmd_spmv
 
         return gspmd_spmv(a, x, self.mesh)
-
-    def _norm(self, v):
-        return norm2(v, self.mesh.psum if self.Es >= 0 else None)
 
     def _cycle(self, x, b):
         if self.Es < 0:
@@ -490,70 +510,7 @@ class DistAMGSolver:
         return cycle_general(self.mg, x, b, self.pars, self.Es, True,
                              self.mesh, gspmd_spmv)
 
-    def _step(self, x, b):
-        """One cycle and the norm of the new residual."""
-        x = self._cycle(x, b)
-        return x, self._norm(b - self._spmv(self.mg.levels[0].a, x))
-
-    def _refine_step(self, x_hi, b_hi):
-        """One defect-correction iteration (``dist.py:333-344``): the f64
-        residual, ``refine_inner_cycles`` cycles on the scaled defect, the
-        f64 update and its residual norm."""
-        r_hi = b_hi - self._spmv(self.a0_hi, x_hi)
-        rn = self._norm(r_hi)
-        scale = torch.where(rn > 0, rn, torch.ones_like(rn))
-        r_lo = (r_hi / scale).to(self.dtype)
-        e = torch.zeros_like(r_lo)
-        for _ in range(max(self.pars.refine_inner_cycles, 1)):
-            e = self._cycle(e, r_lo)
-        x_hi = x_hi + e.to(torch.float64) * scale
-        return x_hi, self._norm(b_hi - self._spmv(self.a0_hi, x_hi))
-
-    def _shard(self, v, dtype):
-        """A host vector in the caller's ordering -> this process's padded
-        ``(S, m)`` block, or the whole padded vector when level 0 is
-        replicated."""
-        n = self.a.n_rows
-        v = np.asarray(v, dtype=np.float64)[:n]
-        if self._perm0 is not None:
-            v = v[self._perm0]
-        if self.Es >= 0:
-            return shard_vector(v, self.mesh, pad_to=self.pad, dtype=dtype)
-        out = torch.zeros(self.pad, dtype=dtype)
-        out[:n] = torch.from_numpy(v)
-        return out.to(self.mesh.device)
-
-    def _unshard(self, xd):
-        from .multihost import fetch
-
-        x = fetch(xd, self.mesh)[: self.a.n_rows]
-        return x[self._iperm0] if self._iperm0 is not None else x
-
-    # -- solves ------------------------------------------------------------
-
-    def _loop(self, b, x0, dtype, name, fn, k, refined, eager):
-        from .spmd_cycle import cycle_host_loop
-
-        pars = self.pars
-        n = self.a.n_rows
-        bd = self._shard(b, dtype)
-        xd = self._shard(x0, dtype) if x0 is not None \
-            else torch.zeros_like(bd)
-        info = SolveInfo()
-        sumb = float(self._norm(bd))
-        if sumb == 0.0:
-            return np.zeros(n), info
-        t0 = time.perf_counter()
-        if pars.verbose:
-            print_itinfo(pars.stop_type, 0, 1.0, sumb, 0.0, log=self.log)
-        if refined:
-            info.residuals.append(sumb)
-        step = self.steps.step(name, fn, 1, pars, eager)
-        xd = cycle_host_loop(pars, sumb, xd, lambda x: step(x, bd), info,
-                             k=k, log=self.log)
-        info.solve_seconds = time.perf_counter() - t0
-        info.setup_seconds = self.host_hierarchy.setup_seconds
-        return self._unshard(xd), info
+    # -- entries -----------------------------------------------------------
 
     def solve_refined(self, b, x0=None, eager=False):
         """Sharded mixed-precision defect correction (``dist.py:340-394``):
@@ -561,8 +518,7 @@ class DistAMGSolver:
         update until the f64 relative residual meets ``tol``;
         ``info.nits`` counts cycles.  ``eager`` runs the steps as they
         are on any mesh."""
-        return self._loop(b, x0, torch.float64, "refine", self._refine_step,
-                          max(self.pars.refine_inner_cycles, 1), True, eager)
+        return self._entry(b, x0, torch.float64, self._cycles, True, eager)
 
     def solve(self, b, x0=None, eager=False):
         """Host loop over cycles (``dist.py:396-436``); runs
@@ -570,5 +526,4 @@ class DistAMGSolver:
         runs the steps as they are on any mesh."""
         if self.a0_hi is not None:
             return self.solve_refined(b, x0, eager)
-        return self._loop(b, x0, self.dtype, "cycle", self._step, 1, False,
-                          eager)
+        return self._entry(b, x0, self.dtype, self._cycles, False, eager)

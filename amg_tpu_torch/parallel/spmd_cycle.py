@@ -43,26 +43,22 @@ coarse correction (:func:`~.halo.spmv_local_full`).
 from __future__ import annotations
 
 import dataclasses
-import time
 
-import numpy as np
 import torch
 
 from .. import tracing
 from ..hierarchy import Hierarchy, setup
-from ..params import AMGParams, SmootherType, SolveInfo
+from ..params import AMGParams, SmootherType
 from ..sparse import BandedBlocks, Dia, WEll, torch_dtype
-from ..ops.blas import norm2
 from ..ops.spmv import spmv
 from ..solve.cycle import _cycle_level
-from ..solve.driver import fcg_host_loop, print_itinfo
+from ..solve.entry import EntryFrame, level0_perm
 from ..solve.loop_graph import StepGraphs
 from ..solve.smoothers import _order, _cg_smooth
-from .dist import (Mesh, level0_perms, local_rows, make_mesh, shard_dia,
-                   shard_hierarchy, shard_vector)
+from .dist import (Mesh, RowStaging, local_rows, make_mesh, shard_dia,
+                   shard_hierarchy)
 from .halo import (banded_spmv_ring_local, dia_spmv_ring_local,
                    spmv_gather_local, spmv_local_full, well_spmv_ring_local)
-from .multihost import fetch
 
 
 def num_embedded(mg: Hierarchy) -> int:
@@ -379,49 +375,11 @@ def cycle_general(mg, x, b, pars, Es, ring_r, mesh, spmv_fn=_ring_spmv):
 
 
 # ---------------------------------------------------------------------------
-# Driver
+# Solver
 # ---------------------------------------------------------------------------
 
 
-def cycle_host_loop(pars, sumb, x, step, info, k: int = 1, log=print):
-    """The host loop of the multi-device solves (``AMGSolver.solve`` and
-    ``solve_refined``'s stopping rules): ``step(x) -> (x, absres)`` runs
-    ``k`` cycles on the device; the host reads the residuals once per
-    step with the live table (``pars.verbose``), else in batches covering
-    4 cycles, and stops at ``tol`` or on a non-finite residual.  Fills
-    ``info`` (``nits`` in cycles) and returns the last accepted x."""
-    absres0 = sumb
-    max_outer = max(pars.max_it // k, 1)
-    check_every = 1 if pars.verbose else max(4 // k, 1)
-    pending: list = []
-    xd = x
-    for outer in range(1, max_outer + 1):
-        xd, absres_d = step(xd)
-        pending.append((outer, xd, absres_d))
-        if len(pending) < check_every and outer != max_outer:
-            continue
-        with tracing.span("amg.read"):
-            vals = torch.stack([r for _, _, r in pending]).cpu().numpy()
-        for (outer_i, x_i, _), absres in zip(pending, vals):
-            absres = float(absres)
-            relres = absres / sumb
-            factor = (absres / absres0) ** (1.0 / k) if absres0 > 0 else 0.0
-            absres0 = absres
-            if pars.verbose:
-                print_itinfo(pars.stop_type, outer_i * k, relres, absres,
-                             factor, log=log)
-            if not np.isfinite(absres):
-                return x
-            info.ares, info.rres, info.nits = absres, relres, outer_i * k
-            info.residuals.append(absres)
-            x = x_i
-            if relres < pars.tol:
-                return x
-        pending = []
-    return x
-
-
-class SpmdAMGSolver:
+class SpmdAMGSolver(EntryFrame):
     """AMG on a ring of row shards (``amg_tpu``'s ``SpmdAMGSolver``).
 
     Setup runs on the host as for :class:`~amg_tpu_torch.AMGSolver`, with
@@ -443,7 +401,12 @@ class SpmdAMGSolver:
     shard sits in this process, and NCCL's ``all_reduce``, all-gather and
     halo messages captured in it in an NCCL group; on the CPU the steps
     run on static buffers; a gloo group on the card runs them eagerly.
+    The entries are the entry frame's (:class:`~amg_tpu_torch.solve.
+    entry.EntryFrame`), with the row form of its staging
+    (:class:`~.dist.RowStaging`).
     """
+
+    _ring_loop = True
 
     def __init__(self, a, pars: AMGParams = AMGParams(),
                  mesh: Mesh | None = None, log=print):
@@ -461,8 +424,6 @@ class SpmdAMGSolver:
             torch.backends.cuda.matmul.allow_tf32 = False
         mg, hh = setup(a, pars, log=log, device=self.mesh.device)
         self.host_hierarchy = hh
-        # level-0 permutation (a WEll level 0): b/x0 map in, x maps back
-        self._perm0, self._iperm0 = level0_perms(hh)
         self.E = num_embedded(mg)
         self.Es = -1
         self.ring_r = None
@@ -478,6 +439,10 @@ class SpmdAMGSolver:
             raise ValueError(f"padded rows {self.pad} not divisible by mesh "
                              f"size {self.ndev}")
         self.m_local = self.pad // self.ndev
+        # level 0 may be RCM-ordered (a WEll level 0): b/x0 map in, x back
+        self.staging = RowStaging(a.n_rows, self.pad, self.mesh,
+                                  level0_perm(hh))
+        self._psum = self.mesh.psum
         self.dtype = torch_dtype(pars.dtype)
         hi = pars.accel == "cg" and pars.refine \
             and self.dtype != torch.float64
@@ -494,8 +459,6 @@ class SpmdAMGSolver:
                     self.a0_hi = shard_dia(Dia.from_csr(
                         hh.a[0], dtype=torch.float64, pad_rows_to=self.pad,
                         device=self.mesh.device), self.mesh)
-        self._accel_dtype = torch.float64 if self.a0_hi is not None \
-            else self.dtype
         self.steps = StepGraphs(self.mesh.device, self.mesh.backend)
         if pars.verbose:
             if self.E:
@@ -559,7 +522,7 @@ class SpmdAMGSolver:
         self.mg = Hierarchy(levels=tuple(levels),
                             coarse_inv=sharded.coarse_inv)
 
-    # -- device pieces ---------------------------------------------------
+    # -- the frame's placement: the cycle and the level-0 product ---------
 
     def _cycle(self, x, b):
         if self.E:
@@ -567,45 +530,18 @@ class SpmdAMGSolver:
         return cycle_general(self.mg, x, b, self.pars, self.Es, self.ring_r,
                              self.mesh)
 
-    def _step(self, x, b):
-        """One cycle and the norm of the new residual."""
-        x = self._cycle(x, b)
-        r = b - _ring_spmv(self.mg.levels[0].a, x, self.mesh)
-        return x, norm2(r, self.mesh.psum)
-
-    def _amul(self, v):
-        a_op = self.a0_hi if self.a0_hi is not None else self.mg.levels[0].a
-        return _ring_spmv(a_op, v, self.mesh)
-
-    def _prec(self, r):
-        """One cycle in the solve dtype on the scaled residual."""
-        rn = norm2(r, self.mesh.psum)
-        scale = torch.where(rn > 0, rn, torch.ones_like(rn))
-        r_lo = (r / scale).to(self.dtype)
-        e = self._cycle(torch.zeros_like(r_lo), r_lo)
-        return e.to(self._accel_dtype) * scale
+    def _spmv(self, a, x):
+        return _ring_spmv(a, x, self.mesh)
 
     def _shard(self, v, dtype):
         """A host vector in the caller's ordering -> this process's padded
-        ``(S, m)`` block (only its rows are copied; a zero x0 is made on
-        the device by the callers, with no upload)."""
-        n = self.a.n_rows
-        with tracing.span("amg.upload") as sp:
-            v = np.asarray(v, dtype=np.float64)[:n]
-            if self._perm0 is not None:
-                v = v[self._perm0]
-            vd = shard_vector(v, self.mesh, pad_to=self.pad, dtype=dtype)
-            sp.nbytes = vd.numel() * vd.element_size()
-        return vd
+        ``(S, m)`` block."""
+        return self._pad_vec(v, dtype)
 
     def _unshard(self, xd):
-        with tracing.span("amg.download") as sp:
-            x = fetch(xd, self.mesh)
-            sp.nbytes = x.nbytes
-            x = x[: self.a.n_rows]
-            return x[self._iperm0] if self._iperm0 is not None else x
+        return self._unpad_vec(xd)
 
-    # -- solves ------------------------------------------------------------
+    # -- entries -----------------------------------------------------------
 
     def solve(self, b, x0=None, eager=False):
         """Host loop over SPMD cycles (``AMGSolver.solve``'s stopping
@@ -617,53 +553,11 @@ class SpmdAMGSolver:
         if pars.accel != "none":
             raise NotImplementedError(f"accel={pars.accel!r} on the SPMD "
                                       "solver (amg_tpu has none either)")
-        return self._solve_cycles(b, x0, eager)
+        return self._entry(b, x0, self.dtype, self._cycles, False, eager)
 
-    @tracing.spanned("amg.solve")
-    def _solve_cycles(self, b, x0, eager):
-        """:meth:`solve`'s host loop of cycles."""
-        pars = self.pars
-        n = self.a.n_rows
-        bd = self._shard(b, self.dtype)
-        xd = self._shard(x0, self.dtype) if x0 is not None \
-            else torch.zeros_like(bd)
-        info = SolveInfo()
-        with tracing.span("amg.read"):
-            sumb = float(norm2(bd, self.mesh.psum))
-        t0 = time.perf_counter()
-        if pars.verbose:
-            print_itinfo(pars.stop_type, 0, 1.0, sumb, 0.0, log=self.log)
-        if sumb == 0.0:
-            return np.zeros(n), info
-        step = self.steps.step("cycle", self._step, 1, pars, eager)
-        xd = cycle_host_loop(pars, sumb, xd, lambda x: step(x, bd), info,
-                             log=self.log)
-        info.solve_seconds = time.perf_counter() - t0
-        info.setup_seconds = self.host_hierarchy.setup_seconds
-        return self._unshard(xd), info
-
-    @tracing.spanned("amg.solve")
     def solve_pcg(self, b, x0=None, eager=False):
         """Flexible CG preconditioned by one SPMD cycle: ``psum`` dots, and
         in f64 against the row-sharded f64 level-0 operator when
         ``pars.refine`` (``amg_tpu``'s robust multi-chip mode).  ``eager``
         runs the steps as they are on any mesh."""
-        pars = self.pars
-        n = self.a.n_rows
-        adt = self._accel_dtype
-        bd = self._shard(b, adt)
-        xd = self._shard(x0, adt) if x0 is not None else torch.zeros_like(bd)
-        psum = self.mesh.psum
-        info = SolveInfo()
-        with tracing.span("amg.read"):
-            sumb = float(norm2(bd, psum))
-        t0 = time.perf_counter()
-        if pars.verbose:
-            print_itinfo(pars.stop_type, 0, 1.0, sumb, 0.0, log=self.log)
-        if sumb == 0.0:
-            return np.zeros(n), info
-        xd = fcg_host_loop(pars, sumb, self._amul, self._prec, bd, xd, info,
-                           self.steps, psum, eager, log=self.log)
-        info.solve_seconds = time.perf_counter() - t0
-        info.setup_seconds = self.host_hierarchy.setup_seconds
-        return self._unshard(xd), info
+        return self._entry(b, x0, self._accel_dtype, self._fcg, eager)

@@ -11,14 +11,15 @@ The names, a closed list (:data:`NAMES`; another name raises
 
 - ``amg.solve``: one public entry call of ``AMGSolver`` (``solve``,
   ``solve_refined``, ``solve_pcg``, ``solve_pgmres``, ``solve_batched``,
-  ``solve_jit``) or of ``SpmdAMGSolver`` (``solve``, ``solve_pcg``);
+  ``solve_jit``), of ``SpmdAMGSolver`` (``solve``, ``solve_pcg``) or of
+  ``DistAMGSolver`` (``solve``, ``solve_refined``);
 - ``amg.upload``: a host array made into the padded device vector in the
-  solver's ordering (``AMGSolver._pad_vec``, ``SpmdAMGSolver._shard``);
-  bytes: every host-to-device copy inside, level 0's permutation
-  included;
+  solver's ordering (the entry frame's ``Staging.upload``, whole or in
+  rows); bytes: the host-to-device copy (level 0's permutation went to
+  the device once, at set-up; a missing x0 is made on the device);
 - ``amg.download``: a device solution back to the host in the caller's
-  ordering (``_unpad_vec``, ``_unshard``), the host permutation included;
-  bytes: the device-to-host copy;
+  ordering (``Staging.download``), the host permutation included; bytes:
+  the device-to-host copy;
 - ``amg.read``: one blocking device-to-host read of a norm, a batch of
   residuals or a loop flag in an entry's host loop (``krylov._read``
   included; ``solve_jit``'s final state is one); its count is the

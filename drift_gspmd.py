@@ -121,7 +121,7 @@ def run(out_dir, device, n_side, cli_pars):
         else gspmd_pars(amg))
     solver = DistAMGSolver(a, pars, mesh=mesh, log=lambda *_: None)
     calls = _record(solver, mesh)
-    b = solver._shard(np.ones(a.n_rows), torch.float64)
+    b = solver._pad_vec(np.ones(a.n_rows), torch.float64)
     x = torch.zeros_like(b)
     solver._refine_step(x, b)
     if device != "cpu":

@@ -154,7 +154,7 @@ def test_solve_jit_well_level0_permutation():
               embed_levels=0, use_banded="off", verbose=0, tol=1e-8)
     sj, st = _pair(lambda m: m.fem2d(5000, seed=9), **kw)
     assert type(st.mg.levels[0].a).__name__ == "WEll"
-    assert st._perm0 is not None
+    assert st.staging.perm is not None
     b = np.random.default_rng(5).standard_normal(5000)
     xj, ij = sj.solve_jit(b)
     xt, it = st.solve_jit(b)

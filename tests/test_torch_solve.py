@@ -227,8 +227,8 @@ def test_unstructured_slice_matches_amg_tpu():
     assert all(isinstance(l.a, tamg.WEll) for l in solver.mg.levels)
     assert isinstance(solver.mg.levels[0].p, tamg.WEll)
     assert isinstance(solver.mg.levels[0].r, tamg.WEll)
-    assert solver._perm0 is not None
-    np.testing.assert_array_equal(solver._perm0, jsolver._perm0)
+    assert solver.staging.perm is not None
+    np.testing.assert_array_equal(solver.staging.perm, jsolver._perm0)
     # level 0's f32 operator is the df64 operator's hi plane
     assert solver.a0_hi.vals_lo is not None
     assert solver.mg.levels[0].a.vals is solver.a0_hi.vals

@@ -9,10 +9,14 @@
   raising.  amg_tpu raises a ``TypeError`` on the same call
   (``amg_tpu/parallel/halo.py:329``), so the port is held against its own
   single device.
-* The divergence guard of ``cycle_host_loop``: a cycle whose residual
+* The divergence guard of the entry frame's one host loop of cycles
+  (``solve/entry.py::EntryFrame._cycles``): a cycle whose residual
   overflows (weighted Jacobi with weight 2, f32) stops the loop at the
-  first non-finite residual and returns the last finite iterate, in
-  ``SpmdAMGSolver.solve`` and ``DistAMGSolver.solve``.
+  first non-finite residual and returns the last finite iterate, as each
+  solver runs the loop: plain cycles in ``AMGSolver.solve``,
+  ``SpmdAMGSolver.solve`` and ``DistAMGSolver.solve``, defect correction
+  in ``AMGSolver.solve_refined`` and ``DistAMGSolver.solve_refined``
+  (whose f64 outer iterate overflows later: more cycles allowed).
 * A row-sharded Dense operator's all-gather product, and a BandedBlocks
   operator's ring product, compute each shard's rows as a process holding
   only that shard does (one matvec, one batched product per shard), so
@@ -57,24 +61,34 @@ def test_general_mode_fcg_in_f64_on_dia_level0(n):
         assert np.linalg.norm(b - a.matvec(xv)) / np.linalg.norm(b) < 1e-8
 
 
-@pytest.mark.parametrize("solver", ["spmd", "gspmd"])
-def test_divergence_guard_keeps_last_finite_x(solver):
+@pytest.mark.parametrize("solver,loop", [
+    ("amg", "plain"), ("amg", "refined"), ("spmd", "plain"),
+    ("gspmd", "plain"), ("gspmd", "refined")])
+def test_divergence_guard_keeps_last_finite_x(solver, loop):
     a = tamg.poisson2d(32)
     b = np.ones(a.n_rows)
+    refined = loop == "refined"
     kw = dict(dtype="float32", smoother=tamg.SmootherType.WJACOBI,
-              relax=2.0, max_it=60, verbose=0)
+              relax=2.0, max_it=240 if refined else 60, refine=refined,
+              verbose=0)
     mesh = make_mesh(4, device="cpu")
-    if solver == "spmd":
+    if solver == "amg":
+        s = tamg.AMGSolver(a, tamg.AMGParams(**kw), device="cpu", **QUIET)
+    elif solver == "spmd":
         s = SpmdAMGSolver(a, tamg.AMGParams(embed_levels=0, **kw), mesh=mesh,
                           **QUIET)
     else:
         s = DistAMGSolver(a, tamg.AMGParams(coarse_replicate_nnz=200, **kw),
                           mesh=mesh, **QUIET)
+    assert (s.a0_hi is not None) == refined
     x, info = s.solve(b)
     # it diverged: stopped before max_it, every kept residual finite and
-    # growing, and x the iterate of the last kept one
-    assert 1 <= info.nits < 60
-    assert len(info.residuals) == info.nits
+    # growing, and x the iterate of the last kept one; the history counts
+    # outer steps, headed by ||b|| but in the ring's plain loop
+    k = s.pars.refine_inner_cycles if refined else 1
+    head = 0 if solver != "amg" and not refined else 1
+    assert 1 <= info.nits < s.pars.max_it
+    assert len(info.residuals) == info.nits // k + head
     assert np.all(np.isfinite(info.residuals))
     assert info.residuals[-1] > 1e10 * info.residuals[0]
     assert np.all(np.isfinite(x))

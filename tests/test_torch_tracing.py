@@ -3,11 +3,13 @@ spans each entry leaves with and without a ``torch.profiler``, the
 set-up spans, the CLI's printed table and, on a card, the trace's regions.
 
 The counts are derived from the code: an entry is one ``amg.solve``; it
-uploads b and x0 (level 0's permutation with each, where level 0 is
-RCM-ordered for WEll) and downloads x; it reads ``||b||`` once and then
-its residuals at its loop's cadence (``solve_refined``: one read per
-pair of defect-correction steps; ``solve_pcg``: ``||r0||``, one read per
-4 FCG iterations and the truth check).  The file imports neither jax nor
+uploads b, and x0 when one is given (a missing x0 is zeros made on the
+device; level 0's permutation, where level 0 is RCM-ordered for WEll,
+went to the device once, at set-up) and downloads x; it reads ``||b||``
+once and then its residuals at its loop's cadence (``solve_refined``,
+``AMGSolver``'s and ``DistAMGSolver``'s alike: one read per pair of
+defect-correction steps; ``solve_pcg``: ``||r0||``, one read per 4 FCG
+iterations and the truth check).  The file imports neither jax nor
 amg_tpu, so on the card's machine it runs as ``python -m pytest
 --noconftest tests/test_torch_tracing.py``.
 """
@@ -133,27 +135,35 @@ def test_counter_rows(clean):
 @pytest.fixture(scope="module")
 def solvers():
     """poisson3d(10) to 1e-6: f32 cycles with f64 defect correction, f64
-    cycles, and the SPMD solver on a ring of 2 shards in this process."""
-    from amg_tpu_torch.parallel.dist import make_mesh
+    cycles, the SPMD solver on a ring of 2 shards in this process, and the
+    GSPMD solver on the same ring, its level 0 row-sharded (f32 cycles,
+    f64 defect correction) or replicated (f64 cycles)."""
+    from amg_tpu_torch.parallel.dist import DistAMGSolver, make_mesh
     from amg_tpu_torch.parallel.spmd_cycle import SpmdAMGSolver
 
     a, pars = _poisson(tol=1e-6)
     f64 = pars.replace(dtype="float64", refine=False)
-    return a, {
-        "f32": tamg.AMGSolver(a, pars, log=_quiet, device="cpu"),
-        "f64": tamg.AMGSolver(a, f64, log=_quiet, device="cpu"),
-        "spmd": SpmdAMGSolver(a, f64, log=_quiet,
-                              mesh=make_mesh(2, device="cpu"))}
+    mesh = make_mesh(2, device="cpu")
+    ss = {"f32": tamg.AMGSolver(a, pars, log=_quiet, device="cpu"),
+          "f64": tamg.AMGSolver(a, f64, log=_quiet, device="cpu"),
+          "spmd": SpmdAMGSolver(a, f64, log=_quiet, mesh=mesh),
+          "gspmd": DistAMGSolver(a, pars.replace(coarse_replicate_nnz=200),
+                                 log=_quiet, mesh=mesh),
+          "gspmd64": DistAMGSolver(a, f64, log=_quiet, mesh=mesh)}
+    assert ss["gspmd"].Es >= 0 and ss["gspmd64"].Es < 0
+    return a, ss
 
 
 @pytest.mark.parametrize("case", [
     "f64-solve", "f32-solve", "f32-solve_refined", "f32-solve_pcg",
     "f32-solve_pgmres", "f64-solve_batched", "f64-solve_jit",
-    "spmd-solve", "spmd-solve_pcg"])
+    "spmd-solve", "spmd-solve_pcg", "gspmd-solve", "gspmd-solve_refined",
+    "gspmd64-solve"])
 def test_without_a_profiler_only_totals_move(solvers, clean, case):
     """With no profiler an entry adds one ``amg.solve`` (``solve`` handing
-    over to ``solve_refined`` or ``solve_pcg`` included), its uploads and
-    its download to ``totals()`` and leaves ``profiled()`` as it was."""
+    over to ``solve_refined`` or ``solve_pcg`` included), one upload (b:
+    the missing x0 is made on the device) and its download to
+    ``totals()`` and leaves ``profiled()`` as it was."""
     a, ss = solvers
     kind, entry = case.split("-")
     b = np.random.default_rng(1).standard_normal(a.n_rows)
@@ -164,9 +174,7 @@ def test_without_a_profiler_only_totals_move(solvers, clean, case):
     assert info.rres < 1e-6
     t = tracing.totals()
     assert t["amg.solve"]["n"] == 1
-    # b, and x0 unless it is made on the device (the ring's zero x0)
-    assert t["amg.upload"]["n"] == (
-        1 if entry == "solve_batched" or kind == "spmd" else 2)
+    assert t["amg.upload"]["n"] == 1
     assert t["amg.download"]["n"] == 1
     assert t["amg.read"]["n"] >= 2
     assert _rows(tracing.profiled()) == before
@@ -179,27 +187,35 @@ def _reads(entry, nits, k):
 
 
 @pytest.mark.parametrize("case", ["poisson-solve_refined",
-                                  "poisson-solve_pcg", "fem_rcm-solve_pcg"])
+                                  "poisson-solve_pcg", "fem_rcm-solve_pcg",
+                                  "gspmd-solve_refined"])
 def test_profiled_spans_of_one_call(clean, case):
     """Under a CPU ``torch.profiler``: one ``amg.solve``; upload and
-    download bytes are the arrays moved (b and x0 up, with level 0's
-    int64 permutation on a WEll level 0; x down in the outer dtype);
-    ``amg.read`` is the loop's cadence over ``nits``; every ``amg.*``
-    event of the trace is on the CPU."""
+    download bytes are the arrays moved (b up, and no permutation: a
+    WEll level 0's went to the device at set-up; x down in the outer
+    dtype; on a ring of 2 shards in this process, the padded rows of
+    both); ``amg.read`` is the loop's cadence over ``nits``; every
+    ``amg.*`` event of the trace is on the CPU."""
+    from amg_tpu_torch.parallel.dist import DistAMGSolver, make_mesh
+
     matrix, entry = case.split("-")
     a, pars = _fem_rcm() if matrix == "fem_rcm" else _poisson()
-    s = tamg.AMGSolver(a, pars, log=_quiet, device="cpu")
-    assert (s._perm0 is not None) == (matrix == "fem_rcm")
+    if matrix == "gspmd":
+        s = DistAMGSolver(a, pars.replace(coarse_replicate_nnz=200),
+                          log=_quiet, mesh=make_mesh(2, device="cpu"))
+        assert s.Es >= 0
+    else:
+        s = tamg.AMGSolver(a, pars, log=_quiet, device="cpu")
+    assert (s.staging.perm is not None) == (matrix == "fem_rcm")
     b = np.random.default_rng(2).standard_normal(a.n_rows)
     with profile(activities=[ProfilerActivity.CPU]) as prof:
         x, info = getattr(s, entry)(b)
     p = tracing.profiled()
-    n = a.n_rows
-    perm = 8 * n if s._perm0 is not None else 0
+    rows = s.pad if matrix == "gspmd" else a.n_rows
     assert p["amg.solve"]["n"] == 1
-    assert p["amg.upload"]["n"] == 2 and p["amg.download"]["n"] == 1
-    assert p["amg.upload"]["bytes"] == 2 * (8 * n + perm)
-    assert p["amg.download"]["bytes"] == 8 * n
+    assert p["amg.upload"]["n"] == 1 and p["amg.download"]["n"] == 1
+    assert p["amg.upload"]["bytes"] == 8 * rows
+    assert p["amg.download"]["bytes"] == 8 * rows
     assert p["amg.read"]["n"] == _reads(entry, info.nits,
                                         pars.refine_inner_cycles)
     assert info.rres < pars.tol
